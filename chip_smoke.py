@@ -7,17 +7,31 @@ from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It
 
 1. builds the hand-written kernels from gofr_tpu_torch/csrc/;
-2. holds each kernel against its plain PyTorch version at the serving
-   shapes of llama-3-8b, and times kernel, plain version and a PyTorch
-   library call on the same problem;
-3. serves Llama-3-8B (32 layers, bf16, random weights from a seed) on the
+2. holds each kernel against its plain PyTorch version, and times kernel,
+   plain version and a PyTorch library call on the same problem: the two
+   serving kernels at the serving shapes of llama-3-8b, flash_attention at
+   llama-1b training (b=4, s=2048, causal GQA), the same with per-row key
+   lengths including an empty row, a causal suffix (256 queries over 2048
+   keys) and ViT-B/16 (non-causal, 197 tokens, hd 64);
+3. holds FlashAttentionFn's gradients (kernel forward, dense-recompute
+   backward) against autograd through the f32 plain version;
+4. serves Llama-3-8B (32 layers, bf16, random weights from a seed) on the
    card: a forward check of one prefill chunk and two decode steps through
    the kernels against the plain path, then 10 concurrent requests through
    the port's InferenceEngine with the kernels' launch counters watched;
-4. profiles one 8-step decode window and one [8, 256] prefill chunk with
+5. profiles one 8-step decode window and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
    kernels launched and the top kernels by device time;
-5. prints the card, the kernels line and, last, {"ok": true, ...}.
+6. trains llama-1b (22 layers, full width, f32 master weights and AdamW,
+   bf16 compute, random weights from a seed) through make_train_step on a
+   fixed [4, 2048] batch: step-1 loss and gradients through the kernel
+   against the plain path, 6 steps with finite and falling loss, one
+   remat step, flash_attention launched exactly once per layer per
+   forward; prints step time, tokens/s, peak memory and train_mfu, and
+   profiles one training step;
+7. checks transformer_prefill (right-padded llama-1b batch, the kernel's
+   lengths variant) against the plain path;
+8. prints the card, the kernels line and, last, {"ok": true, ...}.
 
 Any failed phase exits non-zero before the last line is printed. Nothing
 of JAX or of the gofr_tpu package is imported.
@@ -25,7 +39,10 @@ of JAX or of the gofr_tpu package is imported.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -47,8 +64,27 @@ BF16_FLOPS = 989e12
 ROW_REL_TOL = 3e-2
 # Full llama-3-8b forward, kernels vs the plain path (which rounds the
 # probabilities to bf16 as the reference's dense formula does), on logits
-# within about +-5: max|dlogits| read 0.094-0.106 on an H100.
+# within about +-5: max|dlogits| read 0.094-0.106 on an NVIDIA H100 80GB
+# HBM3 at a 700 W power limit (as every reading below).
 FORWARD_DLOGITS_TOL = 0.25
+# FlashAttentionFn's dq/dk/dv (bf16 in, dense-recompute backward with bf16
+# probabilities and bf16 products) against autograd through the f32 plain
+# version, per row as above. Read on the H100: dk 0.016 and dv 0.018 (near
+# their bf16 floors), dq 0.224. The worst dq rows are early queries (the
+# same check on the CPU puts its worst at query 2): their dq is a
+# cancellation over a few keys (exactly 0 for the first query), so the bf16
+# rounding of the probability gradients is large against that row's rms.
+GRAD_ROW_REL_TOL = 0.5
+# llama-1b training, kernel path vs plain path (the dense formula) on the
+# same f32 master weights and batch: |loss difference| and, per parameter
+# tensor, ||grad difference|| / ||plain grad||. Read on the H100: |dloss|
+# 1.03e-4 on a loss of 10.91, gradients 0.0285 at most (embed), from the
+# bf16 rounding of the forward's activations.
+TRAIN_DLOSS_TOL = 1e-3
+TRAIN_GRAD_REL_TOL = 0.06
+# transformer_prefill logits (llama-1b, lengths 2048/700/1), kernel vs
+# plain: read 0.031 on logits within +-6.
+PREFILL_DLOGITS_TOL = 0.08
 TIMED_RUNS = 30
 
 
@@ -78,9 +114,9 @@ def time_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def check_close(torch, name: str, got, want32) -> tuple[float, float]:
+def check_close(torch, name: str, got, want32, tol: float = ROW_REL_TOL) -> tuple[float, float]:
     """(max |got - want|, max over rows of max|got - want| / rms(want));
-    fails on non-finite output, a row over ROW_REL_TOL, or a nonzero value
+    fails on non-finite output, a row over ``tol``, or a nonzero value
     where the plain version gives a zero row."""
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -95,11 +131,11 @@ def check_close(torch, name: str, got, want32) -> tuple[float, float]:
     rel = (d[~zero] / rms[~zero]).max().item()
     err = d.max().item()
     floor = ((w.bfloat16().float() - w).abs().amax(dim=-1)[~zero] / rms[~zero]).max().item()
-    log(f"{name}: max row error / row rms {rel:.4g} (limit {ROW_REL_TOL}, "
+    log(f"{name}: max row error / row rms {rel:.4g} (limit {tol}, "
         f"bf16 rounding floor {floor:.4g}), max_abs_err {err:.4g}")
-    if rel > ROW_REL_TOL:
+    if rel > tol:
         fail(f"{name}: kernel disagrees with the f32 plain version "
-             f"(max row error / row rms = {rel:.4g} > {ROW_REL_TOL}, "
+             f"(max row error / row rms = {rel:.4g} > {tol}, "
              f"max_abs_err={err:.4g})")
     return err, rel
 
@@ -205,6 +241,87 @@ def phase_kernels(torch, dev) -> dict:
     return out
 
 
+def phase_flash_attention(torch, dev) -> dict:
+    """flash_attention vs its f32 plain version, per row, at the training,
+    lengths, causal-suffix and ViT-B/16 shapes; kernel, plain and SDPA
+    times and the bound of each."""
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    cases = [
+        # label, b, s_q, s_kv, H, KV, hd, causal, lengths
+        ("llama-1b training", 4, 2048, 2048, 16, 4, 128, True, None),
+        ("llama-1b lengths", 4, 2048, 2048, 16, 4, 128, True, [2048, 1500, 257, 0]),
+        ("causal suffix", 4, 256, 2048, 16, 4, 128, True, None),
+        ("vit-b/16", 8, 197, 197, 12, 12, 64, False, None),
+    ]
+    out = []
+    for label, b, s_q, s_kv, H, KV, hd, causal, lengths in cases:
+        q, k, v = rnd(b, s_q, H, hd), rnd(b, s_kv, KV, hd), rnd(b, s_kv, KV, hd)
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        name = f"flash_attention ({label})"
+        err, rel = check_close(
+            torch, name, fa.flash_attention(q, k, v, lens, causal=causal),
+            fa.flash_attention_plain(q.float(), k.float(), v.float(), lens, causal=causal))
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens, causal=causal))
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, lens, causal=causal), runs=10)
+        # Library yardstick: SDPA in its [b, H, s, hd] layout on the same
+        # tensors; its is_causal aligns the diagonal at the top left, so the
+        # offset and lengths cases pass the visibility as a mask.
+        vis = fa.visible_keys(b, s_q, s_kv, causal=causal, lengths=lens, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if KV != H else {}
+        if lengths is None and s_q == s_kv:
+            lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal, **gqa))
+        else:
+            mask = vis[:, None]
+            lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa))
+        pairs = int(vis.sum().item()) * (b // vis.shape[0])  # visible (query, key) per head
+        keys = sum(min(n, s_kv) for n in lengths) if lengths else b * s_kv
+        flops = 4 * H * hd * pairs
+        bytes_ = 2 * b * s_q * H * hd * 2 + 2 * keys * KV * hd * 2 + (4 * b if lengths else 0)
+        bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        out.append(dict(
+            case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
+            shape=f"b={b} s_q={s_q} s_kv={s_kv} H={H} KV={KV} hd={hd} causal={causal} "
+                  f"lengths={lengths}",
+        ))
+        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (flops {flops}, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        del q, k, v, vis
+    return {"cases": out, **{key: out[0][key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")},
+        "max_abs_err": max(c["max_abs_err"] for c in out),
+        "max_row_rel_err": max(c["max_row_rel_err"] for c in out)}
+
+
+def phase_attention_grad(torch, dev) -> None:
+    """FlashAttentionFn's gradients (kernel forward, dense-recompute
+    backward, bf16) against autograd through the f32 plain version, at
+    b=1, s=1024, H=16, KV=4, hd=128, causal."""
+    from gofr_tpu_torch.ops.attention import FlashAttentionFn
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(99)
+    b, s, H, KV, hd = 1, 1024, 16, 4, 128
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for shape in ((b, s, H, hd), (b, s, KV, hd), (b, s, KV, hd), (b, s, H, hd)))
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FlashAttentionFn.apply(*xs, True, None).backward(g)
+    ys = [t.float().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_plain(*ys, causal=True).backward(g.float())
+    for name, x, y in zip(("dq", "dk", "dv"), xs, ys):
+        check_close(torch, f"FlashAttentionFn {name}", x.grad, y.grad, tol=GRAD_ROW_REL_TOL)
+
+
 def phase_forward(torch, dev, cfg, params) -> None:
     """One prefill chunk and two decode steps through the kernels and
     through the plain path (dense_attn=True), on separate caches."""
@@ -294,8 +411,8 @@ def phase_serve(torch, dev, params) -> dict:
         alone = eng.generate_sync(prompts[4], max_new_tokens=32, timeout=600)
         if alone.token_ids != results[4].token_ids:
             fail("serve: a greedy prompt alone differs from the same prompt in the batch")
-        for name, n in counts.items():
-            if n <= 0:
+        for name in ("flash_decode", "flash_cache_attention"):
+            if counts[name] <= 0:
                 fail(f"serve: kernel {name} was not launched on the main path")
         gen_tokens = sum(len(r.token_ids) for r in results)
         ttfts = sorted(r.ttft_s for r in results)
@@ -336,8 +453,8 @@ def _busy_ms(events) -> tuple[float, int]:
 
 def _profile_step(torch, name: str, fn) -> dict:
     """Host wall time of ``fn`` (ending in a synchronize), then one traced
-    run: device busy time, idle share of the traced wall time, GPU kernels
-    and the top kernels by device time."""
+    run: device busy time, idle share of the traced wall time, GPU kernels,
+    the top kernels by device time and the port's own kernels' time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -354,11 +471,17 @@ def _profile_step(torch, name: str, fn) -> dict:
     busy_ms, n_kernels = _busy_ms(prof.events())
     if n_kernels == 0:
         fail(f"profile {name}: the trace holds no GPU kernel")
+    averages = prof.key_averages()
     top = sorted(
-        ((a.self_device_time_total, a.key, a.count) for a in prof.key_averages()
+        ((a.self_device_time_total, a.key, a.count) for a in averages
          if a.self_device_time_total > 0),
         reverse=True,
     )
+    ours = {}
+    for a in averages:
+        m = re.search(r"flash_\w+_kernel<[^>]*>", a.key)
+        if m and a.self_device_time_total > 0:
+            ours[m.group(0)] = {"ms": a.self_device_time_total / 1e3, "count": a.count}
     return {
         "step": name, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / traced_ms,
@@ -366,6 +489,7 @@ def _profile_step(torch, name: str, fn) -> dict:
         "top_kernels_ms": [
             {"kernel": k[:90], "ms": us / 1e3, "count": c} for us, k, c in top[:8]
         ],
+        "port_kernels_ms": ours,
     }
 
 
@@ -407,6 +531,133 @@ def phase_profile(torch, dev, cfg, params) -> None:
         log("profile: " + json.dumps(_profile_step(torch, name, fn)))
 
 
+def phase_train(torch, dev) -> dict:
+    """llama-1b (22 layers, full width) through make_train_step on one
+    fixed [4, 2048] batch. Returns the kernels' launch counts over the
+    phase and the trained masters."""
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.ops.attention import FlashAttentionFn
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.parallel.sharding import loss_and_grads, make_train_step
+
+    cfg = get_model("llama-1b").config
+    L, b, s = cfg.n_layers, 4, 2048
+    # One layer's attention at the step's shape: the kernel forward, and
+    # forward plus the dense-recompute backward.
+    gen = torch.Generator(device=dev).manual_seed(12)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qkvg = [torch.randn(shape, generator=gen, device=dev).to(cfg.dtype).requires_grad_(True)
+            for shape in ((b, s, H, hd), (b, s, KV, hd), (b, s, KV, hd), (b, s, H, hd))]
+    fwd_ms = time_ms(torch, lambda: FlashAttentionFn.apply(*qkvg[:3], True, None), runs=10)
+    both_ms = time_ms(torch, lambda: torch.autograd.grad(
+        FlashAttentionFn.apply(*qkvg[:3], True, None), qkvg[:3], qkvg[3]), runs=10)
+    del qkvg
+    log(f"train: one layer's attention (b={b}, s={s}): kernel forward {fwd_ms:.3f} ms, "
+        f"dense-recompute backward {both_ms - fwd_ms:.3f} ms; x{L} layers "
+        f"{L * fwd_ms:.1f} + {L * (both_ms - fwd_ms):.1f} ms per step")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init_state, train_step, _ = make_train_step(cfg, device=dev)
+    params, opt_state = init_state(0)
+    gen.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    n_matmul = sum(params[k].numel() for k in ("wqkv", "wo", "w_gate_up", "w_down", "lm_head"))
+    log(f"train: llama-1b f32 masters + AdamW state on the card in "
+        f"{time.perf_counter() - t0:.1f} s ({n_params / 1e9:.3f} B parameters, "
+        f"{n_matmul / 1e9:.3f} B in matmuls)")
+
+    reset_launch_counts()
+    loss_k, grads_k = loss_and_grads(params, tokens, cfg)
+    if fa.launches != L:
+        fail(f"train: {fa.launches} flash_attention launches in one forward, not {L}")
+    # The plain path keeps one layer's dense [b, H, s, s] scores alive at a
+    # time (remat), as the kernel path's backward does.
+    loss_p, grads_p = loss_and_grads(params, tokens, cfg, remat=True, dense_attn=True)
+    dloss = abs(loss_k.item() - loss_p.item())
+    grad_rel = {k: ((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()).item() for k in grads_p}
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"train: step-1 loss kernel {loss_k.item():.6f} vs plain {loss_p.item():.6f}: "
+        f"|dloss| {dloss:.4g} (limit {TRAIN_DLOSS_TOL}); per-tensor ||dgrad||/||grad|| "
+        f"max {grad_rel[worst]:.4g} on {worst} (limit {TRAIN_GRAD_REL_TOL}): "
+        + json.dumps({k: round(v, 6) for k, v in grad_rel.items()}))
+    if not (torch.isfinite(loss_k) and all(torch.isfinite(g).all() for g in grads_k.values())):
+        fail("train: non-finite step-1 loss or gradients")
+    if dloss > TRAIN_DLOSS_TOL or grad_rel[worst] > TRAIN_GRAD_REL_TOL:
+        fail("train: kernel path and plain path disagree beyond the limits")
+    del grads_k, grads_p
+
+    losses, secs = [], []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, opt_state = train_step(params, opt_state, tokens)
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t0)
+    if fa.launches != 7 * L:
+        fail(f"train: {fa.launches} flash_attention launches over 7 forwards, not {7 * L}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} are not finite and falling")
+    _, remat_step, _ = make_train_step(cfg, remat=True, device=dev)
+    before = fa.launches
+    remat_step(params, opt_state, tokens)
+    torch.cuda.synchronize()
+    if fa.launches - before != 2 * L:
+        fail(f"train: a remat step launched flash_attention {fa.launches - before} times, "
+             f"not {2 * L}")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs[1:])
+    attn_flops = 4 * b * cfg.n_heads * cfg.head_dim * s * (s + 1) // 2
+    mfu = (6 * n_matmul * b * s + 3 * L * attn_flops) / (step_s * BF16_FLOPS)
+    log(f"train: losses over 6 steps {[round(x, 5) for x in losses]}; step time median of "
+        f"steps 2-6 {step_s * 1e3:.1f} ms (all {[round(x * 1e3, 1) for x in secs]}), "
+        f"{b * s / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB, "
+        f"train_mfu {mfu:.4f}; launch counts over the phase {counts}")
+    log("profile: " + json.dumps(_profile_step(
+        torch, "train_step_llama1b_4x2048", lambda: train_step(params, opt_state, tokens))))
+    return {"counts": counts, "cfg": cfg, "params": params}
+
+
+def phase_prefill_padded(torch, dev, cfg, params) -> None:
+    """transformer_prefill on a right-padded llama-1b batch (lengths 2048,
+    700, 1): logits through the kernel's lengths variant vs the plain
+    path, on separate caches."""
+    from gofr_tpu_torch.models.transformer import transformer_prefill
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+
+    b, s = 3, 2048
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    lens = torch.tensor([2048, 700, 1], dtype=torch.int32, device=dev)
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    logits = []
+    for dense in (False, True):
+        cache = KVCache.create(cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim,
+                               dtype=cfg.dtype, device=dev)
+        before = fa.launches
+        logits.append(transformer_prefill(params, tokens, lens, cache, slots, cfg,
+                                          dense_attn=dense))
+        if fa.launches - before != (0 if dense else cfg.n_layers):
+            fail(f"prefill: {fa.launches - before} flash_attention launches "
+                 f"(dense={dense})")
+        del cache
+    a, p = logits
+    if not (torch.isfinite(a).all() and torch.isfinite(p).all()):
+        fail("prefill: non-finite logits")
+    d = (a - p).abs().max().item()
+    agree = (a.argmax(-1) == p.argmax(-1)).float().mean().item()
+    log(f"prefill (transformer_prefill, lengths [2048, 700, 1]): max|dlogits| kernel vs "
+        f"plain = {d:.4g} (limit {PREFILL_DLOGITS_TOL}; logit range "
+        f"{a.min().item():.3g}..{a.max().item():.3g}), top-1 agreement {agree:.3f}")
+    if d > PREFILL_DLOGITS_TOL or agree != 1.0:
+        fail("prefill: kernel path and plain path disagree")
+
+
 def main() -> None:
     import torch
 
@@ -432,6 +683,9 @@ def main() -> None:
 
     with torch.inference_mode():
         kstats = phase_kernels(torch, dev)
+        kstats["flash_attention"] = phase_flash_attention(torch, dev)
+    phase_attention_grad(torch, dev)
+    with torch.inference_mode():
         cfg = get_model("llama-3-8b").config
         t0 = time.perf_counter()
         params = init_params(cfg, seed=0, device=dev)
@@ -443,6 +697,13 @@ def main() -> None:
     counts = phase_serve(torch, dev, params)
     with torch.inference_mode():
         phase_profile(torch, dev, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(torch, dev)
+    counts["flash_attention"] = train["counts"]["flash_attention"]
+    compute = {k: p.to(train["cfg"].dtype) for k, p in train.pop("params").items()}
+    phase_prefill_padded(torch, dev, train["cfg"], compute)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -455,10 +716,12 @@ def main() -> None:
     replaces = {
         "flash_decode": "gofr_tpu/ops/pallas/flash_decode.py:185",
         "flash_cache_attention": "gofr_tpu/ops/pallas/flash_prefill.py:146",
+        "flash_attention": "gofr_tpu/ops/pallas/flash_attention.py:154",
     }
     sources = {
         "flash_decode": "gofr_tpu_torch/csrc/flash_decode.cu",
         "flash_cache_attention": "gofr_tpu_torch/csrc/flash_prefill.cu",
+        "flash_attention": "gofr_tpu_torch/csrc/flash_attention.cu",
     }
     kernels = [
         {
@@ -468,8 +731,9 @@ def main() -> None:
             "bound_ms": kstats[k]["bound_ms"], "bound_by": kstats[k]["bound_by"],
             "library_ms": kstats[k]["library_ms"],
             "max_row_rel_err": kstats[k]["max_row_rel_err"], "shape": kstats[k]["shape"],
+            **({"cases": kstats[k]["cases"]} if "cases" in kstats[k] else {}),
         }
-        for k in ("flash_decode", "flash_cache_attention")
+        for k in replaces
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

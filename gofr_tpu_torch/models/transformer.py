@@ -1,6 +1,7 @@
 """Llama-family decoder-only transformer — the port of
-``gofr_tpu/models/transformer.py`` for the serving path (chunked prefill
-and the split-softmax decode step).
+``gofr_tpu/models/transformer.py``: the training/eval forward, the
+padded-batch serving prefill, chunked prefill and the split-softmax
+decode step.
 
 Parameters are a plain dict of tensors with the layer leaves stacked on
 a leading ``[L, ...]`` axis, as in the reference pytree, except that the
@@ -9,7 +10,9 @@ Q/K/V projections are stored concatenated (``wqkv``) and so are gate/up
 columns (``weights.params_from_jax`` builds them from the reference).
 The large projections and ``lm_head`` are ``torch.matmul``; attention is
 ``ops/attention.py`` (the CUDA kernels on a card). The KV cache is
-updated in place.
+updated in place. Everything but the attention kernels is plain
+differentiable torch; ``transformer_forward`` is what training
+differentiates (``parallel/sharding.py``).
 
 This slice runs the Llama path only: RMSNorm, RoPE, GQA, SwiGLU, no
 biases, no MoE. ``check_supported`` raises ``NotImplementedError`` for a
@@ -23,9 +26,14 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gofr_tpu_torch.device import resolve_device
-from gofr_tpu_torch.ops.attention import cache_chunk_attention, decode_attention
+from gofr_tpu_torch.ops.attention import (
+    attention,
+    cache_chunk_attention,
+    decode_attention,
+)
 from gofr_tpu_torch.ops.kv_cache import KVCache
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.rotary import rope_at, rope_frequencies, rotate
@@ -167,6 +175,116 @@ def _ffn(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
     h = rms_norm(x, params["mlp_norm"][layer], cfg.norm_eps)
     gate, up = (h @ params["w_gate_up"][layer]).chunk(2, dim=-1)
     return (F.silu(gate) * up) @ params["w_down"][layer]
+
+
+# Leaves stacked on a leading [L, ...] layer axis.
+_LAYER_LEAVES = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_gate_up", "w_down")
+
+
+def _per_layer(params: dict) -> dict:
+    """``params`` with each stacked leaf unbound into a tuple of per-layer
+    views (``p[name][layer]`` reads the same): one ``unbind`` per leaf, so
+    autograd stacks a leaf's layer gradients once instead of scattering
+    each into a full-size zero tensor."""
+    return {k: v.unbind(0) if k in _LAYER_LEAVES else v for k, v in params.items()}
+
+
+def _layer_prefill(
+    x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
+    cs: tuple[torch.Tensor, torch.Tensor], *,
+    lengths: Optional[torch.Tensor] = None, dense_attn: bool = False,
+):
+    """One decoder layer over a full sequence, the counterpart of
+    ``_layer_prefill``: x [b, s, D] → (x, (k, v)) with k, v [b, s, KV, hd].
+    ``lengths`` (right-padded serving prefill) keeps the kernel path."""
+    b, s, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    h = rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
+    q, k, v = _qkv(h, params, layer, cfg, cs)
+    attn = attention(q, k, v, causal=True, lengths=lengths,
+                     kernel=not dense_attn, window=cfg.sliding_window)
+    x = x + attn.reshape(b, s, H * hd) @ params["wo"][layer]
+    return x + _ffn(x, params, layer, cfg), (k, v)
+
+
+def _positions_rope(cfg: TransformerConfig, s: int, table_len: int,
+                    dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """RoPE tables of ``table_len`` positions gathered at 0..s-1."""
+    cos, sin = rope_tables(cfg, table_len, dev)
+    return rope_at(cos, sin, torch.arange(s, device=dev)[None, :])  # [1, s, 1, nd/2]
+
+
+def transformer_forward(
+    params: dict,
+    tokens: torch.Tensor,
+    cfg: TransformerConfig,
+    remat: bool = False,
+    *,
+    dense_attn: bool = False,
+) -> torch.Tensor:
+    """Training/eval forward: tokens [b, s] → logits [b, s, vocab] (f32),
+    the counterpart of ``transformer_forward``. Attention runs the
+    flash_attention kernel under ``FlashAttentionFn`` (``dense_attn``: the
+    dense formula). ``remat`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer)."""
+    b, s = tokens.shape
+    cs = _positions_rope(cfg, s, s, tokens.device)
+    lp = _per_layer(params)
+
+    def body(x: torch.Tensor, layer: int) -> torch.Tensor:
+        return _layer_prefill(x, lp, layer, cfg, cs, dense_attn=dense_attn)[0]
+
+    x = params["embed"][tokens]
+    for layer in range(cfg.n_layers):
+        if remat:
+            x = checkpoint(body, x, layer, use_reentrant=False)
+        else:
+            x = body(x, layer)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float()
+
+
+@torch.no_grad()
+def transformer_prefill(
+    params: dict,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    cache: KVCache,
+    slots: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    dense_attn: bool = False,
+) -> torch.Tensor:
+    """Serving prefill of a right-padded prompt batch, the counterpart of
+    ``transformer_prefill``: tokens [b, s_pad]; lengths [b] true lengths;
+    slots [b] cache slots. Attention goes to the flash_attention kernel
+    with per-row key ``lengths``. Each layer writes its K/V for all s_pad
+    positions into the row's slot and zeros the rest of the slot, as the
+    reference's padded ``.at[:, slots].set``; ``cache.lengths[slots]``
+    becomes ``lengths``. Returns [b, vocab] f32 logits at each row's last
+    valid token. bf16/f32 contiguous cache only."""
+    if cache.k.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(
+            f"transformer_prefill: a {cache.k.dtype} KV cache is not ported "
+            "yet (ROADMAP Queue 2: int8 cache variants)"
+        )
+    b, s = tokens.shape
+    dev = tokens.device
+    lengths = lengths.to(torch.int32)
+    cs = _positions_rope(cfg, s, cache.max_len, dev)
+    sl = slots.long()
+    x = params["embed"][tokens]
+    for layer in range(cfg.n_layers):
+        x, (k, v) = _layer_prefill(x, params, layer, cfg, cs, lengths=lengths,
+                                   dense_attn=dense_attn)
+        for buf, new in ((cache.k, k), (cache.v, v)):
+            buf[layer, sl, :, :s] = new.transpose(1, 2).to(buf.dtype)
+            buf[layer, sl, :, s:] = 0
+    cache.lengths[sl] = lengths
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last = (lengths.long() - 1).clamp(min=0)
+    x_last = x[torch.arange(b, device=dev), last]  # [b, D]
+    return (x_last @ params["lm_head"]).float()
 
 
 def prefill_chunk(

@@ -1,14 +1,16 @@
-"""Attention ops of the serving path: decode (one query token per slot
-against the cache) and chunked-prefill attention against the cache.
+"""Attention ops: full-sequence attention (training forward, padded-batch
+serving prefill), decode (one query token per slot against the cache) and
+chunked-prefill attention against the cache.
 
 The counterpart of ``gofr_tpu/ops/attention.py``. ``kernel=True`` (the
 default) goes to the hand-written CUDA kernels of ``ops/cuda/`` — whose
 wrappers take the plain version for CPU tensors and launch the kernel
 for CUDA tensors — and ``kernel=False`` calls the plain PyTorch version
 directly, on any device (tests and ``chip_smoke.py`` use it as the
-oracle). The int8-cache (``k_scale``/``v_scale``), paged
-(``block_table``) and sliding-window variants are not ported yet and
-raise ``NotImplementedError`` on every device.
+oracle); for ``attention`` that is the reference's dense formula. The
+int8-cache (``k_scale``/``v_scale``), paged (``block_table``) and
+sliding-window variants are not ported yet and raise
+``NotImplementedError`` on every device.
 """
 
 from __future__ import annotations
@@ -17,6 +19,11 @@ from typing import Optional
 
 import torch
 
+from gofr_tpu_torch.ops.cuda.flash_attention import (
+    dense_attention,
+    flash_attention,
+    visible_keys,
+)
 from gofr_tpu_torch.ops.cuda.flash_decode import flash_decode, flash_decode_plain
 from gofr_tpu_torch.ops.cuda.flash_prefill import (
     flash_cache_attention,
@@ -44,6 +51,75 @@ def _refuse_unported(
             f"{name}: sliding-window attention (window={window}) is not "
             "ported yet (ROADMAP Queue 2, kernel variants: window)"
         )
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel forward, dense-recompute backward — the counterpart of
+    ``_flash_attention_ad``: the reference has no backward kernel, so the
+    gradients are re-derived from the dense formula (f32 scores,
+    probabilities in the input dtype) on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            vis = visible_keys(q.shape[0], q.shape[1], k.shape[1],
+                               causal=ctx.causal, device=q.device)
+            out = dense_attention(q, k, v, vis, scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    mask: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    kernel: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Full-sequence attention (training forward, prefill, encoder).
+
+    q: [b, s_q, n_heads, hd]; k, v: [b, s_kv, n_kv, hd]; causal offset
+    ``s_kv - s_q``. mask: optional [b, s_q, s_kv] bool (True = attend),
+    which takes the dense formula. lengths: optional [b] int32 valid key
+    prefix per row (right-padded serving prefill, no gradient) — straight
+    to the kernel. Otherwise the kernel runs under ``FlashAttentionFn``
+    (differentiable). A window that cannot bind (``window >= s_kv``) is
+    dropped; a binding one raises.
+    """
+    if mask is not None and lengths is not None:
+        raise ValueError("pass either mask or lengths, not both")
+    if window and window >= k.shape[1]:
+        window = 0  # cannot bind: plain causal
+    if window and not causal:
+        raise ValueError("window requires causal attention")
+    if window:
+        raise NotImplementedError(
+            f"attention: sliding-window attention (window={window}) is not "
+            "ported yet (ROADMAP Queue 2, kernel variants: window, with the "
+            "Mistral config)"
+        )
+    if kernel and mask is None:
+        if lengths is not None:
+            return flash_attention(q, k, v, lengths, causal=causal, scale=scale)
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
+    b, s_q = q.shape[:2]
+    vis = visible_keys(b, s_q, k.shape[1], causal=causal, lengths=lengths,
+                       device=q.device)
+    if mask is not None:
+        vis = vis & mask
+    return dense_attention(q, k, v, vis, scale=scale)
 
 
 def decode_attention(

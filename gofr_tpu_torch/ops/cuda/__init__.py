@@ -6,11 +6,12 @@ card), and a ``launches`` counter that the wrapper bumps once per kernel
 launch and nowhere else.
 """
 
-from gofr_tpu_torch.ops.cuda import flash_decode, flash_prefill
+from gofr_tpu_torch.ops.cuda import flash_attention, flash_decode, flash_prefill
 
 KERNELS = {
     "flash_decode": flash_decode,
     "flash_cache_attention": flash_prefill,
+    "flash_attention": flash_attention,
 }
 
 

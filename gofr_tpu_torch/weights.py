@@ -1,5 +1,5 @@
-"""Parameters of the port: conversion from the reference pytree, and
-random initialisation on the device."""
+"""Parameters of the port: conversion from and to the reference pytree,
+and random initialisation on the device."""
 
 from __future__ import annotations
 
@@ -15,30 +15,30 @@ from gofr_tpu_torch.models.transformer import (
     init_params,
 )
 
-__all__ = ["init_params", "params_from_jax"]
-
-
-def _tensor(a: Any, cfg: TransformerConfig, device: torch.device) -> torch.Tensor:
-    # Through f32: exact for bf16 and f32 leaves, and numpy has no bf16.
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-        device=device, dtype=cfg.dtype
-    )
+__all__ = ["init_params", "params_from_jax", "params_to_reference"]
 
 
 def params_from_jax(
     np_params: dict, cfg: TransformerConfig,
     device: torch.device | str | None = None,
+    dtype: torch.dtype | None = None,
 ) -> dict[str, torch.Tensor]:
     """The reference's ``init_transformer`` pytree (leaves as numpy arrays,
     layer leaves stacked ``[L, ...]``) → the port's parameter dict, with
-    Q/K/V and gate/up concatenated along their output axis. The tensors go
-    to CUDA unless ``device="cpu"``; without CUDA that raises."""
+    Q/K/V and gate/up concatenated along their output axis, in ``dtype``
+    (default ``cfg.dtype``; ``torch.float32`` brings f32 master params over
+    unrounded). The tensors go to CUDA unless ``device="cpu"``; without
+    CUDA that raises."""
     check_supported(cfg)
     device = resolve_device(device)
+    dtype = cfg.dtype if dtype is None else dtype
     lp = np_params["layers"]
 
     def t(a: Any) -> torch.Tensor:
-        return _tensor(a, cfg, device)
+        # Through f32: exact for bf16 and f32 leaves, and numpy has no bf16.
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=dtype
+        )
 
     return {
         "embed": t(np_params["embed"]),
@@ -50,4 +50,30 @@ def params_from_jax(
         "w_down": t(lp["w_down"]),
         "final_norm": t(np_params["final_norm"]),
         "lm_head": t(np_params["lm_head"]),
+    }
+
+
+def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
+    """The inverse of ``params_from_jax``: a port parameter dict (or a dict
+    of its gradients) → the reference pytree layout, ``wqkv`` split into
+    ``wq/wk/wv`` and ``w_gate_up`` into ``w_gate/w_up``, leaves as f32
+    numpy arrays on the host."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def n(t: torch.Tensor) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    wq, wk, wv = params["wqkv"].split([H * hd, KV * hd, KV * hd], dim=-1)
+    w_gate, w_up = params["w_gate_up"].chunk(2, dim=-1)
+    return {
+        "embed": n(params["embed"]),
+        "layers": {
+            "wq": n(wq), "wk": n(wk), "wv": n(wv), "wo": n(params["wo"]),
+            "attn_norm": n(params["attn_norm"]),
+            "mlp_norm": n(params["mlp_norm"]),
+            "w_gate": n(w_gate), "w_up": n(w_up),
+            "w_down": n(params["w_down"]),
+        },
+        "final_norm": n(params["final_norm"]),
+        "lm_head": n(params["lm_head"]),
     }

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from gofr_tpu_torch.ops.cuda.flash_attention import flash_attention_plain
 from gofr_tpu_torch.ops.cuda.flash_decode import flash_decode_plain
 from gofr_tpu_torch.ops.cuda.flash_prefill import flash_cache_attention_plain
 
@@ -34,21 +35,20 @@ MOCK = REPO / "tests" / "cuda_emu"
 TOL = 2e-2
 
 
-@pytest.fixture(scope="module")
-def emu_lib(tmp_path_factory):
+def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
+    """Compile CUDA sources (file stem -> text) against the mock and load
+    them, with the C entries' argument types set."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++) to emulate the kernels")
-    out = tmp_path_factory.mktemp("cuda_emu")
     srcs = []
-    for cu in sorted(CSRC.glob("*.cu")):
-        s = cu.read_text()
+    for stem, s in sources.items():
         s = s.replace(
             "extern __shared__ __align__(16) unsigned char smem_raw[];",
             "unsigned char* smem_raw = mock_smem;",
         )
         s = re.sub(r"(\w+)<<<", r"mock_launch(\1, ", s).replace(">>>(", ", ")
-        dst = out / (cu.stem + ".cpp")
+        dst = out / (stem + ".cpp")
         dst.write_text(s)
         srcs.append(str(dst))
     lib = out / "libemu.so"
@@ -59,13 +59,30 @@ def emu_lib(tmp_path_factory):
     )
     assert res.returncode == 0, res.stderr
     dll = ctypes.CDLL(str(lib))
-    dll.gofr_flash_decode.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    )
-    dll.gofr_flash_cache_attention.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    )
+    entries = {
+        "gofr_flash_decode": (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        ),
+        "gofr_flash_cache_attention": (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        ),
+        "gofr_flash_attention": (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+        ),
+    }
+    for name, argtypes in entries.items():
+        if hasattr(dll, name):
+            getattr(dll, name).argtypes = argtypes
     return dll
+
+
+@pytest.fixture(scope="module")
+def emu_lib(tmp_path_factory):
+    return _emulate(
+        {cu.stem: cu.read_text() for cu in sorted(CSRC.glob("*.cu"))},
+        tmp_path_factory.mktemp("cuda_emu"),
+    )
 
 
 def _bf16(rng, *shape):
@@ -142,3 +159,64 @@ def test_emulated_entries_refuse_unsupported_shapes(emu_lib):
     assert emu_lib.gofr_flash_decode(p, p, p, p, None, None, p, 1, 4, 2, 8, 48, 1.0, None) != 0
     assert emu_lib.gofr_flash_decode(p, p, p, p, None, None, p, 1, 3, 2, 8, 32, 1.0, None) != 0
     assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, p, 1, 1, 4, 2, 8, 256, 1.0, None) != 0
+    st = (ctypes.c_longlong * 9)()
+    # flash_attention takes hd 64 and 128 only (32 is refused), and GQA groups.
+    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 4, 2, 32, 1, st, 1.0, None) != 0
+    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 3, 2, 64, 1, st, 1.0, None) != 0
+
+
+FA_CASES = [
+    # b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths
+    (1, 70, 70, 4, 2, 128, True, None),         # causal GQA, two query tiles
+    (1, 40, 100, 1, 1, 64, True, None),         # causal offset 60, two key tiles
+    (3, 66, 66, 2, 2, 64, True, [66, 0, 9]),    # lengths: full, empty, short
+    (2, 20, 80, 2, 1, 128, False, [80, 33]),    # non-causal with lengths
+    (1, 70, 30, 2, 2, 64, False, None),         # non-causal, s_q > s_kv
+]
+
+
+def _run_emulated_flash_attention(lib, b, s_q, s_kv, n_heads, n_kv, hd, causal,
+                                  lengths, *, transpose_kv=False):
+    rng = np.random.default_rng(s_q + s_kv + hd)
+    q = _bf16(rng, b, s_q, n_heads, hd)
+    k, v = _bf16(rng, b, s_kv, n_kv, hd), _bf16(rng, b, s_kv, n_kv, hd)
+    if transpose_kv:  # [b, n_kv, s_kv, hd] storage read through strides
+        k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    out = torch.full((b, s_q, n_heads, hd), float("nan"), dtype=torch.bfloat16)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    rc = lib.gofr_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens), out.data_ptr(),
+        b, s_q, s_kv, n_heads, n_kv, hd, int(causal), strides, hd**-0.5, None,
+    )
+    assert rc == 0
+    return out, flash_attention_plain(q, k, v, lens, causal=causal)
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,causal,lengths", FA_CASES)
+def test_emulated_flash_attention_matches_plain(
+    emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths
+):
+    out, want = _run_emulated_flash_attention(
+        emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths,
+        transpose_kv=lengths is not None,
+    )
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    zero = want.float().abs().amax(dim=(-1, -2)) == 0  # rows that see no key
+    assert torch.all(out[zero] == 0)
+
+
+def test_emulation_catches_an_off_by_one_causal_bound(tmp_path):
+    """The causal cases against a copy of the kernel whose causal bound
+    lets each query row see one key too many: every one must fail."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    bound = "return causal ? min(r + offset, len - 1) : len - 1;"
+    assert bound in src
+    lib = _emulate(
+        {"flash_attention": src.replace(bound, bound.replace("r + offset", "r + offset + 1"))},
+        tmp_path,
+    )
+    for case in FA_CASES:
+        if case[6]:  # causal
+            out, want = _run_emulated_flash_attention(lib, *case)
+            assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)

@@ -9,6 +9,8 @@ a machine that has only PyTorch for CUDA:
 import pytest
 import torch
 
+from gofr_tpu_torch.ops.attention import FlashAttentionFn
+from gofr_tpu_torch.ops.cuda import flash_attention as fa
 from gofr_tpu_torch.ops.cuda import flash_decode as fd
 from gofr_tpu_torch.ops.cuda import flash_prefill as fp
 
@@ -66,3 +68,61 @@ def test_flash_cache_attention_kernel_matches_plain_on_gpu(cuda_device):
     assert fp.launches == before + 1
     want = fp.flash_cache_attention_plain(q, kc, vc, slots, starts, lens)
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,H,KV,hd,causal,lengths",
+    [
+        (2, 300, 300, 8, 2, 128, True, None),          # causal GQA, ragged tiles
+        (2, 100, 333, 4, 4, 128, True, [333, 0]),      # offset, lengths with an empty row
+        (3, 197, 197, 12, 12, 64, False, None),        # ViT-B/16 shape, non-causal
+        (2, 64, 64, 4, 1, 64, False, [64, 17]),        # non-causal lengths, MQA
+    ],
+)
+def test_flash_attention_kernel_matches_plain_on_gpu(
+    cuda_device, b, s_q, s_kv, H, KV, hd, causal, lengths
+):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    # q read through strides: a slice of a wider projection output.
+    q = r(b, s_q, H + 2, hd)[:, :, 1:H + 1]
+    k, v = r(b, s_kv, KV, hd), r(b, s_kv, KV, hd)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, lens, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, lens, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    zero = want.float().abs().amax(dim=(-1, -2)) == 0
+    assert torch.all(got[zero] == 0)
+
+
+@pytest.mark.gpu
+def test_flash_attention_fn_backward_matches_dense_autograd_on_gpu(cuda_device):
+    """FlashAttentionFn: the kernel forward and the dense-recompute
+    backward against autograd through the plain version, in bf16."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, s, H, KV, hd = 2, 256, 8, 2, 128
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v, g = r(b, s, H, hd), r(b, s, KV, hd), r(b, s, KV, hd), r(b, s, H, hd)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FlashAttentionFn.apply(*xs, True, None)
+    out.backward(g)
+    ys = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.flash_attention_plain(*ys, causal=True)
+    ref.backward(g)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    for got, want in zip(xs, ys):
+        # bf16 gradients of sums over up to s rows: a few bf16 ulps of the
+        # largest entries.
+        scale = want.grad.float().abs().max().item()
+        torch.testing.assert_close(got.grad.float(), want.grad.float(),
+                                   atol=BF16_TOL * scale, rtol=BF16_TOL)
