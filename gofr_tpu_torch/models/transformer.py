@@ -9,8 +9,9 @@ Q/K/V projections are stored concatenated (``wqkv``) and so are gate/up
 (``w_gate_up``): one matmul each instead of three and two, the same
 columns (``weights.params_from_jax`` builds them from the reference).
 The large projections and ``lm_head`` are ``torch.matmul``; attention is
-``ops/attention.py`` (the CUDA kernels on a card). The KV cache is
-updated in place. Everything but the attention kernels is plain
+``ops/attention.py`` (the CUDA kernels on a card). The KV cache — a slot
+cache or a paged pool, bf16 or int8 (``ops/kv_cache.py``) — is updated
+in place. Everything but the attention kernels is plain
 differentiable torch; ``transformer_forward`` is what training
 differentiates (``parallel/sharding.py``).
 
@@ -34,7 +35,12 @@ from gofr_tpu_torch.ops.attention import (
     cache_chunk_attention,
     decode_attention,
 )
-from gofr_tpu_torch.ops.kv_cache import KVCache
+from gofr_tpu_torch.ops.kv_cache import (
+    KVCache,
+    PagedKVCache,
+    fake_quantize_kv,
+    quantize_kv,
+)
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.rotary import rope_at, rope_frequencies, rotate
 
@@ -261,13 +267,12 @@ def transformer_prefill(
     with per-row key ``lengths``. Each layer writes its K/V for all s_pad
     positions into the row's slot and zeros the rest of the slot, as the
     reference's padded ``.at[:, slots].set``; ``cache.lengths[slots]``
-    becomes ``lengths``. Returns [b, vocab] f32 logits at each row's last
-    valid token. bf16/f32 contiguous cache only."""
-    if cache.k.dtype not in (torch.bfloat16, torch.float32):
-        raise NotImplementedError(
-            f"transformer_prefill: a {cache.k.dtype} KV cache is not ported "
-            "yet (ROADMAP Queue 2: int8 cache variants)"
-        )
+    becomes ``lengths``. An int8 cache takes the quantized K/V and their
+    scales (the zeroed rest of the row gets scale 1, as the reference's
+    quantized zero padding). Returns [b, vocab] f32 logits at each row's
+    last valid token. Slot cache only, as in the reference."""
+    if not isinstance(cache, KVCache):
+        raise TypeError("transformer_prefill writes a slot cache (KVCache)")
     b, s = tokens.shape
     dev = tokens.device
     lengths = lengths.to(torch.int32)
@@ -277,8 +282,13 @@ def transformer_prefill(
     for layer in range(cfg.n_layers):
         x, (k, v) = _layer_prefill(x, params, layer, cfg, cs, lengths=lengths,
                                    dense_attn=dense_attn)
-        for buf, new in ((cache.k, k), (cache.v, v)):
-            buf[layer, sl, :, :s] = new.transpose(1, 2).to(buf.dtype)
+        for buf, sc, new in ((cache.k, cache.k_s, k), (cache.v, cache.v_s, v)):
+            new = new.transpose(1, 2)  # [b, KV, s, hd]
+            if sc is not None:
+                new, new_sc = quantize_kv(new)
+                sc[layer, sl, :, :s] = new_sc
+                sc[layer, sl, :, s:] = 1
+            buf[layer, sl, :, :s] = new.to(buf.dtype)
             buf[layer, sl, :, s:] = 0
     cache.lengths[sl] = lengths
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -290,7 +300,7 @@ def transformer_prefill(
 def prefill_chunk(
     params: dict,
     tokens: torch.Tensor,
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     slots: torch.Tensor,
     starts: torch.Tensor,
     lens: torch.Tensor,
@@ -304,11 +314,13 @@ def prefill_chunk(
 
     tokens: [P, c] (right-padded per row); slots/starts/lens: [P] int32 —
     cache slot, global position of the chunk's first token, valid tokens.
-    Each layer writes the chunk's K/V into the cache first, then attends
+    Each layer writes the chunk's K/V into the cache first (quantized, in
+    int8 mode; through the rows' table entries, in a pool), then attends
     the cache in place. Padding columns (t >= lens) park their writes at
-    ``max_len - 1``, a position no live query reads. Returns [P, vocab]
-    f32 logits at each row's last valid token. ``cache.lengths`` is not
-    updated here (the engine sets it when a prompt's last chunk lands).
+    ``max_len - 1`` of their slot (a pool: block 0, offset ``block - 1``),
+    a position no live query reads. Returns [P, vocab] f32 logits at each
+    row's last valid token. ``cache.lengths`` is not updated here (the
+    engine sets it when a prompt's last chunk lands).
     """
     P, c = tokens.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -319,22 +331,42 @@ def prefill_chunk(
     positions = starts.long()[:, None] + t[None, :]  # [P, c] global
     valid = t[None, :] < lens.long()[:, None]
     rope_pos = positions.clamp(max=max_len - 1)
-    write_pos = torch.where(valid, positions, max_len - 1)
-    idx = (
-        slots.long()[:, None, None],
-        torch.arange(KV, device=dev)[None, :, None],
-        write_pos[:, None, :],
-    )  # broadcast to [P, KV, c]
+    if isinstance(cache, PagedKVCache):
+        B, table = cache.block, cache.block_table
+        rows = table[slots.long()].long().gather(
+            1, rope_pos // B
+        )  # [P, c] pool block of each position
+        idx = (
+            torch.where(valid, rows, 0)[:, None, :],
+            torch.arange(KV, device=dev)[None, :, None],
+            torch.where(valid, positions % B, B - 1)[:, None, :],
+        )  # broadcast to [P, KV, c]
+    else:
+        table = None
+        idx = (
+            slots.long()[:, None, None],
+            torch.arange(KV, device=dev)[None, :, None],
+            torch.where(valid, positions, max_len - 1)[:, None, :],
+        )
     cs = rope_at(cos, sin, rope_pos)
     x = params["embed"][tokens]  # [P, c, D]
     for layer in range(cfg.n_layers):
         h = rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
         q, k, v = _qkv(h, params, layer, cfg, cs)
-        ck, cv = cache.k[layer], cache.v[layer]  # [S, KV, max_len, hd] views
-        ck.index_put_(idx, k.transpose(1, 2))
-        cv.index_put_(idx, v.transpose(1, 2))
+        ck, cv = cache.k[layer], cache.v[layer]  # [rows, KV, len, hd] views
+        cks = cvs = None
+        k, v = k.transpose(1, 2), v.transpose(1, 2)  # [P, KV, c, hd]
+        if cache.quantized:
+            cks, cvs = cache.k_s[layer], cache.v_s[layer]
+            k, k_sc = quantize_kv(k)
+            v, v_sc = quantize_kv(v)
+            cks.index_put_(idx, k_sc)
+            cvs.index_put_(idx, v_sc)
+        ck.index_put_(idx, k)
+        cv.index_put_(idx, v)
         attn = cache_chunk_attention(
-            q, ck, cv, slots, starts, lens, kernel=not dense_attn
+            q, ck, cv, slots, starts, lens, k_scale=cks, v_scale=cvs,
+            block_table=table, kernel=not dense_attn,
         )
         x = x + attn.reshape(P, c, H * hd) @ params["wo"][layer]
         x = x + _ffn(x, params, layer, cfg)
@@ -347,7 +379,7 @@ def prefill_chunk(
 def decode_step(
     params: dict,
     tokens: torch.Tensor,
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     active: torch.Tensor,
     cfg: TransformerConfig,
     *,
@@ -360,8 +392,11 @@ def decode_step(
     tokens: [S] current token per slot; active: [S] bool. The cache stays
     read-only inside the layer loop: each layer attends the cache prefix
     plus its fresh (k, v) through the split softmax, and one scatter after
-    the loop commits every layer's token. Inactive slots park that write
-    at ``max_len - 1`` (a slot mid-prefill must not have its fresh K/V at
+    the loop commits every layer's token. In int8 mode the fresh K/V are
+    fake-quantized before they are attended, so what is attended is what
+    later steps read back, and quantized at the commit. Inactive slots
+    park that write at ``max_len - 1`` (a pool: block 0, offset
+    ``block - 1``; a slot mid-prefill must not have its fresh K/V at
     ``lengths`` overwritten) and keep their length. Returns [S, vocab] f32
     logits; ``cache.lengths`` grows by one on active slots.
     """
@@ -371,33 +406,52 @@ def decode_step(
     dev = tokens.device
     cos, sin = rope if rope is not None else rope_tables(cfg, max_len, dev)
     lengths = cache.lengths
-    positions = lengths.long().clamp(max=max_len - 1)[:, None]  # [S, 1]
-    cs = rope_at(cos, sin, positions)
+    positions = lengths.long().clamp(max=max_len - 1)  # [S]
+    cs = rope_at(cos, sin, positions[:, None])
+    paged = isinstance(cache, PagedKVCache)
+    table = cache.block_table if paged else None
     x = params["embed"][tokens][:, None]  # [S, 1, D]: one token per slot
     new_k, new_v = [], []
     for layer in range(cfg.n_layers):
         h = rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
         q, k, v = _qkv(h, params, layer, cfg, cs)
         q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        scales = {}
+        if cache.quantized:
+            k, v = fake_quantize_kv(k), fake_quantize_kv(v)
+            scales = dict(k_scale=cache.k_s[layer], v_scale=cache.v_s[layer])
         attn = decode_attention(
             q, cache.k[layer], cache.v[layer], lengths, k_new=k, v_new=v,
-            kernel=not dense_attn,
+            block_table=table, kernel=not dense_attn, **scales,
         )
         x = x + attn.reshape(S, 1, H * hd) @ params["wo"][layer]
         x = x + _ffn(x, params, layer, cfg)
         new_k.append(k)
         new_v.append(v)
     # Commit every layer's token in one scatter: [L, S, KV, hd] values at
-    # [l, s, kv, write_pos[s]].
-    write_pos = torch.where(active, lengths, max_len - 1).long()
+    # [l, s, kv, write_pos[s]] (a pool: [l, table[s, pos // B], kv, pos % B]).
+    if paged:
+        B = cache.block
+        blk = table.gather(1, (positions // B)[:, None])[:, 0].long()
+        row = torch.where(active, blk, 0)
+        write_pos = torch.where(active, positions % B, B - 1)
+    else:
+        row = torch.arange(S, device=dev)
+        write_pos = torch.where(active, lengths, max_len - 1).long()
     idx = (
         torch.arange(cfg.n_layers, device=dev)[:, None, None],
-        torch.arange(S, device=dev)[None, :, None],
+        row[None, :, None],
         torch.arange(KV, device=dev)[None, None, :],
         write_pos[None, :, None],
     )
-    cache.k.index_put_(idx, torch.stack(new_k))
-    cache.v.index_put_(idx, torch.stack(new_v))
+    k_all, v_all = torch.stack(new_k), torch.stack(new_v)
+    if cache.quantized:
+        k_all, k_sc = quantize_kv(k_all)
+        v_all, v_sc = quantize_kv(v_all)
+        cache.k_s.index_put_(idx, k_sc)
+        cache.v_s.index_put_(idx, v_sc)
+    cache.k.index_put_(idx, k_all)
+    cache.v.index_put_(idx, v_all)
     cache.lengths += active.to(torch.int32)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()

@@ -8,9 +8,9 @@ wrappers take the plain version for CPU tensors and launch the kernel
 for CUDA tensors — and ``kernel=False`` calls the plain PyTorch version
 directly, on any device (tests and ``chip_smoke.py`` use it as the
 oracle); for ``attention`` that is the reference's dense formula. The
-int8-cache (``k_scale``/``v_scale``), paged (``block_table``) and
-sliding-window variants are not ported yet and raise
-``NotImplementedError`` on every device.
+serving ops take the int8 cache (``k_scale``/``v_scale``) and the paged
+pool (``block_table``) on both paths; a sliding window that binds is not
+ported yet and raises ``NotImplementedError`` on every device.
 """
 
 from __future__ import annotations
@@ -31,25 +31,24 @@ from gofr_tpu_torch.ops.cuda.flash_prefill import (
 )
 
 
-def _refuse_unported(
-    name: str, k_scale: Optional[torch.Tensor],
-    v_scale: Optional[torch.Tensor], block_table: Optional[torch.Tensor],
-    window: int, capacity: int,
-) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"{name}: the int8 KV-cache variant (k_scale/v_scale) is not "
-            "ported yet (ROADMAP Queue 2, kernel variants: int8)"
-        )
+def _effective_window(window: int, k_cache: torch.Tensor,
+                      block_table: Optional[torch.Tensor]) -> int:
+    """0 when the sliding window cannot bind within the cache's capacity:
+    ``max_len`` for a slot cache, table width x block for a pool (whose
+    ``shape[2]`` is the block axis)."""
+    if not window:
+        return 0
+    capacity = k_cache.shape[2]
     if block_table is not None:
-        raise NotImplementedError(
-            f"{name}: the paged KV-cache variant (block_table) is not ported "
-            "yet (ROADMAP Queue 2, kernel variants: paged)"
-        )
-    if window and window < capacity:
+        capacity *= block_table.shape[1]
+    return 0 if window >= capacity else window
+
+
+def _refuse_window(name: str, window: int) -> None:
+    if window:
         raise NotImplementedError(
             f"{name}: sliding-window attention (window={window}) is not "
-            "ported yet (ROADMAP Queue 2, kernel variants: window)"
+            "ported yet (ROADMAP Queue 2 item 4, with the Mistral config)"
         )
 
 
@@ -107,8 +106,7 @@ def attention(
     if window:
         raise NotImplementedError(
             f"attention: sliding-window attention (window={window}) is not "
-            "ported yet (ROADMAP Queue 2, kernel variants: window, with the "
-            "Mistral config)"
+            "ported yet (ROADMAP Queue 2 item 4, with the Mistral config)"
         )
     if kernel and mask is None:
         if lengths is not None:
@@ -144,17 +142,18 @@ def decode_attention(
     — the token is already written at lengths-1 (lengths includes it);
     ``k_new``/``v_new`` ([b, n_kv, hd]) given — the token is attended split
     from the cache and lengths counts only the prefix (the serving path).
-    A window that cannot bind (``window >= max_len``) is dropped, as in the
-    reference.
+    k_scale/v_scale: int8-cache scales, the caches' shape without hd;
+    block_table ([b, max_blocks] int32): the caches are a pool
+    [n_blocks, n_kv, block, hd]. A window that cannot bind within the
+    capacity is dropped, as in the reference.
     """
     if (k_new is None) != (v_new is None):
         raise ValueError("pass k_new and v_new together")
-    _refuse_unported(
-        "decode_attention", k_scale, v_scale, block_table, window,
-        k_cache.shape[2],
-    )
+    _refuse_window("decode_attention",
+                   _effective_window(window, k_cache, block_table))
     fn = flash_decode if kernel else flash_decode_plain
     return fn(q, k_cache, v_cache, lengths, k_new=k_new, v_new=v_new,
+              k_scale=k_scale, v_scale=v_scale, block_table=block_table,
               scale=scale)
 
 
@@ -176,11 +175,12 @@ def cache_chunk_attention(
     """Chunked-prefill attention: a [P, c] chunk of queries per row attends
     its slot's cache prefix [0, starts[p]+t] (causal at global positions);
     the chunk's K/V must already be written. q: [P, c, n_heads, hd];
-    caches: [S, n_kv, max_len, hd]; slots/starts/lens: [P] int32. Rows with
-    t >= lens[p] return 0."""
-    _refuse_unported(
-        "cache_chunk_attention", k_scale, v_scale, block_table, window,
-        k_cache.shape[2],
-    )
+    caches: [S, n_kv, max_len, hd] or a pool [n_blocks, n_kv, block, hd]
+    with ``block_table`` [S, max_blocks]; k_scale/v_scale: int8-cache
+    scales; slots/starts/lens: [P] int32. Rows with t >= lens[p] return
+    0."""
+    _refuse_window("cache_chunk_attention",
+                   _effective_window(window, k_cache, block_table))
     fn = flash_cache_attention if kernel else flash_cache_attention_plain
-    return fn(q, k_cache, v_cache, slots, starts, lens, scale=scale)
+    return fn(q, k_cache, v_cache, slots, starts, lens, k_scale=k_scale,
+              v_scale=v_scale, block_table=block_table, scale=scale)

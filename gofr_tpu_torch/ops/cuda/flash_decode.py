@@ -1,6 +1,7 @@
 """flash_decode: one query token per slot attends that slot's KV-cache
 prefix — the port of ``gofr_tpu/ops/pallas/flash_decode.py::flash_decode``
-(bf16 contiguous cache), kernel in ``gofr_tpu_torch/csrc/flash_decode.cu``.
+(bf16 or int8 cache, contiguous or paged), kernel in
+``gofr_tpu_torch/csrc/flash_decode.cu``.
 
 Two calling conventions, as in the reference:
 
@@ -9,6 +10,14 @@ Two calling conventions, as in the reference:
 * ``k_new``/``v_new`` (``[b, n_kv, hd]``) given — the current token is
   merged into the softmax split from the cache and ``lengths`` counts the
   cache prefix only; a length-0 row attends the new token alone.
+
+Variants: ``k_scale``/``v_scale`` — an int8 cache with one f32 scale per
+position (``[b, n_kv, max_len]``; scores times the K scale, probabilities
+times the V scale after the denominator has taken them; the new token in
+the split convention is unscaled). ``block_table`` (``[b, max_blocks]``
+int32) — the caches are a pool ``[n_blocks, n_kv, block, hd]`` (scales
+``[n_blocks, n_kv, block]``) and logical key ``j`` of row ``i`` lives in
+pool block ``block_table[i, j // block]`` at offset ``j % block``.
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Optional
 import torch
 
 from gofr_tpu_torch.ops.cuda import _build
+from gofr_tpu_torch.ops.kv_cache import paged_view
 
 NEG_INF = -1e30
 # Kernel launches since the last reset (bumped by the wrapper only).
@@ -37,26 +47,44 @@ def flash_decode_plain(
     *,
     k_new: Optional[torch.Tensor] = None,
     v_new: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version, ported from the dense formula of
-    ``gofr_tpu/ops/attention.py::decode_attention``: f32 scores and softmax,
-    probabilities cast to the query dtype for the value product. In the
-    written convention a length-0 row returns 0 (the kernel contract)."""
+    ``gofr_tpu/ops/attention.py::decode_attention``: a pool is gathered
+    through ``paged_view``, an int8 cache is cast to the query dtype with
+    its scales on the scores and on the probabilities, f32 scores and
+    softmax, probabilities cast to the query dtype for the value product.
+    In the written convention a length-0 row returns 0 (the kernel
+    contract)."""
     b, n_heads, hd = q.shape
+    if block_table is not None:
+        k_cache, v_cache, k_scale, v_scale = paged_view(
+            block_table, k_cache, v_cache, torch.arange(b, device=q.device),
+            k_scale, v_scale,
+        )
     n_kv, max_len = k_cache.shape[1], k_cache.shape[2]
     rep = n_heads // n_kv
     if scale is None:
         scale = hd**-0.5
+    quant = k_scale is not None
+    if quant:  # dequantize through the scores and probabilities
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     qg = q.reshape(b, n_kv, rep, hd)
     scores = torch.einsum(
         "bgrd,bgkd->bgrk", qg.float(), k_cache.float()
     ) * scale  # [b, kv, rep, max_len]
+    if quant:
+        scores = scores * k_scale[:, :, None, :]
     lens = lengths.to(torch.long)
     valid = torch.arange(max_len, device=q.device)[None, :] < lens[:, None]
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     if k_new is None:
         probs = torch.softmax(scores, dim=-1)
+        if quant:
+            probs = probs * v_scale[:, :, None, :]
         out = torch.einsum("bgrk,bgkd->bgrd", probs.to(q.dtype), v_cache)
         out = torch.where((lens > 0)[:, None, None, None], out, 0.0)
         return out.reshape(b, n_heads, hd)
@@ -67,6 +95,8 @@ def flash_decode_plain(
     e_c = torch.exp(scores - m[..., None])
     e_n = torch.exp(s_new - m)
     denom = e_c.sum(dim=-1) + e_n
+    if quant:
+        e_c = e_c * v_scale[:, :, None, :]
     out = torch.einsum("bgrk,bgkd->bgrd", e_c.to(q.dtype), v_cache)
     out = out + e_n[..., None].to(q.dtype) * v_new[:, :, None, :]
     out = out / denom[..., None].to(q.dtype)
@@ -77,7 +107,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.lib().gofr_flash_decode
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -99,6 +129,37 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def check_cache(
+    k_cache: torch.Tensor, v_cache: torch.Tensor,
+    k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+    block_table: Optional[torch.Tensor], table_rows: int, n_kv: int, hd: int,
+    device: torch.device,
+) -> tuple[int, int]:
+    """Check a cache (contiguous or pool, bf16 or int8 with scales) for a
+    kernel launch; returns (rows per cache block: ``max_len`` or the pool
+    block, table width or 0)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass k_scale and v_scale together")
+    rows, blk = k_cache.shape[0], k_cache.shape[2]
+    dtype = torch.bfloat16 if k_scale is None else torch.int8
+    _check("k_cache", k_cache, (rows, n_kv, blk, hd), dtype, device)
+    _check("v_cache", v_cache, (rows, n_kv, blk, hd), dtype, device)
+    if k_scale is not None:
+        _check("k_scale", k_scale, (rows, n_kv, blk), torch.float32, device)
+        _check("v_scale", v_scale, (rows, n_kv, blk), torch.float32, device)
+    if block_table is None:
+        return blk, 0
+    if blk % 16:
+        raise ValueError(f"the pool's block size must be a multiple of 16, got {blk}")
+    width = block_table.shape[-1] if block_table.dim() == 2 else -1
+    _check("block_table", block_table, (table_rows, width), torch.int32, device)
+    return blk, width
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def flash_decode(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -107,25 +168,32 @@ def flash_decode(
     *,
     k_new: Optional[torch.Tensor] = None,
     v_new: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q: [b, n_heads, hd]; caches: [b, n_kv, max_len, hd]; lengths: [b]
-    int32; k_new/v_new: [b, n_kv, hd]. Returns [b, n_heads, hd].
+    """q: [b, n_heads, hd]; caches: [b, n_kv, max_len, hd] or a pool
+    [n_blocks, n_kv, block, hd] with ``block_table`` [b, max_blocks];
+    k_scale/v_scale: int8 scales, the caches' shape without hd; lengths:
+    [b] int32; k_new/v_new: [b, n_kv, hd]. Returns [b, n_heads, hd].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, contiguous, hd in {32, 64, 128, 256}, n_heads/n_kv in
-    {1, 2, 4, 8}) or raise."""
+    (bf16 q and new token, bf16 or int8 caches, contiguous, hd in
+    {32, 64, 128, 256}, n_heads/n_kv in {1, 2, 4, 8}, pool blocks a
+    multiple of 16) or raise."""
     if (k_new is None) != (v_new is None):
         raise ValueError("pass k_new and v_new together")
     if q.device.type == "cpu":
         return flash_decode_plain(
             q, k_cache, v_cache, lengths, k_new=k_new, v_new=v_new,
+            k_scale=k_scale, v_scale=v_scale, block_table=block_table,
             scale=scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     b, n_heads, hd = q.shape
-    n_kv, max_len = k_cache.shape[1], k_cache.shape[2]
+    n_kv = k_cache.shape[1]
     if hd not in _HEAD_DIMS or n_heads % n_kv or n_heads // n_kv not in _REPS:
         raise ValueError(
             f"flash_decode kernel takes hd in {_HEAD_DIMS} and n_heads/n_kv "
@@ -134,8 +202,10 @@ def flash_decode(
     dev = q.device
     bf16 = torch.bfloat16
     _check("q", q, (b, n_heads, hd), bf16, dev)
-    _check("k_cache", k_cache, (b, n_kv, max_len, hd), bf16, dev)
-    _check("v_cache", v_cache, (b, n_kv, max_len, hd), bf16, dev)
+    if block_table is None and k_cache.shape[0] != b:
+        raise ValueError(f"k_cache has {k_cache.shape[0]} slots, q has {b}")
+    blk, width = check_cache(k_cache, v_cache, k_scale, v_scale, block_table,
+                             b, n_kv, hd, dev)
     _check("lengths", lengths, (b,), torch.int32, dev)
     if k_new is not None:
         _check("k_new", k_new, (b, n_kv, hd), bf16, dev)
@@ -145,10 +215,9 @@ def flash_decode(
     out = torch.empty_like(q)
     rc = _kernel_fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(),
-        k_new.data_ptr() if k_new is not None else None,
-        v_new.data_ptr() if v_new is not None else None,
-        out.data_ptr(), b, n_heads, n_kv, max_len, hd, float(scale),
+        lengths.data_ptr(), _ptr(k_new), _ptr(v_new), _ptr(k_scale),
+        _ptr(v_scale), _ptr(block_table), out.data_ptr(),
+        b, n_heads, n_kv, blk, width, hd, float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -1,11 +1,14 @@
 """flash_cache_attention: a [P, c] chunk of queries per row attends its
 slot's KV-cache prefix in place (chunked prefill) — the port of
 ``gofr_tpu/ops/pallas/flash_prefill.py::flash_cache_attention`` (bf16
-contiguous cache), kernel in ``gofr_tpu_torch/csrc/flash_prefill.cu``.
+or int8 cache, contiguous or paged), kernel in
+``gofr_tpu_torch/csrc/flash_prefill.cu``.
 
 Row p's query t sits at global position ``starts[p] + t`` and attends keys
 ``[0, starts[p] + t]`` of slot ``slots[p]``; the chunk's K/V must already be
-written. Rows with ``t >= lens[p]`` return 0.
+written. Rows with ``t >= lens[p]`` return 0. The int8 (``k_scale``/
+``v_scale``) and paged (``block_table``, row p reads through
+``block_table[slots[p]]``) variants are those of ``flash_decode``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Optional
 import torch
 
 from gofr_tpu_torch.ops.cuda import _build
-from gofr_tpu_torch.ops.cuda.flash_decode import _check
+from gofr_tpu_torch.ops.cuda.flash_decode import _check, _ptr, check_cache
+from gofr_tpu_torch.ops.kv_cache import paged_view
 
 NEG_INF = -1e30
 # Kernel launches since the last reset (bumped by the wrapper only).
@@ -34,25 +38,39 @@ def flash_cache_attention_plain(
     starts: torch.Tensor,
     lens: torch.Tensor,
     *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version, ported from the dense formula of
     ``gofr_tpu/ops/attention.py::cache_chunk_attention``: gather each row's
-    slot, f32 scores and softmax under the causal mask at global
-    positions, probabilities cast to the query dtype for the value
-    product, padding rows zeroed."""
+    slot (a pool through ``paged_view``), an int8 cache cast to the query
+    dtype with its scales on the scores and on the probabilities, f32
+    scores and softmax under the causal mask at global positions,
+    probabilities cast to the query dtype for the value product, padding
+    rows zeroed."""
     P, c, n_heads, hd = q.shape
-    n_kv, max_len = k_cache.shape[1], k_cache.shape[2]
+    sl = slots.to(torch.long)
+    if block_table is not None:
+        ck, cv, ks, vs = paged_view(block_table, k_cache, v_cache, sl,
+                                    k_scale, v_scale)
+    else:
+        ck, cv = k_cache[sl], v_cache[sl]  # [P, KV, max_len, hd]
+        ks = None if k_scale is None else k_scale[sl]
+        vs = None if v_scale is None else v_scale[sl]
+    n_kv, max_len = ck.shape[1], ck.shape[2]
     rep = n_heads // n_kv
     if scale is None:
         scale = hd**-0.5
-    sl = slots.to(torch.long)
-    ck = k_cache[sl]  # [P, KV, max_len, hd]
-    cv = v_cache[sl]
+    if ks is not None:  # dequantize through the scores and probabilities
+        ck, cv = ck.to(q.dtype), cv.to(q.dtype)
     qg = q.reshape(P, c, n_kv, rep, hd)
     scores = torch.einsum(
         "pcgrd,pgkd->pgrck", qg.float(), ck.float()
     ) * scale  # [P, KV, rep, c, max_len]
+    if ks is not None:
+        scores = scores * ks[:, :, None, None, :]
     t = torch.arange(c, device=q.device)
     pos = starts.to(torch.long)[:, None] + t[None, :]  # [P, c] global
     valid = torch.arange(max_len, device=q.device)[None, None, :] <= pos[:, :, None]
@@ -60,6 +78,8 @@ def flash_cache_attention_plain(
     valid = valid & row_ok[:, :, None]
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
+    if vs is not None:
+        probs = probs * vs[:, :, None, None, :]
     out = torch.einsum("pgrck,pgkd->pcgrd", probs.to(q.dtype), cv)
     out = torch.where(row_ok[:, :, None, None, None], out, 0.0)
     return out.reshape(P, c, n_heads, hd)
@@ -69,7 +89,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.lib().gofr_flash_cache_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -85,23 +105,30 @@ def flash_cache_attention(
     starts: torch.Tensor,
     lens: torch.Tensor,
     *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """q: [P, c, n_heads, hd]; caches: [S, n_kv, max_len, hd];
+    """q: [P, c, n_heads, hd]; caches: [S, n_kv, max_len, hd] or a pool
+    [n_blocks, n_kv, block, hd] with ``block_table`` [S, max_blocks];
+    k_scale/v_scale: int8 scales, the caches' shape without hd;
     slots/starts/lens: [P] int32. Returns [P, c, n_heads, hd].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, contiguous, hd in {32, 64, 128}) or raise."""
+    (bf16 q, bf16 or int8 caches, contiguous, hd in {32, 64, 128}, pool
+    blocks a multiple of 16) or raise."""
     if q.device.type == "cpu":
         return flash_cache_attention_plain(
-            q, k_cache, v_cache, slots, starts, lens, scale=scale
+            q, k_cache, v_cache, slots, starts, lens, k_scale=k_scale,
+            v_scale=v_scale, block_table=block_table, scale=scale,
         )
     if q.device.type != "cuda":
         raise ValueError(
             f"flash_cache_attention runs on cuda or cpu, not {q.device}"
         )
     P, c, n_heads, hd = q.shape
-    S, n_kv, max_len = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
+    n_kv = k_cache.shape[1]
     if hd not in _HEAD_DIMS or n_heads % n_kv:
         raise ValueError(
             f"flash_cache_attention kernel takes hd in {_HEAD_DIMS} and "
@@ -111,8 +138,9 @@ def flash_cache_attention(
     dev = q.device
     bf16 = torch.bfloat16
     _check("q", q, (P, c, n_heads, hd), bf16, dev)
-    _check("k_cache", k_cache, (S, n_kv, max_len, hd), bf16, dev)
-    _check("v_cache", v_cache, (S, n_kv, max_len, hd), bf16, dev)
+    n_slots = k_cache.shape[0] if block_table is None else block_table.shape[0]
+    blk, width = check_cache(k_cache, v_cache, k_scale, v_scale, block_table,
+                             n_slots, n_kv, hd, dev)
     for name, t in (("slots", slots), ("starts", starts), ("lens", lens)):
         _check(name, t, (P,), torch.int32, dev)
     if scale is None:
@@ -120,8 +148,9 @@ def flash_cache_attention(
     out = torch.empty_like(q)
     rc = _kernel_fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        slots.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), P, c, n_heads, n_kv, max_len, hd, float(scale),
+        slots.data_ptr(), starts.data_ptr(), lens.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), _ptr(block_table), out.data_ptr(), P, c, n_heads,
+        n_kv, blk, width, hd, float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

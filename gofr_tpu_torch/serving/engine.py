@@ -10,8 +10,17 @@ with one host fetch per window. A request retires on EOS, on its token
 budget or at the context limit, and its slot is reused.
 
 Only the slice's configuration is served: bf16 (or f32) weights, the
-contiguous slot cache, tp=1, greedy and temperature sampling. Any option
-outside it raises ``NotImplementedError``; none is ignored.
+slot cache or the paged block pool (``kv_block``, ``kv_pool_blocks``),
+bf16 or int8 K/V (``kv_quant``), tp=1, greedy and temperature sampling.
+Any option outside it raises ``NotImplementedError``; none is ignored.
+
+With a pool, admission allocates each request's prompt blocks (plus one
+token) from a host-side ``BlockAllocator`` and a host mirror of the block
+table, uploaded to the device when it changed; before each decode window
+every live slot's allocation is grown to cover the window; retirement
+returns the blocks. A request the whole pool cannot hold fails at
+admission, one that waits on a dry pool stays at the head of the queue,
+and one whose pool runs dry mid-generation fails, as in the reference.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.models.registry import get_model
 from gofr_tpu_torch.models.transformer import check_supported, init_params, rope_tables
-from gofr_tpu_torch.ops.kv_cache import KVCache
+from gofr_tpu_torch.ops.kv_cache import BlockAllocator, KVCache, PagedKVCache
 from gofr_tpu_torch.serving.programs import (
     SlotPlanes,
     decode_window,
@@ -78,19 +87,35 @@ class InferenceEngine:
         n_slots: int = 8,
         max_len: int = 1024,
         window_k: int = 8,
+        pipeline_depth: int = 2,
         prefill_chunk: int = 256,
         prefill_batch: int = 8,
+        kv_block: int = 0,
+        kv_pool_blocks: int = 0,
+        kv_quant: str = "",
         tokenizer: Any = None,
         params: Optional[dict] = None,
         seed: int = 0,
         device: Any = None,
         **unsupported: Any,
     ) -> None:
+        if "auto_prefix" in unsupported:
+            raise NotImplementedError(
+                "auto_prefix (the radix prefix cache over the block pool) is "
+                "not ported yet (ROADMAP Queue 1 item 5)"
+            )
         if unsupported:
             raise NotImplementedError(
                 "engine options outside this slice of the torch port: "
                 f"{sorted(unsupported)} (ROADMAP: the rest of the serving "
                 "features)"
+            )
+        if pipeline_depth != 2:
+            raise NotImplementedError(
+                "the port runs one decode window at a time; pipeline_depth "
+                "only sizes the room reserved for windows in flight and "
+                f"stays at the reference's default 2, got {pipeline_depth} "
+                "(ROADMAP Queue 1 item 3)"
             )
         for name, val in (("n_slots", n_slots), ("window_k", window_k),
                           ("prefill_chunk", prefill_chunk),
@@ -99,7 +124,17 @@ class InferenceEngine:
                 raise ValueError(f"{name} must be >= 1, got {val}")
         if max_len < window_k + 4:
             raise ValueError(f"max_len {max_len} too small for window_k {window_k}")
+        if kv_block < 0 or kv_pool_blocks < 0:
+            raise ValueError("kv_block and kv_pool_blocks must be >= 0")
+        if kv_block and max_len % kv_block:
+            raise ValueError(
+                f"max_len={max_len} must be a multiple of kv_block={kv_block}"
+            )
         self.device = resolve_device(device)
+        if kv_block % 16 and self.device.type == "cuda":
+            raise ValueError(
+                f"the CUDA kernels take kv_block a multiple of 16, got {kv_block}"
+            )
         self.model_name = model_name
         self.spec = get_model(model_name)
         self.cfg = self.spec.config
@@ -107,6 +142,8 @@ class InferenceEngine:
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.window_k = int(window_k)
+        self.pipeline_depth = int(pipeline_depth)
+        self.kv_block = int(kv_block)
         self.prefill_chunk = int(prefill_chunk)
         self.prefill_batch = int(prefill_batch)
         self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
@@ -124,10 +161,32 @@ class InferenceEngine:
                 )
         self.params = params
         cfg = self.cfg
-        self.cache = KVCache.create(
-            cfg.n_layers, self.n_slots, self.max_len, cfg.n_kv_heads,
-            cfg.head_dim, dtype=cfg.dtype, device=self.device,
-        )
+        if self.kv_block:
+            self.cache = PagedKVCache.create(
+                cfg.n_layers, self.n_slots, self.max_len, cfg.n_kv_heads,
+                cfg.head_dim, dtype=cfg.dtype, quant=kv_quant,
+                block=self.kv_block, n_blocks=int(kv_pool_blocks),
+                device=self.device,
+            )
+            self._allocator = BlockAllocator(self.cache.n_blocks)
+            # Host mirror of the block table and each slot's blocks, and
+            # the decode tokens dispatched per slot (scheduler thread only).
+            self._table_host = np.zeros(
+                tuple(self.cache.block_table.shape), dtype=np.int32
+            )
+            self._slot_blocks: list[list[int]] = [[] for _ in range(self.n_slots)]
+            self._dispatched_tokens = [0] * self.n_slots
+            self._table_dirty = False
+            self.kv_blocks_peak = 0  # most blocks in use at once
+            self.kv_admission_waits = 0  # passes that held a request back
+        else:
+            if kv_pool_blocks:
+                raise ValueError("kv_pool_blocks needs kv_block > 0")
+            self.cache = KVCache.create(
+                cfg.n_layers, self.n_slots, self.max_len, cfg.n_kv_heads,
+                cfg.head_dim, dtype=cfg.dtype, quant=kv_quant,
+                device=self.device,
+            )
         self.rope = rope_tables(cfg, self.max_len, self.device)
         self.planes = SlotPlanes.create(self.n_slots, self.device)
 
@@ -159,9 +218,19 @@ class InferenceEngine:
 
     @property
     def max_prompt_tokens(self) -> int:
-        """Longest admissible prompt: one generated token plus one window
-        of overshoot must still fit in the cache."""
-        return self.max_len - 2 - self.window_k
+        """Longest admissible prompt: one generated token plus the windows
+        in flight (``pipeline_depth + 1`` of them, as the reference
+        reserves) must still fit in the cache."""
+        return self.max_len - 2 - (self.pipeline_depth + 1) * self.window_k
+
+    def kv_pool_counts(self) -> tuple[int, int, int]:
+        """``(total, used, cached)`` blocks of the paged pool: allocatable
+        blocks (block 0 parks), blocks held by live tables, and 0 (no
+        radix cache yet). ``(0, 0, 0)`` for the slot cache."""
+        if not self.kv_block:
+            return 0, 0, 0
+        total = self.cache.n_blocks - 1
+        return total, max(0, total - self._allocator.n_free), 0
 
     def submit_generate(
         self,
@@ -329,9 +398,7 @@ class InferenceEngine:
         self._slots = [None] * self.n_slots
         self._prefilling.clear()
         for req in reqs:
-            if not req.future.done():
-                req.future.set_exception(exc)
-            req.stream.put(None)
+            self._fail(req, exc)
 
     def _admit(self) -> None:
         free = [
@@ -342,19 +409,84 @@ class InferenceEngine:
             req = self._next_request()
             if req is None:
                 return
-            # Clamp the budget so one window of overshoot past the last
-            # token still lands inside the cache (below the parking row).
-            room = self.max_len - 1 - len(req.prompt_ids) - self.window_k
+            # Clamp the budget so the windows in flight past the last
+            # token still land inside the cache (below the parking row).
+            room = (
+                self.max_len - 1 - len(req.prompt_ids)
+                - (self.pipeline_depth + 1) * self.window_k
+            )
             req.max_new_tokens = max(1, min(req.max_new_tokens, room))
+            if self.kv_block:
+                B = self.kv_block
+                need = (min(len(req.prompt_ids) + 1, self.max_len) + B - 1) // B
+                if need > self.cache.n_blocks - 1:
+                    self._fail(req, RuntimeError(
+                        f"prompt needs {need} KV blocks but the pool has "
+                        f"{self.cache.n_blocks - 1}; raise kv_pool_blocks"
+                    ))
+                    continue
+                # Cover the prompt and the first decode token now; windows
+                # top up before they run. A dry pool holds the request at
+                # the head of the queue until retirements refill it.
+                if not self._ensure_blocks(free[0], len(req.prompt_ids) + 1):
+                    self._backlog.appendleft(req)
+                    self.kv_admission_waits += 1
+                    return
+                self._dispatched_tokens[free[0]] = 0
             slot = free.pop(0)
             self._seeds_host[slot] = req.seed
             self._seeds_dirty = True
             self._prefilling[slot] = _Prefill(request=req)
 
+    @staticmethod
+    def _fail(req: GenRequest, exc: BaseException) -> None:
+        if not req.future.done():
+            req.future.set_exception(exc)
+        req.stream.put(None)
+
+    def _ensure_blocks(self, slot: int, tokens: int) -> bool:
+        """Grow ``slot``'s allocation to cover ``tokens`` logical tokens.
+        False when the pool is dry, with any partial grab rolled back."""
+        B = self.kv_block
+        target = min((min(tokens, self.max_len) + B - 1) // B,
+                     self._table_host.shape[1])
+        row = self._slot_blocks[slot]
+        start_len = len(row)
+        while len(row) < target:
+            blk = self._allocator.alloc()
+            if blk is None:
+                while len(row) > start_len:  # roll back the partial grab
+                    self._table_host[slot, len(row) - 1] = 0
+                    self._allocator.decref(row.pop())
+                return False
+            self._table_host[slot, len(row)] = blk
+            row.append(blk)
+            self._table_dirty = True
+        self.kv_blocks_peak = max(self.kv_blocks_peak, self.kv_pool_counts()[1])
+        return True
+
+    def _release_blocks(self, slot: int) -> None:
+        """Return ``slot``'s blocks to the pool and clear its table row."""
+        row = self._slot_blocks[slot]
+        if row:
+            for blk in row:
+                self._allocator.decref(blk)
+            self._slot_blocks[slot] = []
+            self._table_host[slot, :] = 0
+            self._table_dirty = True
+        self._dispatched_tokens[slot] = 0
+
+    def _push_table(self) -> None:
+        """Upload the block-table mirror if admission or top-ups changed it."""
+        if self.kv_block and self._table_dirty:
+            self.cache.block_table.copy_(self._up(self._table_host))
+            self._table_dirty = False
+
     def _up(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
     def _prefill_step(self) -> None:
+        self._push_table()
         P, c = self.prefill_batch, self.prefill_chunk
         rows = list(self._prefilling.items())[:P]
         tokens = np.zeros((P, c), dtype=np.int64)
@@ -410,6 +542,29 @@ class InferenceEngine:
             self._emit(slot, req, int(first_h[i]), float(first_lp_h[i]))
 
     def _decode_window(self) -> None:
+        if self.kv_block:
+            # Allocation stays ahead of the window about to run (its writes
+            # land before the host sees its tokens). A dry pool mid-stream
+            # fails the request: the honest outcome of an oversubscribed
+            # pool.
+            for i, req in enumerate(self._slots):
+                if req is None:
+                    continue
+                need = (len(req.prompt_ids) + self._dispatched_tokens[i]
+                        + self.window_k + 1)
+                if self._ensure_blocks(i, need):
+                    self._dispatched_tokens[i] += self.window_k
+                    continue
+                self._fail(req, RuntimeError(
+                    "KV block pool exhausted mid-generation (raise "
+                    "kv_pool_blocks or lower concurrency)"
+                ))
+                self._slots[i] = None
+                self._slot_state_dirty = True
+                self._release_blocks(i)
+            self._push_table()
+            if all(s is None for s in self._slots):
+                return
         if self._slot_state_dirty:
             active = np.zeros((self.n_slots,), dtype=bool)
             temps = np.ones((self.n_slots,), dtype=np.float32)
@@ -477,6 +632,8 @@ class InferenceEngine:
         )
         self._slots[slot] = None
         self._slot_state_dirty = True
+        if self.kv_block:
+            self._release_blocks(slot)
         if not req.future.done():
             req.future.set_result(result)
         req.stream.put(None)

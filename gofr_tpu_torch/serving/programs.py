@@ -29,7 +29,7 @@ from gofr_tpu_torch.models.transformer import (
     decode_step,
     prefill_chunk,
 )
-from gofr_tpu_torch.ops.kv_cache import KVCache
+from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
 
 _M32 = 0xFFFFFFFF
 _MIX = 0x45D9F3B  # < 2**27: a 32-bit value times it stays inside int64
@@ -110,7 +110,7 @@ class SlotPlanes:
 
 def prefill_chunk_step(
     params: dict,
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     cfg: TransformerConfig,
     rope: Rope,
     planes: SlotPlanes,
@@ -156,7 +156,7 @@ def prefill_chunk_step(
 
 def decode_window(
     params: dict,
-    cache: KVCache,
+    cache: KVCache | PagedKVCache,
     cfg: TransformerConfig,
     rope: Rope,
     planes: SlotPlanes,

@@ -1,5 +1,6 @@
 """Parameters of the port: conversion from and to the reference pytree,
-and random initialisation on the device."""
+and random initialisation on the device; and a reference KV cache carried
+over into the port's layout."""
 
 from __future__ import annotations
 
@@ -14,8 +15,10 @@ from gofr_tpu_torch.models.transformer import (
     check_supported,
     init_params,
 )
+from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
 
-__all__ = ["init_params", "params_from_jax", "params_to_reference"]
+__all__ = ["init_params", "kv_cache_from_jax", "params_from_jax",
+           "params_to_reference"]
 
 
 def params_from_jax(
@@ -77,3 +80,37 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
         "final_norm": n(params["final_norm"]),
         "lm_head": n(params["lm_head"]),
     }
+
+
+def _from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    """A host array → a tensor of the same dtype (bf16 through f32, which
+    is exact: numpy has no bf16 of its own)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def kv_cache_from_jax(
+    np_cache: Any, device: torch.device | str | None = None,
+) -> KVCache | PagedKVCache:
+    """A reference ``KVCache`` or ``PagedKVCache`` (its fields as numpy
+    arrays) → the port's cache of the same kind, dtype and contents. The
+    int8 scale planes drop the reference's x8 sublane replication
+    (``k_s[..., 0, :]``). CUDA unless ``device="cpu"``."""
+    device = resolve_device(device)
+
+    def scales(a: Any) -> Any:
+        return None if a is None else _from_numpy(np.asarray(a)[..., 0, :], device)
+
+    fields = dict(
+        k=_from_numpy(np_cache.k, device), v=_from_numpy(np_cache.v, device),
+        lengths=_from_numpy(np_cache.lengths, device).to(torch.int32),
+        k_s=scales(np_cache.k_s), v_s=scales(np_cache.v_s),
+    )
+    if hasattr(np_cache, "block_table"):
+        return PagedKVCache(
+            block_table=_from_numpy(np_cache.block_table, device).to(torch.int32),
+            **fields,
+        )
+    return KVCache(**fields)

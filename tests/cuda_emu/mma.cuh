@@ -14,7 +14,7 @@ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], const uint32_t
   for (int i = 0; i < 4; ++i) f[6 * tid + i] = a[i];
   f[6 * tid + 4] = b[0];
   f[6 * tid + 5] = b[1];
-  mock_ctx->warp[w]->arrive_and_wait();
+  mock_warp_sync();
   const uint32_t* wf = f + 6 * 32 * w;
   auto A = [&](int row, int col) {  // a[reg] of lane (row%8)*4 + (col%8)/2
     const int reg = (row >= 8 ? 1 : 0) + (col >= 8 ? 2 : 0);
@@ -30,7 +30,7 @@ inline void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], const uint32_t
     for (int k = 0; k < 16; ++k) acc += A(row, k) * B(k, col);
     d[e] = acc;
   }
-  mock_ctx->warp[w]->arrive_and_wait();
+  mock_warp_sync();
 }
 
 inline uint32_t pack_bf16x2(float lo, float hi) {

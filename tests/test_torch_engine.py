@@ -1,8 +1,10 @@
 """The port's serving engine against the reference engine: the same
 weights (``init_transformer`` → ``params_from_jax``) must give identical
 greedy token ids on ``llama-tiny-f32`` for concurrent prompts that reuse
-slots and span several prefill chunks. Plus the port's own contracts:
-seeded sampling independent of the batch, and no silent CPU fallback.
+slots and span several prefill chunks — on the slot cache, the paged
+pool, the int8 cache and both — and the same prompt limit, budget clamp
+and pool errors. Plus the port's own contracts: seeded sampling
+independent of the batch, pool deferral, and no silent CPU fallback.
 """
 
 import jax
@@ -31,15 +33,32 @@ def jax_params():
 
 
 @pytest.fixture(scope="module")
-def engine(jax_params):
-    params = params_from_jax(
+def port_params(jax_params):
+    return params_from_jax(
         jax.tree_util.tree_map(np.asarray, jax_params), get_model(MODEL).config,
         device="cpu",
     )
-    eng = InferenceEngine(MODEL, params=params, tokenizer=ByteTokenizer(),
+
+
+@pytest.fixture(scope="module")
+def engine(port_params):
+    eng = InferenceEngine(MODEL, params=port_params, tokenizer=ByteTokenizer(),
                           device="cpu", **GEOMETRY)
     yield eng
     eng.close()
+
+
+def _ref_engine(jax_params, **kw):
+    ref = RefEngine(MODEL, params=jax_params, tokenizer=RefByteTokenizer(), **kw)
+    ref.start_sync()
+    return ref
+
+
+@pytest.fixture(scope="module")
+def ref_engine(jax_params):
+    ref = _ref_engine(jax_params, **GEOMETRY)
+    yield ref
+    ref.stop_sync()
 
 
 def _prompts():
@@ -49,17 +68,13 @@ def _prompts():
     return [rng.integers(0, 256, n).tolist() for n in (40, 16, 3)]
 
 
-def test_greedy_streams_equal_reference_engine(engine, jax_params):
-    ref = RefEngine(MODEL, params=jax_params, tokenizer=RefByteTokenizer(),
-                    **GEOMETRY)
-    ref.start_sync()
-    try:
-        want = [
-            r.future.result(timeout=120).token_ids
-            for r in [ref.submit_generate(p, max_new_tokens=12) for p in _prompts()]
-        ]
-    finally:
-        ref.stop_sync()
+def _streams(eng, prompts, **kw):
+    reqs = [eng.submit_generate(p, **kw) for p in prompts]
+    return [r.future.result(timeout=120).token_ids for r in reqs]
+
+
+def test_greedy_streams_equal_reference_engine(engine, ref_engine):
+    want = _streams(ref_engine, _prompts(), max_new_tokens=12)
     reqs = [engine.submit_generate(p, max_new_tokens=12) for p in _prompts()]
     got = [r.future.result(timeout=120) for r in reqs]
     assert [g.token_ids for g in got] == want
@@ -67,6 +82,109 @@ def test_greedy_streams_equal_reference_engine(engine, jax_params):
         assert len(g.token_ids) == 12 or g.token_ids[-1] == ByteTokenizer.eos_id
         assert np.all(np.isfinite(g.token_logprobs))
     assert engine.prefill_steps >= 3  # the long prompt took several chunks
+
+
+@pytest.mark.parametrize(
+    "kv", [dict(kv_block=16), dict(kv_quant="int8"), dict(kv_block=16, kv_quant="int8")],
+    ids=["paged", "int8", "paged+int8"],
+)
+def test_greedy_streams_equal_reference_engine_on_kv_variants(port_params, jax_params, kv):
+    """The same prompts through both engines on a B=16 pool, an int8
+    cache, or both: identical greedy streams; the pool is whole again
+    after the run."""
+    ref = _ref_engine(jax_params, **GEOMETRY, **kv)
+    try:
+        want = _streams(ref, _prompts(), max_new_tokens=12)
+    finally:
+        ref.stop_sync()
+    eng = InferenceEngine(MODEL, params=port_params, tokenizer=ByteTokenizer(),
+                          device="cpu", **GEOMETRY, **kv)
+    try:
+        assert _streams(eng, _prompts(), max_new_tokens=12) == want
+        total, used, _ = eng.kv_pool_counts()
+        assert used == 0 and total == (16 if "kv_block" in kv else 0)
+    finally:
+        eng.close()
+
+
+def test_prompt_limit_and_budget_match_reference(engine, ref_engine):
+    """Room for the windows in flight, as the reference reserves it
+    (pipeline_depth 2): at max_len 128 and window_k 4 the longest prompt
+    is 128 - 2 - 3*4 = 114, and a 100-token prompt gets at most
+    128 - 1 - 100 - 12 = 15 tokens."""
+    from gofr_tpu.errors import ErrorPromptTooLong
+
+    assert engine.max_prompt_tokens == ref_engine.max_prompt_tokens == 114
+    long = list(range(2, 117))  # 115 tokens
+    with pytest.raises(ValueError, match="exceeds"):
+        engine.submit_generate(long)
+    with pytest.raises(ErrorPromptTooLong):
+        ref_engine.submit_generate(long)
+    prompt = np.random.default_rng(9).integers(0, 256, 100).tolist()
+    kw = dict(max_new_tokens=30, stop_on_eos=False)
+    want = _streams(ref_engine, [prompt], **kw)[0]
+    assert len(want) == 15
+    assert _streams(engine, [prompt], **kw)[0] == want
+    with pytest.raises(NotImplementedError, match="pipeline_depth"):
+        InferenceEngine(MODEL, device="cpu", pipeline_depth=3)
+
+
+def test_tight_pool_defers_admission_and_completes(engine, port_params):
+    """Four 40-token prompts on four slots over 8 allocatable blocks of 16:
+    three blocks each at admission, four at their peak, so the last two
+    wait for the first two to retire. Every stream equals the slot
+    cache's, and every block comes back."""
+    prompts = [np.random.default_rng(i).integers(0, 256, 40).tolist() for i in range(4)]
+    want = _streams(engine, prompts, max_new_tokens=8)
+    tight = InferenceEngine(MODEL, params=port_params, tokenizer=ByteTokenizer(),
+                            device="cpu", **{**GEOMETRY, "n_slots": 4},
+                            kv_block=16, kv_pool_blocks=9)
+    try:
+        assert _streams(tight, prompts, max_new_tokens=8) == want
+        assert tight.kv_admission_waits > 0
+        assert tight.kv_blocks_peak == 8
+        assert tight.kv_pool_counts() == (8, 0, 0)
+        assert len(tight._allocator.free_blocks) == 8
+    finally:
+        tight.close()
+
+
+def test_pool_errors_match_reference(port_params, jax_params):
+    """Four allocatable blocks of 16: a 70-token prompt needs five and
+    fails at admission; two 20-token prompts generating 30 tokens each
+    outgrow the pool, and one of them fails mid-generation — the same
+    RuntimeErrors in both engines. The port's pool is whole afterwards."""
+    kw = dict(**GEOMETRY, kv_block=16, kv_pool_blocks=5)
+    rng = np.random.default_rng(4)
+    big = rng.integers(0, 256, 70).tolist()
+    pair = [rng.integers(0, 256, 20).tolist() for _ in range(2)]
+
+    def outcomes(eng):
+        with pytest.raises(RuntimeError, match="KV blocks but the pool has 4"):
+            eng.submit_generate(big, max_new_tokens=4).future.result(timeout=120)
+        reqs = [eng.submit_generate(p, max_new_tokens=30, stop_on_eos=False) for p in pair]
+        out = []
+        for r in reqs:
+            try:
+                out.append(len(r.future.result(timeout=120).token_ids))
+            except RuntimeError as exc:
+                assert "exhausted mid-generation" in str(exc)
+                out.append("exhausted")
+        return out
+
+    ref = _ref_engine(jax_params, **kw)
+    try:
+        want = outcomes(ref)
+    finally:
+        ref.stop_sync()
+    eng = InferenceEngine(MODEL, params=port_params, tokenizer=ByteTokenizer(),
+                          device="cpu", **kw)
+    try:
+        got = outcomes(eng)
+        assert eng.kv_pool_counts() == (4, 0, 0)
+    finally:
+        eng.close()
+    assert sorted(map(str, got)) == sorted(map(str, want)) == ["30", "exhausted"]
 
 
 def test_seeded_sampling_is_batch_independent(engine):
@@ -144,8 +262,8 @@ def test_unported_options_raise(engine):
         engine.submit_generate("x", top_p=0.5)
     with pytest.raises(NotImplementedError):
         engine.submit_generate("x", logit_bias={1: 2.0})
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(MODEL, device="cpu", kv_block=16)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        InferenceEngine(MODEL, device="cpu", auto_prefix=True)
     with pytest.raises(NotImplementedError):
         InferenceEngine("mistral-7b", device="cpu")
 

@@ -13,6 +13,7 @@ from gofr_tpu_torch.ops.attention import FlashAttentionFn
 from gofr_tpu_torch.ops.cuda import flash_attention as fa
 from gofr_tpu_torch.ops.cuda import flash_decode as fd
 from gofr_tpu_torch.ops.cuda import flash_prefill as fp
+from gofr_tpu_torch.ops.kv_cache import fake_quantize_kv, quantize_kv
 
 
 @pytest.fixture
@@ -68,6 +69,110 @@ def test_flash_cache_attention_kernel_matches_plain_on_gpu(cuda_device):
     assert fp.launches == before + 1
     want = fp.flash_cache_attention_plain(q, kc, vc, slots, starts, lens)
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+# (int8, pool block): the serving kernels' variants.
+VARIANTS = {"int8": (True, 0), "paged": (False, 32), "paged+int8": (True, 16)}
+
+
+def _variant(gen, dev, variant, rows, KV, max_len, hd, keys):
+    """Cache kwargs for a variant (int8 values and scales quantized from
+    normal values; a pool under a shuffled table with garbage in the
+    parking block and two unused blocks) and the same keys as a slot
+    cache, for the bit-for-bit check."""
+    quant, B = VARIANTS[variant]
+    cache = [torch.randn((rows, KV, max_len, hd), generator=gen, device=dev).to(torch.bfloat16)
+             for _ in range(2)]
+    if quant:
+        (k, ks), (v, vs) = (quantize_kv(t) for t in cache)
+        cache = [k, v, ks, vs]
+    flat = dict(zip(("k_cache", "v_cache", "k_scale", "v_scale"), cache))
+    if not B:
+        return flat, None
+    need = [-(-n // B) for n in keys]
+    n_blocks = sum(need) + 3
+    perm = (torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1).tolist()
+    table = torch.zeros((rows, max_len // B), dtype=torch.int32)
+    pools = [torch.full((n_blocks, KV, B, *t.shape[3:]), -3e4 if t.dtype != torch.int8 else -127,
+                        dtype=t.dtype, device=dev) for t in cache]
+    for r in range(rows):
+        for j in range(need[r]):
+            blk = perm.pop()
+            table[r, j] = blk
+            for pool, t in zip(pools, cache):
+                pool[blk] = t[r, :, j * B:(j + 1) * B]
+    paged = dict(zip(("k_cache", "v_cache", "k_scale", "v_scale"), pools))
+    paged["block_table"] = table.to(dev)
+    return paged, flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True], ids=["written", "split"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_flash_decode_variants_match_plain_on_gpu(cuda_device, variant, split):
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    S, H, KV, hd, max_len = 8, 32, 8, 128, 512
+    lengths = [0, 1, 100, 257, 511, 64, 3, 300]
+    kw, flat = _variant(gen, cuda_device, variant, S, KV, max_len, hd, lengths)
+    q = torch.randn((S, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    new = {}
+    if split:
+        new = {k: torch.randn((S, KV, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+               for k in ("k_new", "v_new")}
+        if "int8" in variant:
+            new = {k: fake_quantize_kv(t) for k, t in new.items()}
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fd.launches
+    got = fd.flash_decode(q, lengths=lens, **new, **kw)
+    torch.cuda.synchronize()
+    assert fd.launches == before + 1
+    want = fd.flash_decode_plain(q, lengths=lens, **new, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    if flat is not None:  # the pool gives the slot cache's bits
+        assert torch.equal(got, fd.flash_decode(q, lengths=lens, **new, **flat))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_flash_cache_attention_variants_match_plain_on_gpu(cuda_device, variant):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    P, c, S, H, KV, hd, max_len = 4, 64, 4, 32, 8, 128, 512
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    rows = [(2, 0, 64), (0, 64, 17), (3, 300, 64), (2, 0, 64)]
+    keys = [max([s0 + n for sl, s0, n in rows if sl == r] or [0]) for r in range(S)]
+    kw, flat = _variant(gen, cuda_device, variant, S, KV, max_len, hd, keys)
+    q = torch.randn((P, c, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q[3] = q[0]
+    slots, starts, lens = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    before = fp.launches
+    got = fp.flash_cache_attention(q, slots=slots, starts=starts, lens=lens, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == before + 1
+    want = fp.flash_cache_attention_plain(q, slots=slots, starts=starts, lens=lens, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    assert torch.all(got[1, 17:] == 0)
+    if flat is not None:
+        assert torch.equal(got, fp.flash_cache_attention(q, slots=slots, starts=starts,
+                                                         lens=lens, **flat))
+
+
+@pytest.mark.gpu
+def test_variant_kernels_refuse_what_they_do_not_take(cuda_device):
+    """No fallback: a pool block that is not a multiple of 16, int8 values
+    without scales, or one scale without the other raise on a card."""
+    dev = cuda_device
+    q = torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    pool = torch.zeros((5, 2, 24, 64), dtype=torch.bfloat16, device=dev)
+    table = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fd.flash_decode(q, pool, pool, lens, block_table=table)
+    i8 = torch.zeros((2, 2, 64, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q, i8, i8, lens)
+    sc = torch.ones((2, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="together"):
+        fd.flash_decode(q, i8, i8, lens, k_scale=sc)
 
 
 @pytest.mark.gpu

@@ -34,7 +34,8 @@ names = ["chip_smoke"] + [
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-for fn in (chip_smoke.phase_kernels, chip_smoke.phase_forward, chip_smoke.phase_serve,
+for fn in (chip_smoke.phase_kernels, chip_smoke.phase_kernel_variants,
+           chip_smoke.phase_forward, chip_smoke.phase_serve,
            chip_smoke.phase_profile, chip_smoke.phase_flash_attention,
            chip_smoke.phase_attention_grad, chip_smoke.phase_train,
            chip_smoke.phase_prefill_padded):

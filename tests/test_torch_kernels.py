@@ -1,9 +1,11 @@
 """The plain versions of the port's two serving kernels against the
 reference's Pallas kernels (run as the reference's own tests run them on
-CPU: interpret mode) and its dense formulas, on the same numpy inputs;
-and the dispatch of ``gofr_tpu_torch.ops.attention`` (the CUDA kernels
+CPU: interpret mode) and its dense formulas, on the same numpy inputs —
+bf16 contiguous caches and the int8, paged and paged+int8 variants — and
+the dispatch of ``gofr_tpu_torch.ops.attention`` (the CUDA kernels
 themselves are held against the plain versions on a GPU, in
-``test_torch_gpu.py`` and ``chip_smoke.py``).
+``test_torch_gpu.py`` and ``chip_smoke.py``, and on the CPU emulator in
+``test_torch_cuda_emulation.py``).
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,12 @@ from gofr_tpu_torch.ops.cuda import launch_counts
 # f32 on both sides, same online-vs-dense softmax algebra in another
 # order: the reference's own kernel tests hold interpret mode to 2e-5.
 TOL = 2e-5
+# bf16 queries against the Pallas kernel: the plain version rounds the
+# normalized probabilities (and, in the split convention, the merge) to
+# bf16 where the kernel rounds the unnormalized ones and divides in f32,
+# and both round the output: a few bf16 ulps (2**-8 relative) on values of
+# magnitude ~1.
+BF16_TOL = 3e-2
 
 
 def _rand(rng, *shape):
@@ -129,28 +137,211 @@ def test_attention_dispatch_on_cpu_takes_the_plain_version():
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {"k_scale": "s", "v_scale": "s"},
-        {"block_table": "bt"},
-        {"window": 16},
-    ],
-    ids=["int8", "paged", "window"],
-)
+# -- int8 / paged / paged+int8 ---------------------------------------------
+
+VARIANTS = {"int8": (True, 0), "paged": (False, 16), "paged+int8": (True, 16)}
+
+
+def _int8_cache(rng, *shape):
+    """int8 values and positive f32 scales of a [..., hd] cache."""
+    return (rng.integers(-127, 128, shape).astype(np.int8),
+            (rng.random(shape[:-1]) * 0.05 + 0.01).astype(np.float32))
+
+
+def _to_pool(rng, arrays, keys, B):
+    """Move keys [0, keys[r]) of each row of [rows, KV, max_len, ...]
+    arrays into pools [n_blocks, KV, B, ...] under a shuffled table; the
+    parking block 0, two unused blocks and every unallocated table entry
+    (0) hold large garbage of each array's dtype."""
+    rows, KV, max_len = arrays[0].shape[:3]
+    need = [-(-n // B) for n in keys]
+    n_blocks = sum(need) + 3
+    perm = iter(rng.permutation(np.arange(1, n_blocks)).tolist())
+    pools = []
+    for a in arrays:
+        shape = (n_blocks, KV, B, *a.shape[3:])
+        if a.dtype == np.int8:
+            pools.append(rng.integers(-127, 128, shape).astype(np.int8))
+        else:
+            pools.append((rng.choice([-1.0, 1.0], shape) * 3e4).astype(a.dtype))
+    table = np.zeros((rows, max_len // B), np.int32)
+    for r in range(rows):
+        for j in range(need[r]):
+            blk = next(perm)
+            table[r, j] = blk
+            for pool, a in zip(pools, arrays):
+                pool[blk] = a[r, :, j * B:(j + 1) * B]
+    return pools, table
+
+
+def _variant_cache(rng, variant, rows, KV, max_len, hd, keys):
+    """(port kwargs of numpy arrays, reference kwargs) for one variant:
+    caches, and the scales (reference: replicated x8) and block table."""
+    quant, B = VARIANTS[variant]
+    if quant:
+        (kc, ks), (vc, vs) = (_int8_cache(rng, rows, KV, max_len, hd) for _ in range(2))
+        arrays = [kc, vc, ks, vs]
+    else:
+        arrays = [_rand(rng, rows, KV, max_len, hd), _rand(rng, rows, KV, max_len, hd)]
+    table = None
+    if B:
+        arrays, table = _to_pool(rng, arrays, keys, B)
+    port = dict(k_cache=arrays[0], v_cache=arrays[1])
+    if quant:
+        port.update(k_scale=arrays[2], v_scale=arrays[3])
+    if table is not None:
+        port["block_table"] = table
+    theirs = {k: (np.repeat(a[..., None, :], 8, axis=-2) if k.endswith("scale") else a)
+              for k, a in port.items()}
+    return port, theirs
+
+
+def _split_reference_kw(theirs):
+    """Caches (positional) and the reference's kwargs, as jnp arrays."""
+    kw = {k: jnp.asarray(a) for k, a in theirs.items()}
+    return kw.pop("k_cache"), kw.pop("v_cache"), kw
+
+
+def _torch_kw(port, dtype=None):
+    out = {}
+    for k, a in port.items():
+        t = torch.from_numpy(a)
+        out[k] = t.to(dtype) if dtype is not None and k.endswith("cache") and a.dtype != np.int8 else t
+    return out
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["written", "split"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_plain_flash_decode_variants_match_dense_and_pallas(variant, split):
+    """f32: the plain version against the reference's dense formula at
+    TOL. bf16 queries: against the reference's Pallas kernel (interpret
+    mode) at BF16_TOL. B=16 pools under a shuffled table with garbage in
+    the parking block."""
+    b, max_len, H, KV, hd = 3, 64, 8, 2, 32
+    lengths = np.array([0, 17, 64] if not split else [0, 17, 63], np.int32)
+    rng = np.random.default_rng(10 + split)
+    port, theirs = _variant_cache(rng, variant, b, KV, max_len, hd, lengths)
+    q, kn, vn = _rand(rng, b, H, hd), _rand(rng, b, KV, hd), _rand(rng, b, KV, hd)
+    new = dict(k_new=kn, v_new=vn) if split else {}
+    kc, vc, rkw = _split_reference_kw(theirs)
+    dense = np.asarray(ref_decode_attention(
+        jnp.asarray(q), kc, vc, jnp.asarray(lengths), kernel=False,
+        **{k: jnp.asarray(a) for k, a in new.items()}, **rkw,
+    ))
+    tkw = _torch_kw(port)
+    got = fd.flash_decode_plain(
+        torch.from_numpy(q), tkw.pop("k_cache"), tkw.pop("v_cache"),
+        torch.from_numpy(lengths), **{k: torch.from_numpy(a) for k, a in new.items()}, **tkw,
+    ).numpy()
+    rows = np.ones(b, bool) if split else lengths > 0
+    np.testing.assert_allclose(got[rows], dense[rows], atol=TOL, rtol=TOL)
+    if not split:
+        assert np.all(got[lengths == 0] == 0.0)
+
+    # bf16 queries (the serving dtype) against the Pallas kernel.
+    bf = jnp.bfloat16
+    want = np.asarray(ref_flash_decode(
+        jnp.asarray(q, bf), kc.astype(bf) if kc.dtype != jnp.int8 else kc,
+        vc.astype(bf) if vc.dtype != jnp.int8 else vc, jnp.asarray(lengths),
+        block_k=16, interpret=True,
+        **{k: jnp.asarray(a, bf) for k, a in new.items()}, **rkw,
+    ).astype(jnp.float32))
+    tkw = _torch_kw(port, torch.bfloat16)
+    got = fd.flash_decode_plain(
+        torch.from_numpy(q).bfloat16(), tkw.pop("k_cache"), tkw.pop("v_cache"),
+        torch.from_numpy(lengths),
+        **{k: torch.from_numpy(a).bfloat16() for k, a in new.items()}, **tkw,
+    ).float().numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_plain_flash_cache_attention_variants_match_dense_and_pallas(variant):
+    """Rows: a full chunk at 0, a short chunk mid-cache crossing a block
+    boundary, a full chunk ending at max_len, a padding row duplicating
+    row 0; f32 against the dense formula, bf16 against Pallas."""
+    P, c, S, max_len, H, KV, hd = 4, 16, 4, 128, 8, 2, 32
+    slots = np.array([1, 3, 0, 1], np.int32)
+    starts = np.array([0, 40, 112, 0], np.int32)
+    lens = np.array([16, 5, 16, 16], np.int32)
+    keys = [0] * S
+    for sl, st, n in zip(slots, starts, lens):
+        keys[sl] = max(keys[sl], st + n)
+    rng = np.random.default_rng(20)
+    port, theirs = _variant_cache(rng, variant, S, KV, max_len, hd, keys)
+    q = _rand(rng, P, c, H, hd)
+    q[3] = q[0]
+    rows = [jnp.asarray(a) for a in (slots, starts, lens)]
+    kc, vc, rkw = _split_reference_kw(theirs)
+    dense = np.asarray(ref_chunk_attention(jnp.asarray(q), kc, vc, *rows, kernel=False, **rkw))
+    trows = [torch.from_numpy(a) for a in (slots, starts, lens)]
+    tkw = _torch_kw(port)
+    got = fp.flash_cache_attention_plain(
+        torch.from_numpy(q), tkw.pop("k_cache"), tkw.pop("v_cache"), *trows, **tkw
+    ).numpy()
+    np.testing.assert_allclose(got, dense, atol=TOL, rtol=TOL)
+    assert np.all(got[1, 5:] == 0.0)
+    np.testing.assert_array_equal(got[3], got[0])
+
+    bf = jnp.bfloat16
+    want = np.asarray(ref_flash_cache_attention(
+        jnp.asarray(q, bf), kc.astype(bf) if kc.dtype != jnp.int8 else kc,
+        vc.astype(bf) if vc.dtype != jnp.int8 else vc, *rows, block_k=16,
+        interpret=True, **rkw,
+    ).astype(jnp.float32))
+    tkw = _torch_kw(port, torch.bfloat16)
+    got = fp.flash_cache_attention_plain(
+        torch.from_numpy(q).bfloat16(), tkw.pop("k_cache"), tkw.pop("v_cache"), *trows, **tkw
+    ).float().numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_attention_dispatch_passes_variants_through():
+    """decode_attention / cache_chunk_attention hand k_scale, v_scale and
+    block_table to the kernel wrappers, whose CPU path is the plain
+    version: the same result as calling it directly."""
+    rng = np.random.default_rng(30)
+    lengths = np.array([5, 40], np.int32)
+    port, _ = _variant_cache(rng, "paged+int8", 2, 2, 64, 32, lengths)
+    tkw = _torch_kw(port)
+    kc, vc = tkw.pop("k_cache"), tkw.pop("v_cache")
+    q, kn, vn = (torch.from_numpy(a) for a in (_rand(rng, 2, 4, 32), _rand(rng, 2, 2, 32),
+                                               _rand(rng, 2, 2, 32)))
+    lens = torch.from_numpy(lengths)
+    a = attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn, **tkw)
+    b = fd.flash_decode_plain(q, kc, vc, lens, k_new=kn, v_new=vn, **tkw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    rows = [torch.tensor(v, dtype=torch.int32) for v in ([0, 1], [0, 30], [5, 10])]
+    qc = torch.from_numpy(_rand(rng, 2, 16, 4, 32))
+    a = attention.cache_chunk_attention(qc, kc, vc, *rows, **tkw)
+    b = fp.flash_cache_attention_plain(qc, kc, vc, *rows, **tkw)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kwargs", [{"window": 16}], ids=["window"])
 def test_unported_variants_raise(kwargs):
     q, kc, vc, kn, vn = (
         torch.from_numpy(a) for a in _decode_inputs(4, 2, 64, 4, 2, 32)
     )
     lens = torch.tensor([3, 6], dtype=torch.int32)
-    stand_in = {"s": torch.ones(2, 2, 8, 64), "bt": torch.zeros(2, 4, dtype=torch.int32)}
-    kw = {k: stand_in.get(v, v) if isinstance(v, str) else v for k, v in kwargs.items()}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn, **kw)
+        attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         attention.cache_chunk_attention(
-            q[:, None], kc, vc, lens, lens, lens, **kw
+            q[:, None], kc, vc, lens, lens, lens, **kwargs
         )
+    # A pool's capacity is its table width x block: a window of that size
+    # cannot bind and is dropped.
+    pool = kc.reshape(8, 2, 16, 32)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 0]], dtype=torch.int32)
+    a = attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
+                                   block_table=table, window=64)
+    b = attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
+                                   block_table=table)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
+                                   block_table=table, window=63)
 
 
 def test_window_that_cannot_bind_is_dropped():

@@ -1,6 +1,9 @@
 """The port's Llama forward (gofr_tpu_torch.models.transformer) against the
 reference (gofr_tpu.models.transformer) on the same weights: one chunked
-prefill step then three split-softmax decode steps, both on the CPU.
+prefill step then three split-softmax decode steps, both on the CPU, on
+the bf16/f32 slot cache and — from one reference cache state carried
+across by ``kv_cache_from_jax`` — on the int8, paged and paged+int8
+caches.
 
 The reference runs its dense attention (``dense_attn=True``); the port
 runs its default dispatch, which on CPU tensors is the plain version of
@@ -22,6 +25,7 @@ from gofr_tpu.models.transformer import (
     transformer_prefill_chunk,
 )
 from gofr_tpu.ops.kv_cache import KVCache as RefKVCache
+from gofr_tpu.ops.kv_cache import PagedKVCache as RefPagedKVCache
 from gofr_tpu_torch.models.registry import get_model
 from gofr_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -31,8 +35,8 @@ from gofr_tpu_torch.models.transformer import (
     prefill_chunk,
     rope_tables,
 )
-from gofr_tpu_torch.ops.kv_cache import KVCache
-from gofr_tpu_torch.weights import params_from_jax
+from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache, paged_view
+from gofr_tpu_torch.weights import kv_cache_from_jax, params_from_jax
 
 # f32: both sides do the same f32 arithmetic in another order (XLA vs
 # torch CPU kernels); over 2 layers the logits agree to ~1e-6 relative, so
@@ -116,6 +120,141 @@ def test_prefill_then_decode_matches_reference(name):
             np.asarray(ref_cache.v[:, slot, :, :n], dtype=np.float32),
             atol=tol, rtol=tol,
         )
+
+
+def _logical(cache, slot, n):
+    """[L, KV, n, hd] keys (and [L, KV, n] K scales or None) of a port
+    cache's slot, gathered through the table for a pool."""
+    if isinstance(cache, PagedKVCache):
+        rows = torch.tensor([slot])
+        ks = [paged_view(cache.block_table, cache.k[l], cache.v[l], rows,
+                         *((cache.k_s[l], cache.v_s[l]) if cache.quantized else ()))
+              for l in range(cache.k.shape[0])]
+        k = torch.stack([x[0][0, :, :n] for x in ks])
+        sc = torch.stack([x[2][0, :, :n] for x in ks]) if cache.quantized else None
+        return k, sc
+    return cache.k[:, slot, :, :n], (cache.k_s[:, slot, :, :n] if cache.quantized else None)
+
+
+def _ref_logical(cache, slot, n):
+    k, ks = np.asarray(cache.k), None if cache.k_s is None else np.asarray(cache.k_s)
+    if isinstance(cache, RefPagedKVCache):
+        B, blocks = cache.block, np.asarray(cache.block_table)[slot]
+        k = np.concatenate([k[:, b] for b in blocks], axis=2)
+        ks = None if ks is None else np.concatenate([ks[:, b] for b in blocks], axis=3)
+        return k[:, :, :n], None if ks is None else ks[:, :, 0, :n]
+    return k[:, slot, :, :n], None if ks is None else ks[:, slot, :, 0, :n]
+
+
+def _assert_cache_equal(cache, ref_cache, written):
+    """int8: the written values equal and the scales to 1e-6 relative; f32:
+    the values to 1e-5."""
+    for slot, n in written:
+        k, ks = _logical(cache, slot, n)
+        rk, rks = _ref_logical(ref_cache, slot, n)
+        if ks is None:
+            np.testing.assert_allclose(k.float().numpy(), rk.astype(np.float32),
+                                       atol=1e-5, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(k.numpy(), rk)
+            np.testing.assert_allclose(ks.numpy(), rks, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["int8", "paged", "paged+int8"])
+def test_prefill_then_decode_variants_match_reference(variant):
+    """llama-tiny-f32 on an int8 slot cache, a B=16 pool under a shuffled
+    block table, or both. The reference's cache state (table included)
+    is carried over by ``kv_cache_from_jax``; a chunk step and three
+    decode steps then run on each side. Logits within 1e-4 (f32, see TOL);
+    the written int8 values equal and their scales within 1e-6 relative."""
+    name = "llama-tiny-f32"
+    ref_cfg = ref_get_model(name).config
+    cfg = get_model(name).config
+    jparams = init_transformer(jax.random.PRNGKey(4), ref_cfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    S, max_len, c, B = 3, 64, 8, 16
+    quant = "int8" if "int8" in variant else ""
+    rng = np.random.default_rng(1)
+    if variant.startswith("paged"):
+        ref_cache = RefPagedKVCache.create(L, S, max_len, KV, hd, dtype=ref_cfg.dtype,
+                                           quant=quant, block=B, n_blocks=S * 4 + 3)
+        table = rng.permutation(np.arange(1, S * 4 + 3))[:S * 4].reshape(S, 4)
+        ref_cache = ref_cache._replace(block_table=jnp.asarray(table, jnp.int32))
+    else:
+        ref_cache = RefKVCache.create(L, S, max_len, KV, hd, dtype=ref_cfg.dtype,
+                                      quant=quant)
+    cache = kv_cache_from_jax(_np_tree(ref_cache), device="cpu")
+
+    # Rows: slot 2 a full chunk at 0, slot 0 five tokens at 0, a padding
+    # row duplicating row 0.
+    tokens = rng.integers(0, cfg.vocab_size, (3, c)).astype(np.int32)
+    tokens[2] = tokens[0]
+    slots = np.array([2, 0, 2], np.int32)
+    starts = np.zeros(3, np.int32)
+    lens = np.array([8, 5, 8], np.int32)
+    ref_logits, ref_cache = transformer_prefill_chunk(
+        jparams, jnp.asarray(tokens), ref_cache, jnp.asarray(slots),
+        jnp.asarray(starts), jnp.asarray(lens), ref_cfg, dense_attn=True,
+    )
+    rope = rope_tables(cfg, max_len, "cpu")
+    logits = prefill_chunk(
+        params, torch.from_numpy(tokens).long(), cache, torch.from_numpy(slots),
+        torch.from_numpy(starts), torch.from_numpy(lens), cfg, rope=rope,
+    )
+    tol = TOL[name]
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=tol, rtol=tol)
+    _assert_cache_equal(cache, ref_cache, ((2, 8), (0, 5)))
+
+    lengths = np.array([5, 0, 8], np.int32)
+    ref_cache = ref_cache._replace(lengths=jnp.asarray(lengths))
+    cache.lengths.copy_(torch.from_numpy(lengths))
+    active = np.array([True, False, True])
+    for _ in range(3):
+        step_tokens = rng.integers(0, cfg.vocab_size, (S,)).astype(np.int32)
+        ref_logits, ref_cache = transformer_decode_step(
+            jparams, jnp.asarray(step_tokens), ref_cache, jnp.asarray(active),
+            ref_cfg, dense_attn=True,
+        )
+        logits = decode_step(params, torch.from_numpy(step_tokens).long(), cache,
+                             torch.from_numpy(active), cfg, rope=rope)
+        np.testing.assert_allclose(logits.numpy()[active], np.asarray(ref_logits)[active],
+                                   atol=tol, rtol=tol)
+    np.testing.assert_array_equal(cache.lengths.numpy(), np.asarray(ref_cache.lengths))
+    _assert_cache_equal(cache, ref_cache, ((0, 8), (2, 11)))
+
+
+def test_transformer_prefill_int8_cache_matches_reference():
+    """transformer_prefill on an int8 slot cache: logits, the quantized
+    K/V and their scales (1 on the zeroed rest of each row) as the
+    reference writes them."""
+    from gofr_tpu.models.transformer import transformer_prefill as ref_prefill
+    from gofr_tpu_torch.models.transformer import transformer_prefill
+
+    name = "llama-tiny-f32"
+    ref_cfg, cfg = ref_get_model(name).config, get_model(name).config
+    jparams = init_transformer(jax.random.PRNGKey(5), ref_cfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    lengths, slots = np.array([12, 7], np.int32), np.array([1, 0], np.int32)
+    ref_cache = RefKVCache.create(L, 2, 32, KV, hd, dtype=ref_cfg.dtype, quant="int8")
+    cache = kv_cache_from_jax(_np_tree(ref_cache), device="cpu")
+    want, ref_cache = ref_prefill(jparams, jnp.asarray(tokens), jnp.asarray(lengths),
+                                  ref_cache, jnp.asarray(slots), ref_cfg)
+    got = transformer_prefill(params, torch.from_numpy(tokens).long(),
+                              torch.from_numpy(lengths), cache, torch.from_numpy(slots), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
+    for slot in (0, 1):
+        np.testing.assert_array_equal(cache.v[:, slot].numpy(), np.asarray(ref_cache.v[:, slot]))
+        np.testing.assert_allclose(cache.v_s[:, slot].numpy(),
+                                   np.asarray(ref_cache.v_s[:, slot, :, 0]), rtol=1e-6, atol=0)
+    assert torch.all(cache.k_s[:, :, :, 12:] == 1)
+    with pytest.raises(TypeError, match="slot cache"):
+        transformer_prefill(params, torch.from_numpy(tokens).long(), torch.from_numpy(lengths),
+                            PagedKVCache.create(L, 2, 32, KV, hd, block=16),
+                            torch.from_numpy(slots), cfg)
 
 
 def test_params_from_jax_layout():
