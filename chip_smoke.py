@@ -19,6 +19,15 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    197 tokens, hd 64);
 3. holds FlashAttentionFn's gradients (kernel forward, dense-recompute
    backward) against autograd through the f32 plain version;
+3a. holds mistral-7b's sliding window (4096) in all three kernels at its
+   shapes (max_len 8192): flash_decode on lengths around the window's
+   edge in both conventions and flash_cache_attention on chunks past it,
+   each on the bf16 slot cache, a pool of 32, int8 and an int8 pool of 32
+   (pools bit for bit against the slot cache); flash_attention at s=8192
+   with and without per-row lengths; every case rerun with NaN in the rows
+   or key tiles below the window, which must not change a bit; the
+   windowed decode timed beside the unwindowed one; and the windowed
+   FlashAttentionFn gradients at b=1, s=6144;
 4. serves Llama-3-8B (32 layers, bf16, random weights from a seed) on the
    card: a forward check of one prefill chunk and two decode steps through
    the kernels against the plain path, on the slot cache, on pools of 32
@@ -29,6 +38,17 @@ toolkit (nvcc) and PyTorch built for CUDA. It
 5. profiles one 8-step decode window and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
    kernels launched and the top kernels by device time;
+5a. serves Mistral-7B (32 layers, bf16, random weights from a seed,
+   after Llama-3-8B is freed) past its window: a forward check from
+   prefixes of 5,000, 3,900 and 4,096 tokens (one chunk and two decode
+   steps, kernels against the plain path on the slot cache, a pool of 32,
+   int8 caches, and with the window off, which must move only the rows
+   past it); 6 concurrent requests (prompts 17 to 6,500 tokens) through
+   InferenceEngine(max_len=8192) on the bf16 slot cache and on an int8
+   pool of 641 blocks of 32; and transformer_prefill on a right-padded
+   [2, 8192] batch and transformer_forward on [1, 8192], the windowed
+   flash_attention's two entry points; then profiles one decode window
+   over 4 slots and one [4, 256] prefill chunk at 6,000 tokens of context;
 6. trains llama-1b (22 layers, full width, f32 master weights and AdamW,
    bf16 compute, random weights from a seed) through make_train_step on a
    fixed [4, 2048] batch: step-1 loss and gradients through the kernel
@@ -102,6 +122,13 @@ FORWARD_PAGED_TOL = 1e-3
 # Fill of the parking block and every pool block no row owns: a key read
 # from there would swamp its row's output.
 GARBAGE = 3e4
+# Prompt lengths of the llama-3-8b serve run (the last two: one seeded
+# sampled prompt submitted twice).
+LLAMA_PROMPTS = (1, 17, 64, 255, 256, 257, 400, 520, 700, 700)
+# mistral-7b's sliding window, and the prompts of its serve run: around,
+# across (4090 + 32 new tokens) and past the window.
+MISTRAL_WINDOW = 4096
+MISTRAL_PROMPTS = (17, 700, 4090, 4100, 5000, 6500)
 
 
 def fail(msg: str) -> None:
@@ -514,6 +541,323 @@ def phase_attention_grad(torch, dev) -> None:
         check_close(torch, f"FlashAttentionFn {name}", x.grad, y.grad, tol=GRAD_ROW_REL_TOL)
 
 
+def nan_below(torch, cache: list, table, B: int, rows_below: list) -> list:
+    """A copy of the cache tensors with NaN in logical rows [0, n) of each
+    slot (K and V; an int8 cache: its scales), through the table for a
+    pool: rows a windowed kernel must never read."""
+    out = [t.clone() for t in cache]
+    targets = out[2:] if len(out) == 4 else out[:2]
+    for r, n in enumerate(rows_below):
+        if n <= 0:
+            continue
+        if table is None:
+            for t in targets:
+                t[r, :, :n] = float("nan")
+            continue
+        j = torch.arange(n, device=table.device)
+        blk, off = table[r, j // B].long(), j % B
+        for t in targets:
+            t[blk, :, off] = float("nan")
+    return out
+
+
+def plain_attention_rows(torch, fa, q, k, v, lens, window: int, chunk: int = 1024):
+    """The f32 plain flash_attention (causal, s_q == s_kv) computed in
+    query chunks of ``chunk`` rows, each against the keys it can see: the
+    [b, KV, rep, s, s] f32 scores of s = 8192 would not fit."""
+    b, s = q.shape[:2]
+    outs = []
+    for i in range(0, s, chunk):
+        n = min(chunk, s - i)
+        ln = None if lens is None else lens.clamp(max=i + n)
+        outs.append(fa.flash_attention_plain(
+            q[:, i:i + n].float(), k[:, :i + n].float(), v[:, :i + n].float(), ln,
+            causal=True, window=window))
+    return torch.cat(outs, dim=1)
+
+
+def phase_window_kernels(torch, dev) -> dict:
+    """Mistral-7b's sliding window (4096) in all three kernels at its
+    shapes (H=32, KV=8, hd=128, max_len 8192): flash_decode on lengths
+    around the window's edge in both conventions, flash_cache_attention on
+    chunks whose window edge skips whole key tiles, each on the bf16 slot
+    cache, a pool of 32, int8 and an int8 pool of 32; flash_attention at
+    s=8192 with and without per-row lengths. Each against its f32 plain
+    version per row, each pool bit for bit against the slot cache, and
+    each rerun with NaN in every row (decode) or key tile (the tiled
+    kernels) below the window, which must not change a bit. Kernel, plain,
+    bound and library times; the windowed decode beside the unwindowed
+    one on the same lengths."""
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+    from gofr_tpu_torch.ops.cuda import flash_prefill as fp
+    from gofr_tpu_torch.ops.kv_cache import fake_quantize_kv, quantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(4096)
+    H, KV, hd, max_len, S, W = 32, 8, 128, 8192, 8, MISTRAL_WINDOW
+    i32 = dict(dtype=torch.int32, device=dev)
+    variants = [("bf16 slot cache", False, 0), ("paged B=32", False, 32),
+                ("int8", True, 0), ("paged+int8 B=32", True, 32)]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def caches(quant):
+        k, v = rnd(S, KV, max_len, hd), rnd(S, KV, max_len, hd)
+        if not quant:
+            return [k, v]
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return [k, v, ks, vs]
+
+    def kw(cache, table):
+        out = dict(k_cache=cache[0], v_cache=cache[1])
+        if len(cache) == 4:
+            out.update(k_scale=cache[2], v_scale=cache[3])
+        if table is not None:
+            out["block_table"] = table
+        return out
+
+    def f32(d):
+        return {k: (t.float() if t.dtype == torch.bfloat16 else t) for k, t in d.items()}
+
+    def bound(bytes_, flops):
+        return (max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations")
+
+    def same_bits(name: str, got, again) -> None:
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            d = (got.float() - again.float()).abs().max().item()
+            fail(f"{name}: output changed (max |d| {d}) with NaN where nothing may be read")
+
+    out = {"flash_decode": [], "flash_cache_attention": [], "flash_attention": []}
+    # -- flash_decode: lengths around the edge in both conventions (the
+    # split query sits at `length`, the written one at `length - 1`).
+    lengths = [0, 1, 100, 4095, 4096, 4097, 6000, 8191]
+    lens = torch.tensor(lengths, **i32)
+    q, kn, vn = rnd(S, H, hd), rnd(S, KV, hd), rnd(S, KV, hd)
+    logical = {quant: caches(quant) for quant in (False, True)}
+    for label, quant, B in variants:
+        knq, vnq = (fake_quantize_kv(kn), fake_quantize_kv(vn)) if quant else (kn, vn)
+        new = dict(k_new=knq, v_new=vnq)
+        cache, table = logical[quant], None
+        if B:
+            cache, table = make_pool(torch, gen, cache, lengths, B)
+        args = kw(cache, table)
+        name = f"flash_decode window {W} {label}"
+        got = fd.flash_decode(q, lengths=lens, window=W, **new, **args)
+        err, rel = check_close(torch, name + " (split)", got, fd.flash_decode_plain(
+            q.float(), lengths=lens, window=W, **f32(new), **f32(args)))
+        got_w = fd.flash_decode(q, lengths=lens, window=W, **args)
+        err_w, rel_w = check_close(torch, name + " (written)", got_w, fd.flash_decode_plain(
+            q.float(), lengths=lens, window=W, **f32(args)))
+        if B:
+            flat = kw(logical[quant], None)
+            d = max((got.float() - fd.flash_decode(q, lengths=lens, window=W, **new, **flat)
+                     .float()).abs().max().item(),
+                    (got_w.float() - fd.flash_decode(q, lengths=lens, window=W, **flat)
+                     .float()).abs().max().item())
+            log(f"{name}: max|paged - contiguous| {d}; limit {PAGED_VS_CONTIGUOUS_TOL}")
+            if d > PAGED_VS_CONTIGUOUS_TOL:
+                fail(f"{name}: the pool's result differs from the slot cache's")
+        for split, ref in ((True, got), (False, got_w)):
+            below = [max(0, (n if split else n - 1) - W + 1) for n in lengths]
+            poisoned = kw(nan_below(torch, cache, table, B, below), table)
+            same_bits(f"{name} ({'split' if split else 'written'})", ref, fd.flash_decode(
+                q, lengths=lens, window=W, **(new if split else {}), **poisoned))
+            del poisoned
+        log(f"{name}: NaN in every row below the window changes no output bit")
+        ms = time_ms(torch, lambda: fd.flash_decode(q, lengths=lens, window=W, **new, **args))
+        ms_full = time_ms(torch, lambda: fd.flash_decode(q, lengths=lens, **new, **args))
+        plain_ms = time_ms(torch, lambda: fd.flash_decode_plain(
+            q, lengths=lens, window=W, **new, **args))
+        lib_ms = None
+        if label == "bf16 slot cache":
+            # SDPA with the written convention's window as a boolean mask.
+            cols = torch.arange(max_len, device=dev)[None, :]
+            mask = ((cols < lens[:, None]) & (cols > (lens[:, None] - 1 - W)))[:, None, None, :]
+            lib_ms = time_ms(torch, lambda: sdpa(q[:, :, None, :], cache[0], cache[1],
+                                                 attn_mask=mask, enable_gqa=True))
+        # Bound (split convention): the cache rows inside each slot's window
+        # (min(length, window - 1) below the new token), q, the new K/V and
+        # the output once, and the table entries those rows need.
+        rows = sum(min(n, W - 1) for n in lengths)
+        tab = sum(-(-n // B) - max(0, n - W + 1) // B for n in lengths if n) if B else 0
+        bytes_ = (2 * S * H * hd * 2 + kv_bytes(rows, KV, hd, quant) + 2 * S * KV * hd * 2
+                  + S * 4 + 4 * tab)
+        bound_ms, bound_by = bound(bytes_, 4 * (rows + S) * H * hd)
+        out["flash_decode"].append(dict(
+            case=f"window {W} {label}", max_abs_err=max(err, err_w),
+            max_row_rel_err=max(rel, rel_w), ms=ms, ms_unwindowed=ms_full, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            shape=f"S={S} H={H} KV={KV} hd={hd} max_len={max_len} window={W} "
+                  f"lengths={lengths}" + (f" block={B}" if B else "") + (" int8" if quant else ""),
+        ))
+        log(f"{name}: kernel {ms:.4f} ms (unwindowed on the same lengths {ms_full:.4f}), "
+            f"plain {plain_ms:.4f} ms, sdpa {lib_ms}, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{bytes_} bytes)")
+        del cache, table, args
+    del logical, q, kn, vn
+
+    # -- flash_cache_attention: one full chunk per slot at starts around and
+    # past the window (row 3 a short chunk); the window edge of a row
+    # starting at s lies at s - 4095.
+    P, c = 8, 256
+    rows = [(i, s0, 100 if i == 3 else c)
+            for i, s0 in enumerate((0, 3900, 4000, 4096, 5000, 6000, 7000, 7936))]
+    q = rnd(P, c, H, hd)
+    slots, starts, lns = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    keys = [s0 + n for _, s0, n in rows]
+    logical = {quant: caches(quant) for quant in (False, True)}
+    pos = starts.long()[:, None] + torch.arange(c, device=dev)[None, :]
+    live = torch.arange(c, device=dev)[None, :] < lns.long()[:, None]
+    flops = 4 * H * hd * int(torch.where(live, pos.clamp(max=W - 1) + 1, 0).sum().item())
+    read = sum(s0 + n - max(0, s0 - W + 1) for _, s0, n in rows)
+    below = [max(0, s0 - W + 1) // 64 * 64 for _, s0, _ in rows]  # whole key tiles
+    for label, quant, B in variants:
+        cache, table = logical[quant], None
+        if B:
+            cache, table = make_pool(torch, gen, cache, keys, B)
+        args = kw(cache, table)
+        rk = dict(slots=slots, starts=starts, lens=lns, window=W)
+        name = f"flash_cache_attention window {W} {label}"
+        got = fp.flash_cache_attention(q, **rk, **args)
+        err, rel = check_close(torch, name, got, fp.flash_cache_attention_plain(
+            q.float(), **rk, **f32(args)))
+        if B:
+            d = (got.float() - fp.flash_cache_attention(q, **rk, **kw(logical[quant], None))
+                 .float()).abs().max().item()
+            log(f"{name}: max|paged - contiguous| {d}; limit {PAGED_VS_CONTIGUOUS_TOL}")
+            if d > PAGED_VS_CONTIGUOUS_TOL:
+                fail(f"{name}: the pool's result differs from the slot cache's")
+        poisoned = kw(nan_below(torch, cache, table, B, below), table)
+        same_bits(name, got, fp.flash_cache_attention(q, **rk, **poisoned))
+        del poisoned
+        log(f"{name}: NaN in every key tile below the window ({sum(below)} rows) changes "
+            "no output bit")
+        ms = time_ms(torch, lambda: fp.flash_cache_attention(q, **rk, **args))
+        plain_ms = time_ms(torch, lambda: fp.flash_cache_attention_plain(q, **rk, **args),
+                           runs=10)
+        lib_ms = None
+        if label == "bf16 slot cache":
+            cols = torch.arange(max_len, device=dev)[None, None, :]
+            dmask = ((cols <= pos[:, :, None]) & (cols > pos[:, :, None] - W)
+                     & live[:, :, None])
+            lib_ms = time_ms(torch, lambda: sdpa(q.transpose(1, 2), cache[0], cache[1],
+                                                 attn_mask=dmask[:, None], enable_gqa=True))
+        bytes_ = (2 * P * c * H * hd * 2 + kv_bytes(read, KV, hd, quant)
+                  + (4 * sum(-(-(s0 + n) // B) - max(0, s0 - W + 1) // B for _, s0, n in rows)
+                     if B else 0))
+        bound_ms, bound_by = bound(bytes_, flops)
+        out["flash_cache_attention"].append(dict(
+            case=f"window {W} {label}", max_abs_err=err, max_row_rel_err=rel, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            shape=f"P={P} c={c} H={H} KV={KV} hd={hd} max_len={max_len} window={W} "
+                  f"rows={rows}" + (f" block={B}" if B else "") + (" int8" if quant else ""),
+        ))
+        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        del cache, table, args
+    del logical, q
+
+    # -- flash_attention: causal s=8192 with the window, without and with
+    # per-row lengths (8192, 5000).
+    s = max_len
+    for label, b, lengths in (("window 4096", 1, None), ("window 4096 lengths", 2, [8192, 5000])):
+        q, k, v = rnd(b, s, H, hd), rnd(b, s, KV, hd), rnd(b, s, KV, hd)
+        lens = None if lengths is None else torch.tensor(lengths, **i32)
+        name = f"flash_attention ({label})"
+        got = fa.flash_attention(q, k, v, lens, causal=True, window=W)
+        err, rel = check_close(torch, name, got, plain_attention_rows(torch, fa, q, k, v, lens, W))
+        # A causal suffix (the last 1024 queries): key tiles wholly below
+        # its first query tile's window edge (keys 0-3071) are never read.
+        sq = 1024
+        edge = (s - sq - W + 1) // 64 * 64
+        ref = fa.flash_attention(q[:, -sq:], k, v, lens, causal=True, window=W)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :edge] = float("nan")
+        v2[:, :edge] = float("nan")
+        same_bits(name + " suffix", ref, fa.flash_attention(q[:, -sq:], k2, v2, lens,
+                                                            causal=True, window=W))
+        log(f"{name}: NaN in keys 0-{edge - 1} below a {sq}-query suffix's window changes "
+            "no output bit")
+        del k2, v2, ref
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens, causal=True, window=W))
+        plain_ms = time_ms(torch, lambda: plain_attention_rows(torch, fa, q, k, v, lens, W),
+                           runs=3)
+        vis = fa.visible_keys(b, s, s, causal=True, lengths=lens, window=W, device=dev)
+        lib_ms = time_ms(torch, lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                             v.transpose(1, 2), attn_mask=vis[:, None],
+                                             enable_gqa=True), runs=10)
+        pairs = int(vis.sum().item()) * (b // vis.shape[0])
+        keys = sum(min(n, s) for n in lengths) if lengths else b * s
+        bytes_ = 2 * b * s * H * hd * 2 + 2 * keys * KV * hd * 2 + (4 * b if lengths else 0)
+        bound_ms, bound_by = bound(bytes_, 4 * H * hd * pairs)
+        out["flash_attention"].append(dict(
+            case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            shape=f"b={b} s_q={s} s_kv={s} H={H} KV={KV} hd={hd} causal=True window={W} "
+                  f"lengths={lengths}",
+        ))
+        log(f"{name}: kernel {ms:.4f} ms, plain (1024-query chunks) {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{4 * H * hd * pairs / ms / 1e9:.1f} TFLOP/s achieved)")
+        del q, k, v, vis
+    return out
+
+
+def phase_window_grad(torch, dev) -> None:
+    """FlashAttentionFn with mistral-7b's window: gradients (kernel
+    forward, dense-recompute backward under the same window, bf16) against
+    autograd through the f32 plain version, at one Mistral layer's shape
+    past the window (b=1, s=6144, H=32, KV=8, hd=128, window 4096)."""
+    from gofr_tpu_torch.ops.attention import FlashAttentionFn
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(98)
+    b, s, H, KV, hd, W = 1, 6144, 32, 8, 128, MISTRAL_WINDOW
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                  for shape in ((b, s, H, hd), (b, s, KV, hd), (b, s, KV, hd), (b, s, H, hd)))
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    FlashAttentionFn.apply(*xs, True, None, W).backward(g)
+    grads = [x.grad for x in xs]
+    del xs
+    ys = [t.float().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention_plain(*ys, causal=True, window=W).backward(g.float())
+    for name, got, y in zip(("dq", "dk", "dv"), grads, ys):
+        check_close(torch, f"FlashAttentionFn window {W} {name}", got, y.grad,
+                    tol=GRAD_ROW_REL_TOL)
+    del ys, grads
+    torch.cuda.empty_cache()
+
+
+def compare_logits(label: str, got: list, want: list, tol: float,
+                   near_ties: bool = False) -> float:
+    """Logits of a prefill chunk and two decode steps (7 live rows each):
+    max |dlogits| within ``tol`` and the same top-1 token on every row;
+    with ``near_ties``, a row may pick another token whose logit on the
+    ``want`` side is within ``tol`` of that row's best. Returns the
+    largest max |dlogits|."""
+    worst = 0.0
+    for name, a, b in zip(("prefill", "decode1", "decode2"), got, want):
+        d = (a - b).abs().max().item()
+        worst = max(worst, d)
+        pick = a.argmax(-1)
+        differ = pick != b.argmax(-1)
+        gap = (b.max(-1).values - b.gather(-1, pick[:, None])[:, 0])[differ]
+        log(f"forward {name}, {label}: max|dlogits| = {d:.4g} (limit {tol}; logit "
+            f"range {a.min().item():.3g}..{a.max().item():.3g}), top-1 agreement "
+            f"{1 - differ.float().mean().item():.3f}"
+            + (f", differing rows' top-1 gaps {gap.tolist()}" if differ.any() else ""))
+        if d > tol:
+            fail(f"forward {name}, {label}: max|dlogits| {d} over {tol}")
+        if differ.any() and not (near_ties and gap.max().item() <= tol):
+            fail(f"forward {name}, {label}: top-1 differs on {int(differ.sum())} of the "
+                 "7 rows beyond a near-tie")
+    return worst
+
+
 def phase_forward(torch, dev, cfg, params) -> dict:
     """One prefill chunk and two decode steps, each run on its own cache:
     the bf16 slot cache through the kernels and through the plain path
@@ -561,25 +905,7 @@ def phase_forward(torch, dev, cfg, params) -> dict:
                 fail(f"forward {name} (quant={quant!r}, block={block}): non-finite logits")
         return logits
 
-    def compare(label: str, got: list, want: list, tol: float, near_ties: bool = False) -> None:
-        """max |dlogits| within ``tol`` and the same top-1 token on every
-        row; with ``near_ties``, a row may pick another token whose logit
-        on the ``want`` side is within ``tol`` of that row's best."""
-        for name, a, b in zip(("prefill", "decode1", "decode2"), got, want):
-            d = (a - b).abs().max().item()
-            pick = a.argmax(-1)
-            differ = pick != b.argmax(-1)
-            gap = (b.max(-1).values - b.gather(-1, pick[:, None])[:, 0])[differ]
-            log(f"forward {name}, {label}: max|dlogits| = {d:.4g} (limit {tol}; logit "
-                f"range {a.min().item():.3g}..{a.max().item():.3g}), top-1 agreement "
-                f"{1 - differ.float().mean().item():.3f}"
-                + (f", differing rows' top-1 gaps {gap.tolist()}" if differ.any() else ""))
-            if d > tol:
-                fail(f"forward {name}, {label}: max|dlogits| {d} over {tol}")
-            if differ.any() and not (near_ties and gap.max().item() <= tol):
-                fail(f"forward {name}, {label}: top-1 differs on {int(differ.sum())} of the "
-                     "7 rows beyond a near-tie")
-
+    compare = compare_logits
     counts = {}
 
     def counted(key: str, *args) -> list:
@@ -609,29 +935,219 @@ def phase_forward(torch, dev, cfg, params) -> dict:
     return counts
 
 
-def phase_serve(torch, dev, params, **kv) -> dict:
-    """10 concurrent requests (more than the 8 slots) through the port's
-    engine, on the slot cache or on the cache ``kv`` asks for
-    (``kv_block``, ``kv_pool_blocks``, ``kv_quant``); returns the kernels'
-    launch counts over this run."""
+def load_prefix(torch, cache, base) -> None:
+    """Copy a bf16 slot cache's contents (``base``, a KVCache) into
+    ``cache`` of any kind: quantized for int8 (as the model writes it),
+    scattered through the table for a pool whose table maps every logical
+    block; and its lengths."""
+    from gofr_tpu_torch.ops.kv_cache import PagedKVCache, quantize_kv
+
+    L, S, KV, max_len, hd = base.k.shape
+    for layer in range(L):
+        for dst, dst_s, src in ((cache.k, cache.k_s, base.k), (cache.v, cache.v_s, base.v)):
+            vals, sc = (quantize_kv(src[layer]) if cache.quantized else (src[layer], None))
+            if not isinstance(cache, PagedKVCache):
+                dst[layer].copy_(vals)
+                if sc is not None:
+                    dst_s[layer].copy_(sc)
+                continue
+            B, nb = cache.block, max_len // cache.block
+            for slot in range(S):
+                blocks = cache.block_table[slot, :nb].long()
+                dst[layer, blocks] = vals[slot].reshape(KV, nb, B, hd).transpose(0, 1)
+                if sc is not None:
+                    dst_s[layer, blocks] = sc[slot].reshape(KV, nb, B).transpose(0, 1)
+    cache.lengths.copy_(base.lengths)
+
+
+def phase_mistral_forward(torch, dev, cfg, params) -> dict:
+    """mistral-7b past its window: three slots first get prompts of 5,000,
+    3,900 and 4,096 tokens through the kernels; then, from that state, one
+    prefill chunk (rows at 5000, across the window at 3900 and 4096, and
+    inside it; a padding row) and two decode steps run on the bf16 slot
+    cache through the kernels and through the plain path, on a pool of 32
+    (against the slot cache), on int8 caches (slot and pool of 32, through
+    the kernels against the int8 plain path), and once more with the window
+    off, to show what it changes. Returns the kernels' launch counts over
+    each variant's run."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.transformer import decode_step, prefill_chunk, rope_tables
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
+
+    S, max_len, P, c = 8, 8192, 8, 256
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rope = rope_tables(cfg, max_len, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    geo = (cfg.n_layers, S, max_len, cfg.n_kv_heads, cfg.head_dim)
+    prefix = {0: 5000, 1: 3900, 3: 4096}
+    base = KVCache.create(*geo, dtype=cfg.dtype, device=dev)
+    for i in range(-(-max(prefix.values()) // c)):
+        toks = torch.randint(0, cfg.vocab_size, (len(prefix), c), generator=gen, device=dev)
+        prefill_chunk(params, toks, base, torch.tensor(list(prefix), **i32),
+                      torch.full((len(prefix),), i * c, **i32),
+                      torch.tensor([min(c, max(0, n - i * c)) for n in prefix.values()], **i32),
+                      cfg, rope=rope)
+    for slot, n in prefix.items():
+        base.lengths[slot] = n
+    # The compared chunk: (slot, start, tokens); row 7 pads, duplicating row 0.
+    rows = [(0, 5000, 256), (1, 3900, 256), (2, 0, 256), (3, 4096, 100), (4, 0, 1),
+            (5, 0, 200), (6, 0, 50), (0, 5000, 256)]
+    tokens = torch.randint(0, cfg.vocab_size, (P, c), generator=gen, device=dev)
+    tokens[P - 1] = tokens[0]
+    slots, starts, lens = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    after = torch.tensor([5256, 4156, 256, 4196, 1, 200, 50, 0], **i32)
+    active = torch.tensor([True] * 7 + [False], device=dev)
+    step_tokens = [torch.randint(0, cfg.vocab_size, (S,), generator=gen, device=dev)
+                   for _ in range(2)]
+
+    def run(quant: str, block: int, dense: bool, run_cfg=cfg) -> list:
+        if block:
+            cache = PagedKVCache.create(*geo, dtype=cfg.dtype, quant=quant, block=block,
+                                        device=dev)
+            n = S * (max_len // block)  # every block of every slot, shuffled
+            perm = torch.randperm(n, generator=gen, device=dev) + 1
+            cache.block_table.copy_(perm.reshape(S, -1).to(torch.int32))
+        else:
+            cache = KVCache.create(*geo, dtype=cfg.dtype, quant=quant, device=dev)
+        load_prefix(torch, cache, base)
+        logits = [prefill_chunk(params, tokens, cache, slots, starts, lens, run_cfg,
+                                rope=rope, dense_attn=dense)[:7]]
+        cache.lengths.copy_(after)
+        for st in step_tokens:
+            logits.append(decode_step(params, st, cache, active, run_cfg, rope=rope,
+                                      dense_attn=dense)[:7])
+        torch.cuda.synchronize()
+        for name, a in zip(("prefill", "decode1", "decode2"), logits):
+            if not torch.isfinite(a).all():
+                fail(f"mistral forward {name} (quant={quant!r}, block={block}): "
+                     "non-finite logits")
+        del cache
+        torch.cuda.empty_cache()
+        return logits
+
+    counts = {}
+
+    def counted(key: str, *args) -> list:
+        reset_launch_counts()
+        logits = run(*args)
+        counts[key] = launch_counts()
+        return logits
+
+    log("mistral forward: prefixes of 5000, 3900 and 4096 tokens written through the kernels")
+    flat = counted("contiguous", "", 0, False)
+    # The near-tie rule of the llama-3-8b int8 check: random weights put
+    # the top two logits of a row within a bf16 ulp of each other (a gap of
+    # 0.031 on the plain side in a run on an H100).
+    noise = compare_logits("mistral-7b kernels vs plain", flat, run("", 0, True),
+                           FORWARD_DLOGITS_TOL, near_ties=True)
+    compare_logits("mistral-7b pool of 32 vs slot cache (kernels)",
+                   counted("paged B=32", "", 32, False), flat, FORWARD_PAGED_TOL)
+    int8_paged = counted("paged+int8 B=32", "int8", 32, False)
+    compare_logits("mistral-7b int8 pool of 32, kernels vs plain", int8_paged,
+                   run("int8", 32, True), FORWARD_DLOGITS_TOL, near_ties=True)
+    compare_logits("mistral-7b int8 slot cache vs int8 pool of 32 (kernels)",
+                   counted("int8", "int8", 0, False), int8_paged, FORWARD_PAGED_TOL)
+    # The window's effect: rows 2, 4, 5, 6 never pass position 4095 and
+    # must not move; row 0 (slot 0, at 5000-5257) must move by more than
+    # the kernels' own distance from the plain path.
+    full = run("", 0, False, dataclasses.replace(cfg, sliding_window=0))
+    inside = [2, 4, 5, 6]
+    for name, a, b in zip(("prefill", "decode1", "decode2"), flat, full):
+        d_in = (a[inside] - b[inside]).abs().max().item()
+        d_past = [(a[r] - b[r]).abs().max().item() for r in (0, 1, 3)]
+        log(f"mistral forward {name}: window 4096 vs none (kernels): max|dlogits| {d_in:.4g} "
+            f"on rows inside the window (limit {FORWARD_PAGED_TOL}); rows past it (slots 0, "
+            f"1, 3): {[round(x, 4) for x in d_past]} (slot 0 must exceed {noise:.4g}, the "
+            "kernels' distance from the plain path)")
+        if d_in > FORWARD_PAGED_TOL or d_past[0] <= noise:
+            fail(f"mistral forward {name}: the window did not act as a window")
+    del base
+    torch.cuda.empty_cache()
+    log(f"mistral forward: launch counts per run {json.dumps(counts)}")
+    return counts
+
+
+def phase_mistral_full_sequence(torch, dev, cfg, params) -> dict:
+    """mistral-7b through the two full-sequence entry points with the
+    window: transformer_prefill on a right-padded [2, 8192] batch (lengths
+    8192 and 5000, the kernel's lengths variant) and the eval forward
+    transformer_forward on [1, 8192] (FlashAttentionFn); finite logits and
+    one flash_attention launch per layer each. Returns the launches."""
+    from gofr_tpu_torch.models.transformer import transformer_forward, transformer_prefill
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    s = 8192
+    tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=gen, device=dev)
+    cache = KVCache.create(cfg.n_layers, 2, s, cfg.n_kv_heads, cfg.head_dim,
+                           dtype=cfg.dtype, device=dev)
+    out = {}
+    before = fa.launches
+    t0 = time.perf_counter()
+    logits = transformer_prefill(params, tokens, torch.tensor([s, 5000], dtype=torch.int32,
+                                                              device=dev),
+                                 cache, torch.arange(2, dtype=torch.int32, device=dev), cfg)
+    torch.cuda.synchronize()
+    out["transformer_prefill"] = fa.launches - before
+    log(f"mistral transformer_prefill [2, {s}] (lengths {s}, 5000): "
+        f"{time.perf_counter() - t0:.3f} s, {out['transformer_prefill']} flash_attention "
+        f"launches, logits {tuple(logits.shape)}")
+    del cache
+    before = fa.launches
+    t0 = time.perf_counter()
+    full = transformer_forward(params, tokens[:1], cfg)
+    torch.cuda.synchronize()
+    out["transformer_forward"] = fa.launches - before
+    log(f"mistral transformer_forward [1, {s}]: {time.perf_counter() - t0:.3f} s, "
+        f"{out['transformer_forward']} flash_attention launches")
+    if not (torch.isfinite(logits).all() and torch.isfinite(full).all()):
+        fail("mistral full-sequence entry points: non-finite logits")
+    # The prefill's row 0 is the forward's row at its last position (the
+    # same kernel arithmetic; the GEMMs run at other batch shapes).
+    d = (logits[0] - full[0, -1]).abs().max().item()
+    log(f"mistral: transformer_prefill vs transformer_forward at position {s - 1}: "
+        f"max|dlogits| {d:.4g} (limit {FORWARD_DLOGITS_TOL})")
+    if d > FORWARD_DLOGITS_TOL:
+        fail("mistral: the padded prefill and the forward disagree on the same tokens")
+    for key, n in out.items():
+        if n != cfg.n_layers:
+            fail(f"mistral {key}: {n} flash_attention launches, not {cfg.n_layers}")
+    del full, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int = 8,
+                max_len: int = 2048, lengths: tuple = LLAMA_PROMPTS, sampled: bool = True,
+                solo: int = 4, **kv) -> dict:
+    """Concurrent requests (more than the slots) through the port's engine,
+    32 new tokens each, on the slot cache or on the cache ``kv`` asks for
+    (``kv_block``, ``kv_pool_blocks``, ``kv_quant``): greedy, except (with
+    ``sampled``) the last two, one seeded sampled prompt submitted twice;
+    prompt ``solo`` rerun alone must repeat its batched stream. Returns the
+    kernels' launch counts over the concurrent run."""
     import numpy as np
 
     from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from gofr_tpu_torch.serving.engine import InferenceEngine
 
     eng = InferenceEngine(
-        "llama-3-8b", n_slots=8, max_len=2048, window_k=8, prefill_chunk=256,
+        model, n_slots=n_slots, max_len=max_len, window_k=8, prefill_chunk=256,
         prefill_batch=8, params=params, seed=0, device=dev, **kv,
     )
-    label = f"serve {json.dumps(kv) if kv else '(bf16 slot cache)'}"
+    label = f"serve {model} {json.dumps(kv) if kv else '(bf16 slot cache)'}"
+    n = len(lengths)
     try:
         rng = np.random.default_rng(0)
         vocab = eng.cfg.vocab_size
-        lengths = [1, 17, 64, 255, 256, 257, 400, 520, 700, 700]
-        prompts = [rng.integers(0, vocab, n).tolist() for n in lengths]
-        prompts[9] = prompts[8]  # the seeded sampled request, submitted twice
-        kws = [dict(max_new_tokens=32)] * 8 + [
-            dict(max_new_tokens=32, temperature=0.8, seed=4242)] * 2
+        prompts = [rng.integers(0, vocab, m).tolist() for m in lengths]
+        kws = [dict(max_new_tokens=32)] * n
+        if sampled:  # the seeded sampled request, submitted twice
+            prompts[n - 1] = prompts[n - 2]
+            kws[n - 2:] = [dict(max_new_tokens=32, temperature=0.8, seed=4242)] * 2
         # Warm-up: cuBLAS handles and the first launches, off the record.
         eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
         torch.cuda.synchronize()
@@ -641,18 +1157,18 @@ def phase_serve(torch, dev, params, **kv) -> dict:
         results = [r.future.result(timeout=600) for r in reqs]
         wall = time.perf_counter() - t0
         counts = launch_counts()
-        log(f"{label}: launch counts over the 10-request run: {counts}")
+        log(f"{label}: launch counts over the {n}-request run: {counts}")
         eos = eng.tokenizer.eos_id
         for i, (r, res) in enumerate(zip(reqs, results)):
-            n = len(res.token_ids)
-            if not (n == 32 or (res.finish_reason == "stop" and res.token_ids[-1] == eos)):
-                fail(f"{label}: request {i} ended with {n} tokens ({res.finish_reason})")
+            m = len(res.token_ids)
+            if not (m == 32 or (res.finish_reason == "stop" and res.token_ids[-1] == eos)):
+                fail(f"{label}: request {i} ended with {m} tokens ({res.finish_reason})")
             if not np.all(np.isfinite(res.token_logprobs)):
                 fail(f"{label}: request {i} has non-finite logprobs (NaN logits)")
-        if results[8].token_ids != results[9].token_ids:
+        if sampled and results[n - 2].token_ids != results[n - 1].token_ids:
             fail(f"{label}: the two seeded sampled runs differ")
-        alone = eng.generate_sync(prompts[4], max_new_tokens=32, timeout=600)
-        if alone.token_ids != results[4].token_ids:
+        alone = eng.generate_sync(prompts[solo], max_new_tokens=32, timeout=600)
+        if alone.token_ids != results[solo].token_ids:
             fail(f"{label}: a greedy prompt alone differs from the same prompt in the batch")
         for name in ("flash_decode", "flash_cache_attention"):
             if counts[name] <= 0:
@@ -663,7 +1179,7 @@ def phase_serve(torch, dev, params, **kv) -> dict:
             (rq.token_times[-1] - rq.token_times[0]) / (len(rq.token_times) - 1)
             for rq in reqs if len(rq.token_times) > 1
         ]
-        log(f"{label}: 10 requests (prompts {lengths}, 32 new tokens each) in "
+        log(f"{label}: {n} requests (prompts {list(lengths)}, 32 new tokens each) in "
             f"{wall:.3f} s: {gen_tokens / wall:.1f} generated tok/s, TTFT p50 "
             f"{statistics.median(ttfts) * 1e3:.1f} ms (max {ttfts[-1] * 1e3:.1f}), "
             f"inter-token latency p50 {statistics.median(itls) * 1e3:.2f} ms; "
@@ -744,15 +1260,18 @@ def _profile_step(torch, name: str, fn) -> dict:
     }
 
 
-def phase_profile(torch, dev, cfg, params) -> None:
-    """Where the time goes in one 8-step decode window over 8 slots at 256
-    tokens of context, and in one [8, 256] prefill chunk at 256 tokens of
-    context, through the engine's own programs."""
+def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
+                  context: int = 256, model: str = "") -> None:
+    """Where the time goes in one 8-step decode window over S slots at
+    ``context`` tokens each, and in one [S, 256] prefill chunk starting at
+    ``context``, through the engine's own programs. Each slot's first 256
+    positions hold a prompt; the rest up to ``context`` stay zero (the time
+    depends on the lengths, not on the values)."""
     from gofr_tpu_torch.models.transformer import rope_tables
     from gofr_tpu_torch.ops.kv_cache import KVCache
     from gofr_tpu_torch.serving.programs import SlotPlanes, decode_window, prefill_chunk_step
 
-    S, max_len, P, c, k = 8, 2048, 8, 256, 8
+    P, c, k = S, 256, 8
     gen = torch.Generator(device=dev).manual_seed(0)
     cache = KVCache.create(cfg.n_layers, S, max_len, cfg.n_kv_heads, cfg.head_dim,
                            dtype=cfg.dtype, device=dev)
@@ -771,15 +1290,18 @@ def phase_profile(torch, dev, cfg, params) -> None:
 
     chunk(0)  # every slot holds a 256-token prompt
     planes.active.fill_(True)
-    lengths0 = cache.lengths.clone()
+    lengths0 = torch.full_like(cache.lengths, context)
 
     def window() -> None:
         cache.lengths.copy_(lengths0)  # the same context every repetition
         decode_window(params, cache, cfg, rope, planes, k, 2, False)
 
-    for name, fn in (("decode_window_k8", window),
-                     ("prefill_chunk_8x256", lambda: chunk(256))):
+    tag = f"_{model}_ctx{context}" if model else ""
+    for name, fn in ((f"decode_window_k8{tag}", window),
+                     (f"prefill_chunk_{P}x{c}{tag}", lambda: chunk(context))):
         log("profile: " + json.dumps(_profile_step(torch, name, fn)))
+    del cache
+    torch.cuda.empty_cache()
 
 
 def phase_train(torch, dev) -> dict:
@@ -936,7 +1458,9 @@ def main() -> None:
         kstats = phase_kernels(torch, dev)
         variants = phase_kernel_variants(torch, dev)
         kstats["flash_attention"] = phase_flash_attention(torch, dev)
+        window = phase_window_kernels(torch, dev)
     phase_attention_grad(torch, dev)
+    phase_window_grad(torch, dev)
     with torch.inference_mode():
         cfg = get_model("llama-3-8b").config
         t0 = time.perf_counter()
@@ -959,6 +1483,35 @@ def main() -> None:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    mcfg = get_model("mistral-7b").config
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        mparams = init_params(mcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"params: mistral-7b random bf16 weights on the card in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({sum(p.numel() for p in mparams.values()) / 1e9:.2f} B parameters), "
+            f"sliding window {mcfg.sliding_window}")
+        mforward_counts = phase_mistral_forward(torch, dev, mcfg, mparams)
+    mserve = dict(model="mistral-7b", n_slots=4, max_len=8192, lengths=MISTRAL_PROMPTS,
+                  sampled=False, solo=2)
+    mcounts = phase_serve(torch, dev, mparams, **mserve)
+    mpool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=641)
+    mpool_counts = phase_serve(torch, dev, mparams, **mserve, **mpool_kv)
+    bf16_tok, int8_tok = (mcfg.n_layers * kv_bytes(1, mcfg.n_kv_heads, mcfg.head_dim, quant)
+                          for quant in (False, True))
+    log(f"serve mistral-7b: KV cache bytes a token: {bf16_tok} bf16, {int8_tok} int8 with "
+        f"scales; bf16 slot cache (4 x 8192 tokens) {4 * 8192 * bf16_tok}, int8 pool (641 "
+        f"blocks of 32) {641 * 32 * int8_tok}")
+    with torch.inference_mode():
+        mfull = phase_mistral_full_sequence(torch, dev, mcfg, mparams)
+        phase_profile(torch, dev, mcfg, mparams, S=4, max_len=8192, context=6000,
+                      model="mistral-7b")
+    del mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
     train = phase_train(torch, dev)
     counts["flash_attention"] = train["counts"]["flash_attention"]
     compute = {k: p.to(train["cfg"].dtype) for k, p in train.pop("params").items()}
@@ -998,8 +1551,28 @@ def main() -> None:
                 case.update(launches=forward_counts[case["case"]][k], launches_from="forward")
             cases.append(case)
         kstats[k]["cases"] = cases
-        kstats[k]["max_abs_err"] = max(c["max_abs_err"] for c in cases)
-        kstats[k]["max_row_rel_err"] = max(c["max_row_rel_err"] for c in cases)
+    # The windowed cases (mistral-7b): launches from its serve runs (bf16
+    # slot cache, int8 pool of 32), its forward runs (pool of 32, int8
+    # slot cache) and its two full-sequence entry points.
+    for k in ("flash_decode", "flash_cache_attention"):
+        for case in window[k]:
+            variant = case["case"].split(" ", 2)[2]
+            if variant == "bf16 slot cache":
+                case.update(launches=mcounts[k], launches_from="serve mistral-7b")
+            elif variant == "paged+int8 B=32":
+                case.update(launches=mpool_counts[k],
+                            launches_from="serve mistral-7b " + json.dumps(mpool_kv))
+            else:
+                case.update(launches=mforward_counts[variant][k],
+                            launches_from="mistral-7b forward")
+            kstats[k]["cases"].append(case)
+    for case, entry in zip(window["flash_attention"],
+                           ("transformer_forward", "transformer_prefill")):
+        case.update(launches=mfull[entry], launches_from=f"mistral-7b {entry} [., 8192]")
+        kstats["flash_attention"]["cases"].append(case)
+    for k in replaces:
+        kstats[k]["max_abs_err"] = max(c["max_abs_err"] for c in kstats[k]["cases"])
+        kstats[k]["max_row_rel_err"] = max(c["max_row_rel_err"] for c in kstats[k]["cases"])
     kernels = [
         {
             "name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],

@@ -6,9 +6,11 @@
 // of its pallas_calls (without and with per-row key lengths). Query row r
 // of batch row bi sees key c when c < lengths[bi] (s_kv without lengths)
 // and, if causal, c <= r + (s_kv - s_q); query head h reads kv head
-// h / (n_heads / n_kv). A row that sees no key returns exactly 0 (the TPU
-// kernel's guarded finish), e.g. under lengths[bi] == 0 or a negative
-// causal offset. The sliding-window variant is not ported.
+// h / (n_heads / n_kv). With a causal window > 0 (Mistral's sliding
+// window) row r sees only keys c > r + (s_kv - s_q) - window as well. A row
+// that sees no key returns exactly 0 (the TPU kernel's guarded finish),
+// e.g. under lengths[bi] == 0, a negative causal offset, or a window wholly
+// past the row's length.
 //
 // What bounds it on the H100: operations. Causal training attention at
 // s = 2048 does 4 * hd * n_heads * s^2 / 2 FLOPs per batch row over
@@ -30,6 +32,11 @@
 // to bf16. V is staged transposed so both products read their B fragments
 // as 32-bit words. Causal tiles are launched longest first to shorten the
 // tail. Every sum runs in a fixed order, so the output is deterministic.
+// Window: the key-tile loop starts at the tile holding the first row's
+// window edge, max(0, row0 + offset - window + 1), so tiles wholly below it
+// are never read, and each row's own edge masks the fragments beside the
+// causal bound. Whether that compare runs per score is a template flag
+// chosen at launch, so window = 0 runs the unwindowed loop as it was.
 // First version: no copy/compute overlap (cp.async/TMA) and no wgmma yet.
 
 #include <cuda_bf16.h>
@@ -62,14 +69,15 @@ constexpr size_t smem_bytes() {
   return (size_t)(kBK * (HD + 8) + HD * (kBK + 8)) * sizeof(uint16_t);
 }
 
-// out: [b, s_q, n_heads, HD] contiguous; lengths: [b] int32 or null.
-// Grid (ceil(s_q / BQ), n_heads, b).
-template <int HD>
+// out: [b, s_q, n_heads, HD] contiguous; lengths: [b] int32 or null;
+// window: causal sliding window (WINDOW: window > 0). Grid (ceil(s_q / BQ),
+// n_heads, b).
+template <int HD, bool WINDOW>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
     __nv_bfloat16* __restrict__ out, Strides st, int s_q, int s_kv, int n_heads,
-    int n_kv, int causal, float scale) {
+    int n_kv, int causal, int window, float scale) {
   constexpr int KS = HD / 16;   // k-steps of Q.K^T
   constexpr int NT = kBK / 8;   // score n-tiles per warp
   constexpr int OT = HD / 8;    // output n-tiles per warp
@@ -116,6 +124,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int rb = ra + 8;
   const int lim_a = ra < s_q ? last_key(ra) : -1;
   const int lim_b = rb < s_q ? last_key(rb) : -1;
+  // Their first visible key (the window's edge; 0 without a window).
+  const int lo_a = window > 0 ? ra + offset - window + 1 : 0;
+  const int lo_b = window > 0 ? rb + offset - window + 1 : 0;
 
   // Q fragments (A operand), read once from global memory.
   uint32_t qa[KS][4];
@@ -143,7 +154,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const __nv_bfloat16* kh = k + bi * st.kb + kvh * st.kh;
   const __nv_bfloat16* vh = v + bi * st.vb + kvh * st.vh;
   const int n_kt = (ctx + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // First key tile any row of the tile sees: its first row's window edge.
+  const int kt0 = window > 0 ? max(0, r0 + offset - window + 1) / kBK : 0;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int kc0 = kt * kBK;
     __syncthreads();  // the previous tile's reads of sK/sVt are done
     for (int ch = tid; ch < kBK * CH; ch += kThreads) {
@@ -180,8 +193,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       }
     }
 
-    // Mask (causal bound and lengths, folded into lim), scale, online
-    // softmax (f32).
+    // Mask (causal bound and lengths, folded into lim; the window's edge),
+    // scale, online softmax (f32).
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -190,8 +203,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
         const int col = kc0 + nt * 8 + tg * 2 + e;
         s[nt][e] *= scale;
         s[nt][2 + e] *= scale;
-        if (col <= lim_a) mx_a = fmaxf(mx_a, s[nt][e]);
-        if (col <= lim_b) mx_b = fmaxf(mx_b, s[nt][2 + e]);
+        if (col <= lim_a && (!WINDOW || col >= lo_a)) mx_a = fmaxf(mx_a, s[nt][e]);
+        if (col <= lim_b && (!WINDOW || col >= lo_b)) mx_b = fmaxf(mx_b, s[nt][2 + e]);
       }
     }
     // The 4 lanes of a row group hold that row's columns.
@@ -209,8 +222,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = kc0 + nt * 8 + tg * 2 + e;
-        s[nt][e] = col <= lim_a ? __expf(s[nt][e] - mn_a) : 0.f;
-        s[nt][2 + e] = col <= lim_b ? __expf(s[nt][2 + e] - mn_b) : 0.f;
+        s[nt][e] = (col <= lim_a && (!WINDOW || col >= lo_a)) ? __expf(s[nt][e] - mn_a) : 0.f;
+        s[nt][2 + e] =
+            (col <= lim_b && (!WINDOW || col >= lo_b)) ? __expf(s[nt][2 + e] - mn_b) : 0.f;
         rs_a += s[nt][e];
         rs_b += s[nt][2 + e];
       }
@@ -266,14 +280,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
                    const Strides& st, int b, int s_q, int s_kv, int n_heads, int n_kv,
-                   int causal, float scale, cudaStream_t stream) {
+                   int causal, int window, float scale, cudaStream_t stream) {
   static_assert(smem_bytes<HD>() <= 48 * 1024, "tiles must fit the default 48 KB");
   const dim3 grid((s_q + kBQ - 1) / kBQ, n_heads, b);
-  auto kernel = flash_attention_kernel<HD>;
+  auto kernel = window > 0 ? flash_attention_kernel<HD, true> : flash_attention_kernel<HD, false>;
   kernel<<<grid, kThreads, smem_bytes<HD>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<__nv_bfloat16*>(out), st, s_q, s_kv, n_heads, n_kv, causal, scale);
+      static_cast<__nv_bfloat16*>(out), st, s_q, s_kv, n_heads, n_kv, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
@@ -281,20 +296,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* leng
 
 // C entry bound with ctypes (gofr_tpu_torch/ops/cuda/flash_attention.py).
 // strides: the 9 element strides of q, k, v (batch, sequence, head axes).
-// lengths may be null. Returns the cudaError_t of the launch (0 on success).
+// lengths may be null; window 0 (none) or a causal sliding window. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
                                     const void* lengths, void* out, int b, int s_q,
                                     int s_kv, int n_heads, int n_kv, int head_dim,
-                                    int causal, const long long* strides, float scale,
-                                    void* stream) {
-  if (b <= 0 || s_q <= 0 || s_kv < 0 || n_kv <= 0 || n_heads % n_kv != 0)
+                                    int causal, int window, const long long* strides,
+                                    float scale, void* stream) {
+  if (b <= 0 || s_q <= 0 || s_kv < 0 || n_kv <= 0 || n_heads % n_kv != 0 || window < 0 ||
+      (window > 0 && !causal))
     return cudaErrorInvalidValue;
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4],
                    strides[5], strides[6], strides[7], strides[8]};
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 64: return launch<64>(q, k, v, lengths, out, st, b, s_q, s_kv, n_heads, n_kv, causal, scale, sm);
-    case 128: return launch<128>(q, k, v, lengths, out, st, b, s_q, s_kv, n_heads, n_kv, causal, scale, sm);
+    case 64:
+      return launch<64>(q, k, v, lengths, out, st, b, s_q, s_kv, n_heads, n_kv, causal, window,
+                        scale, sm);
+    case 128:
+      return launch<128>(q, k, v, lengths, out, st, b, s_q, s_kv, n_heads, n_kv, causal, window,
+                         scale, sm);
     default: return cudaErrorInvalidValue;
   }
 }

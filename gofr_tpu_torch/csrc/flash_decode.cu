@@ -4,8 +4,9 @@
 // Replaces: gofr_tpu/ops/pallas/flash_decode.py::flash_decode (bf16 or int8
 // cache, contiguous or paged; the split convention, where the current
 // token's k_new/v_new merge at the end and `lengths` excludes it, and the
-// already-written convention, where `lengths` includes it). Not yet: the
-// sliding window.
+// already-written convention, where `lengths` includes it; Mistral's
+// sliding window, where the query at q_pos = length (split) or length - 1
+// (written) sees only keys in (q_pos - window, q_pos]).
 //
 // What bounds it on the H100: bytes. A step reads the valid prefix of every
 // slot's cache once (sum(lengths) * n_kv * hd * 2 bytes for K and for V in
@@ -30,12 +31,19 @@
 // of NaN, and split mode returns attention to the new token alone, the
 // written convention 0.
 //
+// Window: the key loop starts at k_lo = max(0, q_pos - window + 1), not at
+// 0, so rows below the window are never loaded and a step reads O(window)
+// rows, not O(length), as the TPU kernel's block clamp does. Keys are dealt
+// to lane groups from k_lo on; window = 0 gives k_lo = 0 and the unwindowed
+// loop unchanged. In split mode the new token still merges last.
+//
 // Paged: logical key j of a slot lives in pool block table[slot][j / B] at
-// offset j % B. The block copies the slot's table row (only the entries its
-// length needs) into shared memory once, and each load computes its row's
-// address from it; nothing else changes, so a pool gives the contiguous
-// cache's result bit for bit. Rows at or past the length are never read:
-// the parking block 0 and unallocated entries hold garbage.
+// offset j % B. The block copies the slot's table row (only the entries
+// from the window's first block to its length's last) into shared memory
+// once, and each load computes its row's address from it; nothing else
+// changes, so a pool gives the contiguous cache's result bit for bit. Rows at or past the length are never read
+// (the parking block 0 and unallocated entries hold garbage), nor are rows
+// below the window (their blocks are live but invisible).
 //
 // Int8: the row's 8 values load as 8 bytes and widen exactly to f32; one
 // f32 scale per key row for K and one for V. As in the TPU kernel, the
@@ -89,8 +97,8 @@ constexpr size_t smem_floats() {
 // (contiguous, B = max_len) or a pool [n_blocks, n_kv, B, HD] with
 // block_table [S, n_tab] int32 (n_tab = 0: contiguous); k_scale/v_scale
 // (int8 only): f32, the caches' shape without HD; lengths: [S] int32;
-// k_new/v_new: [S, n_kv, HD] bf16 or null; out: [S, n_kv*REP, HD] bf16.
-// Grid (S, n_kv), NW warps.
+// k_new/v_new: [S, n_kv, HD] bf16 or null; out: [S, n_kv*REP, HD] bf16;
+// window: sliding window, 0 = none. Grid (S, n_kv), NW warps.
 template <typename T, int HD, int REP, int NW, int U>
 __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
@@ -99,7 +107,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(
     const __nv_bfloat16* __restrict__ v_new,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ block_table, __nv_bfloat16* __restrict__ out,
-    int n_kv, int B, int n_tab, float scale) {
+    int n_kv, int B, int n_tab, int window, float scale) {
   constexpr bool kQuant = sizeof(T) == 1;
   constexpr int LPK = HD / 8;         // lanes per key row, 8 values each
   constexpr int KPW = 32 / LPK;       // rows one warp covers per load
@@ -115,6 +123,8 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(
   const bool paged = n_tab > 0;
   const int length = max(0, min(lengths[slot], paged ? n_tab * B : B));
   const bool has_new = k_new != nullptr;
+  // First visible key: the window's edge below the query's position.
+  const int k_lo = window > 0 ? max(0, (has_new ? length : length - 1) - window + 1) : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sm_acc = reinterpret_cast<float*>(smem_raw);  // [NW][REP][HD]
@@ -123,7 +133,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(
   float* sm_sn = sm_l + NW * REP;                       // [REP]
   int* sm_tab = reinterpret_cast<int*>(sm_sn + REP);    // [n_tab], paged
   if (paged) {
-    for (int i = threadIdx.x; i < (length + B - 1) / B; i += NW * 32)
+    for (int i = k_lo / B + threadIdx.x; i < (length + B - 1) / B; i += NW * 32)
       sm_tab[i] = block_table[(size_t)slot * n_tab + i];
     __syncthreads();
   }
@@ -156,7 +166,7 @@ __global__ void __launch_bounds__(NW * 32) flash_decode_kernel(
 
   // `base` is warp-uniform, so every lane of a warp runs the same number of
   // iterations and the shuffles below see the whole warp.
-  for (int base = warp * KPW; base < length; base += STRIDE * U) {
+  for (int base = k_lo + warp * KPW; base < length; base += STRIDE * U) {
     float kf[U][8], vf[U][8], ks[U], vs[U];
     bool ok[U];
 #pragma unroll
@@ -289,8 +299,8 @@ template <typename T, int HD, int REP>
 cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
                    const void* lengths, const void* k_new, const void* v_new,
                    const void* k_scale, const void* v_scale, const void* block_table,
-                   void* out, int n_slots, int n_kv, int B, int n_tab, float scale,
-                   cudaStream_t stream) {
+                   void* out, int n_slots, int n_kv, int B, int n_tab, int window,
+                   float scale, cudaStream_t stream) {
   constexpr int NW = (REP * HD <= 512) ? 8 : 4;
   constexpr int U = (REP <= 4) ? 4 : 2;
   const size_t smem = smem_floats<HD, REP, NW>() * sizeof(float) + (size_t)n_tab * sizeof(int);
@@ -307,20 +317,20 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
       static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(block_table), static_cast<__nv_bfloat16*>(out), n_kv, B,
-      n_tab, scale);
+      n_tab, window, scale);
   return cudaGetLastError();
 }
 
 #define GOFR_DECODE_ARGS \
   q, k_cache, v_cache, lengths, k_new, v_new, k_scale, v_scale, block_table, out, n_slots, \
-      n_kv, B, n_tab, scale, stream
+      n_kv, B, n_tab, window, scale, stream
 
 template <typename T, int HD>
 cudaError_t launch_rep(int rep, const void* q, const void* k_cache, const void* v_cache,
                        const void* lengths, const void* k_new, const void* v_new,
                        const void* k_scale, const void* v_scale, const void* block_table,
-                       void* out, int n_slots, int n_kv, int B, int n_tab, float scale,
-                       cudaStream_t stream) {
+                       void* out, int n_slots, int n_kv, int B, int n_tab, int window,
+                       float scale, cudaStream_t stream) {
   switch (rep) {
     case 1: return launch<T, HD, 1>(GOFR_DECODE_ARGS);
     case 2: return launch<T, HD, 2>(GOFR_DECODE_ARGS);
@@ -335,7 +345,7 @@ cudaError_t launch_hd(int head_dim, int rep, const void* q, const void* k_cache,
                       const void* v_cache, const void* lengths, const void* k_new,
                       const void* v_new, const void* k_scale, const void* v_scale,
                       const void* block_table, void* out, int n_slots, int n_kv, int B,
-                      int n_tab, float scale, cudaStream_t stream) {
+                      int n_tab, int window, float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32: return launch_rep<T, 32>(rep, GOFR_DECODE_ARGS);
     case 64: return launch_rep<T, 64>(rep, GOFR_DECODE_ARGS);
@@ -351,17 +361,17 @@ cudaError_t launch_hd(int head_dim, int rep, const void* q, const void* k_cache,
 // and v_new are both null (already-written convention) or both set (split);
 // k_scale and v_scale both null (bf16 cache) or both set (int8 cache);
 // block_table null with n_tab 0 (contiguous, B = max_len) or set with n_tab
-// its width (paged, B the pool's block, a multiple of 16). Returns the
-// cudaError_t of the launch (0 on success).
+// its width (paged, B the pool's block, a multiple of 16); window 0 (none) or
+// the sliding window. Returns the cudaError_t of the launch (0 on success).
 extern "C" int gofr_flash_decode(const void* q, const void* k_cache, const void* v_cache,
                                  const void* lengths, const void* k_new, const void* v_new,
                                  const void* k_scale, const void* v_scale,
                                  const void* block_table, void* out, int n_slots, int n_heads,
-                                 int n_kv, int B, int n_tab, int head_dim, float scale,
-                                 void* stream_ptr) {
+                                 int n_kv, int B, int n_tab, int head_dim, int window,
+                                 float scale, void* stream_ptr) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || B <= 0 || (k_new == nullptr) != (v_new == nullptr) ||
       (k_scale == nullptr) != (v_scale == nullptr) || (block_table == nullptr) != (n_tab == 0) ||
-      n_tab < 0 || (n_tab > 0 && B % 16 != 0))
+      n_tab < 0 || (n_tab > 0 && B % 16 != 0) || window < 0)
     return cudaErrorInvalidValue;
   const int rep = n_heads / n_kv;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

@@ -2,10 +2,11 @@
 // row attends its slot's KV-cache prefix in place (chunked prefill).
 //
 // Replaces: gofr_tpu/ops/pallas/flash_prefill.py::flash_cache_attention (bf16
-// or int8 cache, contiguous or paged; not yet the sliding window). Row p's
-// query t sits at global position starts[p] + t and sees keys
-// [0, starts[p] + t] of cache slot slots[p]; the chunk's own K/V are already
-// written there. Rows with t >= lens[p] return 0.
+// or int8 cache, contiguous or paged, with or without the sliding window).
+// Row p's query t sits at global position starts[p] + t and sees keys
+// [0, starts[p] + t] of cache slot slots[p] (with a window > 0 only those
+// above starts[p] + t - window); the chunk's own K/V are already written
+// there. Rows with t >= lens[p] return 0.
 //
 // What bounds it on the H100: operations. A chunk of c queries against a
 // context of n keys does 4 * c * n * n_heads * hd FLOPs over
@@ -29,11 +30,21 @@
 // those reads free of bank conflicts. First version: no copy/compute
 // overlap (cp.async/TMA) and no wgmma yet.
 //
+// Window: the key-tile loop starts at the tile holding the window edge of
+// the query tile's first row, max(0, starts[p] + t_lo - window + 1), the
+// loosest edge of its rows, so key tiles wholly below it are never read;
+// each row's own edge is a second bound beside the causal one where the
+// fragments are masked. The tiles kept have the unwindowed shapes and
+// order, so a windowed pool still equals the windowed slot cache bit for
+// bit. Whether that compare runs per score is a template flag chosen at
+// launch, so window = 0 runs the unwindowed loop as it was.
+//
 // Paged: logical key j of slot slots[p] lives in pool block
 // table[slots[p]][j / B] at offset j % B. The block copies the entries of
-// that table row its keys need into shared memory once; each staged key row
-// computes its address from it, so a 64-key tile may span several pool
-// blocks, and a pool gives the contiguous cache's result bit for bit. Rows
+// that table row its keys need (from its first kept tile on) into shared
+// memory once; each staged key row computes its address from it, so a
+// 64-key tile may span several pool blocks, and a pool gives the
+// contiguous cache's result bit for bit. Rows
 // past the tile's last visible key are never read (the parking block 0 and
 // unallocated entries hold garbage).
 //
@@ -104,15 +115,16 @@ __device__ __forceinline__ void widen(const uint4 raw, const int8_t*, uint32_t (
 // HD] (contiguous, B = max_len) or a pool [n_blocks, n_kv, B, HD] with
 // block_table [S, n_tab] int32 (n_tab = 0: contiguous); k_scale/v_scale
 // (int8 only): f32, the caches' shape without HD; slots, starts, lens: [P]
-// int32. Grid (ceil(c * rep / BQ), n_kv, P).
-template <typename T, int HD>
+// int32; window: sliding window (WINDOW: window > 0). Grid (ceil(c * rep /
+// BQ), n_kv, P).
+template <typename T, int HD, bool WINDOW>
 __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
     const __nv_bfloat16* __restrict__ q, const T* __restrict__ k_cache,
     const T* __restrict__ v_cache, const int* __restrict__ slots,
     const int* __restrict__ starts, const int* __restrict__ lens,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ block_table, __nv_bfloat16* __restrict__ out,
-    int c, int n_heads, int n_kv, int B, int n_tab, float scale) {
+    int c, int n_heads, int n_kv, int B, int n_tab, int window, float scale) {
   constexpr bool kQuant = sizeof(T) == 1;
   constexpr int KS = HD / 16;   // k-steps of Q.K^T
   constexpr int NT = kBK / 8;   // score n-tiles per warp
@@ -155,6 +167,8 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
   const int t_hi = min((min(r0 + kBQ, n_rows) - 1) / rep, len - 1);
   // Keys any row of the tile sees.
   const int ctx = min(start + t_hi + 1, paged ? n_tab * B : B);
+  // First key tile any row of the tile sees: its first row's window edge.
+  const int kt0 = window > 0 ? max(0, start + t_lo - window + 1) / kBK : 0;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint16_t* sK = reinterpret_cast<uint16_t*>(smem_raw);  // [BK][KP]
@@ -163,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
   float* sVs = sKs + kBK;                                              // [BK], int8
   int* sTab = reinterpret_cast<int*>(sKs + (kQuant ? 2 * kBK : 0));   // [n_tab], paged
   if (paged)  // read after the key loop's first barrier
-    for (int i = tid; i < (ctx + B - 1) / B; i += kThreads)
+    for (int i = kt0 * kBK / B + tid; i < (ctx + B - 1) / B; i += kThreads)
       sTab[i] = block_table[(size_t)slot * n_tab + i];
   // Cache row of logical key j: rows are [block][n_kv][B], the slot itself
   // being the block of a contiguous cache. Times HD: the key's values.
@@ -178,6 +192,9 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
   const int rb = ra + 8;
   const int lim_a = (ra < n_rows && ra / rep < len) ? start + ra / rep : -1;
   const int lim_b = (rb < n_rows && rb / rep < len) ? start + rb / rep : -1;
+  // Their first visible key (the window's edge; 0 without a window).
+  const int lo_a = window > 0 ? lim_a - window + 1 : 0;
+  const int lo_b = window > 0 ? lim_b - window + 1 : 0;
 
   // Q fragments (A operand), read once from global memory.
   uint32_t qa[KS][4];
@@ -202,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
     for (int e = 0; e < 4; ++e) o[ot][e] = 0.f;
 
   const int n_kt = (ctx + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int kc0 = kt * kBK;
     __syncthreads();  // the previous tile's reads of sK/sVt are done
     for (int ch = tid; ch < kBK * CH; ch += kThreads) {
@@ -247,7 +264,8 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
       }
     }
 
-    // Causal mask at global positions, scale, online softmax (f32).
+    // Causal and window mask at global positions, scale, online softmax
+    // (f32).
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
@@ -260,8 +278,8 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
           s[nt][e] *= sKs[col - kc0];
           s[nt][2 + e] *= sKs[col - kc0];
         }
-        if (col <= lim_a) mx_a = fmaxf(mx_a, s[nt][e]);
-        if (col <= lim_b) mx_b = fmaxf(mx_b, s[nt][2 + e]);
+        if (col <= lim_a && (!WINDOW || col >= lo_a)) mx_a = fmaxf(mx_a, s[nt][e]);
+        if (col <= lim_b && (!WINDOW || col >= lo_b)) mx_b = fmaxf(mx_b, s[nt][2 + e]);
       }
     }
     // The 4 lanes of a row group hold that row's columns.
@@ -279,8 +297,9 @@ __global__ void __launch_bounds__(kThreads) flash_cache_attention_kernel(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = kc0 + nt * 8 + tg * 2 + e;
-        s[nt][e] = col <= lim_a ? __expf(s[nt][e] - mn_a) : 0.f;
-        s[nt][2 + e] = col <= lim_b ? __expf(s[nt][2 + e] - mn_b) : 0.f;
+        s[nt][e] = (col <= lim_a && (!WINDOW || col >= lo_a)) ? __expf(s[nt][e] - mn_a) : 0.f;
+        s[nt][2 + e] =
+            (col <= lim_b && (!WINDOW || col >= lo_b)) ? __expf(s[nt][2 + e] - mn_b) : 0.f;
         rs_a += s[nt][e];
         rs_b += s[nt][2 + e];
       }
@@ -351,11 +370,12 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
                    const void* slots, const void* starts, const void* lens,
                    const void* k_scale, const void* v_scale, const void* block_table,
                    void* out, int n_rows_p, int c, int n_heads, int n_kv, int B, int n_tab,
-                   float scale, cudaStream_t stream) {
+                   int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>(sizeof(T) == 1, n_tab);
   const int rep = n_heads / n_kv;
   const dim3 grid((c * rep + kBQ - 1) / kBQ, n_kv, n_rows_p);
-  auto kernel = flash_cache_attention_kernel<T, HD>;
+  auto kernel = window > 0 ? flash_cache_attention_kernel<T, HD, true>
+                           : flash_cache_attention_kernel<T, HD, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -367,20 +387,20 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
       static_cast<const int*>(starts), static_cast<const int*>(lens),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(block_table), static_cast<__nv_bfloat16*>(out), c, n_heads,
-      n_kv, B, n_tab, scale);
+      n_kv, B, n_tab, window, scale);
   return cudaGetLastError();
 }
 
 #define GOFR_PREFILL_ARGS \
   q, k_cache, v_cache, slots, starts, lens, k_scale, v_scale, block_table, out, n_rows_p, c, \
-      n_heads, n_kv, B, n_tab, scale, stream
+      n_heads, n_kv, B, n_tab, window, scale, stream
 
 template <typename T>
 cudaError_t launch_hd(int head_dim, const void* q, const void* k_cache, const void* v_cache,
                       const void* slots, const void* starts, const void* lens,
                       const void* k_scale, const void* v_scale, const void* block_table,
                       void* out, int n_rows_p, int c, int n_heads, int n_kv, int B, int n_tab,
-                      float scale, cudaStream_t stream) {
+                      int window, float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 32: return launch<T, 32>(GOFR_PREFILL_ARGS);
     case 64: return launch<T, 64>(GOFR_PREFILL_ARGS);
@@ -394,18 +414,19 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k_cache, const vo
 // C entry bound with ctypes (gofr_tpu_torch/ops/cuda/flash_prefill.py).
 // k_scale and v_scale both null (bf16 cache) or both set (int8 cache);
 // block_table null with n_tab 0 (contiguous, B = max_len) or set with n_tab
-// its width (paged, B the pool's block, a multiple of 16). Returns the
-// cudaError_t of the launch (0 on success).
+// its width (paged, B the pool's block, a multiple of 16); window 0 (none) or
+// the sliding window. Returns the cudaError_t of the launch (0 on success).
 extern "C" int gofr_flash_cache_attention(const void* q, const void* k_cache,
                                           const void* v_cache, const void* slots,
                                           const void* starts, const void* lens,
                                           const void* k_scale, const void* v_scale,
                                           const void* block_table, void* out, int n_rows_p,
                                           int c, int n_heads, int n_kv, int B, int n_tab,
-                                          int head_dim, float scale, void* stream_ptr) {
+                                          int head_dim, int window, float scale,
+                                          void* stream_ptr) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || B <= 0 ||
       (k_scale == nullptr) != (v_scale == nullptr) || (block_table == nullptr) != (n_tab == 0) ||
-      n_tab < 0 || (n_tab > 0 && B % 16 != 0))
+      n_tab < 0 || (n_tab > 0 && B % 16 != 0) || window < 0)
     return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (k_scale != nullptr)

@@ -37,6 +37,10 @@ def get_model(name: str) -> ModelSpec:
     return _REGISTRY[name]
 
 
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
 def _register_llms() -> None:
     llm_configs = {
         # Flagship target: Llama-3-8B dims.

@@ -16,8 +16,10 @@ differentiable torch; ``transformer_forward`` is what training
 differentiates (``parallel/sharding.py``).
 
 This slice runs the Llama path only: RMSNorm, RoPE, GQA, SwiGLU, no
-biases, no MoE. ``check_supported`` raises ``NotImplementedError`` for a
-config that needs anything else.
+biases, no MoE, with or without Mistral's sliding window (every attention
+call takes ``cfg.sliding_window``; the cache keeps every position, the
+window is a mask). ``check_supported`` raises ``NotImplementedError`` for
+a config that needs anything else.
 """
 
 from __future__ import annotations
@@ -107,14 +109,13 @@ def check_supported(cfg: TransformerConfig) -> None:
         f"ffn={cfg.ffn!r}": cfg.ffn != "swiglu",
         "proj_bias": cfg.proj_bias,
         f"pos_emb={cfg.pos_emb!r}": cfg.pos_emb != "rope",
-        "sliding_window": cfg.sliding_window != 0,
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
         raise NotImplementedError(
             "the torch port serves the Llama path only (RMSNorm, RoPE, GQA, "
-            f"SwiGLU); this config needs {', '.join(missing)} "
-            "(ROADMAP: other families)"
+            "SwiGLU, optional sliding window); this config needs "
+            f"{', '.join(missing)} (ROADMAP: other families)"
         )
     if cfg.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"dtype {cfg.dtype} (bf16 or f32 only)")
@@ -367,6 +368,7 @@ def prefill_chunk(
         attn = cache_chunk_attention(
             q, ck, cv, slots, starts, lens, k_scale=cks, v_scale=cvs,
             block_table=table, kernel=not dense_attn,
+            window=cfg.sliding_window,
         )
         x = x + attn.reshape(P, c, H * hd) @ params["wo"][layer]
         x = x + _ffn(x, params, layer, cfg)
@@ -422,7 +424,8 @@ def decode_step(
             scales = dict(k_scale=cache.k_s[layer], v_scale=cache.v_s[layer])
         attn = decode_attention(
             q, cache.k[layer], cache.v[layer], lengths, k_new=k, v_new=v,
-            block_table=table, kernel=not dense_attn, **scales,
+            block_table=table, kernel=not dense_attn,
+            window=cfg.sliding_window, **scales,
         )
         x = x + attn.reshape(S, 1, H * hd) @ params["wo"][layer]
         x = x + _ffn(x, params, layer, cfg)

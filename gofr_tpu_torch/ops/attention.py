@@ -9,8 +9,10 @@ for CUDA tensors — and ``kernel=False`` calls the plain PyTorch version
 directly, on any device (tests and ``chip_smoke.py`` use it as the
 oracle); for ``attention`` that is the reference's dense formula. The
 serving ops take the int8 cache (``k_scale``/``v_scale``) and the paged
-pool (``block_table``) on both paths; a sliding window that binds is not
-ported yet and raises ``NotImplementedError`` on every device.
+pool (``block_table``) on both paths, and all three ops take Mistral's
+sliding ``window`` under the reference's rules: a window that cannot bind
+within the keys (the cache's capacity, for the serving ops) is dropped,
+and a window without causal attention raises.
 """
 
 from __future__ import annotations
@@ -44,35 +46,31 @@ def _effective_window(window: int, k_cache: torch.Tensor,
     return 0 if window >= capacity else window
 
 
-def _refuse_window(name: str, window: int) -> None:
-    if window:
-        raise NotImplementedError(
-            f"{name}: sliding-window attention (window={window}) is not "
-            "ported yet (ROADMAP Queue 2 item 4, with the Mistral config)"
-        )
-
-
 class FlashAttentionFn(torch.autograd.Function):
     """Kernel forward, dense-recompute backward — the counterpart of
     ``_flash_attention_ad``: the reference has no backward kernel, so the
     gradients are re-derived from the dense formula (f32 scores,
-    probabilities in the input dtype) on the saved q, k, v."""
+    probabilities in the input dtype) on the saved q, k, v, under the same
+    causal ``window`` as the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: Optional[float]):
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float],
+                window: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.scale = causal, scale
-        return flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
+        return flash_attention(q, k, v, causal=causal, scale=scale,
+                               window=window)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
             vis = visible_keys(q.shape[0], q.shape[1], k.shape[1],
-                               causal=ctx.causal, device=q.device)
+                               causal=ctx.causal, window=ctx.window,
+                               device=q.device)
             out = dense_attention(q, k, v, vis, scale=ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def attention(
@@ -94,8 +92,9 @@ def attention(
     which takes the dense formula. lengths: optional [b] int32 valid key
     prefix per row (right-padded serving prefill, no gradient) — straight
     to the kernel. Otherwise the kernel runs under ``FlashAttentionFn``
-    (differentiable). A window that cannot bind (``window >= s_kv``) is
-    dropped; a binding one raises.
+    (differentiable). window: each query attends only keys in
+    ``(q_pos - window, q_pos]`` (causal only); one that cannot bind
+    (``window >= s_kv``) is dropped.
     """
     if mask is not None and lengths is not None:
         raise ValueError("pass either mask or lengths, not both")
@@ -103,18 +102,14 @@ def attention(
         window = 0  # cannot bind: plain causal
     if window and not causal:
         raise ValueError("window requires causal attention")
-    if window:
-        raise NotImplementedError(
-            f"attention: sliding-window attention (window={window}) is not "
-            "ported yet (ROADMAP Queue 2 item 4, with the Mistral config)"
-        )
     if kernel and mask is None:
         if lengths is not None:
-            return flash_attention(q, k, v, lengths, causal=causal, scale=scale)
-        return FlashAttentionFn.apply(q, k, v, causal, scale)
+            return flash_attention(q, k, v, lengths, causal=causal,
+                                   scale=scale, window=window)
+        return FlashAttentionFn.apply(q, k, v, causal, scale, window)
     b, s_q = q.shape[:2]
     vis = visible_keys(b, s_q, k.shape[1], causal=causal, lengths=lengths,
-                       device=q.device)
+                       window=window, device=q.device)
     if mask is not None:
         vis = vis & mask
     return dense_attention(q, k, v, vis, scale=scale)
@@ -144,17 +139,17 @@ def decode_attention(
     from the cache and lengths counts only the prefix (the serving path).
     k_scale/v_scale: int8-cache scales, the caches' shape without hd;
     block_table ([b, max_blocks] int32): the caches are a pool
-    [n_blocks, n_kv, block, hd]. A window that cannot bind within the
-    capacity is dropped, as in the reference.
+    [n_blocks, n_kv, block, hd]. window: the query attends only the last
+    ``window`` positions including its own; one that cannot bind within
+    the capacity is dropped, as in the reference.
     """
     if (k_new is None) != (v_new is None):
         raise ValueError("pass k_new and v_new together")
-    _refuse_window("decode_attention",
-                   _effective_window(window, k_cache, block_table))
     fn = flash_decode if kernel else flash_decode_plain
     return fn(q, k_cache, v_cache, lengths, k_new=k_new, v_new=v_new,
               k_scale=k_scale, v_scale=v_scale, block_table=block_table,
-              scale=scale)
+              scale=scale,
+              window=_effective_window(window, k_cache, block_table))
 
 
 def cache_chunk_attention(
@@ -178,9 +173,9 @@ def cache_chunk_attention(
     caches: [S, n_kv, max_len, hd] or a pool [n_blocks, n_kv, block, hd]
     with ``block_table`` [S, max_blocks]; k_scale/v_scale: int8-cache
     scales; slots/starts/lens: [P] int32. Rows with t >= lens[p] return
-    0."""
-    _refuse_window("cache_chunk_attention",
-                   _effective_window(window, k_cache, block_table))
+    0. window: query t sees keys in ``(starts[p]+t - window, starts[p]+t]``;
+    one that cannot bind within the capacity is dropped."""
     fn = flash_cache_attention if kernel else flash_cache_attention_plain
     return fn(q, k_cache, v_cache, slots, starts, lens, k_scale=k_scale,
-              v_scale=v_scale, block_table=block_table, scale=scale)
+              v_scale=v_scale, block_table=block_table, scale=scale,
+              window=_effective_window(window, k_cache, block_table))

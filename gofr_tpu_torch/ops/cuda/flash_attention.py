@@ -1,15 +1,17 @@
 """flash_attention: full-sequence attention (training forward, padded-batch
 serving prefill, encoders) — the port of
-``gofr_tpu/ops/pallas/flash_attention.py::flash_attention`` without its
-sliding window, kernel in ``gofr_tpu_torch/csrc/flash_attention.cu``.
+``gofr_tpu/ops/pallas/flash_attention.py::flash_attention``, kernel in
+``gofr_tpu_torch/csrc/flash_attention.cu``.
 
 q: [b, s_q, n_heads, hd]; k, v: [b, s_kv, n_kv, hd]. Causal attention
 aligns the diagonal at offset ``s_kv - s_q`` (a query suffix sees every
 earlier key); query head h reads kv head ``h // (n_heads // n_kv)``;
-optional ``lengths`` [b] masks keys at or past each row's length. A query
-row that sees no key returns exactly 0 — the kernel's convention, which
-the plain version here follows (the reference's dense formula averages
-every key there instead).
+optional ``lengths`` [b] masks keys at or past each row's length; a causal
+``window`` (> 0) limits query row r to keys in
+``(r + offset - window, r + offset]``, and the kernel skips key tiles
+wholly below a query tile's edge. A query row that sees no key returns
+exactly 0 — the kernel's convention, which the plain version here follows
+(the reference's dense formula averages every key there instead).
 """
 
 from __future__ import annotations
@@ -32,16 +34,21 @@ _HEAD_DIMS = (64, 128)
 
 def visible_keys(
     b: int, s_q: int, s_kv: int, *, causal: bool,
-    lengths: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None, window: int = 0,
     device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """[b or 1, s_q, s_kv] bool: query row r sees key c (causal bound at
-    offset ``s_kv - s_q``, key ``lengths``)."""
+    offset ``s_kv - s_q``, the causal ``window``'s lower edge, key
+    ``lengths``)."""
+    if window and not causal:
+        raise ValueError("window requires causal attention")
     cols = torch.arange(s_kv, device=device)
     vis = torch.ones((1, s_q, s_kv), dtype=torch.bool, device=device)
     if causal:
         rows = torch.arange(s_q, device=device)[:, None] + (s_kv - s_q)
         vis = vis & (cols[None, :] <= rows)[None]
+        if window:
+            vis = vis & (cols[None, :] > rows - window)[None]
     if lengths is not None:
         lens = lengths.to(device=device, dtype=torch.long)
         vis = vis & (cols[None, :] < lens[:, None])[:, None, :]
@@ -79,12 +86,13 @@ def flash_attention_plain(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version: the dense formula, with the rows that see no
     key set to 0 as the kernel returns them."""
     b, s_q = q.shape[:2]
     vis = visible_keys(b, s_q, k.shape[1], causal=causal, lengths=lengths,
-                       device=q.device)
+                       window=window, device=q.device)
     out = dense_attention(q, k, v, vis, scale=scale)
     return torch.where(vis.any(dim=-1)[:, :, None, None], out, 0.0)
 
@@ -93,7 +101,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.lib().gofr_flash_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -122,16 +130,21 @@ def flash_attention(
     *,
     causal: bool = True,
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """q: [b, s_q, n_heads, hd]; k, v: [b, s_kv, n_kv, hd]; lengths: [b]
-    int32 or None. Returns [b, s_q, n_heads, hd], contiguous.
+    int32 or None; window: causal sliding window (0 = none). Returns
+    [b, s_q, n_heads, hd], contiguous.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16, hd in {64, 128}, n_heads divisible by n_kv; q/k/v are read
     through their strides, or copied once when their rows are not 16-byte
     aligned) or raise."""
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window} needs causal attention and >= 0")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, lengths, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, lengths, causal=causal,
+                                     scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     b, s_q, n_heads, hd = q.shape
@@ -157,7 +170,8 @@ def flash_attention(
     rc = _kernel_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr() if lengths is not None else None, out.data_ptr(),
-        b, s_q, s_kv, n_heads, n_kv, hd, int(causal), strides, float(scale),
+        b, s_q, s_kv, n_heads, n_kv, hd, int(causal), int(window), strides,
+        float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

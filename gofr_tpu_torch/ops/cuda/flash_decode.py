@@ -18,6 +18,10 @@ the split convention is unscaled). ``block_table`` (``[b, max_blocks]``
 int32) — the caches are a pool ``[n_blocks, n_kv, block, hd]`` (scales
 ``[n_blocks, n_kv, block]``) and logical key ``j`` of row ``i`` lives in
 pool block ``block_table[i, j // block]`` at offset ``j % block``.
+``window`` (> 0, Mistral's sliding window) — the query at ``q_pos``
+(``lengths`` in the split convention, ``lengths - 1`` in the written one)
+sees only keys in ``(q_pos - window, q_pos]``; the kernel never reads a
+row below that edge, so a step costs O(window), not O(length).
 """
 
 from __future__ import annotations
@@ -51,14 +55,15 @@ def flash_decode_plain(
     v_scale: Optional[torch.Tensor] = None,
     block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version, ported from the dense formula of
     ``gofr_tpu/ops/attention.py::decode_attention``: a pool is gathered
     through ``paged_view``, an int8 cache is cast to the query dtype with
     its scales on the scores and on the probabilities, f32 scores and
-    softmax, probabilities cast to the query dtype for the value product.
-    In the written convention a length-0 row returns 0 (the kernel
-    contract)."""
+    softmax (keys outside the window masked), probabilities cast to the
+    query dtype for the value product. In the written convention a
+    length-0 row returns 0 (the kernel contract)."""
     b, n_heads, hd = q.shape
     if block_table is not None:
         k_cache, v_cache, k_scale, v_scale = paged_view(
@@ -79,7 +84,11 @@ def flash_decode_plain(
     if quant:
         scores = scores * k_scale[:, :, None, :]
     lens = lengths.to(torch.long)
-    valid = torch.arange(max_len, device=q.device)[None, :] < lens[:, None]
+    cols = torch.arange(max_len, device=q.device)[None, :]
+    valid = cols < lens[:, None]
+    if window:
+        q_pos = lens if k_new is not None else lens - 1
+        valid = valid & (cols > (q_pos - window)[:, None])
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     if k_new is None:
         probs = torch.softmax(scores, dim=-1)
@@ -107,7 +116,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.lib().gofr_flash_decode
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -172,11 +181,13 @@ def flash_decode(
     v_scale: Optional[torch.Tensor] = None,
     block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """q: [b, n_heads, hd]; caches: [b, n_kv, max_len, hd] or a pool
     [n_blocks, n_kv, block, hd] with ``block_table`` [b, max_blocks];
     k_scale/v_scale: int8 scales, the caches' shape without hd; lengths:
-    [b] int32; k_new/v_new: [b, n_kv, hd]. Returns [b, n_heads, hd].
+    [b] int32; k_new/v_new: [b, n_kv, hd]; window: sliding window (0 =
+    none). Returns [b, n_heads, hd].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 q and new token, bf16 or int8 caches, contiguous, hd in
@@ -184,11 +195,13 @@ def flash_decode(
     multiple of 16) or raise."""
     if (k_new is None) != (v_new is None):
         raise ValueError("pass k_new and v_new together")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
         return flash_decode_plain(
             q, k_cache, v_cache, lengths, k_new=k_new, v_new=v_new,
             k_scale=k_scale, v_scale=v_scale, block_table=block_table,
-            scale=scale,
+            scale=scale, window=window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
@@ -217,7 +230,7 @@ def flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), _ptr(k_new), _ptr(v_new), _ptr(k_scale),
         _ptr(v_scale), _ptr(block_table), out.data_ptr(),
-        b, n_heads, n_kv, blk, width, hd, float(scale),
+        b, n_heads, n_kv, blk, width, hd, int(window), float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

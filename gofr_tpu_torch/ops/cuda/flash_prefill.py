@@ -9,6 +9,9 @@ Row p's query t sits at global position ``starts[p] + t`` and attends keys
 written. Rows with ``t >= lens[p]`` return 0. The int8 (``k_scale``/
 ``v_scale``) and paged (``block_table``, row p reads through
 ``block_table[slots[p]]``) variants are those of ``flash_decode``.
+``window`` (> 0) narrows query t to keys in
+``(starts[p] + t - window, starts[p] + t]``; key tiles wholly below a query
+tile's loosest edge are never read.
 """
 
 from __future__ import annotations
@@ -42,12 +45,14 @@ def flash_cache_attention_plain(
     v_scale: Optional[torch.Tensor] = None,
     block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version, ported from the dense formula of
     ``gofr_tpu/ops/attention.py::cache_chunk_attention``: gather each row's
     slot (a pool through ``paged_view``), an int8 cache cast to the query
     dtype with its scales on the scores and on the probabilities, f32
-    scores and softmax under the causal mask at global positions,
+    scores and softmax under the causal (and window) mask at global
+    positions,
     probabilities cast to the query dtype for the value product, padding
     rows zeroed."""
     P, c, n_heads, hd = q.shape
@@ -73,7 +78,10 @@ def flash_cache_attention_plain(
         scores = scores * ks[:, :, None, None, :]
     t = torch.arange(c, device=q.device)
     pos = starts.to(torch.long)[:, None] + t[None, :]  # [P, c] global
-    valid = torch.arange(max_len, device=q.device)[None, None, :] <= pos[:, :, None]
+    cols = torch.arange(max_len, device=q.device)[None, None, :]
+    valid = cols <= pos[:, :, None]
+    if window:
+        valid = valid & (cols > (pos - window)[:, :, None])
     row_ok = t[None, :] < lens.to(torch.long)[:, None]  # [P, c]
     valid = valid & row_ok[:, :, None]
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
@@ -89,7 +97,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.lib().gofr_flash_cache_attention
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -109,19 +117,24 @@ def flash_cache_attention(
     v_scale: Optional[torch.Tensor] = None,
     block_table: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """q: [P, c, n_heads, hd]; caches: [S, n_kv, max_len, hd] or a pool
     [n_blocks, n_kv, block, hd] with ``block_table`` [S, max_blocks];
     k_scale/v_scale: int8 scales, the caches' shape without hd;
-    slots/starts/lens: [P] int32. Returns [P, c, n_heads, hd].
+    slots/starts/lens: [P] int32; window: sliding window (0 = none).
+    Returns [P, c, n_heads, hd].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 q, bf16 or int8 caches, contiguous, hd in {32, 64, 128}, pool
     blocks a multiple of 16) or raise."""
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
         return flash_cache_attention_plain(
             q, k_cache, v_cache, slots, starts, lens, k_scale=k_scale,
             v_scale=v_scale, block_table=block_table, scale=scale,
+            window=window,
         )
     if q.device.type != "cuda":
         raise ValueError(
@@ -150,7 +163,7 @@ def flash_cache_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         slots.data_ptr(), starts.data_ptr(), lens.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), _ptr(block_table), out.data_ptr(), P, c, n_heads,
-        n_kv, blk, width, hd, float(scale),
+        n_kv, blk, width, hd, int(window), float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -7,9 +7,11 @@ and warp shuffles; ``tests/cuda_emu/mma.cuh`` replaces
 the tensor-core product with its documented fragment layout), and the C
 entries are called through ctypes on CPU tensors. Their outputs are held against the plain
 versions at small shapes covering every head-dim and GQA template the
-wrappers accept, and the serving kernels' int8, paged and paged+int8
+wrappers accept, the serving kernels' int8, paged and paged+int8
 variants (a shuffled block table over a pool whose parking block and
-unused blocks hold garbage). This checks the kernels' indexing, masking,
+unused blocks hold garbage), and Mistral's sliding window in all three
+kernels (with NaN in every row or key tile below the window, which no
+kernel may read). This checks the kernels' indexing, masking,
 online softmax and merges on every CPU run; the card itself (timing, the
 real compiler, the real memory model) is checked by ``chip_smoke.py``.
 """
@@ -73,13 +75,13 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
     dll = ctypes.CDLL(str(lib))
     entries = {
         "gofr_flash_decode": (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        ),
-        "gofr_flash_cache_attention": (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         ),
+        "gofr_flash_cache_attention": (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        ),
         "gofr_flash_attention": (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         ),
     }
@@ -127,7 +129,7 @@ def test_emulated_flash_decode_matches_plain(emu_lib, hd, H, KV, lengths, split)
     out = torch.empty_like(q)
     rc = emu_lib.gofr_flash_decode(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(), _ptr(kn),
-        _ptr(vn), None, None, None, out.data_ptr(), S, H, KV, max_len, 0, hd,
+        _ptr(vn), None, None, None, out.data_ptr(), S, H, KV, max_len, 0, hd, 0,
         hd**-0.5, None,
     )
     assert rc == 0
@@ -158,7 +160,7 @@ def test_emulated_flash_cache_attention_matches_plain(
     rc = emu_lib.gofr_flash_cache_attention(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), sl.data_ptr(),
         st.data_ptr(), ln.data_ptr(), None, None, None, out.data_ptr(), P, c,
-        H, KV, max_len, 0, hd, hd**-0.5, None,
+        H, KV, max_len, 0, hd, 0, hd**-0.5, None,
     )
     assert rc == 0
     want = flash_cache_attention_plain(q, kc, vc, sl, st, ln)
@@ -171,16 +173,16 @@ def test_emulated_entries_refuse_unsupported_shapes(emu_lib):
     # head_dim 48, n_heads not a multiple of n_kv, a pool block that is not
     # a multiple of 16 and one scale without the other are refused, not run.
     n = None
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 48, 1.0, n) != 0
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 3, 2, 8, 0, 32, 1.0, n) != 0
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, p, p, 1, 4, 2, 8, 2, 32, 1.0, n) != 0
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, p, n, n, p, 1, 4, 2, 8, 0, 32, 1.0, n) != 0
-    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 256, 1.0, n) != 0
-    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, p, p, 1, 1, 4, 2, 24, 2, 32, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 48, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 3, 2, 8, 0, 32, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, p, p, 1, 4, 2, 8, 2, 32, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, p, n, n, p, 1, 4, 2, 8, 0, 32, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 256, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, p, p, 1, 1, 4, 2, 24, 2, 32, 0, 1.0, n) != 0
     st = (ctypes.c_longlong * 9)()
     # flash_attention takes hd 64 and 128 only (32 is refused), and GQA groups.
-    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 4, 2, 32, 1, st, 1.0, None) != 0
-    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 3, 2, 64, 1, st, 1.0, None) != 0
+    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 4, 2, 32, 1, 0, st, 1.0, None) != 0
+    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 3, 2, 64, 1, 0, st, 1.0, None) != 0
 
 
 # -- int8 / paged / paged+int8 variants of the two serving kernels --------
@@ -227,7 +229,7 @@ def _pool(rng, logical, keys, B):
     return pools, table
 
 
-def _call_decode(lib, q, cache, lens, kn, vn, table, B):
+def _call_decode(lib, q, cache, lens, kn, vn, table, B, window=0):
     S, H, hd = q.shape
     KV = cache[0].shape[1]
     k_s, v_s = (cache[2], cache[3]) if len(cache) == 4 else (None, None)
@@ -236,7 +238,7 @@ def _call_decode(lib, q, cache, lens, kn, vn, table, B):
         q.data_ptr(), cache[0].data_ptr(), cache[1].data_ptr(), lens.data_ptr(),
         _ptr(kn), _ptr(vn), _ptr(k_s), _ptr(v_s), _ptr(table), out.data_ptr(),
         S, H, KV, B if table is not None else cache[0].shape[2],
-        0 if table is None else table.shape[1], hd, hd**-0.5, None,
+        0 if table is None else table.shape[1], hd, window, hd**-0.5, None,
     )
     assert rc == 0
     return out
@@ -291,7 +293,7 @@ PREFILL_VARIANT_SHAPES = [
 ]
 
 
-def _call_prefill(lib, q, cache, sl, st, ln, table, B):
+def _call_prefill(lib, q, cache, sl, st, ln, table, B, window=0):
     P, c, H, hd = q.shape
     k_s, v_s = (cache[2], cache[3]) if len(cache) == 4 else (None, None)
     out = torch.empty_like(q)
@@ -300,7 +302,7 @@ def _call_prefill(lib, q, cache, sl, st, ln, table, B):
         st.data_ptr(), ln.data_ptr(), _ptr(k_s), _ptr(v_s), _ptr(table),
         out.data_ptr(), P, c, H, cache[0].shape[1],
         B if table is not None else cache[0].shape[2],
-        0 if table is None else table.shape[1], hd, hd**-0.5, None,
+        0 if table is None else table.shape[1], hd, window, hd**-0.5, None,
     )
     assert rc == 0
     return out
@@ -385,7 +387,7 @@ FA_CASES = [
 
 
 def _run_emulated_flash_attention(lib, b, s_q, s_kv, n_heads, n_kv, hd, causal,
-                                  lengths, *, transpose_kv=False):
+                                  lengths, *, transpose_kv=False, window=0):
     rng = np.random.default_rng(s_q + s_kv + hd)
     q = _bf16(rng, b, s_q, n_heads, hd)
     k, v = _bf16(rng, b, s_kv, n_kv, hd), _bf16(rng, b, s_kv, n_kv, hd)
@@ -396,10 +398,10 @@ def _run_emulated_flash_attention(lib, b, s_q, s_kv, n_heads, n_kv, hd, causal,
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     rc = lib.gofr_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens), out.data_ptr(),
-        b, s_q, s_kv, n_heads, n_kv, hd, int(causal), strides, hd**-0.5, None,
+        b, s_q, s_kv, n_heads, n_kv, hd, int(causal), window, strides, hd**-0.5, None,
     )
     assert rc == 0
-    return out, flash_attention_plain(q, k, v, lens, causal=causal)
+    return out, flash_attention_plain(q, k, v, lens, causal=causal, window=window)
 
 
 @pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,causal,lengths", FA_CASES)
@@ -429,3 +431,196 @@ def test_emulation_catches_an_off_by_one_causal_bound(tmp_path):
         if case[6]:  # causal
             out, want = _run_emulated_flash_attention(lib, *case)
             assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+# -- the sliding window (Mistral) in all three kernels ----------------------
+
+WINDOW_VARIANTS = {"bf16": (False, 0), **VARIANTS}
+DECODE_WINDOW = 20
+# Lengths around the window's edge in both conventions (the split query
+# sits at `length`, the written one at `length - 1`), an empty row, a full
+# cache (max_len 112 = 7 blocks of 16).
+DECODE_WINDOW_LENGTHS = [0, 1, 19, 20, 21, 50, 112]
+
+
+def _poison_rows(cache, table, B, rows_below):
+    """NaN in K and V (an int8 cache: in its scales) of logical rows
+    [0, rows_below[r]) of each row r, through the table for a pool."""
+    out = [t.clone() for t in cache]
+    targets = out[2:] if len(out) == 4 else out[:2]
+    for r, n in enumerate(rows_below):
+        for j in range(n):
+            blk, off = (r, j) if table is None else (int(table[r, j // B]), j % B)
+            for t in targets:
+                t[blk, :, off] = float("nan")
+    return out
+
+
+def _decode_window_case(lib, variant, split, window=DECODE_WINDOW):
+    """(kernel, plain, contiguous kernel or None, kernel on a cache with NaN
+    in every row below the window)."""
+    quant, B = WINDOW_VARIANTS[variant]
+    rng = np.random.default_rng(11 + split)
+    hd, H, KV, max_len = 128, 8, 2, 112
+    S = len(DECODE_WINDOW_LENGTHS)
+    q = _bf16(rng, S, H, hd)
+    kn, vn = (_bf16(rng, S, KV, hd), _bf16(rng, S, KV, hd)) if split else (None, None)
+    if quant and split:
+        kn, vn = fake_quantize_kv(kn), fake_quantize_kv(vn)
+    lens = torch.tensor(DECODE_WINDOW_LENGTHS, dtype=torch.int32)
+    cache = _cache(rng, S, KV, max_len, hd, quant)
+    contiguous = table = None
+    if B:
+        contiguous = _call_decode(lib, q, cache, lens, kn, vn, None, 0, window)
+        cache, table = _pool(rng, cache, DECODE_WINDOW_LENGTHS, B)
+    scales = dict(k_scale=cache[2], v_scale=cache[3]) if quant else {}
+    want = flash_decode_plain(q, cache[0], cache[1], lens, k_new=kn, v_new=vn,
+                              block_table=table, window=window, **scales)
+    out = _call_decode(lib, q, cache, lens, kn, vn, table, B, window)
+    below = [max(0, (n if split else n - 1) - window + 1) for n in DECODE_WINDOW_LENGTHS]
+    poisoned = _call_decode(lib, q, _poison_rows(cache, table, B, below), lens, kn, vn,
+                            table, B, window)
+    return out, want, contiguous, poisoned
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["written", "split"])
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+def test_emulated_windowed_flash_decode_matches_plain(emu_lib, variant, split):
+    out, want, contiguous, poisoned = _decode_window_case(emu_lib, variant, split)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    if contiguous is not None:
+        assert torch.equal(out, contiguous)
+    # No row below the window is read: NaN there changes nothing.
+    assert torch.equal(poisoned, out)
+
+
+PREFILL_WINDOW = 40
+# hd, H, KV, c, slots, starts, lens (max_len 224 = 14 blocks of 16, 3.5 key
+# tiles): rows whose window edge skips whole key tiles, a short row, a row
+# at the start of the cache and a padding row duplicating row 0; c * rep
+# spans several 64-row query tiles in the first shape.
+PREFILL_WINDOW_SHAPES = [
+    (128, 8, 2, 40, [2, 0, 3, 2], [0, 150, 100, 0], [40, 40, 9, 40]),
+    (32, 4, 2, 8, [1, 3, 0], [200, 70, 5], [8, 8, 3]),
+]
+
+
+def _prefill_window_case(lib, variant, hd, H, KV, c, slots, starts, lens,
+                         window=PREFILL_WINDOW):
+    quant, B = WINDOW_VARIANTS[variant]
+    rng = np.random.default_rng(c + hd + 1)
+    S, max_len, P = 4, 224, len(slots)
+    q = _bf16(rng, P, c, H, hd)
+    q[-1] = q[0]
+    i32 = dict(dtype=torch.int32)
+    sl, st, ln = (torch.tensor(x, **i32) for x in (slots, starts, lens))
+    cache = _cache(rng, S, KV, max_len, hd, quant)
+    contiguous = table = None
+    if B:
+        contiguous = _call_prefill(lib, q, cache, sl, st, ln, None, 0, window)
+        keys = [max([s + n for r2, s, n in zip(slots, starts, lens) if r2 == r] or [0])
+                for r in range(S)]
+        cache, table = _pool(rng, cache, keys, B)
+    scales = dict(k_scale=cache[2], v_scale=cache[3]) if quant else {}
+    want = flash_cache_attention_plain(q, cache[0], cache[1], sl, st, ln,
+                                       block_table=table, window=window, **scales)
+    out = _call_prefill(lib, q, cache, sl, st, ln, table, B, window)
+    # Key tiles (64 keys) wholly below each slot's loosest window edge.
+    below = [min([max(0, s - window + 1) // 64 * 64
+                  for r2, s in zip(slots, starts) if r2 == r] or [0]) for r in range(S)]
+    poisoned = _call_prefill(lib, q, _poison_rows(cache, table, B, below), sl, st, ln,
+                             table, B, window)
+    return out, want, contiguous, poisoned, below
+
+
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+@pytest.mark.parametrize("hd,H,KV,c,slots,starts,lens", PREFILL_WINDOW_SHAPES)
+def test_emulated_windowed_flash_cache_attention_matches_plain(
+    emu_lib, variant, hd, H, KV, c, slots, starts, lens
+):
+    out, want, contiguous, poisoned, below = _prefill_window_case(
+        emu_lib, variant, hd, H, KV, c, slots, starts, lens)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    for p, n in enumerate(lens):
+        assert torch.all(out[p, n:] == 0)
+    if contiguous is not None:
+        assert torch.equal(out, contiguous)
+    assert any(below)  # whole tiles lie below the window: they are skipped
+    assert torch.equal(poisoned, out)
+
+
+FA_WINDOW_CASES = [
+    # b, s_q, s_kv, n_heads, n_kv, hd, lengths, window (all causal)
+    (1, 200, 200, 4, 2, 128, None, 30),         # GQA, four query tiles
+    (3, 130, 130, 2, 2, 64, [130, 0, 40], 50),  # lengths: rows past 88 of row 2 see nothing
+    (1, 40, 200, 2, 1, 64, None, 64),           # offset 160: key tile 0 lies below
+    (1, 66, 66, 2, 2, 64, None, 1),             # each query sees itself only
+]
+
+
+def _fa_window_case(lib, b, s_q, s_kv, n_heads, n_kv, hd, lengths, window):
+    out, want = _run_emulated_flash_attention(
+        lib, b, s_q, s_kv, n_heads, n_kv, hd, True, lengths, window=window)
+    return out, want
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,lengths,window", FA_WINDOW_CASES)
+def test_emulated_windowed_flash_attention_matches_plain(
+    emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, lengths, window
+):
+    out, want = _fa_window_case(emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, lengths, window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    zero = want.float().abs().amax(dim=(-1, -2)) == 0
+    assert torch.all(out[zero] == 0)
+
+
+def test_emulated_windowed_flash_attention_skips_tiles_below_the_window(emu_lib):
+    """NaN in every key tile wholly below the first query tile's window
+    edge (offset 160, window 64: keys 0-63) leaves the output unchanged."""
+    b, s_q, s_kv, H, KV, hd, window = 1, 40, 200, 2, 1, 64, 64
+    rng = np.random.default_rng(3)
+    q, k, v = _bf16(rng, b, s_q, H, hd), _bf16(rng, b, s_kv, KV, hd), _bf16(rng, b, s_kv, KV, hd)
+
+    def run(k, v):
+        out = torch.empty_like(q)
+        strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        rc = emu_lib.gofr_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), b, s_q, s_kv,
+            H, KV, hd, 1, window, strides, hd**-0.5, None)
+        assert rc == 0
+        return out
+
+    clean = run(k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :64] = float("nan")
+    v2[:, :64] = float("nan")
+    assert torch.equal(run(k2, v2), clean)
+    torch.testing.assert_close(
+        clean.float(), flash_attention_plain(q, k, v, causal=True, window=window).float(),
+        atol=TOL, rtol=TOL)
+
+
+def test_emulation_catches_a_window_edge_one_key_low(tmp_path):
+    """All three kernels rebuilt with the window's lower edge one key lower
+    (each query sees window + 1 keys): every windowed case must fail."""
+    swaps = {
+        "flash_decode": ("(has_new ? length : length - 1) - window + 1)",
+                         "(has_new ? length : length - 1) - window)"),
+        "flash_prefill": ("lim_a - window + 1 : 0;", "lim_a - window : 0;"),
+        "flash_attention": ("ra + offset - window + 1 : 0;", "ra + offset - window : 0;"),
+    }
+    sources = {}
+    for stem, (old, new) in swaps.items():
+        src = (CSRC / f"{stem}.cu").read_text()
+        assert old in src
+        sources[stem] = src.replace(old, new)
+    lib = _emulate(sources, tmp_path)
+    for split in (False, True):
+        out, want, _, _ = _decode_window_case(lib, "bf16", split)
+        assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)
+    for shape in PREFILL_WINDOW_SHAPES:
+        out, want, _, _, _ = _prefill_window_case(lib, "bf16", *shape)
+        assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)
+    for case in FA_WINDOW_CASES:
+        out, want = _fa_window_case(lib, *case)
+        assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)

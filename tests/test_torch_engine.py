@@ -264,8 +264,8 @@ def test_unported_options_raise(engine):
         engine.submit_generate("x", logit_bias={1: 2.0})
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         InferenceEngine(MODEL, device="cpu", auto_prefix=True)
-    with pytest.raises(NotImplementedError):
-        InferenceEngine("mistral-7b", device="cpu")
+    with pytest.raises(NotImplementedError):  # MoE: refused before any weights are made
+        InferenceEngine("mixtral-8x7b", device="cpu")
 
 
 def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch, jax_params):

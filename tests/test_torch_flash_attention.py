@@ -144,11 +144,89 @@ def test_mask_takes_the_reference_dense_formula():
 
 
 def test_window_raises_unless_it_cannot_bind():
+    """The window's rules, as the reference's: a window without causal
+    attention raises, one that cannot bind (window >= s_kv) is dropped, and
+    a binding one is computed (no longer refused)."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(6, 1, 32, 32, 4, 2, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.attention(q, k, v, window=8)
+    with pytest.raises(ValueError, match="causal"):
+        port.attention(q, k, v, causal=False, window=8)
     a = port.attention(q, k, v, window=32)  # cannot bind: plain causal
     torch.testing.assert_close(a, port.attention(q, k, v), rtol=0, atol=0)
+    torch.testing.assert_close(
+        port.attention(q, k, v, window=8),
+        fa.flash_attention_plain(q, k, v, causal=True, window=8), rtol=0, atol=0)
     with pytest.raises(ValueError):
         port.attention(q, k, v, mask=torch.ones(1, 32, 32, dtype=torch.bool),
                        lengths=torch.tensor([3], dtype=torch.int32))
+
+
+WINDOW_CASES = [
+    # b, s_q, s_kv, n_heads, n_kv, hd, lengths, window (causal)
+    (2, 64, 64, 4, 2, 32, None, 16),            # GQA, blocks below the edge
+    (2, 50, 103, 4, 2, 32, None, 20),           # causal offset 53
+    (3, 50, 50, 4, 2, 32, [50, 17, 0], 8),      # lengths: full, short, empty
+    (2, 40, 40, 2, 2, 32, [40, 5], 10),         # rows 14+ of row 1 see nothing
+    (1, 33, 33, 2, 1, 64, None, 1),             # each query sees itself only
+]
+WINDOW_IDS = ["gqa", "offset", "lengths", "empty_rows", "window_1"]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,lengths,window", WINDOW_CASES,
+                         ids=WINDOW_IDS)
+def test_windowed_plain_and_attention_match_the_pallas_kernel(
+    b, s_q, s_kv, n_heads, n_kv, hd, lengths, window
+):
+    """f32 at TOL against the reference's windowed Pallas kernel (interpret
+    mode), with and without per-row lengths; ``attention(window=)`` is the
+    plain version exactly on CPU tensors, and so is its dense path
+    (kernel=False) on rows that see a key."""
+    q, k, v = _inputs(7, b, s_q, s_kv, n_heads, n_kv, hd)
+    lens = None if lengths is None else jnp.asarray(np.array(lengths, np.int32))
+    want = np.asarray(ref_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lens, causal=True,
+        block_q=16, block_k=16, window=window, interpret=True,
+    ))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tl = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    plain = fa.flash_attention_plain(tq, tk, tv, tl, causal=True, window=window)
+    np.testing.assert_allclose(plain.numpy(), want, atol=TOL, rtol=TOL)
+    via = port.attention(tq, tk, tv, lengths=tl, window=window)
+    torch.testing.assert_close(via, plain, rtol=0, atol=0)
+    vis = fa.visible_keys(b, s_q, s_kv, causal=True, lengths=tl, window=window)
+    vis = vis.any(-1).expand(b, s_q).numpy()
+    assert np.all(plain.numpy()[~vis] == 0.0)
+    dense = port.attention(tq, tk, tv, lengths=tl, window=window, kernel=False)
+    ref_dense = np.asarray(ref_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lengths=lens,
+        window=window, kernel=False))
+    np.testing.assert_allclose(dense.numpy()[vis], ref_dense[vis], atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,n_heads,n_kv,hd,window",
+    [(1, 40, 40, 4, 2, 32, 8), (1, 16, 40, 4, 2, 32, 12)],
+    ids=["gqa", "offset"],
+)
+def test_windowed_flash_attention_fn_gradients_match_jax(b, s_q, s_kv, n_heads, n_kv, hd,
+                                                         window):
+    """FlashAttentionFn carries the window into its kernel forward and its
+    dense-recompute backward, as ``_flash_attention_ad`` does: f32
+    gradients against ``jax.grad`` of the reference at GRAD_TOL."""
+    q, k, v = _inputs(8, b, s_q, s_kv, n_heads, n_kv, hd)
+    w = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+
+    def ref_loss(q, k, v):
+        return jnp.sum(_flash_attention_ad(q, k, v, True, None, window) * w)
+
+    ref_grads = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    )
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = port.attention(tq, tk, tv, window=window)
+    (out * torch.from_numpy(w)).sum().backward()
+    for got, want in zip((tq.grad, tk.grad, tv.grad), ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_TOL, rtol=GRAD_TOL)
+    # The window binds: the unwindowed gradients differ.
+    tq2 = torch.from_numpy(q).requires_grad_(True)
+    (port.attention(tq2, tk.detach(), tv.detach()) * torch.from_numpy(w)).sum().backward()
+    assert not torch.allclose(tq2.grad, tq.grad, atol=1e-3)

@@ -1,7 +1,8 @@
 """The plain versions of the port's two serving kernels against the
 reference's Pallas kernels (run as the reference's own tests run them on
 CPU: interpret mode) and its dense formulas, on the same numpy inputs —
-bf16 contiguous caches and the int8, paged and paged+int8 variants — and
+bf16 contiguous caches and the int8, paged and paged+int8 variants, with
+and without Mistral's sliding window — and
 the dispatch of ``gofr_tpu_torch.ops.attention`` (the CUDA kernels
 themselves are held against the plain versions on a GPU, in
 ``test_torch_gpu.py`` and ``chip_smoke.py``, and on the CPU emulator in
@@ -140,6 +141,8 @@ def test_attention_dispatch_on_cpu_takes_the_plain_version():
 # -- int8 / paged / paged+int8 ---------------------------------------------
 
 VARIANTS = {"int8": (True, 0), "paged": (False, 16), "paged+int8": (True, 16)}
+# The windowed tests also run the plain bf16/f32 slot cache.
+WINDOW_VARIANTS = {"slot": (False, 0), **VARIANTS}
 
 
 def _int8_cache(rng, *shape):
@@ -177,7 +180,7 @@ def _to_pool(rng, arrays, keys, B):
 def _variant_cache(rng, variant, rows, KV, max_len, hd, keys):
     """(port kwargs of numpy arrays, reference kwargs) for one variant:
     caches, and the scales (reference: replicated x8) and block table."""
-    quant, B = VARIANTS[variant]
+    quant, B = WINDOW_VARIANTS[variant]
     if quant:
         (kc, ks), (vc, vs) = (_int8_cache(rng, rows, KV, max_len, hd) for _ in range(2))
         arrays = [kc, vc, ks, vs]
@@ -320,18 +323,28 @@ def test_attention_dispatch_passes_variants_through():
 
 @pytest.mark.parametrize("kwargs", [{"window": 16}], ids=["window"])
 def test_unported_variants_raise(kwargs):
+    """No serving-op variant is refused any more: a binding window goes
+    through decode_attention / cache_chunk_attention to the wrappers (on
+    CPU tensors, the plain version with the window) and changes the
+    result; the capacity rule still drops a window a pool cannot bind."""
     q, kc, vc, kn, vn = (
         torch.from_numpy(a) for a in _decode_inputs(4, 2, 64, 4, 2, 32)
     )
-    lens = torch.tensor([3, 6], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.cache_chunk_attention(
-            q[:, None], kc, vc, lens, lens, lens, **kwargs
-        )
+    lens = torch.tensor([30, 60], dtype=torch.int32)
+    a = attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn, **kwargs)
+    torch.testing.assert_close(
+        a, fd.flash_decode_plain(q, kc, vc, lens, k_new=kn, v_new=vn, **kwargs),
+        rtol=0, atol=0)
+    assert not torch.allclose(
+        a, attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn), atol=1e-3)
+    qc = q[:, None].expand(2, 4, 4, 32).contiguous()
+    rows = (torch.tensor([0, 1], dtype=torch.int32), lens - 4,
+            torch.tensor([4, 4], dtype=torch.int32))
+    torch.testing.assert_close(
+        attention.cache_chunk_attention(qc, kc, vc, *rows, **kwargs),
+        fp.flash_cache_attention_plain(qc, kc, vc, *rows, **kwargs), rtol=0, atol=0)
     # A pool's capacity is its table width x block: a window of that size
-    # cannot bind and is dropped.
+    # cannot bind and is dropped; one key less binds.
     pool = kc.reshape(8, 2, 16, 32)
     table = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 0]], dtype=torch.int32)
     a = attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
@@ -339,12 +352,107 @@ def test_unported_variants_raise(kwargs):
     b = attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
                                    block_table=table)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
-                                   block_table=table, window=63)
+    c = attention.decode_attention(q, pool, pool, lens, k_new=kn, v_new=vn,
+                                   block_table=table, window=40)
+    assert not torch.allclose(b, c, atol=1e-3)
+
+
+WINDOW = 12
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["written", "split"])
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+def test_plain_flash_decode_window_matches_dense_and_pallas(variant, split):
+    """The windowed plain version (keys in (q_pos - window, q_pos], q_pos =
+    lengths in the split convention, lengths - 1 in the written one) on
+    every cache kind: f32 against the reference's windowed dense formula at
+    TOL, bf16 queries against its windowed Pallas kernel at BF16_TOL.
+    Lengths sit at the window's edge in both conventions."""
+    b, max_len, H, KV, hd = 5, 64, 8, 2, 32
+    lengths = np.array([0, 11, 12, 13, 40 if not split else 63], np.int32)
+    rng = np.random.default_rng(40 + split)
+    port, theirs = _variant_cache(rng, variant, b, KV, max_len, hd, lengths)
+    q, kn, vn = _rand(rng, b, H, hd), _rand(rng, b, KV, hd), _rand(rng, b, KV, hd)
+    new = dict(k_new=kn, v_new=vn) if split else {}
+    kc, vc, rkw = _split_reference_kw(theirs)
+    dense = np.asarray(ref_decode_attention(
+        jnp.asarray(q), kc, vc, jnp.asarray(lengths), kernel=False, window=WINDOW,
+        **{k: jnp.asarray(a) for k, a in new.items()}, **rkw,
+    ))
+    tkw = _torch_kw(port)
+    got = fd.flash_decode_plain(
+        torch.from_numpy(q), tkw.pop("k_cache"), tkw.pop("v_cache"),
+        torch.from_numpy(lengths), window=WINDOW,
+        **{k: torch.from_numpy(a) for k, a in new.items()}, **tkw,
+    ).numpy()
+    rows = np.ones(b, bool) if split else lengths > 0
+    np.testing.assert_allclose(got[rows], dense[rows], atol=TOL, rtol=TOL)
+    if not split:
+        assert np.all(got[lengths == 0] == 0.0)
+
+    bf = jnp.bfloat16
+    want = np.asarray(ref_flash_decode(
+        jnp.asarray(q, bf), kc.astype(bf) if kc.dtype != jnp.int8 else kc,
+        vc.astype(bf) if vc.dtype != jnp.int8 else vc, jnp.asarray(lengths),
+        block_k=16, window=WINDOW, interpret=True,
+        **{k: jnp.asarray(a, bf) for k, a in new.items()}, **rkw,
+    ).astype(jnp.float32))
+    tkw = _torch_kw(port, torch.bfloat16)
+    got = fd.flash_decode_plain(
+        torch.from_numpy(q).bfloat16(), tkw.pop("k_cache"), tkw.pop("v_cache"),
+        torch.from_numpy(lengths), window=WINDOW,
+        **{k: torch.from_numpy(a).bfloat16() for k, a in new.items()}, **tkw,
+    ).float().numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+def test_plain_flash_cache_attention_window_matches_dense_and_pallas(variant):
+    """The per-token window (keys in (starts+t - window, starts+t]) on
+    every cache kind, rows as in the unwindowed variant test: f32 against
+    the windowed dense formula, bf16 against the windowed Pallas kernel."""
+    P, c, S, max_len, H, KV, hd = 4, 16, 4, 128, 8, 2, 32
+    slots = np.array([1, 3, 0, 1], np.int32)
+    starts = np.array([0, 40, 112, 0], np.int32)
+    lens = np.array([16, 5, 16, 16], np.int32)
+    keys = [0] * S
+    for sl, st, n in zip(slots, starts, lens):
+        keys[sl] = max(keys[sl], st + n)
+    rng = np.random.default_rng(41)
+    port, theirs = _variant_cache(rng, variant, S, KV, max_len, hd, keys)
+    q = _rand(rng, P, c, H, hd)
+    q[3] = q[0]
+    rows = [jnp.asarray(a) for a in (slots, starts, lens)]
+    kc, vc, rkw = _split_reference_kw(theirs)
+    dense = np.asarray(ref_chunk_attention(jnp.asarray(q), kc, vc, *rows, kernel=False,
+                                           window=WINDOW, **rkw))
+    trows = [torch.from_numpy(a) for a in (slots, starts, lens)]
+    tkw = _torch_kw(port)
+    got = fp.flash_cache_attention_plain(
+        torch.from_numpy(q), tkw.pop("k_cache"), tkw.pop("v_cache"), *trows,
+        window=WINDOW, **tkw
+    ).numpy()
+    np.testing.assert_allclose(got, dense, atol=TOL, rtol=TOL)
+    assert np.all(got[1, 5:] == 0.0)
+
+    bf = jnp.bfloat16
+    want = np.asarray(ref_flash_cache_attention(
+        jnp.asarray(q, bf), kc.astype(bf) if kc.dtype != jnp.int8 else kc,
+        vc.astype(bf) if vc.dtype != jnp.int8 else vc, *rows, block_k=16,
+        window=WINDOW, interpret=True, **rkw,
+    ).astype(jnp.float32))
+    tkw = _torch_kw(port, torch.bfloat16)
+    got = fp.flash_cache_attention_plain(
+        torch.from_numpy(q).bfloat16(), tkw.pop("k_cache"), tkw.pop("v_cache"), *trows,
+        window=WINDOW, **tkw
+    ).float().numpy()
+    np.testing.assert_allclose(got, want, atol=BF16_TOL, rtol=BF16_TOL)
 
 
 def test_window_that_cannot_bind_is_dropped():
+    """A window at least the capacity (or s_kv) gives exactly the
+    unwindowed result in all three ops; so does one that covers every key
+    these lengths reach."""
     q, kc, vc, kn, vn = (
         torch.from_numpy(a) for a in _decode_inputs(5, 2, 64, 4, 2, 32)
     )
@@ -352,6 +460,17 @@ def test_window_that_cannot_bind_is_dropped():
     a = attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn, window=64)
     b = attention.decode_attention(q, kc, vc, lens, k_new=kn, v_new=vn)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    a = fd.flash_decode_plain(q, kc, vc, lens, k_new=kn, v_new=vn, window=7)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    qc = q[:, None].expand(2, 4, 4, 32).contiguous()
+    rows = (torch.tensor([0, 1], dtype=torch.int32), lens, lens - 2)
+    torch.testing.assert_close(
+        attention.cache_chunk_attention(qc, kc, vc, *rows, window=64),
+        attention.cache_chunk_attention(qc, kc, vc, *rows), rtol=0, atol=0)
+    ka, va = kc.transpose(1, 2), vc.transpose(1, 2)  # [b, s, KV, hd]
+    qa = torch.from_numpy(_rand(np.random.default_rng(6), 2, 64, 4, 32))
+    torch.testing.assert_close(attention.attention(qa, ka, va, window=64),
+                               attention.attention(qa, ka, va), rtol=0, atol=0)
 
 
 def _chip_smoke(monkeypatch):

@@ -12,6 +12,13 @@ cross over through ``params_from_jax``; tokens and positions are made
 with numpy and handed to both sides.
 """
 
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +33,7 @@ from gofr_tpu.models.transformer import (
 )
 from gofr_tpu.ops.kv_cache import KVCache as RefKVCache
 from gofr_tpu.ops.kv_cache import PagedKVCache as RefPagedKVCache
-from gofr_tpu_torch.models.registry import get_model
+from gofr_tpu_torch.models.registry import get_model, list_models
 from gofr_tpu_torch.models.transformer import (
     TransformerConfig,
     check_supported,
@@ -38,6 +45,7 @@ from gofr_tpu_torch.models.transformer import (
 from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache, paged_view
 from gofr_tpu_torch.weights import kv_cache_from_jax, params_from_jax
 
+REPO = Path(__file__).resolve().parents[1]
 # f32: both sides do the same f32 arithmetic in another order (XLA vs
 # torch CPU kernels); over 2 layers the logits agree to ~1e-6 relative, so
 # 1e-4 absolute is a safe bound that still catches any wrong index or mask.
@@ -278,13 +286,26 @@ def test_params_from_jax_layout():
     }
 
 
-def test_registry_mirrors_reference_llm_entries():
-    from gofr_tpu.models.registry import list_models as ref_list
+def _reference_builtin_llms() -> list[str]:
+    """The reference registry's built-in LLM names, read in a fresh
+    process: in this one, other reference tests may have registered extra
+    ``family="llm"`` entries (``swa-test`` in tests/test_sliding_window.py)
+    into its process-global registry."""
+    code = ("import json; from gofr_tpu.models.registry import get_model, list_models; "
+            "print(json.dumps([n for n in list_models() if get_model(n).family == 'llm']))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
-    for name in ref_list():
+
+def test_registry_mirrors_reference_llm_entries():
+    builtin = _reference_builtin_llms()
+    assert "mistral-7b" in builtin and len(builtin) > 10
+    assert list_models() == sorted(builtin)
+    for name in builtin:
         ref = ref_get_model(name)
-        if ref.family != "llm":
-            continue
         port = get_model(name)
         assert port.eos_token == ref.eos_token
         for field in TransformerConfig.__dataclass_fields__:
@@ -294,8 +315,27 @@ def test_registry_mirrors_reference_llm_entries():
 
 
 @pytest.mark.parametrize(
-    "name", ["mixtral-8x7b", "mistral-7b", "qwen2-7b", "gemma-tiny", "gpt2-tiny"]
+    "name", ["mixtral-8x7b", "gemma-7b", "qwen2-7b", "gemma-tiny", "gpt2-tiny"]
 )
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError):
         check_supported(get_model(name).config)
+
+
+def test_mistral_7b_is_supported_and_params_cross_over():
+    """mistral-7b passes check_supported with its 4096-token window, and
+    params_from_jax takes a windowed config: the Mistral layout is the
+    Llama layout (a narrow windowed config of the reference, its weights
+    carried over exactly)."""
+    cfg = get_model("mistral-7b").config
+    assert cfg.sliding_window == 4096
+    check_supported(cfg)
+    ref_cfg = dataclasses.replace(ref_get_model("llama-tiny-f32").config, sliding_window=8)
+    port_cfg = dataclasses.replace(get_model("llama-tiny-f32").config, sliding_window=8)
+    jparams = _np_tree(init_transformer(jax.random.PRNGKey(2), ref_cfg))
+    params = params_from_jax(jparams, port_cfg, device="cpu")
+    H, KV, hd = port_cfg.n_heads, port_cfg.n_kv_heads, port_cfg.head_dim
+    np.testing.assert_array_equal(params["wqkv"][:, :, :H * hd].numpy(), jparams["layers"]["wq"])
+    np.testing.assert_array_equal(
+        params["wqkv"][:, :, (H + KV) * hd:].numpy(), jparams["layers"]["wv"])
+    np.testing.assert_array_equal(params["lm_head"].numpy(), jparams["lm_head"])
