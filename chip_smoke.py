@@ -6,7 +6,12 @@
 from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA. It
 
-1. builds the hand-written kernels from gofr_tpu_torch/csrc/;
+1. builds the hand-written kernels from gofr_tpu_torch/csrc/ and prints
+   nvcc's registers, spills and stack per attention kernel;
+1a. holds the Hopper primitives the tiled kernels are built from against
+   torch (csrc/sm90_selftest.cu): wgmma m64nNk16 for N 64 and 128, A from
+   shared memory and registers, B K-major and MN-major; a 3-stage mbarrier
+   ring; a TMA box on a ragged edge;
 2. holds each kernel against its plain PyTorch version, and times kernel,
    plain version and a PyTorch library call on the same problem: the two
    serving kernels at the serving shapes of llama-3-8b, on the bf16 slot
@@ -183,6 +188,72 @@ def check_close(torch, name: str, got, want32, tol: float = ROW_REL_TOL) -> tupl
     return err, rel
 
 
+def kernel_resources(log: dict) -> list:
+    """Per kernel entry of ``_build.ptxas_log`` (nvcc -Xptxas -v): source,
+    registers, spill bytes (stores + loads) and stack bytes."""
+    out = []
+    for src, text in sorted(log.items()):
+        cur = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                # ..._cu_<hash><len><name>I<template arguments>E...
+                name = re.search(r"(?<=\d)([a-z][a-z_]*_kernel)(I\w*?E)E*v", m.group(1))
+                cur = {"source": src, "kernel": name.group(1) if name else m.group(1),
+                       "template": name.group(2) if name else "", "mangled": m.group(1)}
+                out.append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)), spill=int(m.group(2)) + int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def phase_sm90_primitives(torch, dev) -> None:
+    """Before the attention kernels are trusted: the Hopper primitives they
+    are built from (csrc/sm90_selftest.cu) against torch on the card. One
+    warpgroup's wgmma m64nNk16 over 8 k-steps for N 64 and 128, A from
+    shared memory and from registers, B K-major (as K in Q.K^T) and MN-major
+    (as V in P.V), from tiles in the kernels' swizzled layout; a 3-stage
+    mbarrier ring whose phases wrap three times; a TMA box on a ragged
+    edge."""
+    from gofr_tpu_torch.ops.cuda import sm90_selftest as st
+
+    gen = torch.Generator(device=dev).manual_seed(90)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for n in (64, 128):
+        for mn in (False, True):
+            for regs in (False, True):
+                a, b = rnd(64, st.K), (rnd(st.K, n) if mn else rnd(n, st.K))
+                got = st.wgmma_product(a, b, b_mn_major=mn, a_regs=regs)
+                want = st.wgmma_product_plain(a, b, b_mn_major=mn)
+                err = (got - want).abs().max().item()
+                log(f"sm90 wgmma m64n{n}k16 A {'registers' if regs else 'smem'}, B "
+                    f"{'MN' if mn else 'K'}-major: max|D - torch| {err:.3g} (limit 1e-3, "
+                    f"|D| up to {want.abs().max().item():.3g})")
+                if not err <= 1e-3:
+                    fail(f"sm90 wgmma (n={n}, mn_major={mn}, a_regs={regs}) disagrees with torch")
+    src = torch.randint(-30000, 30000, (10, 128, 8), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int16)
+    if not torch.equal(st.ring_roundtrip(src), st.ring_roundtrip_plain(src)):
+        fail("sm90 mbarrier ring: a tile came back wrong")
+    m = rnd(100, 72)
+    for r0 in (0, 64):
+        if not torch.equal(st.tma_box(m, r0), st.tma_box_plain(m, r0)):
+            fail(f"sm90 TMA box at row {r0} of 100: wrong values or no zero fill")
+    log("sm90: 10 tiles through a 3-stage mbarrier ring and TMA boxes on a ragged edge "
+        "match torch bit for bit")
+
+
 def phase_kernels(torch, dev) -> dict:
     """Kernel vs plain at llama-3-8b head shapes (H=32, KV=8, hd=128)."""
     from gofr_tpu_torch.ops.cuda import flash_decode as fd
@@ -273,14 +344,15 @@ def phase_kernels(torch, dev) -> dict:
     bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
     out["flash_cache_attention"] = dict(
         max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms,
+        library_ms=lib_ms, tflops=flops / ms / 1e9, library_tflops=flops / lib_ms / 1e9,
         bound_ms=bound_ms,
         bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
         shape=f"P={P} c={c} H={H} KV={KV} hd={hd} max_len={max_len} rows={rows}",
     )
     log(f"flash_cache_attention: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"(flops {flops}, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        f"(flops {flops}, {flops / ms / 1e9:.1f} TFLOP/s achieved, sdpa "
+        f"{flops / lib_ms / 1e9:.1f} on the same useful flops)")
     return out
 
 
@@ -450,7 +522,7 @@ def phase_kernel_variants(torch, dev) -> dict:
         bound_ms, bound_by = bound(bytes_, flops)
         out["flash_cache_attention"].append(dict(
             case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
             shape=f"P={P} c={c} H={H} KV={KV} hd={hd} max_len={max_len} rows={rows}"
                   + (f" block={B}" if B else "") + (" int8" if quant else ""),
         ))
@@ -508,13 +580,15 @@ def phase_flash_attention(torch, dev) -> dict:
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
         out.append(dict(
             case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, tflops=flops / ms / 1e9,
+            library_tflops=flops / lib_ms / 1e9,
             bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
             shape=f"b={b} s_q={s_q} s_kv={s_kv} H={H} KV={KV} hd={hd} causal={causal} "
                   f"lengths={lengths}",
         ))
         log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms (flops {flops}, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+            f"bound {bound_ms:.4f} ms (flops {flops}, {flops / ms / 1e9:.1f} TFLOP/s achieved, "
+            f"sdpa {flops / lib_ms / 1e9:.1f} on the same useful flops)")
         del q, k, v, vis
     return {"cases": out, **{key: out[0][key] for key in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")},
@@ -753,6 +827,8 @@ def phase_window_kernels(torch, dev) -> dict:
         out["flash_cache_attention"].append(dict(
             case=f"window {W} {label}", max_abs_err=err, max_row_rel_err=rel, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            tflops=flops / ms / 1e9,
+            library_tflops=None if lib_ms is None else flops / lib_ms / 1e9,
             shape=f"P={P} c={c} H={H} KV={KV} hd={hd} max_len={max_len} window={W} "
                   f"rows={rows}" + (f" block={B}" if B else "") + (" int8" if quant else ""),
         ))
@@ -797,6 +873,8 @@ def phase_window_kernels(torch, dev) -> dict:
         out["flash_attention"].append(dict(
             case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            tflops=4 * H * hd * pairs / ms / 1e9,
+            library_tflops=4 * H * hd * pairs / lib_ms / 1e9,
             shape=f"b={b} s_q={s} s_kv={s} H={H} KV={KV} hd={hd} causal=True window={W} "
                   f"lengths={lengths}",
         ))
@@ -1453,6 +1531,12 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.lib(verbose=True)
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    # Registers at entry (setmaxnreg then moves the producer's to the
+    # consumers), spills and stack of the two wgmma kernels.
+    for res in kernel_resources(_build.ptxas_log):
+        if res["kernel"] in ("flash_attention_kernel", "flash_cache_attention_kernel"):
+            log("ptxas: " + json.dumps({k: v for k, v in res.items() if k != "mangled"}))
+    phase_sm90_primitives(torch, dev)
 
     with torch.inference_mode():
         kstats = phase_kernels(torch, dev)

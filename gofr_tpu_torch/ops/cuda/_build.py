@@ -28,6 +28,9 @@ FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# What nvcc printed per source in the last verbose build (with -Xptxas -v:
+# each kernel's registers, spills, stack and barriers).
+ptxas_log: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -81,6 +84,7 @@ def build(verbose: bool = False) -> Path:
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{out}")
             elif verbose and out.strip():
+                ptxas_log[src.name] = out
                 print(f"[nvcc {src.name}]\n{out.strip()}")
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))

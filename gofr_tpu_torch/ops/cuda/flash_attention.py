@@ -109,17 +109,24 @@ def _kernel_fn():
     return _fn
 
 
-def _in_place(name: str, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """``t`` if the kernel can read it through its strides (unit stride on
-    head_dim, 16-byte aligned rows), else a contiguous copy."""
+def _tma_view(name: str, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` itself: the kernel reads q, k and v in place through TMA tensor
+    maps, which need a unit stride on head_dim and a 16-byte aligned base
+    and batch, sequence and head strides. Anything else raises (no silent
+    copy)."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} has dtype {t.dtype}, expected torch.bfloat16")
-    if (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
-            and t.data_ptr() % 16 == 0):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
+    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
+            or t.data_ptr() % 16):
+        raise ValueError(
+            f"{name} (strides {tuple(t.stride())}, base offset {t.data_ptr() % 16} "
+            "bytes past 16) cannot be described by a TMA tensor map: head_dim "
+            "must have stride 1 and the other strides and the base must be "
+            "multiples of 16 bytes"
+        )
+    return t
 
 
 def flash_attention(
@@ -137,9 +144,9 @@ def flash_attention(
     [b, s_q, n_heads, hd], contiguous.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, hd in {64, 128}, n_heads divisible by n_kv; q/k/v are read
-    through their strides, or copied once when their rows are not 16-byte
-    aligned) or raise."""
+    (bf16, hd in {64, 128}, n_heads divisible by n_kv; q/k/v are read in
+    place through their strides, which TMA must be able to describe) or
+    raise."""
     if window < 0 or (window and not causal):
         raise ValueError(f"window {window} needs causal attention and >= 0")
     if q.device.type == "cpu":
@@ -160,7 +167,7 @@ def flash_attention(
             f"and {tuple(v.shape)}"
         )
     dev = q.device
-    q, k, v = _in_place("q", q, dev), _in_place("k", k, dev), _in_place("v", v, dev)
+    q, k, v = _tma_view("q", q, dev), _tma_view("k", k, dev), _tma_view("v", v, dev)
     if lengths is not None:
         _check("lengths", lengths, (b,), torch.int32, dev)
     if scale is None:

@@ -10,7 +10,8 @@
 // one deadlocks, which the scheduler detects and aborts on, as it would
 // misbehave on a card. Dynamic shared memory is one static buffer, filled
 // with NaN bytes before every block so that reads of unwritten shared
-// memory show in the output.
+// memory show in the output. The Hopper primitives (wgmma, mbarrier,
+// cp.async, TMA, named barriers) are emulated in sm90.cuh on top of this.
 #pragma once
 #include <ucontext.h>
 
@@ -30,6 +31,7 @@
 #define __launch_bounds__(...)
 #define __shared__
 #define __align__(n)
+#define __grid_constant__
 
 using std::max;
 using std::min;
@@ -43,6 +45,7 @@ inline thread_local dim3 blockDim, gridDim;
 
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct __nv_bfloat16 { uint16_t v; };
 inline uint16_t __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
@@ -59,16 +62,24 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
 inline float __expf(float x) { return std::exp(x); }
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 
-alignas(16) inline thread_local unsigned char mock_smem[256 * 1024];
+// 1024-byte aligned, as the 128-byte swizzle's phase needs.
+alignas(1024) inline thread_local unsigned char mock_smem[256 * 1024];
 
 struct MockBarrier {
   unsigned gen = 0, count = 0;
+};
+
+// An mbarrier: the arrivals still expected in the current phase, the
+// transaction bytes still expected, and the number of completed phases.
+struct MockMbar {
+  unsigned count = 0, pending = 0, phases = 0;
+  long long tx = 0;
 };
 
 struct MockBlock {
@@ -83,6 +94,9 @@ struct MockBlock {
   std::vector<MockBarrier> warp;
   std::vector<float> xch;
   std::vector<uint32_t> frag;  // 6 words per thread: an mma's A and B fragments
+  std::vector<MockBarrier> named;  // bar.sync ids 0..15
+  std::vector<MockBarrier> wgroup;  // one per warpgroup (wgmma is collective)
+  std::vector<MockMbar> mbar;       // indexed by shared-memory offset / 8
 };
 inline thread_local MockBlock* mock_ctx = nullptr;
 
@@ -141,6 +155,9 @@ void mock_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A..
         blockIdx = dim3(x, y, z);
         b.bar = MockBarrier{};
         b.warp.assign(nt / 32, MockBarrier{});
+        b.named.assign(16, MockBarrier{});
+        b.wgroup.assign((nt + 127) / 128, MockBarrier{});
+        b.mbar.assign(sizeof(mock_smem) / 8, MockMbar{});
         b.done.assign(nt, 0);
         for (int t = 0; t < nt; ++t) {
           getcontext(&b.ctx[t]);

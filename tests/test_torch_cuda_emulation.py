@@ -3,9 +3,13 @@
 ``gofr_tpu_torch/csrc/*.cu`` is compiled by the host C++ compiler against
 ``tests/cuda_emu/cuda_mock.h``, which emulates the CUDA subset the
 kernels use (one fiber per CUDA thread, barriers for ``__syncthreads``
-and warp shuffles; ``tests/cuda_emu/mma.cuh`` replaces
-the tensor-core product with its documented fragment layout), and the C
-entries are called through ctypes on CPU tensors. Their outputs are held against the plain
+and warp shuffles; ``tests/cuda_emu/sm90.cuh`` replaces the Hopper
+primitives of ``csrc/sm90.cuh``: wgmma read through its descriptors and
+the 128-byte swizzle, mbarrier phases, cp.async and TMA copies, named
+barriers), and the C entries are called through ctypes on CPU tensors.
+The primitives are also tested alone (``csrc/sm90_selftest.cu``): wgmma
+for both B layouts against numpy, a 3-stage mbarrier ring, a TMA box on a
+ragged edge. Their outputs are held against the plain
 versions at small shapes covering every head-dim and GQA template the
 wrappers accept, the serving kernels' int8, paged and paged+int8
 variants (a shuffled block table over a pool whose parking block and
@@ -48,6 +52,9 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
         pytest.skip("needs a host C++ compiler (g++) to emulate the kernels")
     srcs = []
     for stem, s in sources.items():
+        if stem.endswith(".cuh"):  # a header in place of csrc's own
+            (out / stem).write_text(s)
+            continue
         s = s.replace(
             "extern __shared__ __align__(16) unsigned char smem_raw[];",
             "unsigned char* smem_raw = mock_smem;",
@@ -57,7 +64,8 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
         dst.write_text(s)
         srcs.append(str(dst))
     # One compiler per source, all started together, then one link.
-    flags = ["-std=c++20", "-O1", "-fno-strict-aliasing", "-fPIC", "-I", str(MOCK)]
+    flags = ["-std=c++20", "-O1", "-fno-strict-aliasing", "-fPIC", "-I", str(MOCK),
+             "-I", str(CSRC)]
     procs = [
         subprocess.Popen([cxx, *flags, "-c", src, "-o", src + ".o"],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -85,6 +93,11 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         ),
     }
+    entries.update({
+        "gofr_sm90_wgmma_test": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "gofr_sm90_ring_test": [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
+        "gofr_sm90_tma_test": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    })
     for name, argtypes in entries.items():
         if hasattr(dll, name):
             getattr(dll, name).argtypes = argtypes
@@ -347,24 +360,27 @@ def test_emulation_catches_the_v_scale_in_the_denominator(tmp_path):
     """Both serving kernels rebuilt so that the softmax denominator takes
     the probabilities after the V scale (the likely int8 bug): every int8
     case, contiguous and paged, must fail."""
+    # flash_prefill's softmax lives in the mainloop header it shares with
+    # flash_attention (whose bf16 path the swap does not touch).
     swaps = {
-        "flash_decode": (
+        "flash_decode.cu": (
             "l[r] = l[r] * corr + p;  // the denominator takes p before the V scale\n"
             "          const float pv = kQuant ? p * vs[u] : p;",
             "const float pv = kQuant ? p * vs[u] : p;\n"
             "          l[r] = l[r] * corr + pv;",
         ),
-        "flash_prefill": (
-            "rs_a += s[nt][e];\n        rs_b += s[nt][2 + e];",
-            "rs_a += kQuant ? s[nt][e] * sVs[col - kc0] : s[nt][e];\n"
-            "        rs_b += kQuant ? s[nt][2 + e] * sVs[col - kc0] : s[nt][2 + e];",
+        "attn_sm90.cuh": (
+            "rs_b += s[i];",
+            "rs_b += QUANT ? s[i] * vs[j] : s[i];",
         ),
     }
-    sources = {}
-    for stem, (old, new) in swaps.items():
-        src = (CSRC / f"{stem}.cu").read_text()
+    sources = {"flash_prefill": (CSRC / "flash_prefill.cu").read_text()}
+    for name, (old, new) in swaps.items():
+        src = (CSRC / name).read_text()
         assert old in src
-        sources[stem] = src.replace(old, new)
+        sources[name.removesuffix(".cu")] = src.replace(old, new)
+    sources["attn_sm90.cuh"] = sources["attn_sm90.cuh"].replace(
+        "rs_a += s[i];", "rs_a += QUANT ? s[i] * vs[j] : s[i];")
     lib = _emulate(sources, tmp_path)
     for variant in ("int8", "paged+int8"):
         for split in (False, True):
@@ -606,8 +622,10 @@ def test_emulation_catches_a_window_edge_one_key_low(tmp_path):
     swaps = {
         "flash_decode": ("(has_new ? length : length - 1) - window + 1)",
                          "(has_new ? length : length - 1) - window)"),
-        "flash_prefill": ("lim_a - window + 1 : 0;", "lim_a - window : 0;"),
-        "flash_attention": ("ra + offset - window + 1 : 0;", "ra + offset - window : 0;"),
+        # The tiled kernels' edge, wherever it is used (each row's mask, the
+        # warpgroup's interior test, the first key tile).
+        "flash_prefill": ("return lim - window + 1;", "return lim - window;"),
+        "flash_attention": ("return r + offset - window + 1;", "return r + offset - window;"),
     }
     sources = {}
     for stem, (old, new) in swaps.items():
@@ -624,3 +642,94 @@ def test_emulation_catches_a_window_edge_one_key_low(tmp_path):
     for case in FA_WINDOW_CASES:
         out, want = _fa_window_case(lib, *case)
         assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+# -- the Hopper primitives themselves (csrc/sm90_selftest.cu) ----------------
+
+
+@pytest.mark.parametrize("a_regs", [False, True], ids=["smem_a", "reg_a"])
+@pytest.mark.parametrize("b_mn_major", [False, True], ids=["k_major_b", "mn_major_b"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_emulated_wgmma_matches_numpy(emu_lib, n, b_mn_major, a_regs):
+    """D = A(64 x 128) . B(128 x n) in 8 k-steps of wgmma m64nNk16, with the
+    tiles written by cp.async in the kernels' swizzled layout and read back
+    through the descriptors the kernels build, against numpy in f64."""
+    rng = np.random.default_rng(n + 2 * b_mn_major + a_regs)
+    a = _bf16(rng, 64, 128)
+    b = _bf16(rng, 128, n) if b_mn_major else _bf16(rng, n, 128)
+    d = torch.full((64, n), float("nan"))
+    rc = emu_lib.gofr_sm90_wgmma_test(a.data_ptr(), b.data_ptr(), d.data_ptr(), n,
+                                      int(b_mn_major), int(a_regs), None)
+    assert rc == 0
+    bn = b.double().numpy()
+    want = a.double().numpy() @ (bn if b_mn_major else bn.T)
+    np.testing.assert_allclose(d.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_emulated_mbarrier_ring_wraps_its_phases(emu_lib):
+    """10 tiles through a 3-stage ring (phases wrap three times): each
+    consumer thread gets the chunk another producer thread copied."""
+    rng = np.random.default_rng(5)
+    src = torch.from_numpy(rng.integers(-30000, 30000, (10, 128, 8)).astype(np.int16))
+    dst = torch.zeros_like(src)
+    assert emu_lib.gofr_sm90_ring_test(src.data_ptr(), dst.data_ptr(), 10, None) == 0
+    assert torch.equal(dst, torch.roll(src, shifts=-37, dims=1))
+
+
+@pytest.mark.parametrize("r0", [0, 64])
+def test_emulated_tma_box_zero_fills_a_ragged_edge(emu_lib, r0):
+    """A 128 x 64 box from row r0 of a [100, 72] matrix: rows past 100 (and
+    columns past 64) are not read, and the missing rows arrive as zeros."""
+    rng = np.random.default_rng(6)
+    m = _bf16(rng, 100, 72)
+    dst = torch.full((128, 64), float("nan"), dtype=torch.bfloat16)
+    assert emu_lib.gofr_sm90_tma_test(m.data_ptr(), dst.data_ptr(), 100, 72, r0, None) == 0
+    want = torch.zeros((128, 64), dtype=torch.bfloat16)
+    want[:100 - r0] = m[r0:, :64]
+    assert torch.equal(dst, want)
+
+
+# -- the tiled kernels at the new tiles' edges (128 query rows, 128 keys) ----
+
+FA_EDGE_CASES = [
+    # b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths
+    (1, 1, 1, 2, 1, 64, True, None),             # one query, one key
+    (1, 127, 127, 2, 2, 128, True, None),        # one row short of a block (rep 1)
+    (1, 129, 129, 8, 1, 64, True, [100]),        # one row past it (rep 8), lengths
+    (2, 191, 191, 2, 2, 128, False, None),       # non-causal, half a second block
+    (1, 1, 300, 4, 2, 128, True, None),          # one query over three key tiles
+]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,causal,lengths", FA_EDGE_CASES)
+def test_emulated_flash_attention_at_tile_edges(
+    emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths
+):
+    out, want = _run_emulated_flash_attention(
+        emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+
+
+PREFILL_EDGE_SHAPES = [
+    # hd, H, KV, c, slots, starts, lens: c * rep is not a multiple of 128
+    (64, 8, 1, 20, [1, 0], [0, 150], [20, 13]),     # rep 8: 160 rows
+    (128, 2, 2, 50, [0, 2], [100, 0], [50, 49]),    # rep 1: 50 rows
+    (64, 4, 2, 70, [3, 1], [10, 0], [70, 1]),       # rep 2: 140 rows
+]
+
+
+@pytest.mark.parametrize("hd,H,KV,c,slots,starts,lens", PREFILL_EDGE_SHAPES)
+def test_emulated_flash_cache_attention_at_tile_edges(
+    emu_lib, hd, H, KV, c, slots, starts, lens
+):
+    rng = np.random.default_rng(c + H)
+    S, max_len, P = 4, 224, len(slots)
+    q, kc, vc = (_bf16(rng, P, c, H, hd), _bf16(rng, S, KV, max_len, hd),
+                 _bf16(rng, S, KV, max_len, hd))
+    i32 = dict(dtype=torch.int32)
+    sl, st, ln = (torch.tensor(x, **i32) for x in (slots, starts, lens))
+    out = _call_prefill(emu_lib, q, [kc, vc], sl, st, ln, None, 0)
+    want = flash_cache_attention_plain(q, kc, vc, sl, st, ln)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    for p, n in enumerate(lens):
+        assert torch.all(out[p, n:] == 0)

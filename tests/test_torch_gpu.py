@@ -363,3 +363,130 @@ def test_windowed_flash_attention_fn_backward_matches_dense_autograd_on_gpu(cuda
         scale = want.grad.float().abs().max().item()
         torch.testing.assert_close(got.grad.float(), want.grad.float(),
                                    atol=BF16_TOL * scale, rtol=BF16_TOL)
+
+
+# -- the Hopper primitives and the tiled kernels' tile edges ----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_regs", [False, True], ids=["smem_a", "reg_a"])
+@pytest.mark.parametrize("b_mn_major", [False, True], ids=["k_major_b", "mn_major_b"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_sm90_wgmma_matches_torch_on_gpu(cuda_device, n, b_mn_major, a_regs):
+    """One warpgroup's wgmma m64nNk16 over 8 k-steps, from the kernels'
+    swizzled tiles and descriptors, against an f32 product: only the sum's
+    order differs (f32 accumulation of bf16 products)."""
+    from gofr_tpu_torch.ops.cuda import sm90_selftest as st
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n + 2 * b_mn_major + a_regs)
+    a = torch.randn((64, 128), generator=gen, device=cuda_device).to(torch.bfloat16)
+    shape = (128, n) if b_mn_major else (n, 128)
+    b = torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = st.wgmma_product(a, b, b_mn_major=b_mn_major, a_regs=a_regs)
+    torch.cuda.synchronize()
+    want = st.wgmma_product_plain(a, b, b_mn_major=b_mn_major)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sm90_ring_and_tma_box_on_gpu(cuda_device):
+    from gofr_tpu_torch.ops.cuda import sm90_selftest as st
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    src = torch.randint(-30000, 30000, (10, 128, 8), generator=gen, device=cuda_device,
+                        dtype=torch.int32).to(torch.int16)
+    assert torch.equal(st.ring_roundtrip(src), st.ring_roundtrip_plain(src))
+    m = torch.randn((100, 72), generator=gen, device=cuda_device).to(torch.bfloat16)
+    for r0 in (0, 64):
+        assert torch.equal(st.tma_box(m, r0), st.tma_box_plain(m, r0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,H,KV,hd,causal,lengths",
+    [
+        (1, 1, 1, 2, 1, 64, True, None),
+        (2, 127, 127, 4, 4, 128, True, None),     # rep 1
+        (1, 129, 129, 8, 1, 64, True, [100]),     # rep 8, lengths
+        (2, 191, 191, 4, 2, 128, False, None),
+        (1, 1, 300, 4, 2, 128, True, None),
+    ],
+)
+def test_flash_attention_tile_edges_on_gpu(cuda_device, b, s_q, s_kv, H, KV, hd, causal,
+                                           lengths):
+    gen = torch.Generator(device=cuda_device).manual_seed(s_q + s_kv)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    q, k, v = r(b, s_q, H, hd), r(b, s_kv, KV, hd), r(b, s_kv, KV, hd)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
+                                                     device=cuda_device)
+    got = fa.flash_attention(q, k, v, lens, causal=causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, lens, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_reads_a_fused_qkv_view_on_gpu(cuda_device):
+    """q, k and v as views of one fused [b, s, H + 2 KV, hd] projection are
+    read in place (TMA through their strides), as a contiguous copy is."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    b, s, H, KV, hd = 2, 300, 8, 2, 128
+    qkv = torch.randn((b, s, H + 2 * KV, hd), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous()
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    contiguous = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(got, contiguous)
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_what_tma_cannot_describe_on_gpu(cuda_device):
+    """A sequence stride that is not a multiple of 16 bytes, or a base 2
+    bytes off, raises: the wrapper never copies silently."""
+    b, s, H, hd = 1, 64, 2, 64
+    k = torch.zeros((b, s, H, hd), dtype=torch.bfloat16, device=cuda_device)
+    flat = torch.zeros(b * s * (H * hd + 4) + 8, dtype=torch.bfloat16, device=cuda_device)
+    odd_stride = flat.as_strided((b, s, H, hd), (s * (H * hd + 4), H * hd + 4, hd, 1))
+    off_base = flat[1:].as_strided((b, s, H, hd), (s * H * hd, H * hd, hd, 1))
+    before = fa.launches
+    for q in (odd_stride, off_base):
+        with pytest.raises(ValueError, match="TMA"):
+            fa.flash_attention(q, k, k, causal=True)
+    assert fa.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "hd,H,KV,c,slots,starts,lens",
+    [
+        (64, 8, 1, 20, [1, 0], [0, 150], [20, 13]),   # rep 8: 160 rows
+        (128, 2, 2, 50, [0, 2], [100, 0], [50, 49]),  # rep 1: 50 rows
+        (128, 32, 8, 35, [3, 1], [10, 0], [35, 1]),   # rep 4: 140 rows
+    ],
+)
+def test_flash_cache_attention_tile_edges_on_gpu(cuda_device, hd, H, KV, c, slots, starts,
+                                                 lens):
+    gen = torch.Generator(device=cuda_device).manual_seed(c)
+    S, max_len = 4, 256
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+
+    q, kc, vc = r(len(slots), c, H, hd), r(S, KV, max_len, hd), r(S, KV, max_len, hd)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    sl, st, ln = (torch.tensor(x, **i32) for x in (slots, starts, lens))
+    got = fp.flash_cache_attention(q, kc, vc, sl, st, ln)
+    torch.cuda.synchronize()
+    want = fp.flash_cache_attention_plain(q, kc, vc, sl, st, ln)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    for p, n in enumerate(lens):
+        assert torch.all(got[p, n:] == 0)
