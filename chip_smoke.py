@@ -65,6 +65,11 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    lengths variant) against the plain path;
 8. prints the card, the kernels line and, last, {"ok": true, ...}.
 
+Device times come from torch.profiler. On a machine where its trace holds
+no GPU kernel, they come from CUDA events around calls queued behind a
+spin kernel (queued_ms), and a profile whose step waits for the device
+itself reports its device busy time as not measured.
+
 Any failed phase exits non-zero before the last line is printed. Nothing
 of JAX or of the gofr_tpu package is imported.
 """
@@ -80,9 +85,10 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and dense bf16 rate.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense bf16 and f32 rates.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12  # f32 outside the tensor cores
 # Kernel vs plain: the plain version runs in f32 on the kernel's inputs
 # upcast, so what differs is the kernel's bf16 output rounding (2**-9
 # relative), its bf16 probabilities in the prefill P.V product, and the
@@ -134,6 +140,26 @@ LLAMA_PROMPTS = (1, 17, 64, 255, 256, 257, 400, 520, 700, 700)
 # across (4090 + 32 new tokens) and past the window.
 MISTRAL_WINDOW = 4096
 MISTRAL_PROMPTS = (17, 700, 4090, 4100, 5000, 6500)
+# The f32 kernels (flash_decode's f32 instantiations, csrc/attn_f32.cu)
+# against their f32 plain versions, per output row: another summation
+# order in f32 (2**-24 relative a rounding).
+F32_ROW_REL_TOL = 1e-4
+# llama-tiny-f32 logits, kernels vs the plain path: f32 attention outputs
+# that differ in their last bits, through 2 layers.
+TINY_F32_DLOGITS_TOL = 1e-3
+# llama-tiny (bf16, hd 32) logits, kernels vs the plain path (which rounds
+# the probabilities to bf16): the CPU tests' port-vs-reference limit.
+TINY_BF16_DLOGITS_TOL = 6e-2
+# torch.profiler windows for a kernel's device time.
+DEVICE_RUNS = 20
+# Spin-kernel cycles a second (torch.cuda._sleep counts clock64 ticks): at
+# least the card's highest SM clock (1,980 MHz on an H100 SXM), so a spin
+# sized from it lasts at least as long as asked.
+SPIN_HZ = 2.5e9
+# What device_ms and the profiles read device time from. torch.profiler
+# (CUPTI) first; where its trace holds no GPU kernel, every later device
+# time comes from CUDA events around calls queued behind a spin kernel.
+DEVICE_TIMER = {"by": "torch.profiler"}
 
 
 def fail(msg: str) -> None:
@@ -160,6 +186,96 @@ def time_ms(torch, fn, runs: int = TIMED_RUNS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(torch, fn, runs: int = DEVICE_RUNS) -> float | None:
+    """Device time of one call of ``fn`` from CUDA events, without the
+    host's launch time: a spin kernel holds the stream while the host
+    queues ``runs`` calls, so the events time them back to back on the
+    device. None where the queue drains before the host has queued every
+    call even behind a spin 16 times the host's time (``fn`` waits for the
+    device itself)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for margin in (4, 16):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(margin * host_s * SPIN_HZ) + 100_000)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / runs
+    return None
+
+
+def _profiler_traces_nothing() -> None:
+    if DEVICE_TIMER["by"] == "torch.profiler":
+        DEVICE_TIMER["by"] = "CUDA events, calls queued behind a spin kernel"
+        log("device time: the torch.profiler trace holds no GPU kernel on this machine; "
+            "every device time from here on is from CUDA events around calls queued "
+            "behind a spin kernel (chip_smoke.queued_ms)")
+
+
+def device_ms(torch, fn, runs: int = DEVICE_RUNS) -> float:
+    """Device time of one call of ``fn``: every GPU kernel's time in a
+    torch.profiler trace of ``runs`` calls (after a warm-up), over
+    ``runs``. Unlike CUDA events around each call, it leaves out the
+    host's launch time. Where the trace holds no GPU kernel, the time
+    comes from ``queued_ms`` (DEVICE_TIMER says which), once a second
+    trace holds none either."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2 if DEVICE_TIMER["by"] == "torch.profiler" else 0):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(a.self_device_time_total for a in prof.key_averages()
+                       if a.self_device_time_total > 0)
+        if total_us > 0:
+            return total_us / runs / 1e3
+    _profiler_traces_nothing()
+    ms = queued_ms(torch, fn, runs)
+    if ms is None:
+        fail("device_ms: torch.profiler traces no GPU kernel and the calls do not queue "
+             "behind a spin kernel")
+    return ms
+
+
+def decode_extras(torch, fd, name: str, fn, q, k_cache, table, window: int,
+                  library=None) -> dict:
+    """For a flash_decode case: the cluster size the wrapper launches with,
+    two launches bit for bit equal (fixed-order merges), the kernel's
+    device time, the same from queued CUDA events (``queued_ms``, a check
+    of the one timer against the other) and, where one PyTorch call
+    computes the same function, that call's device time."""
+    cluster = fd.launch_cluster_size(q, k_cache, table, window)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name}: two launches on the same inputs differ")
+    dev = device_ms(torch, fn)
+    lib_dev = None if library is None else device_ms(torch, library)
+    queued = queued_ms(torch, fn)
+    log(f"{name}: cluster of {cluster} blocks per (slot, kv head), grid {q.shape[0]} x "
+        f"{k_cache.shape[1]} x {cluster}; device time {dev:.4f} ms a launch "
+        f"({DEVICE_TIMER['by']}, {DEVICE_RUNS} launches)"
+        + ("" if lib_dev is None else f", sdpa device time {lib_dev:.4f} ms")
+        + ("" if queued is None else f"; queued CUDA events {queued:.4f} ms a launch")
+        + "; two launches bit-equal")
+    return dict(cluster=cluster, device_ms=dev, device_ms_by=DEVICE_TIMER["by"],
+                queued_event_ms=queued, library_device_ms=lib_dev, repeat_bit_equal=True)
 
 
 def check_close(torch, name: str, got, want32, tol: float = ROW_REL_TOL) -> tuple[float, float]:
@@ -252,6 +368,21 @@ def phase_sm90_primitives(torch, dev) -> None:
             fail(f"sm90 TMA box at row {r0} of 100: wrong values or no zero fill")
     log("sm90: 10 tiles through a 3-stage mbarrier ring and TMA boxes on a ragged edge "
         "match torch bit for bit")
+    raw = torch.randint(0, 256, (8192,), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    words = torch.randint(-2**31, 2**31 - 1, (100,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    got, got_words = st.bulk_roundtrip(raw, words)
+    if not (torch.equal(got, raw) and torch.equal(got_words, words)):
+        fail("sm90 bulk copy / 4-byte cp.async: the bytes came back wrong")
+    x = torch.randint(-2**31, 2**31 - 1, (132 * 4, 128), generator=gen, device=dev,
+                      dtype=torch.int32)
+    got, ranks = st.cluster_exchange(x)
+    want, want_ranks = st.cluster_exchange_plain(x)
+    if not (torch.equal(got, want) and torch.equal(ranks, want_ranks)):
+        fail("sm90 cluster: a block read the wrong words from its peer's shared memory")
+    log("sm90: a 8192-byte bulk copy and 100 cp.async words on one mbarrier phase, and 132 "
+        "clusters of 4 blocks reading their peers' shared memory, match torch bit for bit")
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -300,12 +431,16 @@ def phase_kernels(torch, dev) -> dict:
     bytes_ = (2 * S * H * hd * 2 + tok * KV * hd * 2 * 2 + 2 * S * KV * hd * 2 + S * 4)
     flops = 4 * (tok + S) * H * hd
     bound_ms = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    extras = decode_extras(
+        torch, fd, "flash_decode (split)",
+        lambda: fd.flash_decode(q, kc, vc, lens, k_new=kn, v_new=vn), q, kc, None, 0,
+        library=lambda: sdpa(q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=True))
     out["flash_decode"] = dict(
         max_abs_err=max(err_w, err_s), max_row_rel_err=max(rel_w, rel_s),
         ms=ms, ms_written=ms_w, plain_ms=plain_ms,
         library_ms=lib_ms, bound_ms=bound_ms,
         bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations",
-        shape=f"S={S} H={H} KV={KV} hd={hd} max_len={max_len} lengths={lengths}",
+        shape=f"S={S} H={H} KV={KV} hd={hd} max_len={max_len} lengths={lengths}", **extras,
     )
     log(f"flash_decode: kernel {ms:.4f} ms (written {ms_w:.4f}), plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes {bytes_})")
@@ -393,6 +528,50 @@ def make_pool(torch, gen, logical: list, keys: list, B: int, extra: int = 16):
     return pools, table.to(dev)
 
 
+def decode_cluster_sweep(torch, dev) -> list:
+    """flash_decode's device time at each cluster size, in the split
+    convention on the bf16 slot cache, at the shapes of the two profiled
+    decode windows (llama-3-8b: 8 slots at 256 tokens, max_len 2048;
+    mistral-7b: 4 slots at 6,000 tokens, window 4096, max_len 8192) and of
+    the kernel table's row 1, beside the size the wrapper picks. Every
+    size must give the plain version's answer (the split only changes the
+    summation order)."""
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+
+    gen = torch.Generator(device=dev).manual_seed(88)
+    H, KV, hd = 32, 8, 128
+    shapes = [("llama-3-8b decode at 256 tokens", [256] * 8, 2048, 0),
+              ("mistral-7b decode at 6,000 tokens", [6000] * 4, 8192, MISTRAL_WINDOW),
+              ("row 1 lengths", [0, 1, 100, 257, 1000, 1536, 700, 2047], 2048, 0)]
+    out = []
+    for label, lengths, max_len, window in shapes:
+        S = len(lengths)
+        q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                     for shape in ((S, H, hd), (S, KV, hd), (S, KV, hd)))
+        kc, vc = (torch.randn((S, KV, max_len, hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(2))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        want = fd.flash_decode_plain(q.float(), kc.float(), vc.float(), lens, k_new=kn.float(),
+                                     v_new=vn.float(), window=window)
+        times = {}
+        for c in (1, 2, 4, 8):
+            def run(c=c):
+                return fd.launch_with_cluster(q, kc, vc, lens, kn, vn, None, None, None,
+                                              hd**-0.5, window, c)
+            check_close(torch, f"flash_decode {label}, cluster {c}", run(), want)
+            times[c] = device_ms(torch, run)
+        picked = fd.launch_cluster_size(q, kc, None, window)
+        fits = {c: fd.max_active_clusters(q, kc, 0, c) for c in (1, 2, 4, 8)}
+        rows = sum(min(n, window - 1) if window else n for n in lengths)
+        bound = (kv_bytes(rows, KV, hd, False) + 4 * S * H * hd + 4 * S * KV * hd) \
+            / HBM_BYTES_PER_S * 1e3
+        out.append(dict(shape=label, pairs=S * KV, device_ms=times, max_active_clusters=fits,
+                        picked=picked, bound_ms=bound))
+        log("flash_decode cluster sweep: " + json.dumps(out[-1]))
+        del q, kn, vn, kc, vc, want
+    return out
+
+
 def phase_kernel_variants(torch, dev) -> dict:
     """The serving kernels' paged (B=32, B=128), int8 and paged+int8 (B=32)
     variants at the llama-3-8b serving shapes of ``phase_kernels``: each
@@ -473,11 +652,15 @@ def phase_kernel_variants(torch, dev) -> dict:
         bytes_ = (2 * S * H * hd * 2 + kv_bytes(tok, KV, hd, quant) + 2 * S * KV * hd * 2
                   + S * 4 + (4 * sum(-(-n // B) for n in lengths) if B else 0))
         bound_ms, bound_by = bound(bytes_, 4 * (tok + S) * H * hd)
+        extras = decode_extras(
+            torch, fd, name + " (split)",
+            lambda: fd.flash_decode(q, lengths=lens, k_new=knq, v_new=vnq, **args), q,
+            args["k_cache"], table, 0)
         out["flash_decode"].append(dict(
             case=label, max_abs_err=max(err, err_w), max_row_rel_err=max(rel, rel_w),
             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
             shape=f"S={S} H={H} KV={KV} hd={hd} max_len={max_len} lengths={lengths}"
-                  + (f" block={B}" if B else "") + (" int8" if quant else ""),
+                  + (f" block={B}" if B else "") + (" int8" if quant else ""), **extras,
         ))
         log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {bytes_} bytes)")
@@ -594,6 +777,208 @@ def phase_flash_attention(torch, dev) -> dict:
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")},
         "max_abs_err": max(c["max_abs_err"] for c in out),
         "max_row_rel_err": max(c["max_row_rel_err"] for c in out)}
+
+
+def phase_f32_kernels(torch, dev) -> dict:
+    """The f32 variants of the three kernels at small shapes (the sizes f32
+    models run at): flash_decode's f32 instantiations (f32 and int8 caches,
+    contiguous and paged, both conventions, with and without the window)
+    and csrc/attn_f32.cu for flash_cache_attention (slot cache, pool,
+    int8, window) and flash_attention (causal GQA, lengths, window,
+    non-causal), each against its f32 plain version per row at
+    F32_ROW_REL_TOL, each launching its kernel once. Returns the largest
+    max_abs_err per kernel."""
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+    from gofr_tpu_torch.ops.cuda import flash_prefill as fp
+    from gofr_tpu_torch.ops.kv_cache import fake_quantize_kv, quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    S, H, KV, hd, max_len, W = 4, 8, 2, 64, 256, 60
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def once(mod, name, fn, want):
+        before = mod.launches
+        got = fn()
+        torch.cuda.synchronize()
+        if mod.launches != before + 1 or got.dtype != torch.float32:
+            fail(f"{name}: not one f32 kernel launch")
+        return check_close(torch, name, got, want, tol=F32_ROW_REL_TOL)[0]
+
+    def timed(name, fn, plain, bytes_, flops):
+        """Event and device time of one f32 call, its plain version's time
+        and its bound (f32 CUDA-core peak for the operations)."""
+        ms, dev_ms, plain_ms = time_ms(torch, fn), device_ms(torch, fn), time_ms(torch, plain)
+        bound = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        log(f"{name}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"bound {bound:.5f} ms")
+        return dict(case=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound)
+
+    errs = {"flash_decode": 0.0, "flash_cache_attention": 0.0, "flash_attention": 0.0}
+    times = {}
+    lengths = [0, 1, 100, 255]
+    lens = torch.tensor(lengths, **i32)
+    q = rnd(S, H, hd)
+    for quant in (False, True):
+        k, v = rnd(S, KV, max_len, hd), rnd(S, KV, max_len, hd)
+        cache = [k, v]
+        new = dict(k_new=rnd(S, KV, hd), v_new=rnd(S, KV, hd))
+        if quant:
+            (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+            cache = [k, v, ks, vs]
+            new = {key: fake_quantize_kv(t) for key, t in new.items()}
+        for B in (0, 32):
+            kw = dict(zip(("k_cache", "v_cache", "k_scale", "v_scale"), cache))
+            if B:
+                pools, table = make_pool(torch, gen, cache, lengths, B)
+                kw = dict(zip(("k_cache", "v_cache", "k_scale", "v_scale"), pools),
+                          block_table=table)
+            for split in (False, True):
+                for w in (0, W):
+                    label = (f"flash_decode f32{' int8' if quant else ''}"
+                             f"{f' paged B={B}' if B else ''} "
+                             f"({'split' if split else 'written'}, window {w})")
+                    nk = new if split else {}
+                    errs["flash_decode"] = max(errs["flash_decode"], once(
+                        fd, label, lambda: fd.flash_decode(q, lengths=lens, window=w, **nk, **kw),
+                        fd.flash_decode_plain(q, lengths=lens, window=w, **nk, **kw)))
+    rows = sum(lengths)
+    times["flash_decode"] = timed(
+        "flash_decode f32 int8 paged B=32 (written, window 0)",
+        lambda: fd.flash_decode(q, lengths=lens, **kw),
+        lambda: fd.flash_decode_plain(q, lengths=lens, **kw),
+        2 * S * H * hd * 4 + kv_bytes(rows, KV, hd, True), 4 * rows * H * hd)
+    rows = [(2, 0, 40), (2, 50, 17), (3, 200, 40), (1, 0, 0)]
+    slots, starts, lns = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    qc = rnd(len(rows), 40, H, hd)
+    k, v = rnd(S, KV, max_len, hd), rnd(S, KV, max_len, hd)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    keys = [0, 1, 100, 255]
+    pools, table = make_pool(torch, gen, [k8, v8, ks, vs], keys, 32)
+    for label, kw in (("slot cache", dict(k_cache=k, v_cache=v)),
+                      ("int8 pool B=32", dict(zip(("k_cache", "v_cache", "k_scale", "v_scale"),
+                                                  pools), block_table=table))):
+        for w in (0, W):
+            args = dict(slots=slots, starts=starts, lens=lns, window=w, **kw)
+            errs["flash_cache_attention"] = max(errs["flash_cache_attention"], once(
+                fp, f"flash_cache_attention f32 {label} (window {w})",
+                lambda: fp.flash_cache_attention(qc, **args),
+                fp.flash_cache_attention_plain(qc, **args)))
+    pairs = sum(min(s0 + t + 1, W) for _, s0, n in rows for t in range(n))
+    times["flash_cache_attention"] = timed(
+        f"flash_cache_attention f32 int8 pool B=32 (window {W})",
+        lambda: fp.flash_cache_attention(qc, **args), lambda: fp.flash_cache_attention_plain(
+            qc, **args), 2 * qc.numel() * 4 + kv_bytes(sum(s0 + n for _, s0, n in rows), KV, hd,
+                                                        True), 4 * pairs * H * hd)
+    b, s_ = 2, 300
+    qa, ka, va = rnd(b, s_, H, hd), rnd(b, s_, KV, hd), rnd(b, s_, KV, hd)
+    for causal, lengths_, w in ((True, None, 0), (True, [300, 120], 80), (False, [300, 0], 0)):
+        ln = None if lengths_ is None else torch.tensor(lengths_, **i32)
+        errs["flash_attention"] = max(errs["flash_attention"], once(
+            fa, f"flash_attention f32 (causal={causal}, lengths={lengths_}, window {w})",
+            lambda: fa.flash_attention(qa, ka, va, ln, causal=causal, window=w),
+            fa.flash_attention_plain(qa, ka, va, ln, causal=causal, window=w)))
+    times["flash_attention"] = timed(
+        f"flash_attention f32 (b={b}, s={s_}, H={H}, KV={KV}, hd={hd}, causal)",
+        lambda: fa.flash_attention(qa, ka, va), lambda: fa.flash_attention_plain(qa, ka, va),
+        4 * (2 * qa.numel() + 2 * ka.numel()), 4 * b * H * hd * s_ * (s_ + 1) // 2)
+    return errs, times
+
+
+def phase_tiny_models(torch, dev) -> dict:
+    """llama-tiny-f32 (f32) and llama-tiny (bf16), both hd 32, on the card
+    through the kernels: transformer_forward and transformer_prefill
+    (lengths 96 and 40) against the plain path's logits; InferenceEngine's
+    greedy streams (prompts of 5, 40 and 77 tokens, 16 new each) against a
+    plain-path greedy loop (the full sequence recomputed through the dense
+    formula each step), identical in f32; make_train_step for 3 steps,
+    finite and falling, one flash_attention launch per layer per forward.
+    Returns each model's launch counts over its phase."""
+    import numpy as np
+
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import (
+        init_params,
+        transformer_forward,
+        transformer_prefill,
+    )
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+    from gofr_tpu_torch.parallel.sharding import make_train_step
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    out = {}
+    for name, tol in (("llama-tiny-f32", TINY_F32_DLOGITS_TOL),
+                      ("llama-tiny", TINY_BF16_DLOGITS_TOL)):
+        cfg = get_model(name).config
+        reset_launch_counts()
+        with torch.inference_mode():
+            params = init_params(cfg, seed=0, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(31)
+            tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen, device=dev)
+            d_fwd = (transformer_forward(params, tokens, cfg)
+                     - transformer_forward(params, tokens, cfg, dense_attn=True)).abs().max().item()
+            lens = torch.tensor([96, 40], dtype=torch.int32, device=dev)
+            slots = torch.arange(2, dtype=torch.int32, device=dev)
+            pre = [transformer_prefill(params, tokens, lens, KVCache.create(
+                       cfg.n_layers, 2, 128, cfg.n_kv_heads, cfg.head_dim, dtype=cfg.dtype,
+                       device=dev), slots, cfg, dense_attn=dense) for dense in (False, True)]
+            d_pre = (pre[0] - pre[1]).abs().max().item()
+        log(f"{name} ({cfg.dtype}, hd {cfg.head_dim}): max|dlogits| kernels vs plain: "
+            f"transformer_forward [2, 96] {d_fwd:.4g}, transformer_prefill (lengths 96, 40) "
+            f"{d_pre:.4g} (limit {tol})")
+        if not max(d_fwd, d_pre) <= tol:
+            fail(f"{name}: the kernels' logits disagree with the plain path's")
+        eng = InferenceEngine(name, n_slots=4, max_len=256, window_k=4, prefill_chunk=32,
+                              prefill_batch=4, params=params, seed=0, device=dev)
+        try:
+            rng = np.random.default_rng(5)
+            prompts = [rng.integers(0, cfg.vocab_size, m).tolist() for m in (5, 40, 77)]
+            reqs = [eng.submit_generate(p, max_new_tokens=16) for p in prompts]
+            streams = [r.future.result(timeout=600).token_ids for r in reqs]
+        finally:
+            eng.close()
+        plain = []
+        with torch.inference_mode():
+            for p, got in zip(prompts, streams):
+                seq, toks = list(p), []
+                for _ in got:
+                    logits = transformer_forward(
+                        params, torch.tensor([seq], device=dev), cfg, dense_attn=True)
+                    toks.append(int(logits[0, -1].argmax()))
+                    seq.append(toks[-1])
+                plain.append(toks)
+        agree = sum(a == b for g, p in zip(streams, plain) for a, b in zip(g, p))
+        total = sum(len(g) for g in streams)
+        log(f"{name}: engine greedy streams on the kernels vs the plain path's greedy loop: "
+            f"{agree} of {total} tokens agree; first tokens {[g[:6] for g in streams]}")
+        if cfg.dtype == torch.float32 and streams != plain:
+            fail(f"{name}: the engine's greedy streams differ from the plain path's in f32")
+        init_state, train_step, _ = make_train_step(cfg, device=dev)
+        masters, opt_state = init_state(0)
+        batch = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=dev)
+        before = fa.launches
+        losses = []
+        for _ in range(3):
+            loss, masters, opt_state = train_step(masters, opt_state, batch)
+            losses.append(loss.item())
+        launched = fa.launches - before
+        log(f"{name}: make_train_step losses {[round(x, 5) for x in losses]}, "
+            f"{launched} flash_attention launches over 3 steps")
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            fail(f"{name}: training losses {losses} are not finite and falling")
+        if launched != 3 * cfg.n_layers:
+            fail(f"{name}: {launched} flash_attention launches in 3 steps, not "
+                 f"{3 * cfg.n_layers}")
+        out[name] = launch_counts()
+        log(f"{name}: launch counts over the phase {out[name]}")
+        del params, masters, opt_state, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_attention_grad(torch, dev) -> None:
@@ -746,13 +1131,21 @@ def phase_window_kernels(torch, dev) -> dict:
         ms_full = time_ms(torch, lambda: fd.flash_decode(q, lengths=lens, **new, **args))
         plain_ms = time_ms(torch, lambda: fd.flash_decode_plain(
             q, lengths=lens, window=W, **new, **args))
-        lib_ms = None
+        lib_ms = library = None
         if label == "bf16 slot cache":
             # SDPA with the written convention's window as a boolean mask.
             cols = torch.arange(max_len, device=dev)[None, :]
             mask = ((cols < lens[:, None]) & (cols > (lens[:, None] - 1 - W)))[:, None, None, :]
-            lib_ms = time_ms(torch, lambda: sdpa(q[:, :, None, :], cache[0], cache[1],
-                                                 attn_mask=mask, enable_gqa=True))
+
+            def library():
+                return sdpa(q[:, :, None, :], cache[0], cache[1], attn_mask=mask,
+                            enable_gqa=True)
+
+            lib_ms = time_ms(torch, library)
+        extras = decode_extras(
+            torch, fd, name + " (split)",
+            lambda: fd.flash_decode(q, lengths=lens, window=W, **new, **args), q,
+            args["k_cache"], table, W, library=library)
         # Bound (split convention): the cache rows inside each slot's window
         # (min(length, window - 1) below the new token), q, the new K/V and
         # the output once, and the table entries those rows need.
@@ -767,6 +1160,7 @@ def phase_window_kernels(torch, dev) -> dict:
             library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
             shape=f"S={S} H={H} KV={KV} hd={hd} max_len={max_len} window={W} "
                   f"lengths={lengths}" + (f" block={B}" if B else "") + (" int8" if quant else ""),
+            **extras,
         ))
         log(f"{name}: kernel {ms:.4f} ms (unwindowed on the same lengths {ms_full:.4f}), "
             f"plain {plain_ms:.4f} ms, sdpa {lib_ms}, bound {bound_ms:.4f} ms ({bound_by}, "
@@ -1299,7 +1693,11 @@ def _busy_ms(events) -> tuple[float, int]:
 def _profile_step(torch, name: str, fn) -> dict:
     """Host wall time of ``fn`` (ending in a synchronize), then one traced
     run: device busy time, idle share of the traced wall time, GPU kernels,
-    the top kernels by device time and the port's own kernels' time."""
+    the top kernels by device time and the port's own kernels' time. Where
+    torch.profiler traces no GPU kernel, the device busy time is that of
+    one call queued behind a spin kernel (``queued_ms``; the kernels'
+    names are then not seen), or not measured where ``fn`` waits for the
+    device itself."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm
@@ -1308,33 +1706,43 @@ def _profile_step(torch, name: str, fn) -> dict:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, n_kernels = _busy_ms(prof.events())
-    if n_kernels == 0:
-        fail(f"profile {name}: the trace holds no GPU kernel")
-    averages = prof.key_averages()
-    top = sorted(
-        ((a.self_device_time_total, a.key, a.count) for a in averages
-         if a.self_device_time_total > 0),
-        reverse=True,
-    )
-    ours = {}
-    for a in averages:
-        m = re.search(r"flash_\w+_kernel<[^>]*>", a.key)
-        if m and a.self_device_time_total > 0:
-            ours[m.group(0)] = {"ms": a.self_device_time_total / 1e3, "count": a.count}
+    for _ in range(2 if DEVICE_TIMER["by"] == "torch.profiler" else 0):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, n_kernels = _busy_ms(prof.events())
+        if n_kernels:
+            averages = prof.key_averages()
+            top = sorted(
+                ((a.self_device_time_total, a.key, a.count) for a in averages
+                 if a.self_device_time_total > 0),
+                reverse=True,
+            )
+            ours = {}
+            for a in averages:
+                m = re.search(r"flash_\w+_kernel<[^>]*>", a.key)
+                if m and a.self_device_time_total > 0:
+                    ours[m.group(0)] = {"ms": a.self_device_time_total / 1e3,
+                                        "count": a.count}
+            return {
+                "step": name, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+                "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / traced_ms,
+                "gpu_kernels": n_kernels, "device_time_by": DEVICE_TIMER["by"],
+                "top_kernels_ms": [
+                    {"kernel": k[:90], "ms": us / 1e3, "count": c} for us, k, c in top[:8]
+                ],
+                "port_kernels_ms": ours,
+            }
+    _profiler_traces_nothing()
+    busy_ms = queued_ms(torch, fn, runs=1)
     return {
-        "step": name, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
-        "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / traced_ms,
-        "gpu_kernels": n_kernels,
-        "top_kernels_ms": [
-            {"kernel": k[:90], "ms": us / 1e3, "count": c} for us, k, c in top[:8]
-        ],
-        "port_kernels_ms": ours,
+        "step": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+        "device_time_by": DEVICE_TIMER["by"] if busy_ms is not None else
+        "not measured: no GPU kernel in the torch.profiler trace, and the step waits "
+        "for the device itself",
     }
 
 
@@ -1375,6 +1783,13 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
         decode_window(params, cache, cfg, rope, planes, k, 2, False)
 
     tag = f"_{model}_ctx{context}" if model else ""
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+
+    window_rows = cfg.sliding_window if 0 < cfg.sliding_window < max_len else 0
+    q = torch.empty((S, cfg.n_heads, cfg.head_dim), dtype=cfg.dtype, device=dev)
+    log(f"profile decode_window_k8{tag}: flash_decode launches with a cluster of "
+        f"{fd.launch_cluster_size(q, cache.k[0], None, window_rows)} blocks per (slot, kv "
+        f"head) ({S} x {cfg.n_kv_heads} pairs)")
     for name, fn in ((f"decode_window_k8{tag}", window),
                      (f"prefill_chunk_{P}x{c}{tag}", lambda: chunk(context))):
         log("profile: " + json.dumps(_profile_step(torch, name, fn)))
@@ -1528,21 +1943,29 @@ def main() -> None:
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
     _build.lib(verbose=True)
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     # Registers at entry (setmaxnreg then moves the producer's to the
     # consumers), spills and stack of the two wgmma kernels.
     for res in kernel_resources(_build.ptxas_log):
-        if res["kernel"] in ("flash_attention_kernel", "flash_cache_attention_kernel"):
+        if res["kernel"] in ("flash_attention_kernel", "flash_cache_attention_kernel",
+                             "flash_decode_kernel"):
             log("ptxas: " + json.dumps({k: v for k, v in res.items() if k != "mangled"}))
     phase_sm90_primitives(torch, dev)
-
+    log("flash_decode cluster rule: C = the largest of 1, 2, 4 and 8 whose grid of "
+        "slots x kv heads clusters of C blocks the card runs in one wave (the CUDA "
+        "occupancy calculator's max active clusters) and that leaves no rank without a key "
+        "tile of the longest visible range (the capacity, or the window)")
     with torch.inference_mode():
         kstats = phase_kernels(torch, dev)
+        decode_cluster_sweep(torch, dev)
         variants = phase_kernel_variants(torch, dev)
         kstats["flash_attention"] = phase_flash_attention(torch, dev)
         window = phase_window_kernels(torch, dev)
+        f32_errs, f32_times = phase_f32_kernels(torch, dev)
+    tiny_counts = phase_tiny_models(torch, dev)
     phase_attention_grad(torch, dev)
     phase_window_grad(torch, dev)
     with torch.inference_mode():
@@ -1626,7 +2049,8 @@ def main() -> None:
     for k in ("flash_decode", "flash_cache_attention"):
         first = {key: kstats[k][key] for key in (
             "max_abs_err", "max_row_rel_err", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "shape")}
+            "bound_by", "shape", "cluster", "device_ms", "device_ms_by", "queued_event_ms",
+            "library_device_ms") if key in kstats[k]}
         cases = [dict(case="bf16 slot cache", launches=counts[k], launches_from="serve", **first)]
         for case in variants[k]:
             if case["case"] == "paged+int8 B=32":
@@ -1669,6 +2093,12 @@ def main() -> None:
         }
         for k in replaces
     ]
+    for k in replaces:
+        kernels_f32 = {"max_abs_err": f32_errs[k], **f32_times[k],
+                       "launches_llama_tiny_f32": tiny_counts["llama-tiny-f32"][k],
+                       "launches_llama_tiny": tiny_counts["llama-tiny"][k]}
+        next(x for x in kernels if x["name"] == k)["f32_and_hd32"] = kernels_f32
+    log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -40,7 +40,10 @@
 // at the first query row's window edge rounded down to 64 keys, so tiles
 // wholly below it are never read, and a row's own edge masks only the tiles
 // that straddle it; whether that compare exists is a template flag, so
-// window = 0 compiles to the unwindowed loop.
+// window = 0 compiles to the unwindowed loop. hd 32 runs on a 64-column
+// panel: the tensor maps describe the 32 real columns and TMA zero-fills
+// the box's other 32, so both products see zeros there and the epilogue
+// writes the 32 real columns only.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,6 +73,7 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
     const __grid_constant__ CUtensorMap tv, const int* __restrict__ lengths,
     __nv_bfloat16* __restrict__ out, int s_q, int s_kv, int n_heads, int n_kv, int group,
     int causal, int window, float scale) {
+  constexpr int HDP = attn::padded<HD>();  // columns of a tile row: whole 64-column panels
   const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
   const int h0 = blockIdx.y * group;
   const int bi = blockIdx.z;
@@ -117,19 +121,20 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
   if (threadIdx.x >= attn::kConsumerThreads) {  // producer warpgroup
     sm90::reg_dealloc<attn::kProducerRegs>();
     if (threadIdx.x == attn::kConsumerThreads) {
-      sm90::mbar_arrive_expect_tx(&bars[0], kBQ * HD * 2);
-      for (int p = 0; p < HD / 64; ++p)
+      sm90::mbar_arrive_expect_tx(&bars[0], kBQ * HDP * 2);
+      for (int p = 0; p < HDP / 64; ++p)
         sm90::tma_load_4d(smem + L.q + p * kBQ * 128, &tq, &bars[0], 64 * p, h0, t0, bi);
       attn::Ring<kStages> ring;
       for (int it = 0; it < n_kt; ++it) {
         const int kc0 = kbase + it * kBK;
         sm90::mbar_wait(&bars[1 + kStages + ring.stage], ring.phase ^ 1u);
-        unsigned char* sK = smem + L.stages + ring.stage * 2 * kBK * HD * 2;
-        unsigned char* sV = sK + kBK * HD * 2;
+        unsigned char* sK = smem + L.stages + ring.stage * 2 * kBK * HDP * 2;
+        unsigned char* sV = sK + kBK * HDP * 2;
         uint64_t* full = &bars[1 + ring.stage];
-        // TMA counts the whole box, zero-filled rows past s_kv included.
-        sm90::mbar_arrive_expect_tx(full, 2 * kBK * HD * 2);
-        for (int p = 0; p < HD / 64; ++p) {
+        // TMA counts the whole box, zero-filled rows past s_kv (and columns
+        // past hd) included.
+        sm90::mbar_arrive_expect_tx(full, 2 * kBK * HDP * 2);
+        for (int p = 0; p < HDP / 64; ++p) {
           sm90::tma_load_4d(sK + p * kBK * 128, &tk, full, 64 * p, kvh, kc0, bi);
           sm90::tma_load_4d(sV + p * kBK * 128, &tv, full, 64 * p, kvh, kc0, bi);
         }
@@ -156,8 +161,8 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
   R.active = w0 < s_q;
   R.wlim = R.active ? last_key(w0) : -1;
   R.wlo = WINDOW ? first_key(w1) : 0;
-  float o[HD / 2], l_a, l_b;
-  attn::consume<HD, kStages, WINDOW, false>(smem, L, wg, R, kbase, n_kt, scale, o, l_a, l_b);
+  float o[HDP / 2], l_a, l_b;
+  attn::consume<HDP, kStages, WINDOW, false>(smem, L, wg, R, kbase, n_kt, scale, o, l_a, l_b);
 
   // Rows that saw no key have l == 0 and o == 0: they write exact zeros.
   const int q4 = t & 3;
@@ -176,8 +181,9 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
 }
 
 // A tensor map over a [b, s, heads, HD] bf16 view with element strides
-// (batch, sequence, head) and unit stride along HD, in boxes of 64 columns,
-// `heads_box` heads and kBQ / heads_box rows.
+// (batch, sequence, head) and unit stride along HD, in boxes of 64 columns
+// (for HD 32, 32 of them past the tensor's edge: zeros), `heads_box` heads
+// and kBQ / heads_box rows.
 template <int HD>
 int tensor_map(CUtensorMap* map, const void* base, int b, int s, int heads, long long sb,
                long long ss, long long sh, int heads_box) {
@@ -237,6 +243,9 @@ extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, lengths, out, strides, b, s_q, s_kv, n_heads, n_kv, causal,
+                        window, scale, sm);
     case 64:
       return launch<64>(q, k, v, lengths, out, strides, b, s_q, s_kv, n_heads, n_kv, causal,
                         window, scale, sm);

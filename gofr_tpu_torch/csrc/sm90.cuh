@@ -10,7 +10,12 @@
 // - mbarrier: init, arrive, arrive with an expected byte count, wait on a
 //   phase parity.
 // - cp.async: 16-byte copies (zero-filled when not valid), commit, wait;
-//   the proxy fence that makes them visible to wgmma.
+//   the proxy fence that makes them visible to wgmma; 4-byte copies whose
+//   completion arrives on an mbarrier.
+// - The 1-D bulk copy (cp.async.bulk) into shared memory, completing on an
+//   mbarrier; clusters: the block's rank, the cluster barrier, a peer
+//   block's shared memory (mapa), the launch with a cluster dimension and
+//   how many such clusters the card holds at once.
 // - TMA: a 4-d tiled load into shared memory that completes on an mbarrier,
 //   and the host-side encoding of its tensor map (libcuda's
 //   cuTensorMapEncodeTiled, fetched through the runtime, so nothing links
@@ -117,6 +122,102 @@ __device__ __forceinline__ void cp_async_wait() {
 // to wgmma, which reads through the async proxy.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// 4 bytes global -> shared (the .ca form is the one that takes 4).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+
+// One arrival on `bar` once every earlier cp.async of this thread has
+// landed. .noinc: the arrival is counted in the barrier's init count.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// ---- bulk copies and clusters ---------------------------------------------
+
+// `bytes` contiguous bytes global -> this block's shared memory by the
+// copy engine (both addresses and the size multiples of 16), completing on
+// `bar`: announce them with mbar_arrive_expect_tx first. No tensor map.
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// A barrier over every thread of every block of the cluster: this thread's
+// earlier writes (shared memory included) are released to the others, and
+// theirs acquired.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
+// The generic address of `p` (in this block's shared memory) in block
+// `rank` of the cluster: ordinary loads through it read the peer's shared
+// memory (distributed shared memory).
+template <typename T>
+__device__ __forceinline__ T* cluster_map(T* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// Launches `kernel` over `grid` in clusters of `cluster` blocks along x
+// (which must divide grid.x). Returns the launch's cudaError_t.
+template <typename... P, typename... A>
+inline cudaError_t launch_cluster(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem,
+                                  cudaStream_t stream, unsigned cluster, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<P>(args)...);
+}
+
+// How many clusters of `cluster` blocks of `kernel` (block threads, smem
+// bytes of dynamic shared memory) the card runs at once; negative: a
+// cudaError_t. A grid of more clusters than that runs in waves.
+template <typename... P>
+inline int max_active_clusters(void (*kernel)(P...), dim3 block, size_t smem, unsigned cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // ---- TMA ------------------------------------------------------------------

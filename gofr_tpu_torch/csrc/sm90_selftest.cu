@@ -18,6 +18,15 @@
 // - gofr_sm90_tma_test: one TMA box of 128 rows x 64 columns from a
 //   [rows, cols] bf16 matrix at row r0, unswizzled into [128, 64]; rows past
 //   the matrix must arrive as zeros.
+// - gofr_sm90_bulk_test: one warp; lane 0 announces and issues a 1-D bulk
+//   copy of `bytes` bytes into shared memory while every lane copies some of
+//   `n_words` 4-byte words by cp.async and arrives when they land (the int8
+//   scales' path in flash_decode.cu); one mbarrier phase covers both, and
+//   the block copies shared memory back out.
+// - gofr_sm90_cluster_test: a cluster of 4 blocks; each writes its 128
+//   words into its shared memory, and after the cluster barrier reads its
+//   neighbour's (rank + 1) through distributed shared memory, rotated by 37
+//   threads, and writes them out with its rank.
 //
 // Not on any main path: none of these is a ported kernel.
 
@@ -146,7 +155,76 @@ __global__ void __launch_bounds__(128) tma_test_kernel(const __grid_constant__ C
         *reinterpret_cast<const uint4*>(smem + sm90::tile_chunk(ch / 8, ch % 8, 128));
 }
 
+__global__ void __launch_bounds__(32) bulk_test_kernel(const unsigned char* __restrict__ src,
+                                                       int bytes,
+                                                       const uint32_t* __restrict__ words,
+                                                       int n_words, unsigned char* __restrict__ dst,
+                                                       uint32_t* __restrict__ dst_words) {
+  unsigned char* smem = sm90::dyn_smem();
+  uint32_t* sw = reinterpret_cast<uint32_t*>(smem + bytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sw + ((n_words + 3) & ~3));
+  const int lane = threadIdx.x;
+  if (lane == 0) {
+    sm90::mbar_init(bar, 1 + 32);  // the bulk copy's announcer and 32 cp.async arrivals
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  if (lane == 0) {
+    sm90::mbar_arrive_expect_tx(bar, bytes);
+    sm90::bulk_load(smem, src, bytes, bar);
+  }
+  for (int i = lane; i < n_words; i += 32) sm90::cp_async4(&sw[i], &words[i]);
+  sm90::cp_async_mbar_arrive(bar);
+  sm90::mbar_wait(bar, 0);
+  for (int i = lane; i < bytes / 16; i += 32)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(smem)[i];
+  for (int i = lane; i < n_words; i += 32) dst_words[i] = sw[i];
+}
+
+constexpr int kClusterTest = 4;
+
+__global__ void __launch_bounds__(128) cluster_test_kernel(const uint32_t* __restrict__ src,
+                                                           uint32_t* __restrict__ dst,
+                                                           uint32_t* __restrict__ ranks) {
+  uint32_t* mine = reinterpret_cast<uint32_t*>(sm90::dyn_smem());
+  const uint32_t rank = sm90::cluster_rank();
+  const int t = threadIdx.x;
+  mine[t] = src[blockIdx.x * 128 + t];
+  sm90::cluster_sync();  // every block's words are written
+  const uint32_t* peer = sm90::cluster_map(mine, (rank + 1) % sm90::cluster_size());
+  dst[blockIdx.x * 128 + t] = peer[(t + 37) % 128];
+  if (t == 0) ranks[blockIdx.x] = rank;
+  sm90::cluster_sync();  // no block leaves while a peer still reads its memory
+}
+
 }  // namespace
+
+// src: `bytes` bytes (a multiple of 16, 16-byte aligned); words: n_words
+// uint32; dst, dst_words alike. Returns the cudaError_t of the launch.
+extern "C" int gofr_sm90_bulk_test(const void* src, void* dst, int bytes, const void* words,
+                                   void* dst_words, int n_words, void* stream) {
+  if (bytes <= 0 || bytes % 16 || n_words < 0) return cudaErrorInvalidValue;
+  const size_t smem = bytes + 4 * ((n_words + 3) & ~3) + 8 + 1024;
+  const cudaError_t err = cudaFuncSetAttribute(
+      bulk_test_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  bulk_test_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(src), bytes, static_cast<const uint32_t*>(words),
+      n_words, static_cast<unsigned char*>(dst), static_cast<uint32_t*>(dst_words));
+  return cudaGetLastError();
+}
+
+// src, dst: [n_clusters * 4, 128] uint32; ranks: [n_clusters * 4] uint32.
+// dst[b][t] = src[peer][(t + 37) % 128] with peer the next block of b's
+// cluster; ranks[b] = b's rank in it.
+extern "C" int gofr_sm90_cluster_test(const void* src, void* dst, void* ranks, int n_clusters,
+                                      void* stream) {
+  if (n_clusters <= 0) return cudaErrorInvalidValue;
+  return sm90::launch_cluster(cluster_test_kernel, dim3(n_clusters * kClusterTest), dim3(128),
+                              128 * 4 + 1024, static_cast<cudaStream_t>(stream),
+                              kClusterTest, static_cast<const uint32_t*>(src),
+                              static_cast<uint32_t*>(dst), static_cast<uint32_t*>(ranks));
+}
 
 // a: [64, 128] bf16; b: [n, 128] (b_mn_major 0) or [128, n] (1) bf16;
 // d: [64, n] f32; n 64 or 128; a_regs: A from registers. Returns the

@@ -1,7 +1,8 @@
 """flash_attention: full-sequence attention (training forward, padded-batch
 serving prefill, encoders) — the port of
-``gofr_tpu/ops/pallas/flash_attention.py::flash_attention``, kernel in
-``gofr_tpu_torch/csrc/flash_attention.cu``.
+``gofr_tpu/ops/pallas/flash_attention.py::flash_attention``, kernels in
+``gofr_tpu_torch/csrc/flash_attention.cu`` (bf16, wgmma) and
+``gofr_tpu_torch/csrc/attn_f32.cu`` (f32, CUDA cores).
 
 q: [b, s_q, n_heads, hd]; k, v: [b, s_kv, n_kv, hd]. Causal attention
 aligns the diagonal at offset ``s_kv - s_q`` (a query suffix sees every
@@ -22,14 +23,14 @@ from typing import Optional
 import torch
 
 from gofr_tpu_torch.ops.cuda import _build
-from gofr_tpu_torch.ops.cuda.flash_decode import _check
+from gofr_tpu_torch.ops.cuda.flash_decode import _check, check_query_dtype
 
 NEG_INF = -1e30
 # Kernel launches since the last reset (bumped by the wrapper only).
 launches = 0
-_fn = None
+_fns: dict = {}
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def visible_keys(
@@ -97,29 +98,33 @@ def flash_attention_plain(
     return torch.where(vis.any(dim=-1)[:, :, None, None], out, 0.0)
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.lib().gofr_flash_attention
+def _kernel_fn(dtype: torch.dtype):
+    """The C entry for ``dtype`` inputs: the wgmma kernel (bf16) or the
+    CUDA-core one (f32)."""
+    if dtype not in _fns:
+        name = "gofr_flash_attention" + ("_f32" if dtype == torch.float32 else "")
+        fn = getattr(_build.lib(), name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return _fns[dtype]
 
 
-def _tma_view(name: str, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
-    """``t`` itself: the kernel reads q, k and v in place through TMA tensor
-    maps, which need a unit stride on head_dim and a 16-byte aligned base
-    and batch, sequence and head strides. Anything else raises (no silent
-    copy)."""
+def _tma_view(name: str, t: torch.Tensor, dev: torch.device,
+              dtype: torch.dtype) -> torch.Tensor:
+    """``t`` itself: the kernels read q, k and v in place through their
+    strides; the bf16 kernel through TMA tensor maps, which need a unit
+    stride on head_dim and a 16-byte aligned base and batch, sequence and
+    head strides (the f32 kernel needs the unit stride only). Anything else
+    raises (no silent copy)."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected torch.bfloat16")
-    if (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3])
-            or t.data_ptr() % 16):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.stride(-1) != 1 or (dtype == torch.bfloat16 and (
+            any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16)):
         raise ValueError(
             f"{name} (strides {tuple(t.stride())}, base offset {t.data_ptr() % 16} "
             "bytes past 16) cannot be described by a TMA tensor map: head_dim "
@@ -144,9 +149,9 @@ def flash_attention(
     [b, s_q, n_heads, hd], contiguous.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16, hd in {64, 128}, n_heads divisible by n_kv; q/k/v are read in
-    place through their strides, which TMA must be able to describe) or
-    raise."""
+    (bf16 or f32, hd in {32, 64, 128}, n_heads divisible by n_kv; q/k/v
+    are read in place through their strides, which TMA must be able to
+    describe in bf16) or raise."""
     if window < 0 or (window and not causal):
         raise ValueError(f"window {window} needs causal attention and >= 0")
     if q.device.type == "cpu":
@@ -167,14 +172,15 @@ def flash_attention(
             f"and {tuple(v.shape)}"
         )
     dev = q.device
-    q, k, v = _tma_view("q", q, dev), _tma_view("k", k, dev), _tma_view("v", v, dev)
+    dtype = check_query_dtype("q", q)
+    q, k, v = (_tma_view(name, t, dev, dtype) for name, t in (("q", q), ("k", k), ("v", v)))
     if lengths is not None:
         _check("lengths", lengths, (b,), torch.int32, dev)
     if scale is None:
         scale = hd**-0.5
     out = torch.empty((b, s_q, n_heads, hd), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    rc = _kernel_fn()(
+    rc = _kernel_fn(dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr() if lengths is not None else None, out.data_ptr(),
         b, s_q, s_kv, n_heads, n_kv, hd, int(causal), int(window), strides,

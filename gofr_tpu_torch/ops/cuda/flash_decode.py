@@ -1,7 +1,9 @@
 """flash_decode: one query token per slot attends that slot's KV-cache
 prefix — the port of ``gofr_tpu/ops/pallas/flash_decode.py::flash_decode``
-(bf16 or int8 cache, contiguous or paged), kernel in
-``gofr_tpu_torch/csrc/flash_decode.cu``.
+(bf16 or f32 queries; caches of the query's type or int8; contiguous or
+paged), kernel in ``gofr_tpu_torch/csrc/flash_decode.cu``. The kernel
+splits each (slot, kv head)'s visible keys over a cluster of
+``launch_cluster_size(...)`` blocks in one launch.
 
 Two calling conventions, as in the reference:
 
@@ -41,6 +43,64 @@ _fn = None
 
 _HEAD_DIMS = (32, 64, 128, 256)
 _REPS = (1, 2, 4, 8)
+_DTYPES = (torch.bfloat16, torch.float32)
+_TILE_BYTES = 12288  # kTileBytes in the .cu
+_CLUSTERS = (1, 2, 4, 8)  # the portable cluster sizes
+_max_clusters: dict[tuple, int] = {}
+
+
+def tile_rows(hd: int, itemsize: int) -> int:
+    """Rows of the kernel's key tile (``tile_rows`` in the .cu):
+    ``_TILE_BYTES`` of K per ring stage, 16 to 128 rows."""
+    return min(128, max(16, _TILE_BYTES // (hd * itemsize)))
+
+
+def cluster_size(pairs: int, tiles: int, max_clusters) -> int:
+    """Blocks per (slot, kv head): the largest of 1, 2, 4 and 8 whose grid
+    of ``pairs`` clusters the card runs in one wave (``max_clusters(C)``,
+    clusters of C blocks it holds at once) and that leaves no rank without
+    a key tile of the longest visible range (``tiles`` of them: the cache's
+    capacity, or the window). Both are known on the host without reading
+    the device's lengths, and are alike for a pool and a slot cache of the
+    same capacity, so both split the keys the same way."""
+    c = 1
+    for cand in _CLUSTERS[1:]:
+        if cand <= tiles and pairs <= max_clusters(cand):
+            c = cand
+    return c
+
+
+def max_active_clusters(q: torch.Tensor, k_cache: torch.Tensor, n_tab: int,
+                        cluster: int) -> int:
+    """Clusters of ``cluster`` blocks of the kernel for these inputs' types
+    and shapes that the card runs at once (the CUDA occupancy calculator),
+    cached per card and instantiation."""
+    hd, rep = q.shape[-1], q.shape[-2] // k_cache.shape[1]
+    quant = k_cache.dtype == torch.int8
+    idx = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    key = (idx, hd, rep, q.dtype, quant, n_tab, cluster)
+    if key not in _max_clusters:
+        fn = _build.lib().gofr_flash_decode_max_clusters
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(idx):
+            n = fn(hd, rep, int(q.dtype == torch.float32), int(quant), n_tab, cluster)
+        if n < 0:
+            raise RuntimeError(f"flash_decode occupancy query failed: cudaError {-n}")
+        _max_clusters[key] = n
+    return _max_clusters[key]
+
+
+def launch_cluster_size(q: torch.Tensor, k_cache: torch.Tensor,
+                        block_table: Optional[torch.Tensor], window: int) -> int:
+    """The cluster size the wrapper launches these CUDA inputs with."""
+    blk = k_cache.shape[2]
+    n_tab = 0 if block_table is None else block_table.shape[-1]
+    capacity = blk * n_tab if n_tab else blk
+    visible = min(capacity, window) if window else capacity
+    tiles = -(-visible // tile_rows(q.shape[-1], k_cache.element_size()))
+    return cluster_size(q.shape[0] * k_cache.shape[1], tiles,
+                        lambda c: max_active_clusters(q, k_cache, n_tab, c))
 
 
 def flash_decode_plain(
@@ -116,7 +176,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _build.lib().gofr_flash_decode
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -138,19 +198,26 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def check_query_dtype(name: str, q: torch.Tensor) -> torch.dtype:
+    """The query's dtype, if a kernel takes it (bf16 or f32)."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} has dtype {q.dtype}; the kernels take {_DTYPES}")
+    return q.dtype
+
+
 def check_cache(
     k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
     block_table: Optional[torch.Tensor], table_rows: int, n_kv: int, hd: int,
-    device: torch.device,
+    device: torch.device, dtype: torch.dtype,
 ) -> tuple[int, int]:
-    """Check a cache (contiguous or pool, bf16 or int8 with scales) for a
-    kernel launch; returns (rows per cache block: ``max_len`` or the pool
-    block, table width or 0)."""
+    """Check a cache (contiguous or pool; of the query's ``dtype``, or int8
+    with scales) for a kernel launch; returns (rows per cache block:
+    ``max_len`` or the pool block, table width or 0)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass k_scale and v_scale together")
     rows, blk = k_cache.shape[0], k_cache.shape[2]
-    dtype = torch.bfloat16 if k_scale is None else torch.int8
+    dtype = dtype if k_scale is None else torch.int8
     _check("k_cache", k_cache, (rows, n_kv, blk, hd), dtype, device)
     _check("v_cache", v_cache, (rows, n_kv, blk, hd), dtype, device)
     if k_scale is not None:
@@ -190,9 +257,9 @@ def flash_decode(
     none). Returns [b, n_heads, hd].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 q and new token, bf16 or int8 caches, contiguous, hd in
-    {32, 64, 128, 256}, n_heads/n_kv in {1, 2, 4, 8}, pool blocks a
-    multiple of 16) or raise."""
+    (bf16 or f32 q, new token of q's dtype, caches of q's dtype or int8,
+    contiguous, hd in {32, 64, 128, 256}, n_heads/n_kv in {1, 2, 4, 8},
+    pool blocks a multiple of 16) or raise."""
     if (k_new is None) != (v_new is None):
         raise ValueError("pass k_new and v_new together")
     if window < 0:
@@ -213,28 +280,46 @@ def flash_decode(
             f"in {_REPS}, got hd={hd}, n_heads={n_heads}, n_kv={n_kv}"
         )
     dev = q.device
-    bf16 = torch.bfloat16
-    _check("q", q, (b, n_heads, hd), bf16, dev)
+    dtype = check_query_dtype("q", q)
+    _check("q", q, (b, n_heads, hd), dtype, dev)
     if block_table is None and k_cache.shape[0] != b:
         raise ValueError(f"k_cache has {k_cache.shape[0]} slots, q has {b}")
-    blk, width = check_cache(k_cache, v_cache, k_scale, v_scale, block_table,
-                             b, n_kv, hd, dev)
+    check_cache(k_cache, v_cache, k_scale, v_scale, block_table, b, n_kv, hd, dev, dtype)
     _check("lengths", lengths, (b,), torch.int32, dev)
     if k_new is not None:
-        _check("k_new", k_new, (b, n_kv, hd), bf16, dev)
-        _check("v_new", v_new, (b, n_kv, hd), bf16, dev)
-    if scale is None:
-        scale = hd**-0.5
+        _check("k_new", k_new, (b, n_kv, hd), dtype, dev)
+        _check("v_new", v_new, (b, n_kv, hd), dtype, dev)
+    out = launch_with_cluster(
+        q, k_cache, v_cache, lengths, k_new, v_new, k_scale, v_scale, block_table,
+        hd**-0.5 if scale is None else scale, window,
+        launch_cluster_size(q, k_cache, block_table, window))
+    global launches
+    launches += 1
+    return out
+
+
+def launch_with_cluster(
+    q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+    lengths: torch.Tensor, k_new: Optional[torch.Tensor],
+    v_new: Optional[torch.Tensor], k_scale: Optional[torch.Tensor],
+    v_scale: Optional[torch.Tensor], block_table: Optional[torch.Tensor],
+    scale: float, window: int, cluster: int,
+) -> torch.Tensor:
+    """The kernel on CUDA inputs that ``flash_decode`` has checked, with
+    ``cluster`` (1, 2, 4 or 8) blocks per (slot, kv head); bumps no launch
+    counter. ``flash_decode`` calls it with ``launch_cluster_size``; a
+    measurement may compare cluster sizes through it."""
+    b, n_heads, hd = q.shape
+    width = 0 if block_table is None else block_table.shape[-1]
     out = torch.empty_like(q)
     rc = _kernel_fn()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), _ptr(k_new), _ptr(v_new), _ptr(k_scale),
         _ptr(v_scale), _ptr(block_table), out.data_ptr(),
-        b, n_heads, n_kv, blk, width, hd, int(window), float(scale),
-        torch.cuda.current_stream(dev).cuda_stream,
+        b, n_heads, k_cache.shape[1], k_cache.shape[2], width, hd, int(window),
+        int(q.dtype == torch.float32), int(cluster), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {rc}")
-    global launches
-    launches += 1
     return out

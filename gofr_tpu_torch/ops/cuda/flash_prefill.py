@@ -1,8 +1,9 @@
 """flash_cache_attention: a [P, c] chunk of queries per row attends its
 slot's KV-cache prefix in place (chunked prefill) — the port of
-``gofr_tpu/ops/pallas/flash_prefill.py::flash_cache_attention`` (bf16
-or int8 cache, contiguous or paged), kernel in
-``gofr_tpu_torch/csrc/flash_prefill.cu``.
+``gofr_tpu/ops/pallas/flash_prefill.py::flash_cache_attention`` (bf16 or
+f32 queries; caches of the query's type or int8; contiguous or paged),
+kernels in ``gofr_tpu_torch/csrc/flash_prefill.cu`` (bf16, wgmma) and
+``gofr_tpu_torch/csrc/attn_f32.cu`` (f32, CUDA cores).
 
 Row p's query t sits at global position ``starts[p] + t`` and attends keys
 ``[0, starts[p] + t]`` of slot ``slots[p]``; the chunk's K/V must already be
@@ -22,13 +23,13 @@ from typing import Optional
 import torch
 
 from gofr_tpu_torch.ops.cuda import _build
-from gofr_tpu_torch.ops.cuda.flash_decode import _check, _ptr, check_cache
+from gofr_tpu_torch.ops.cuda.flash_decode import _check, _ptr, check_cache, check_query_dtype
 from gofr_tpu_torch.ops.kv_cache import paged_view
 
 NEG_INF = -1e30
 # Kernel launches since the last reset (bumped by the wrapper only).
 launches = 0
-_fn = None
+_fns: dict = {}
 
 _HEAD_DIMS = (32, 64, 128)
 
@@ -93,16 +94,18 @@ def flash_cache_attention_plain(
     return out.reshape(P, c, n_heads, hd)
 
 
-def _kernel_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.lib().gofr_flash_cache_attention
+def _kernel_fn(dtype: torch.dtype):
+    """The C entry for ``dtype`` queries: the wgmma kernel (bf16) or the
+    CUDA-core one (f32)."""
+    if dtype not in _fns:
+        name = "gofr_flash_cache_attention" + ("_f32" if dtype == torch.float32 else "")
+        fn = getattr(_build.lib(), name)
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return _fns[dtype]
 
 
 def flash_cache_attention(
@@ -126,8 +129,8 @@ def flash_cache_attention(
     Returns [P, c, n_heads, hd].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 q, bf16 or int8 caches, contiguous, hd in {32, 64, 128}, pool
-    blocks a multiple of 16) or raise."""
+    (bf16 or f32 q, caches of q's dtype or int8, contiguous, hd in {32, 64,
+    128}, pool blocks a multiple of 16) or raise."""
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
@@ -149,17 +152,17 @@ def flash_cache_attention(
             f"n_kv={n_kv}"
         )
     dev = q.device
-    bf16 = torch.bfloat16
-    _check("q", q, (P, c, n_heads, hd), bf16, dev)
+    dtype = check_query_dtype("q", q)
+    _check("q", q, (P, c, n_heads, hd), dtype, dev)
     n_slots = k_cache.shape[0] if block_table is None else block_table.shape[0]
     blk, width = check_cache(k_cache, v_cache, k_scale, v_scale, block_table,
-                             n_slots, n_kv, hd, dev)
+                             n_slots, n_kv, hd, dev, dtype)
     for name, t in (("slots", slots), ("starts", starts), ("lens", lens)):
         _check(name, t, (P,), torch.int32, dev)
     if scale is None:
         scale = hd**-0.5
     out = torch.empty_like(q)
-    rc = _kernel_fn()(
+    rc = _kernel_fn(dtype)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         slots.data_ptr(), starts.data_ptr(), lens.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), _ptr(block_table), out.data_ptr(), P, c, n_heads,

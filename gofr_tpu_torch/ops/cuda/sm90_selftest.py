@@ -16,16 +16,15 @@ from gofr_tpu_torch.ops.cuda import _build
 K = 128  # depth of the test product
 
 
-def _entry(name: str, n_ptrs: int, n_ints: int):
+def _run(name: str, ptrs: list, ints: list, dev: torch.device, ptrs2: tuple = (),
+         ints2: tuple = ()) -> None:
+    """Call C entry ``name(*ptrs, *ints, *ptrs2, *ints2, stream)``."""
     fn = getattr(_build.lib(), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p] * len(ptrs2) + [ctypes.c_int] * len(ints2)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _run(name: str, ptrs: list, ints: list, dev: torch.device) -> None:
-    fn = _entry(name, len(ptrs), len(ints))
-    rc = fn(*ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(*ptrs, *ints, *ptrs2, *ints2, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
@@ -72,3 +71,32 @@ def tma_box_plain(src: torch.Tensor, r0: int) -> torch.Tensor:
     part = src[r0:r0 + 128, :64]
     out[:part.shape[0]] = part
     return out
+
+
+def bulk_roundtrip(src: torch.Tensor,
+                   words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """src: uint8 [bytes] (a multiple of 16) by one 1-D bulk copy, and
+    words: int32 [n] by 4-byte cp.async copies, through shared memory on
+    one mbarrier phase. Returns the copies of both."""
+    dst, dst_words = torch.empty_like(src), torch.empty_like(words)
+    _run("gofr_sm90_bulk_test", [src.data_ptr(), dst.data_ptr()], [src.numel()], src.device,
+         [words.data_ptr(), dst_words.data_ptr()], [words.numel()])
+    return dst, dst_words
+
+
+def cluster_exchange(src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """src: int32 [n_clusters * 4, 128] through clusters of 4 blocks: each
+    block returns its next peer's row rotated by 37, read from that peer's
+    shared memory, and its own rank in the cluster."""
+    dst = torch.empty_like(src)
+    ranks = torch.empty(src.shape[0], dtype=torch.int32, device=src.device)
+    _run("gofr_sm90_cluster_test", [src.data_ptr(), dst.data_ptr(), ranks.data_ptr()],
+         [src.shape[0] // 4], src.device)
+    return dst, ranks
+
+
+def cluster_exchange_plain(src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    n = src.shape[0]
+    blocks = torch.arange(n, device=src.device)
+    peer = blocks // 4 * 4 + (blocks + 1) % 4
+    return torch.roll(src[peer], shifts=-37, dims=1), (blocks % 4).to(torch.int32)

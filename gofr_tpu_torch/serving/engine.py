@@ -51,15 +51,25 @@ from gofr_tpu_torch.serving.programs import (
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 from gofr_tpu_torch.serving.types import GenerationResult, GenRequest
 
-# Reference options this slice accepts only at their neutral value.
+# Reference options this slice accepts only at their neutral value, each
+# with the ROADMAP item that ports it.
+_SAMPLER = "ROADMAP Queue 1 item 1: the rest of the sampler"
+_LIFECYCLE = "ROADMAP Queue 1 item 2: request lifecycle"
 _NEUTRAL_SUBMIT_OPTIONS = {
-    "top_p": 1.0,
-    "frequency_penalty": 0.0,
-    "presence_penalty": 0.0,
-    "logit_bias": None,
-    "top_logprobs": 0,
-    "stop": None,
-    "adapter": "",
+    "top_p": (1.0, _SAMPLER),
+    "frequency_penalty": (0.0, _SAMPLER),
+    "presence_penalty": (0.0, _SAMPLER),
+    "logit_bias": (None, _SAMPLER),
+    "top_logprobs": (0, _SAMPLER),
+    "stop": (None, _SAMPLER),
+    "adapter": ("", "ROADMAP Queue 1 item 6: LoRA adapters"),
+    "deadline": (None, _LIFECYCLE),
+    "deadline_s": (None, _LIFECYCLE),
+    "cancel": (None, _LIFECYCLE),
+    "tenant": ("", _LIFECYCLE),
+    "slo_class": ("", _LIFECYCLE),
+    "pin_replica": (False, _LIFECYCLE),
+    "traceparent": (None, _LIFECYCLE),
 }
 
 
@@ -244,18 +254,18 @@ class InferenceEngine:
         """Queue a generate request; returns its record (``future`` resolves
         with the ``GenerationResult``, ``stream`` yields token ids then
         ``None``). Reference options outside this slice (top_p, penalties,
-        logit_bias, top_logprobs, stop sequences, adapters) raise unless at
-        their neutral value."""
+        logit_bias, top_logprobs, stop sequences, adapters, deadlines,
+        cancel tokens, tenant, SLO class, replica pinning, trace context)
+        raise ``NotImplementedError`` unless at their neutral value; a name
+        the reference does not take raises ``TypeError``."""
         for key, val in options.items():
             if key not in _NEUTRAL_SUBMIT_OPTIONS:
                 raise TypeError(f"submit_generate() got an unexpected option {key!r}")
-            if val is not None and val != _NEUTRAL_SUBMIT_OPTIONS[key] and (
+            neutral, item = _NEUTRAL_SUBMIT_OPTIONS[key]
+            if val is not None and val != neutral and (
                 not isinstance(val, (dict, list)) or val
             ):
-                raise NotImplementedError(
-                    f"{key}={val!r} is not ported yet (ROADMAP: the rest of "
-                    "the sampler)"
-                )
+                raise NotImplementedError(f"{key}={val!r} is not ported yet ({item})")
         if temperature < 0:
             raise ValueError("temperature must be >= 0")
         if int(max_new_tokens) < 1:

@@ -3,15 +3,19 @@
 // by a host C++ compiler and run in the CPU tests.
 //
 // Each CUDA thread of a block is a fiber (ucontext) on the calling OS
-// thread; blocks run one after another. __syncthreads is a barrier over
-// the block's fibers and __shfl_xor_sync an exchange between two barriers
-// over the warp's: a fiber that reaches one yields until every fiber of its
-// block (or warp) has arrived, so a kernel whose threads diverge at either
-// one deadlocks, which the scheduler detects and aborts on, as it would
-// misbehave on a card. Dynamic shared memory is one static buffer, filled
-// with NaN bytes before every block so that reads of unwritten shared
-// memory show in the output. The Hopper primitives (wgmma, mbarrier,
-// cp.async, TMA, named barriers) are emulated in sm90.cuh on top of this.
+// thread. Blocks run one cluster at a time: a plain launch is clusters of
+// one block, and the blocks of one cluster (mock_launch_cluster, the
+// stand-in for a cudaLaunchKernelEx with a cluster dimension) run together,
+// their fibers interleaved. __syncthreads is a barrier over the block's
+// fibers, __shfl_xor_sync and __shfl_sync exchanges behind a barrier over
+// the warp's and the cluster barrier one over every fiber of the cluster: a fiber that reaches one yields until every fiber of its block
+// (warp, cluster) has arrived, so a kernel whose threads diverge at any of them deadlocks,
+// which the scheduler detects and aborts on, as it would misbehave on a
+// card. Each block of a cluster has its own dynamic shared memory, filled
+// with NaN bytes before the block starts so that reads of unwritten shared
+// memory show in the output; a peer's is reached through the emulated mapa
+// (sm90.cuh). The Hopper primitives (wgmma, mbarrier, cp.async, bulk copies,
+// TMA, named barriers, clusters) are emulated in sm90.cuh on top of this.
 #pragma once
 #include <ucontext.h>
 
@@ -21,6 +25,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <vector>
 
 #define __global__
@@ -45,6 +50,7 @@ inline thread_local dim3 blockDim, gridDim;
 
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 struct __nv_bfloat16 { uint16_t v; };
@@ -68,9 +74,6 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 
-// 1024-byte aligned, as the 128-byte swizzle's phase needs.
-alignas(1024) inline thread_local unsigned char mock_smem[256 * 1024];
-
 struct MockBarrier {
   unsigned gen = 0, count = 0;
 };
@@ -82,29 +85,45 @@ struct MockMbar {
   long long tx = 0;
 };
 
+constexpr size_t kMockSmem = 256 * 1024;  // the most a block may ask for here
+
+// One block of the running cluster: its fibers, barriers and shared memory.
 struct MockBlock {
-  int nt = 0, cur = 0;
-  unsigned long progress = 0;  // barrier arrivals and finished fibers
+  dim3 idx;
+  unsigned rank = 0;  // in its cluster
+  unsigned char* smem = nullptr;  // 1024-byte aligned, as the 128-byte swizzle's phase needs
   std::vector<ucontext_t> ctx;
   std::vector<char> done;
-  std::vector<std::vector<char>> stacks;
-  ucontext_t sched;
-  const std::function<void()>* body = nullptr;
   MockBarrier bar;
   std::vector<MockBarrier> warp;
-  std::vector<float> xch;
+  std::vector<float> xch;          // two exchange buffers of one float per thread
+  std::vector<char> shfl_parity;  // per thread: the buffer of its last exchange
   std::vector<uint32_t> frag;  // 6 words per thread: an mma's A and B fragments
   std::vector<MockBarrier> named;  // bar.sync ids 0..15
   std::vector<MockBarrier> wgroup;  // one per warpgroup (wgmma is collective)
   std::vector<MockMbar> mbar;       // indexed by shared-memory offset / 8
 };
-inline thread_local MockBlock* mock_ctx = nullptr;
 
-inline void mock_yield() { swapcontext(&mock_ctx->ctx[mock_ctx->cur], &mock_ctx->sched); }
+struct MockCluster {
+  int nt = 0;                     // threads per block
+  std::vector<MockBlock> blocks;  // its blocks, by rank
+  ucontext_t* cur = nullptr;      // the running fiber
+  ucontext_t sched;
+  const std::function<void()>* body = nullptr;
+  MockBarrier cbar;  // barrier.cluster
+};
+inline thread_local MockCluster* mock_cl = nullptr;
+inline thread_local MockBlock* mock_ctx = nullptr;  // the running fiber's block
+inline thread_local unsigned long mock_progress = 0;  // barrier arrivals and finished fibers
+
+// The running block's dynamic shared memory.
+#define mock_smem (mock_ctx->smem)
+
+inline void mock_yield() { swapcontext(mock_cl->cur, &mock_cl->sched); }
 
 inline void mock_barrier(MockBarrier& b, unsigned n) {
   const unsigned g = b.gen;
-  ++mock_ctx->progress;
+  ++mock_progress;
   if (++b.count == n) {
     b.count = 0;
     ++b.gen;
@@ -113,71 +132,109 @@ inline void mock_barrier(MockBarrier& b, unsigned n) {
   while (b.gen == g) mock_yield();
 }
 
-inline void __syncthreads() { mock_barrier(mock_ctx->bar, mock_ctx->nt); }
+inline void __syncthreads() { mock_barrier(mock_ctx->bar, mock_cl->nt); }
 inline void mock_warp_sync() { mock_barrier(mock_ctx->warp[threadIdx.x / 32], 32); }
+inline void __syncwarp(unsigned = 0xffffffffu) { mock_warp_sync(); }
 
-inline float __shfl_xor_sync(unsigned, float v, int off) {
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-  mock_ctx->xch[tid] = v;
+// A warp exchange: each lane publishes v, then reads lane `src`'s. Lanes
+// alternate between two buffers, so one barrier suffices: a lane can start
+// the next exchange early, but not the one after it before every lane has
+// read this one.
+inline float mock_shfl(float v, int src) {
+  const int tid = threadIdx.x, w = tid / 32;
+  const int buf = mock_ctx->shfl_parity[tid] ^= 1;
+  float* x = mock_ctx->xch.data() + buf * mock_ctx->xch.size() / 2;
+  x[tid] = v;
   mock_warp_sync();
-  const float r = mock_ctx->xch[w * 32 + (lane ^ off)];
-  mock_warp_sync();
-  return r;
+  return x[w * 32 + (src & 31)];
 }
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+  return mock_shfl(v, (threadIdx.x % 32) ^ off);
+}
+inline float __shfl_sync(unsigned, float v, int src) { return mock_shfl(v, src); }
 
 inline void mock_fiber_entry() {
-  (*mock_ctx->body)();
-  mock_ctx->done[mock_ctx->cur] = 1;
-  ++mock_ctx->progress;
-}  // returns to mock_ctx->sched through uc_link
+  (*mock_cl->body)();
+  mock_ctx->done[threadIdx.x] = 1;
+  ++mock_progress;
+}  // returns to mock_cl->sched through uc_link
 
-// Stands in for `kernel<<<grid, block, smem, stream>>>(args...)`.
+// Runs `kernel(args...)` over `grid` in clusters of `cluster` blocks along
+// x (which must divide grid.x); each cluster's blocks run together.
 template <class K, class... A>
-void mock_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+void mock_launch_cluster(unsigned cluster, K kernel, dim3 grid, dim3 block, size_t smem,
+                         A... args) {
   constexpr size_t kStack = 256 * 1024;
   gridDim = grid;
   blockDim = block;
   const int nt = block.x * block.y * block.z;
-  if (smem > sizeof(mock_smem) || nt % 32) std::abort();
+  if (smem > kMockSmem || nt % 32 || cluster == 0 || grid.x % cluster) std::abort();
   const std::function<void()> body = [&] { kernel(args...); };
-  MockBlock b;
-  b.nt = nt;
-  b.body = &body;
-  b.ctx.resize(nt);
-  b.stacks.assign(nt, std::vector<char>(kStack));
-  b.xch.assign(nt, 0.f);
-  b.frag.assign(6 * nt, 0u);
-  mock_ctx = &b;
+  MockCluster cl;
+  cl.nt = nt;
+  cl.body = &body;
+  cl.blocks.resize(cluster);
+  // Stacks are touched only as deep as a fiber goes (new[] leaves them
+  // uncommitted), so a cluster of 8 blocks costs what its fibers use.
+  std::vector<std::unique_ptr<char[]>> stacks(cluster * nt);
+  for (auto& s : stacks) s.reset(new char[kStack]);
+  std::vector<std::unique_ptr<unsigned char[]>> smems(cluster);
+  for (unsigned r = 0; r < cluster; ++r) {
+    smems[r].reset(new unsigned char[kMockSmem + 1024]);
+    const uintptr_t a = reinterpret_cast<uintptr_t>(smems[r].get());
+    MockBlock& b = cl.blocks[r];
+    b.smem = smems[r].get() + ((1024 - a % 1024) % 1024);
+    b.rank = r;
+    b.ctx.resize(nt);
+    b.xch.assign(2 * nt, 0.f);
+    b.frag.assign(6 * nt, 0u);
+  }
+  mock_cl = &cl;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        std::memset(mock_smem, 0xff, smem);
-        blockIdx = dim3(x, y, z);
-        b.bar = MockBarrier{};
-        b.warp.assign(nt / 32, MockBarrier{});
-        b.named.assign(16, MockBarrier{});
-        b.wgroup.assign((nt + 127) / 128, MockBarrier{});
-        b.mbar.assign(sizeof(mock_smem) / 8, MockMbar{});
-        b.done.assign(nt, 0);
-        for (int t = 0; t < nt; ++t) {
-          getcontext(&b.ctx[t]);
-          b.ctx[t].uc_stack.ss_sp = b.stacks[t].data();
-          b.ctx[t].uc_stack.ss_size = kStack;
-          b.ctx[t].uc_link = &b.sched;
-          makecontext(&b.ctx[t], mock_fiber_entry, 0);
-        }
-        for (int left = nt; left > 0;) {
-          const unsigned long before = b.progress;
-          left = 0;
+      for (unsigned x0 = 0; x0 < grid.x; x0 += cluster) {
+        cl.cbar = MockBarrier{};
+        for (unsigned r = 0; r < cluster; ++r) {
+          MockBlock& b = cl.blocks[r];
+          std::memset(b.smem, 0xff, smem);
+          b.idx = dim3(x0 + r, y, z);
+          b.bar = MockBarrier{};
+          b.warp.assign(nt / 32, MockBarrier{});
+          b.named.assign(16, MockBarrier{});
+          b.wgroup.assign((nt + 127) / 128, MockBarrier{});
+          b.mbar.assign(smem / 8 + 1, MockMbar{});
+          b.done.assign(nt, 0);
+          b.shfl_parity.assign(nt, 0);
           for (int t = 0; t < nt; ++t) {
-            if (b.done[t]) continue;
-            b.cur = t;
-            threadIdx = dim3(t);
-            swapcontext(&b.sched, &b.ctx[t]);
-            left += !b.done[t];
+            getcontext(&b.ctx[t]);
+            b.ctx[t].uc_stack.ss_sp = stacks[r * nt + t].get();
+            b.ctx[t].uc_stack.ss_size = kStack;
+            b.ctx[t].uc_link = &cl.sched;
+            makecontext(&b.ctx[t], mock_fiber_entry, 0);
           }
-          if (left > 0 && b.progress == before) std::abort();  // threads diverged at a barrier
+        }
+        for (int left = 1; left > 0;) {
+          const unsigned long before = mock_progress;
+          left = 0;
+          for (MockBlock& b : cl.blocks)
+            for (int t = 0; t < nt; ++t) {
+              if (b.done[t]) continue;
+              mock_ctx = &b;
+              cl.cur = &b.ctx[t];
+              threadIdx = dim3(t);
+              blockIdx = b.idx;
+              swapcontext(&cl.sched, &b.ctx[t]);
+              left += !b.done[t];
+            }
+          if (left > 0 && mock_progress == before) std::abort();  // threads diverged at a barrier
         }
       }
+  mock_cl = nullptr;
   mock_ctx = nullptr;
+}
+
+// Stands in for `kernel<<<grid, block, smem, stream>>>(args...)`.
+template <class K, class... A>
+void mock_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t, A... args) {
+  mock_launch_cluster(1, kernel, grid, block, smem, args...);
 }

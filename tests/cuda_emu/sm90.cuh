@@ -10,10 +10,14 @@
 //   complete at issue (commit and wait are no-ops).
 // - mbarrier: arrivals and transaction bytes complete a phase; a wait
 //   yields the fiber until the phase of the given parity has completed.
-// - cp.async and TMA copy at issue (zero fill where not valid or out of
-//   bounds); TMA writes the 128-byte-swizzled box and completes its bytes
+// - cp.async, the 1-D bulk copy and TMA copy at issue (zero fill where not
+//   valid or out of bounds); the bulk copy and TMA complete their bytes on
+//   the barrier, and cp.async's barrier arrival is immediate. TMA writes the 128-byte-swizzled box and completes its bytes
 //   on the barrier, and its tensor map is checked as cuTensorMapEncodeTiled checks it
 //   (16-byte aligned base and strides, an inner box of 128 bytes at most).
+// - Clusters: the blocks of a cluster run together (cuda_mock.h); the
+//   cluster barrier is a barrier over all their threads, and mapa maps an
+//   address to the same offset in a peer block's shared memory.
 // - Named barriers are barriers over their thread count; setmaxnreg and the
 //   proxy and operand fences are no-ops.
 //
@@ -63,7 +67,7 @@ inline void mbar_arrive(uint64_t* bar) {
   MockMbar& b = mock_mbar(bar);
   if (b.pending == 0) std::abort();  // more arrivals than the phase expects
   --b.pending;
-  ++mock_ctx->progress;
+  ++mock_progress;
   mock_mbar_settle(b);
 }
 
@@ -75,13 +79,15 @@ inline void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
 inline void mock_complete_tx(uint64_t* bar, uint32_t bytes) {
   MockMbar& b = mock_mbar(bar);
   b.tx -= bytes;
-  ++mock_ctx->progress;
+  ++mock_progress;
   mock_mbar_settle(b);
 }
 
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   while ((mock_mbar(bar).phases & 1u) == parity) mock_yield();
 }
+
+inline void cp_async_mbar_arrive(uint64_t* bar) { mbar_arrive(bar); }
 
 // ---- cp.async -------------------------------------------------------------
 
@@ -93,6 +99,57 @@ inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
 inline void fence_async_shared() {}
+
+// A 4-byte cp.async; the arrival that waits for this thread's cp.asyncs
+// (.noinc: counted in the barrier's init count) arrives at once, since the
+// copies land at issue.
+inline void cp_async4(void* smem, const void* gmem) { std::memcpy(smem, gmem, 4); }
+inline void cp_async_mbar_arrive(uint64_t* bar);
+
+// ---- bulk copies and clusters ----------------------------------------------
+
+// The 1-D bulk copy: lands at issue and completes its bytes on the barrier;
+// aborts on what the card refuses (a size or an address that is not a
+// multiple of 16 bytes).
+inline void bulk_load(void* smem, const void* gmem, uint32_t bytes, uint64_t* bar) {
+  if (smem_addr(smem) % 16 || reinterpret_cast<uintptr_t>(gmem) % 16 || bytes % 16 ||
+      smem_addr(smem) + bytes > kMockSmem)
+    std::abort();
+  std::memcpy(smem, gmem, bytes);
+  mock_complete_tx(bar, bytes);
+}
+
+inline uint32_t cluster_rank() { return mock_ctx->rank; }
+inline uint32_t cluster_size() { return (uint32_t)mock_cl->blocks.size(); }
+
+// A barrier over every thread of every block of the cluster.
+inline void cluster_sync() {
+  mock_barrier(mock_cl->cbar, (unsigned)(mock_cl->nt * mock_cl->blocks.size()));
+}
+
+// `p` (in this block's shared memory) in block `rank` of the cluster.
+template <typename T>
+inline T* cluster_map(T* p, uint32_t rank) {
+  if (rank >= mock_cl->blocks.size()) std::abort();
+  const uint32_t off = smem_addr(p);
+  return reinterpret_cast<T*>(mock_cl->blocks[rank].smem + off);
+}
+
+// Stands in for a cudaLaunchKernelEx with a cluster dimension of `cluster`
+// along x.
+template <class K, class... A>
+inline cudaError_t launch_cluster(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
+                                  unsigned cluster, A... args) {
+  mock_launch_cluster(cluster, kernel, grid, block, smem, args...);
+  return cudaSuccess;
+}
+
+// The emulator runs one cluster at a time; this stands in for an H100's
+// 132 SMs at one block each, which only a wrapper on a card asks for.
+template <class K>
+inline int max_active_clusters(K, dim3, size_t, unsigned cluster) {
+  return 132 / (int)cluster;
+}
 
 // ---- TMA ------------------------------------------------------------------
 

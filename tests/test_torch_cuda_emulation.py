@@ -23,7 +23,9 @@ real compiler, the real memory model) is checked by ``chip_smoke.py``.
 import ctypes
 import re
 import shutil
+import signal
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -44,9 +46,11 @@ MOCK = REPO / "tests" / "cuda_emu"
 TOL = 2e-2
 
 
-def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
+def _emulate(sources: dict[str, str], out: Path, opt: str = "-O1") -> ctypes.CDLL:
     """Compile CUDA sources (file stem -> text) against the mock and load
-    them, with the C entries' argument types set."""
+    them, with the C entries' argument types set. ``opt`` -O0 compiles
+    flash_decode.cu's 64 instantiations in a third of -O1's time, for a
+    library that runs only a few cases."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++) to emulate the kernels")
@@ -64,7 +68,7 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
         dst.write_text(s)
         srcs.append(str(dst))
     # One compiler per source, all started together, then one link.
-    flags = ["-std=c++20", "-O1", "-fno-strict-aliasing", "-fPIC", "-I", str(MOCK),
+    flags = ["-std=c++20", opt, "-fno-strict-aliasing", "-fPIC", "-I", str(MOCK),
              "-I", str(CSRC)]
     procs = [
         subprocess.Popen([cxx, *flags, "-c", src, "-o", src + ".o"],
@@ -83,7 +87,7 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
     dll = ctypes.CDLL(str(lib))
     entries = {
         "gofr_flash_decode": (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         ),
         "gofr_flash_cache_attention": (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -93,10 +97,15 @@ def _emulate(sources: dict[str, str], out: Path) -> ctypes.CDLL:
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
         ),
     }
+    entries["gofr_flash_cache_attention_f32"] = entries["gofr_flash_cache_attention"]
+    entries["gofr_flash_attention_f32"] = entries["gofr_flash_attention"]
     entries.update({
         "gofr_sm90_wgmma_test": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
         "gofr_sm90_ring_test": [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
         "gofr_sm90_tma_test": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+        "gofr_sm90_bulk_test": ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                                + [ctypes.c_int, ctypes.c_void_p]),
+        "gofr_sm90_cluster_test": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
     })
     for name, argtypes in entries.items():
         if hasattr(dll, name):
@@ -142,7 +151,7 @@ def test_emulated_flash_decode_matches_plain(emu_lib, hd, H, KV, lengths, split)
     out = torch.empty_like(q)
     rc = emu_lib.gofr_flash_decode(
         q.data_ptr(), kc.data_ptr(), vc.data_ptr(), lens.data_ptr(), _ptr(kn),
-        _ptr(vn), None, None, None, out.data_ptr(), S, H, KV, max_len, 0, hd, 0,
+        _ptr(vn), None, None, None, out.data_ptr(), S, H, KV, max_len, 0, hd, 0, 0, 1,
         hd**-0.5, None,
     )
     assert rc == 0
@@ -186,16 +195,24 @@ def test_emulated_entries_refuse_unsupported_shapes(emu_lib):
     # head_dim 48, n_heads not a multiple of n_kv, a pool block that is not
     # a multiple of 16 and one scale without the other are refused, not run.
     n = None
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 48, 0, 1.0, n) != 0
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 3, 2, 8, 0, 32, 0, 1.0, n) != 0
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, p, p, 1, 4, 2, 8, 2, 32, 0, 1.0, n) != 0
-    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, p, n, n, p, 1, 4, 2, 8, 0, 32, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 48, 0, 0, 1, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 3, 2, 8, 0, 32, 0, 0, 1, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, p, p, 1, 4, 2, 8, 2, 32, 0, 0, 1, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, p, n, n, p, 1, 4, 2, 8, 0, 32, 0, 0, 1, 1.0, n) != 0
+    # A cluster of 3 or 16 blocks, and a query type flag other than 0 / 1.
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 32, 0, 0, 3, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 32, 0, 0, 16, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 32, 0, 2, 1, 1.0, n) != 0
     assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 256, 0, 1.0, n) != 0
     assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, p, p, 1, 1, 4, 2, 24, 2, 32, 0, 1.0, n) != 0
     st = (ctypes.c_longlong * 9)()
-    # flash_attention takes hd 64 and 128 only (32 is refused), and GQA groups.
-    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 4, 2, 32, 1, 0, st, 1.0, None) != 0
-    assert emu_lib.gofr_flash_attention(p, p, p, None, p, 1, 1, 1, 3, 2, 64, 1, 0, st, 1.0, None) != 0
+    # flash_attention takes hd 32, 64 and 128 only (48 is refused), and GQA
+    # groups; so do the f32 kernels.
+    for fa in (emu_lib.gofr_flash_attention, emu_lib.gofr_flash_attention_f32):
+        assert fa(p, p, p, None, p, 1, 1, 1, 4, 2, 48, 1, 0, st, 1.0, None) != 0
+        assert fa(p, p, p, None, p, 1, 1, 1, 3, 2, 64, 1, 0, st, 1.0, None) != 0
+    assert emu_lib.gofr_flash_cache_attention_f32(
+        p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 256, 0, 1.0, n) != 0
 
 
 # -- int8 / paged / paged+int8 variants of the two serving kernels --------
@@ -242,16 +259,19 @@ def _pool(rng, logical, keys, B):
     return pools, table
 
 
-def _call_decode(lib, q, cache, lens, kn, vn, table, B, window=0):
+def _call_decode(lib, q, cache, lens, kn, vn, table, B, window=0, cluster=2):
+    """The kernel (bf16 or f32 q; caches of q's type or int8 with scales)
+    with `cluster` blocks per (slot, kv head)."""
     S, H, hd = q.shape
     KV = cache[0].shape[1]
     k_s, v_s = (cache[2], cache[3]) if len(cache) == 4 else (None, None)
-    out = torch.empty_like(q)
+    out = torch.full_like(q, float("nan"))
     rc = lib.gofr_flash_decode(
         q.data_ptr(), cache[0].data_ptr(), cache[1].data_ptr(), lens.data_ptr(),
         _ptr(kn), _ptr(vn), _ptr(k_s), _ptr(v_s), _ptr(table), out.data_ptr(),
         S, H, KV, B if table is not None else cache[0].shape[2],
-        0 if table is None else table.shape[1], hd, window, hd**-0.5, None,
+        0 if table is None else table.shape[1], hd, window, int(q.dtype == torch.float32),
+        cluster, hd**-0.5, None,
     )
     assert rc == 0
     return out
@@ -309,8 +329,10 @@ PREFILL_VARIANT_SHAPES = [
 def _call_prefill(lib, q, cache, sl, st, ln, table, B, window=0):
     P, c, H, hd = q.shape
     k_s, v_s = (cache[2], cache[3]) if len(cache) == 4 else (None, None)
-    out = torch.empty_like(q)
-    rc = lib.gofr_flash_cache_attention(
+    out = torch.full_like(q, float("nan"))
+    entry = (lib.gofr_flash_cache_attention_f32 if q.dtype == torch.float32
+             else lib.gofr_flash_cache_attention)
+    rc = entry(
         q.data_ptr(), cache[0].data_ptr(), cache[1].data_ptr(), sl.data_ptr(),
         st.data_ptr(), ln.data_ptr(), _ptr(k_s), _ptr(v_s), _ptr(table),
         out.data_ptr(), P, c, H, cache[0].shape[1],
@@ -363,11 +385,10 @@ def test_emulation_catches_the_v_scale_in_the_denominator(tmp_path):
     # flash_prefill's softmax lives in the mainloop header it shares with
     # flash_attention (whose bf16 path the swap does not touch).
     swaps = {
+        # The redesigned kernel's online softmax over a stage's rows.
         "flash_decode.cu": (
-            "l[r] = l[r] * corr + p;  // the denominator takes p before the V scale\n"
-            "          const float pv = kQuant ? p * vs[u] : p;",
-            "const float pv = kQuant ? p * vs[u] : p;\n"
-            "          l[r] = l[r] * corr + pv;",
+            "psum += p;  // the denominator takes p before the V scale",
+            "psum += kQuant ? p * vs[u] : p;",
         ),
         "attn_sm90.cuh": (
             "rs_b += s[i];",
@@ -381,7 +402,7 @@ def test_emulation_catches_the_v_scale_in_the_denominator(tmp_path):
         sources[name.removesuffix(".cu")] = src.replace(old, new)
     sources["attn_sm90.cuh"] = sources["attn_sm90.cuh"].replace(
         "rs_a += s[i];", "rs_a += QUANT ? s[i] * vs[j] : s[i];")
-    lib = _emulate(sources, tmp_path)
+    lib = _emulate(sources, tmp_path, opt="-O0")
     for variant in ("int8", "paged+int8"):
         for split in (False, True):
             for shape in DECODE_VARIANT_SHAPES:
@@ -403,16 +424,18 @@ FA_CASES = [
 
 
 def _run_emulated_flash_attention(lib, b, s_q, s_kv, n_heads, n_kv, hd, causal,
-                                  lengths, *, transpose_kv=False, window=0):
+                                  lengths, *, transpose_kv=False, window=0,
+                                  dtype=torch.bfloat16):
     rng = np.random.default_rng(s_q + s_kv + hd)
-    q = _bf16(rng, b, s_q, n_heads, hd)
-    k, v = _bf16(rng, b, s_kv, n_kv, hd), _bf16(rng, b, s_kv, n_kv, hd)
+    q = _bf16(rng, b, s_q, n_heads, hd).to(dtype)
+    k, v = _bf16(rng, b, s_kv, n_kv, hd).to(dtype), _bf16(rng, b, s_kv, n_kv, hd).to(dtype)
     if transpose_kv:  # [b, n_kv, s_kv, hd] storage read through strides
         k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (k, v))
     lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
-    out = torch.full((b, s_q, n_heads, hd), float("nan"), dtype=torch.bfloat16)
+    out = torch.full((b, s_q, n_heads, hd), float("nan"), dtype=dtype)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    rc = lib.gofr_flash_attention(
+    entry = lib.gofr_flash_attention_f32 if dtype == torch.float32 else lib.gofr_flash_attention
+    rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens), out.data_ptr(),
         b, s_q, s_kv, n_heads, n_kv, hd, int(causal), window, strides, hd**-0.5, None,
     )
@@ -632,7 +655,7 @@ def test_emulation_catches_a_window_edge_one_key_low(tmp_path):
         src = (CSRC / f"{stem}.cu").read_text()
         assert old in src
         sources[stem] = src.replace(old, new)
-    lib = _emulate(sources, tmp_path)
+    lib = _emulate(sources, tmp_path, opt="-O0")
     for split in (False, True):
         out, want, _, _ = _decode_window_case(lib, "bf16", split)
         assert not torch.allclose(out.float(), want.float(), atol=TOL, rtol=TOL)
@@ -689,6 +712,52 @@ def test_emulated_tma_box_zero_fills_a_ragged_edge(emu_lib, r0):
     assert torch.equal(dst, want)
 
 
+def test_emulated_bulk_copy_and_cp_async_words_share_one_phase(emu_lib):
+    """A 1-D bulk copy of 4,096 bytes and 37 four-byte cp.async words land
+    in shared memory under one mbarrier phase (one announcing arrival and
+    32 cp.async arrivals) and come back bit for bit."""
+    rng = np.random.default_rng(8)
+    src = torch.from_numpy(rng.integers(0, 256, 4096).astype(np.uint8))
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, 37).astype(np.int32))
+    dst, dst_words = torch.zeros_like(src), torch.zeros_like(words)
+    assert emu_lib.gofr_sm90_bulk_test(src.data_ptr(), dst.data_ptr(), 4096, words.data_ptr(),
+                                       dst_words.data_ptr(), 37, None) == 0
+    assert torch.equal(dst, src) and torch.equal(dst_words, words)
+    # A size that is not a multiple of 16 bytes is refused, not run.
+    assert emu_lib.gofr_sm90_bulk_test(src.data_ptr(), dst.data_ptr(), 40, words.data_ptr(),
+                                       dst_words.data_ptr(), 0, None) != 0
+
+
+def test_emulated_cluster_exchange_reads_a_peers_shared_memory(emu_lib):
+    """Two clusters of 4 blocks: each block returns its next peer's words
+    read through the emulated mapa after the cluster barrier, and its
+    rank."""
+    src = torch.arange(8 * 128, dtype=torch.int32).reshape(8, 128) * 3 + 1
+    dst, ranks = torch.zeros_like(src), torch.full((8,), -1, dtype=torch.int32)
+    assert emu_lib.gofr_sm90_cluster_test(src.data_ptr(), dst.data_ptr(), ranks.data_ptr(), 2,
+                                          None) == 0
+    blocks = torch.arange(8)
+    peer = blocks // 4 * 4 + (blocks + 1) % 4
+    assert torch.equal(dst, torch.roll(src[peer], shifts=-37, dims=1))
+    assert ranks.tolist() == [0, 1, 2, 3] * 2
+
+
+def test_emulated_cluster_that_diverges_at_its_barrier_aborts(tmp_path):
+    """A cluster whose rank 0 skips the cluster barrier deadlocks on a card;
+    the emulator must abort, not hang or run on."""
+    src = (CSRC / "sm90_selftest.cu").read_text()
+    sync = "  sm90::cluster_sync();  // every block's words are written\n"
+    assert sync in src
+    bad = src.replace(sync, "  if (rank != 0) sm90::cluster_sync();\n")
+    lib = _emulate({"sm90_selftest": bad}, tmp_path)
+    code = (f"import ctypes, torch; lib = ctypes.CDLL({str(lib._name)!r}); "
+            "s = torch.zeros(4 * 128, dtype=torch.int32); "
+            "lib.gofr_sm90_cluster_test(ctypes.c_void_p(s.data_ptr()), "
+            "ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(s.data_ptr()), 1, None)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, timeout=120)
+    assert res.returncode == -signal.SIGABRT
+
+
 # -- the tiled kernels at the new tiles' edges (128 query rows, 128 keys) ----
 
 FA_EDGE_CASES = [
@@ -733,3 +802,120 @@ def test_emulated_flash_cache_attention_at_tile_edges(
     torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
     for p, n in enumerate(lens):
         assert torch.all(out[p, n:] == 0)
+
+
+# -- the f32 kernels of the tiled functions (csrc/attn_f32.cu) ---------------
+
+# The f32 kernels against the f32 plain versions: per output row, max |d|
+# <= 1e-4 * rms(row) (the sums run in another order; f32 rounds at 2**-24).
+F32_ROW_TOL = 1e-4
+
+
+def _assert_rows_close(out, want, rel):
+    """Per row of the last dim: max |out - want| <= rel * rms(want row);
+    rows that must be 0 are exactly 0."""
+    hd = out.shape[-1]
+    g, w = out.double().reshape(-1, hd), want.double().reshape(-1, hd)
+    d = (g - w).abs().amax(dim=-1)
+    rms = w.pow(2).mean(dim=-1).sqrt()
+    zero = rms == 0
+    assert torch.all(d[zero] == 0), "rows that must be 0 are not"
+    worst = (d[~zero] / rms[~zero]).max().item()
+    assert worst <= rel, f"max row error / row rms {worst} > {rel}"
+
+
+
+F32_PREFILL_CASES = [
+    # variant, window, hd, H, KV, c, slots, starts, lens (max_len 160)
+    ("bf16", 0, 32, 4, 2, 8, [2, 0, 3, 2], [0, 5, 70, 0], [8, 3, 8, 8]),
+    ("bf16", 40, 128, 8, 2, 20, [2, 0, 3], [100, 64, 10], [20, 17, 0]),
+    ("paged", 0, 64, 4, 4, 20, [1, 3, 0], [0, 3, 130], [0, 20, 9]),
+    ("int8", 30, 64, 8, 1, 16, [0, 2], [120, 40], [16, 7]),
+    ("paged+int8", 40, 128, 4, 2, 16, [2, 0, 3, 2], [0, 64, 130, 0], [16, 9, 16, 16]),
+]
+
+
+@pytest.mark.parametrize("variant,window,hd,H,KV,c,slots,starts,lens", F32_PREFILL_CASES)
+def test_emulated_f32_flash_cache_attention_matches_plain(
+    emu_lib, variant, window, hd, H, KV, c, slots, starts, lens
+):
+    """The CUDA-core f32 chunk kernel on the slot cache, a pool (bit for bit
+    the slot cache's), int8 and an int8 pool, with and without the window,
+    against the f32 plain version per row; padding rows exactly 0; NaN in
+    the key tiles wholly below a windowed row's edge changes no bit."""
+    quant, B = WINDOW_VARIANTS[variant]
+    rng = np.random.default_rng(c + hd + window)
+    S, max_len, P = 4, 160, len(slots)
+    q = _bf16(rng, P, c, H, hd).float()
+    i32 = dict(dtype=torch.int32)
+    sl, st, ln = (torch.tensor(x, **i32) for x in (slots, starts, lens))
+    cache = [t.float() if t.dtype == torch.bfloat16 else t
+             for t in _cache(rng, S, KV, max_len, hd, quant)]
+    contiguous = table = None
+    if B:
+        contiguous = _call_prefill(emu_lib, q, cache, sl, st, ln, None, 0, window)
+        keys = [max([s0 + n for s, s0, n in zip(slots, starts, lens) if s == r] or [0])
+                for r in range(S)]
+        cache, table = _pool(rng, cache, keys, B)
+    scales = dict(k_scale=cache[2], v_scale=cache[3]) if quant else {}
+    out = _call_prefill(emu_lib, q, cache, sl, st, ln, table, B, window)
+    want = flash_cache_attention_plain(q, cache[0], cache[1], sl, st, ln, block_table=table,
+                                       window=window, **scales)
+    _assert_rows_close(out, want, F32_ROW_TOL)
+    for p, n in enumerate(lens):
+        assert torch.all(out[p, n:] == 0)
+    if contiguous is not None:
+        assert torch.equal(out, contiguous)
+    if window:
+        below = [min([max(0, s0 - window + 1) for r2, s0 in zip(slots, starts) if r2 == r]
+                     or [0]) for r in range(S)]
+        poisoned = _call_prefill(emu_lib, q, _poison_rows(cache, table, B, below), sl, st, ln,
+                                 table, B, window)
+        assert torch.equal(poisoned, out)
+
+
+F32_FA_CASES = [
+    # b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths, window
+    (1, 40, 40, 4, 2, 32, True, None, 0),         # causal GQA, hd 32
+    (1, 20, 70, 2, 1, 64, True, None, 0),         # causal offset 50
+    (3, 33, 33, 2, 2, 128, True, [33, 0, 9], 0),  # lengths: full, empty, short
+    (2, 10, 40, 2, 1, 64, False, [40, 17], 0),    # non-causal with lengths
+    (2, 50, 50, 8, 2, 32, True, [50, 30], 12),    # causal window with lengths
+]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,causal,lengths,window", F32_FA_CASES)
+def test_emulated_f32_flash_attention_matches_plain(
+    emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths, window
+):
+    """The CUDA-core f32 full-sequence kernel, k and v read through strides
+    where lengths are given, against the f32 plain version per row; rows
+    that see no key exactly 0."""
+    out, want = _run_emulated_flash_attention(
+        emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths,
+        transpose_kv=lengths is not None, window=window, dtype=torch.float32)
+    _assert_rows_close(out, want, F32_ROW_TOL)
+
+
+FA_HD32_CASES = [
+    # b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths, window: hd 32 on a
+    # 64-column panel
+    (1, 70, 70, 4, 2, 32, True, None, 0),          # causal GQA, two query tiles
+    (3, 40, 140, 2, 2, 32, True, [140, 0, 60], 0),  # offset 100, lengths
+    (2, 30, 30, 8, 1, 32, False, [30, 11], 0),     # non-causal, MQA, lengths
+    (1, 200, 200, 2, 1, 32, True, None, 24),       # causal window
+]
+
+
+@pytest.mark.parametrize("b,s_q,s_kv,n_heads,n_kv,hd,causal,lengths,window", FA_HD32_CASES)
+def test_emulated_flash_attention_hd32_matches_plain(
+    emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths, window
+):
+    """flash_attention (bf16, wgmma) at hd 32: the tensor maps' 64-column
+    boxes zero-fill the panel's other half."""
+    out, want = _run_emulated_flash_attention(
+        emu_lib, b, s_q, s_kv, n_heads, n_kv, hd, causal, lengths,
+        transpose_kv=lengths is not None, window=window)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL, rtol=TOL)
+    zero = want.float().abs().amax(dim=(-1, -2)) == 0
+    assert torch.all(out[zero] == 0)

@@ -268,6 +268,40 @@ def test_unported_options_raise(engine):
         InferenceEngine("mixtral-8x7b", device="cpu")
 
 
+def _non_neutral(name, default):
+    """A value of the reference option ``name`` other than its default."""
+    if default is None:
+        return {"deadline_s": 5.0, "stop": ["x"], "logit_bias": {1: 2.0},
+                "traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"}.get(name, object())
+    if isinstance(default, bool):
+        return not default
+    if isinstance(default, (int, float)):
+        return default + 1
+    return default + "a"
+
+
+def test_reference_submit_options_are_accepted_at_neutral_or_not_ported(engine):
+    """Every keyword of the reference's ``submit_generate`` that the port
+    does not take as its own parameter: accepted at the reference's
+    default, ``NotImplementedError`` otherwise — never ``TypeError``,
+    which stays for names the reference does not have."""
+    import inspect
+
+    own = set(inspect.signature(InferenceEngine.submit_generate).parameters)
+    ref = inspect.signature(RefEngine.submit_generate).parameters
+    options = {n: p.default for n, p in ref.items() if n not in own}
+    assert {"deadline", "deadline_s", "cancel", "tenant", "slo_class", "pin_replica",
+            "traceparent", "top_p", "stop"} <= set(options)
+    res = engine.submit_generate([1, 2, 3], max_new_tokens=2, **options).future.result(
+        timeout=120)
+    assert len(res.token_ids) >= 1
+    for name, default in options.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            engine.submit_generate("x", **{name: _non_neutral(name, default)})
+    with pytest.raises(TypeError, match="unexpected option"):
+        engine.submit_generate("x", not_an_option=1)
+
+
 def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch, jax_params):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_model(MODEL).config

@@ -490,3 +490,162 @@ def test_flash_cache_attention_tile_edges_on_gpu(cuda_device, hd, H, KV, c, slot
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
     for p, n in enumerate(lens):
         assert torch.all(got[p, n:] == 0)
+
+
+# -- clusters and bulk copies, the cluster-split flash_decode, f32, hd 32 ------
+
+# f32 kernels against the f32 plain versions, per output row: max |d| <=
+# 1e-4 * rms(row) (another summation order; f32 rounds at 2**-24).
+F32_ROW_TOL = 1e-4
+
+
+def _rows_close(got, want, rel):
+    hd = got.shape[-1]
+    g, w = got.double().reshape(-1, hd), want.double().reshape(-1, hd)
+    d = (g - w).abs().amax(dim=-1)
+    rms = w.pow(2).mean(dim=-1).sqrt()
+    zero = rms == 0
+    assert torch.all(d[zero] == 0)
+    assert (d[~zero] / rms[~zero]).max().item() <= rel
+
+
+@pytest.mark.gpu
+def test_sm90_bulk_copy_and_cluster_exchange_on_gpu(cuda_device):
+    """A 1-D bulk copy and 4-byte cp.async words under one mbarrier phase;
+    a cluster of 4 blocks reading each other's shared memory."""
+    from gofr_tpu_torch.ops.cuda import sm90_selftest as st
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    src = torch.randint(0, 256, (4096,), generator=gen, device=cuda_device,
+                        dtype=torch.int32).to(torch.uint8)
+    words = torch.randint(-2**31, 2**31 - 1, (37,), generator=gen, device=cuda_device,
+                          dtype=torch.int32)
+    dst, dst_words = st.bulk_roundtrip(src, words)
+    assert torch.equal(dst, src) and torch.equal(dst_words, words)
+    x = torch.randint(-2**31, 2**31 - 1, (12, 128), generator=gen, device=cuda_device,
+                      dtype=torch.int32)
+    got, ranks = st.cluster_exchange(x)
+    want, want_ranks = st.cluster_exchange_plain(x)
+    assert torch.equal(got, want) and torch.equal(ranks, want_ranks)
+
+
+def _decode_raw(q, kw, lens, new, window, cluster):
+    """flash_decode's kernel with an explicit cluster size (the wrapper
+    picks it from the shapes)."""
+    out = fd.launch_with_cluster(
+        q, kw["k_cache"], kw["v_cache"], lens, new.get("k_new"), new.get("v_new"),
+        kw.get("k_scale"), kw.get("v_scale"), kw.get("block_table"), q.shape[2] ** -0.5,
+        window, cluster)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+def test_flash_decode_cluster_sizes_on_gpu(cuda_device, variant, cluster):
+    """Each cluster size on lengths 0, 1, a tile edge +- 1 (32 rows a bf16
+    tile at hd 128, 64 int8) and rows shorter than C tiles, windowed and
+    not, both conventions: against the plain version; a pool bit for bit
+    the slot cache's; NaN below the window changes no bit; a second launch
+    gives the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(60 + cluster)
+    S, H, KV, hd, max_len = 8, 32, 8, 128, 512
+    lengths = [0, 1, 31, 33, 63, 65, 300, 511]
+    kw, flat = _variant(gen, cuda_device, variant, S, KV, max_len, hd, lengths)
+    q = torch.randn((S, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    B = WINDOW_VARIANTS[variant][1]
+    for split in (False, True):
+        new = {}
+        if split:
+            new = {k: torch.randn((S, KV, hd), generator=gen, device=cuda_device)
+                   .to(torch.bfloat16) for k in ("k_new", "v_new")}
+            if "int8" in variant:
+                new = {k: fake_quantize_kv(t) for k, t in new.items()}
+        for window in (0, 100):
+            got = _decode_raw(q, kw, lens, new, window, cluster)
+            want = fd.flash_decode_plain(q, lengths=lens, window=window, **new, **kw)
+            torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+            assert torch.equal(got, _decode_raw(q, kw, lens, new, window, cluster))
+            if flat is not None:
+                assert torch.equal(got, _decode_raw(q, flat, lens, new, window, cluster))
+            if window:
+                below = {r: max(0, (n if split else n - 1) - window + 1)
+                         for r, n in enumerate(lengths)}
+                assert torch.equal(got, _decode_raw(q, _nan_below(kw, below, B), lens, new,
+                                                    window, cluster))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+def test_f32_kernels_match_plain_on_gpu(cuda_device, variant):
+    """f32 queries (and f32 caches, or int8 with scales) through all three
+    kernels, windowed and paged as the variant says, against the f32 plain
+    versions at 1e-4 per row; each launches its kernel once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(61)
+    dev = cuda_device
+    quant, B = WINDOW_VARIANTS[variant]
+    S, H, KV, hd, max_len, window = 4, 8, 2, 64, 256, 50
+    lengths = [0, 1, 100, 255]
+    kw, flat = _variant(gen, dev, variant, S, KV, max_len, hd, lengths)
+    kw = {k: (t.float() if t.dtype == torch.bfloat16 else t) for k, t in kw.items()}
+    q = torch.randn((S, H, hd), generator=gen, device=dev)
+    new = {k: torch.randn((S, KV, hd), generator=gen, device=dev) for k in ("k_new", "v_new")}
+    if quant:
+        new = {k: fake_quantize_kv(t) for k, t in new.items()}
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    for w in (0, window):
+        before = fd.launches
+        got = fd.flash_decode(q, lengths=lens, window=w, **new, **kw)
+        torch.cuda.synchronize()
+        assert fd.launches == before + 1 and got.dtype == torch.float32
+        _rows_close(got, fd.flash_decode_plain(q, lengths=lens, window=w, **new, **kw),
+                    F32_ROW_TOL)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = [(2, 0, 40), (2, 50, 17), (3, 200, 40), (1, 0, 0)]
+    slots, starts, lns = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    qc = torch.randn((4, 40, H, hd), generator=gen, device=dev)
+    for w in (0, window):
+        args = dict(slots=slots, starts=starts, lens=lns, window=w)
+        before = fp.launches
+        got = fp.flash_cache_attention(qc, **args, **kw)
+        torch.cuda.synchronize()
+        assert fp.launches == before + 1
+        _rows_close(got, fp.flash_cache_attention_plain(qc, **args, **kw), F32_ROW_TOL)
+    b, s = 2, 150
+    qa, k, v = (torch.randn((b, s, n, hd), generator=gen, device=dev) for n in (H, KV, KV))
+    for causal, lengths_, w in ((True, None, 0), (True, [150, 70], 40), (False, [150, 0], 0)):
+        ln = None if lengths_ is None else torch.tensor(lengths_, **i32)
+        before = fa.launches
+        got = fa.flash_attention(qa, k, v, ln, causal=causal, window=w)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        _rows_close(got, fa.flash_attention_plain(qa, k, v, ln, causal=causal, window=w),
+                    F32_ROW_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,s_q,s_kv,H,KV,causal,lengths,window",
+    [
+        (2, 300, 300, 8, 2, True, None, 0),      # causal GQA (llama-tiny's ratio)
+        (2, 100, 333, 4, 4, True, [333, 0], 0),  # offset, lengths with an empty row
+        (2, 64, 64, 4, 1, False, [64, 17], 0),   # non-causal lengths, MQA
+        (1, 400, 400, 8, 2, True, None, 96),     # causal window
+    ],
+)
+def test_flash_attention_hd32_on_gpu(cuda_device, b, s_q, s_kv, H, KV, causal, lengths, window):
+    """hd 32 (llama-tiny) on a 64-column panel: the tensor maps' boxes
+    reach past the 32 columns and TMA fills zeros there."""
+    gen = torch.Generator(device=cuda_device).manual_seed(62)
+    q, k, v = (torch.randn((b, s, n, 32), generator=gen, device=cuda_device).to(torch.bfloat16)
+               for s, n in ((s_q, H), (s_kv, KV), (s_kv, KV)))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
+                                                     device=cuda_device)
+    got = fa.flash_attention(q, k, v, lens, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, lens, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    zero = want.float().abs().amax(dim=(-1, -2)) == 0
+    assert torch.all(got[zero] == 0)

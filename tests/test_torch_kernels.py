@@ -511,3 +511,111 @@ def test_smoke_row_check_separates_rounding_from_a_dropped_key(monkeypatch):
     leak[0, 0, 0] = 1e-3  # slot 0 has an empty prefix: its rows must be 0
     with pytest.raises(SystemExit):
         cs.check_close(torch, "nonzero empty row", leak, want)
+
+
+class _SimulatedStream:
+    """One CUDA stream on a simulated clock, for chip_smoke's timers: each
+    call costs the host ``launch_s`` and queues ``kernel_s`` of device work
+    that starts when both the host has launched it and the stream is free;
+    ``_sleep`` queues a spin at the card's 1.98 GHz; an event is reached
+    when the work queued before it ends."""
+
+    def __init__(self, launch_s: float, kernel_s: float):
+        self.host, self.tail = 0.0, 0.0
+        self.launch_s, self.kernel_s = launch_s, kernel_s
+        stream = self
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                self.t = None
+
+            def record(self):
+                self.t = max(stream.host, stream.tail)
+
+            def query(self):
+                return stream.host >= self.t
+
+            def synchronize(self):
+                stream.host = max(stream.host, self.t)
+
+            def elapsed_time(self, end):
+                return (end.t - self.t) * 1e3
+
+        self.Event = Event
+
+    def queue(self, seconds: float) -> None:
+        self.host += self.launch_s
+        self.tail = max(self.host, self.tail) + seconds
+
+    def call(self) -> None:
+        self.queue(self.kernel_s)
+
+    def _sleep(self, cycles: int) -> None:
+        self.queue(cycles / 1.98e9)
+
+    def synchronize(self) -> None:
+        self.host = max(self.host, self.tail)
+
+
+def _simulated_torch(monkeypatch, cs, stream):
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(cs, "time", SimpleNamespace(perf_counter=lambda: stream.host))
+    return SimpleNamespace(cuda=stream)
+
+
+@pytest.mark.parametrize("launch_us,kernel_us", [(30.0, 10.0), (5.0, 50.0)])
+def test_smoke_queued_timer_reads_device_time_without_launch_time(
+        monkeypatch, launch_us, kernel_us):
+    """chip_smoke.queued_ms: calls queued behind a spin run back to back,
+    so the events read the device's time a call, not the host's launch
+    time, whichever of the two is longer; a call that waits for the device
+    itself cannot be timed so, and reads None."""
+    cs = _chip_smoke(monkeypatch)
+    stream = _SimulatedStream(launch_us * 1e-6, kernel_us * 1e-6)
+    sim = _simulated_torch(monkeypatch, cs, stream)
+    assert cs.queued_ms(sim, stream.call) == pytest.approx(kernel_us * 1e-3)
+
+    def waits():
+        stream.call()
+        stream.synchronize()
+
+    assert cs.queued_ms(sim, waits) is None
+
+
+def test_smoke_device_time_falls_back_when_the_trace_holds_no_kernel(monkeypatch, capsys):
+    """chip_smoke.device_ms, where torch.profiler's trace holds no GPU
+    kernel (as on a machine whose CUPTI records nothing): it says so once,
+    times every later call from queued CUDA events, and still fails where
+    neither timer can read the device."""
+    import torch.profiler as tp
+
+    class NoKernels:
+        def __init__(self, activities=None):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return []
+
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(tp, "profile", NoKernels)
+    monkeypatch.setitem(cs.DEVICE_TIMER, "by", "torch.profiler")
+    stream = _SimulatedStream(30e-6, 10e-6)
+    sim = _simulated_torch(monkeypatch, cs, stream)
+    assert cs.device_ms(sim, stream.call) == pytest.approx(0.01)
+    assert cs.DEVICE_TIMER["by"] != "torch.profiler"
+    assert cs.device_ms(sim, stream.call) == pytest.approx(0.01)
+    assert capsys.readouterr().out.count("holds no GPU kernel") == 1
+
+    def waits():
+        stream.call()
+        stream.synchronize()
+
+    with pytest.raises(SystemExit):
+        cs.device_ms(sim, waits)

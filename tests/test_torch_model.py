@@ -61,6 +61,68 @@ def _np_tree(tree):
 
 @pytest.mark.parametrize("name", ["llama-tiny-f32", "llama-tiny"])
 def test_prefill_then_decode_matches_reference(name):
+    _prefill_then_decode_matches_reference(name)
+
+
+@pytest.fixture(scope="module")
+def emulated_serving_kernels(tmp_path_factory):
+    """The port's ``flash_decode`` and ``flash_cache_attention`` with their
+    CUDA kernels run under the CPU emulator of
+    ``tests/test_torch_cuda_emulation.py``: bf16 (hd 32) and, for f32
+    queries, flash_decode's f32 instantiations and ``csrc/attn_f32.cu``."""
+    from tests.test_torch_cuda_emulation import CSRC, _emulate
+
+    lib = _emulate({stem: (CSRC / f"{stem}.cu").read_text()
+                    for stem in ("flash_decode", "flash_prefill", "attn_f32")},
+                   tmp_path_factory.mktemp("cuda_emu_model"))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def flash_decode(q, k_cache, v_cache, lengths, *, k_new=None, v_new=None, k_scale=None,
+                     v_scale=None, block_table=None, scale=None, window=0):
+        S, H, hd = q.shape
+        out = torch.full_like(q, float("nan"))
+        rc = lib.gofr_flash_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
+            ptr(k_new), ptr(v_new), ptr(k_scale), ptr(v_scale), ptr(block_table),
+            out.data_ptr(), S, H, k_cache.shape[1], k_cache.shape[2],
+            0 if block_table is None else block_table.shape[1], hd, window,
+            int(q.dtype == torch.float32), 2, hd**-0.5 if scale is None else scale, None)
+        assert rc == 0
+        return out
+
+    def flash_cache_attention(q, k_cache, v_cache, slots, starts, lens, *, k_scale=None,
+                              v_scale=None, block_table=None, scale=None, window=0):
+        P, c, H, hd = q.shape
+        out = torch.full_like(q, float("nan"))
+        entry = (lib.gofr_flash_cache_attention_f32 if q.dtype == torch.float32
+                 else lib.gofr_flash_cache_attention)
+        rc = entry(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), slots.data_ptr(),
+                   starts.data_ptr(), lens.data_ptr(), ptr(k_scale), ptr(v_scale),
+                   ptr(block_table), out.data_ptr(), P, c, H, k_cache.shape[1],
+                   k_cache.shape[2], 0 if block_table is None else block_table.shape[1], hd,
+                   window, hd**-0.5 if scale is None else scale, None)
+        assert rc == 0
+        return out
+
+    return dict(flash_decode=flash_decode, flash_cache_attention=flash_cache_attention)
+
+
+@pytest.mark.parametrize("name", ["llama-tiny-f32", "llama-tiny"])
+def test_emulated_kernels_prefill_then_decode_match_reference(
+    name, emulated_serving_kernels, monkeypatch
+):
+    """The same prefill chunk and three split decode steps with the serving
+    kernels' CUDA code run under the emulator (f32: flash_decode's f32
+    instantiation and the CUDA-core chunk kernel; bf16: hd 32), against the
+    reference at the same limits."""
+    import gofr_tpu_torch.ops.attention as port_attention
+
+    for fn, impl in emulated_serving_kernels.items():
+        monkeypatch.setattr(port_attention, fn, impl)
+    _prefill_then_decode_matches_reference(name)
+
+
+def _prefill_then_decode_matches_reference(name):
     ref_cfg = ref_get_model(name).config
     cfg = get_model(name).config
     jparams = init_transformer(jax.random.PRNGKey(3), ref_cfg)
@@ -312,6 +374,30 @@ def test_registry_mirrors_reference_llm_entries():
             if field != "dtype":
                 assert getattr(port.config, field) == getattr(ref.config, field)
         assert str(port.config.dtype).split(".")[-1] == ref.config.dtype.__name__
+
+
+def test_every_supported_config_has_cuda_kernels():
+    """Each registered model that ``check_supported`` accepts (bf16 and
+    f32, head dims 32 and 128 among them) has a kernel of its dtype and
+    head dim in all three wrappers, so none passes the model check and then
+    raises at its first launch on a card."""
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+    from gofr_tpu_torch.ops.cuda import flash_prefill as fp
+
+    seen = set()
+    for name in list_models():
+        cfg = get_model(name).config
+        try:
+            check_supported(cfg)
+        except NotImplementedError:
+            continue
+        seen.add((cfg.dtype, cfg.head_dim))
+        assert cfg.dtype in fd._DTYPES, name
+        for mod in (fd, fp, fa):
+            assert cfg.head_dim in mod._HEAD_DIMS, (name, mod.__name__)
+        assert cfg.n_heads // cfg.n_kv_heads in fd._REPS, name
+    assert {(torch.float32, 32), (torch.bfloat16, 32), (torch.bfloat16, 128)} <= seen
 
 
 @pytest.mark.parametrize(

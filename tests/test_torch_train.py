@@ -115,6 +115,69 @@ def test_transformer_forward_matches_reference(ref, name):
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
 
 
+@pytest.fixture(scope="module")
+def emulated_flash_attention(tmp_path_factory):
+    """The port's ``flash_attention`` with its CUDA kernels run under the
+    CPU emulator of ``tests/test_torch_cuda_emulation.py``: the wgmma kernel
+    for bf16 (hd 32 on a 64-column panel) and the CUDA-core kernel of
+    ``csrc/attn_f32.cu`` for f32, q/k/v read through their strides."""
+    import ctypes
+
+    from tests.test_torch_cuda_emulation import CSRC, _emulate
+
+    lib = _emulate({stem: (CSRC / f"{stem}.cu").read_text()
+                    for stem in ("flash_attention", "attn_f32")},
+                   tmp_path_factory.mktemp("cuda_emu_train"))
+
+    def flash_attention(q, k, v, lengths=None, *, causal=True, scale=None, window=0):
+        b, s_q, n_heads, hd = q.shape
+        s_kv, n_kv = k.shape[1], k.shape[2]
+        out = torch.full((b, s_q, n_heads, hd), float("nan"), dtype=q.dtype)
+        strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+        entry = (lib.gofr_flash_attention_f32 if q.dtype == torch.float32
+                 else lib.gofr_flash_attention)
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   None if lengths is None else lengths.data_ptr(), out.data_ptr(), b, s_q,
+                   s_kv, n_heads, n_kv, hd, int(causal), window, strides,
+                   hd**-0.5 if scale is None else scale, None)
+        assert rc == 0
+        return out
+
+    return flash_attention
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_emulated_kernels_forward_and_prefill_match_reference(
+    ref, name, emulated_flash_attention, monkeypatch
+):
+    """llama-tiny-f32 (the f32 kernel) and llama-tiny (bf16, hd 32: the
+    wgmma kernel on a padded panel) through ``transformer_forward`` and
+    ``transformer_prefill`` (lengths 16, 7, 1) with ``flash_attention``'s
+    CUDA code run under the emulator, against the reference's logits."""
+    import gofr_tpu_torch.ops.attention as port_attention
+
+    monkeypatch.setattr(port_attention, "flash_attention", emulated_flash_attention)
+    cfg, ref_cfg = get_model(name).config, ref_get_model(name).config
+    jparams = init_transformer(jax.random.PRNGKey(1), ref_cfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    tokens = ref[name]["tokens"]
+    tol = LOGIT_TOL[name]
+    want = np.asarray(ref_forward(jparams, jnp.asarray(tokens), ref_cfg))
+    got = transformer_forward(params, torch.from_numpy(tokens).long(), cfg)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    prompt = np.resize(tokens, (3, 16)).astype(np.int32)
+    lengths = np.array([16, 7, 1], np.int32)
+    slots = np.array([2, 0, 3], np.int32)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    ref_cache = RefKVCache.create(L, 4, 32, KV, hd, dtype=ref_cfg.dtype)
+    want, _ = ref_prefill(jparams, jnp.asarray(prompt), jnp.asarray(lengths), ref_cache,
+                          jnp.asarray(slots), ref_cfg)
+    got = transformer_prefill(params, torch.from_numpy(prompt).long(), torch.from_numpy(lengths),
+                              KVCache.create(L, 4, 32, KV, hd, dtype=cfg.dtype),
+                              torch.from_numpy(slots), cfg)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("name", NAMES)
 def test_transformer_prefill_matches_reference(name):
     """Right-padded rows of lengths 16, 7 and 1 into slots 2, 0 and 3 of a
