@@ -40,9 +40,17 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    plain path); then 10 concurrent requests through the port's
    InferenceEngine on the bf16 slot cache and again on an int8 pool of
    161 blocks of 32, each run with the kernels' launch counters watched;
+4a. serves the reference's whole request surface on both caches: an
+   engine with every sampler flag on (top_k 50, top_p, penalties,
+   top_logprobs 5) takes 10 concurrent requests with mixed options
+   (neutral greedy, penalties, logit_bias, top_logprobs, a stop string,
+   a seeded top_p pair, a deadline and a cancel token that retire their
+   requests mid-stream), each held against the greedy streams of step 4;
 5. profiles one 8-step decode window and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
-   kernels launched and the top kernels by device time;
+   kernels launched and the top kernels by device time; the window again
+   with every sampler option on every slot, and the sampler's own device
+   time per window, flags on and off;
 5a. serves Mistral-7B (32 layers, bf16, random weights from a seed,
    after Llama-3-8B is freed) past its window: a forward check from
    prefixes of 5,000, 3,900 and 4,096 tokens (one chunk and two decode
@@ -76,6 +84,7 @@ of JAX or of the gofr_tpu package is imported.
 
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import math
@@ -808,14 +817,22 @@ def phase_f32_kernels(torch, dev) -> dict:
             fail(f"{name}: not one f32 kernel launch")
         return check_close(torch, name, got, want, tol=F32_ROW_REL_TOL)[0]
 
-    def timed(name, fn, plain, bytes_, flops):
-        """Event and device time of one f32 call, its plain version's time
-        and its bound (f32 CUDA-core peak for the operations)."""
+    def timed(name, fn, plain, bytes_, flops, library=None, peak=F32_FLOPS):
+        """Event and device time of one call, its plain version's time, the
+        library call's event and device time where there is one, and its
+        bound (the f32 CUDA-core peak for the operations, or ``peak``)."""
         ms, dev_ms, plain_ms = time_ms(torch, fn), device_ms(torch, fn), time_ms(torch, plain)
-        bound = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        bound = max(bytes_ / HBM_BYTES_PER_S, flops / peak) * 1e3
+        lib = {"library_ms": None}
+        if library is not None:
+            lib = {"library_ms": time_ms(torch, library),
+                   "library_device_ms": device_ms(torch, library)}
         log(f"{name}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
-            f"bound {bound:.5f} ms")
-        return dict(case=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound)
+            f"library {lib}, bound {bound:.5f} ms")
+        return dict(case=name, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= flops / peak
+                    else "operations", bound_bytes_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+                    bound_operations_ms=flops / peak * 1e3, **lib)
 
     errs = {"flash_decode": 0.0, "flash_cache_attention": 0.0, "flash_attention": 0.0}
     times = {}
@@ -881,10 +898,38 @@ def phase_f32_kernels(torch, dev) -> dict:
             fa, f"flash_attention f32 (causal={causal}, lengths={lengths_}, window {w})",
             lambda: fa.flash_attention(qa, ka, va, ln, causal=causal, window=w),
             fa.flash_attention_plain(qa, ka, va, ln, causal=causal, window=w)))
+    # SDPA on the same tensors in its [b, H, s, hd] layout: one call
+    # computes causal GQA attention in f32 (row 3f) and in bf16 at hd 32
+    # (row 3h).
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_causal(q_, k_, v_):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q_, k_, v_))
+        return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    pairs = b * s_ * (s_ + 1) // 2
     times["flash_attention"] = timed(
         f"flash_attention f32 (b={b}, s={s_}, H={H}, KV={KV}, hd={hd}, causal)",
         lambda: fa.flash_attention(qa, ka, va), lambda: fa.flash_attention_plain(qa, ka, va),
-        4 * (2 * qa.numel() + 2 * ka.numel()), 4 * b * H * hd * s_ * (s_ + 1) // 2)
+        4 * (2 * qa.numel() + 2 * ka.numel()), 4 * H * hd * pairs,
+        library=sdpa_causal(qa, ka, va))
+    # Row 3h: the bf16 kernel at hd 32 (a 64-column panel) on the same
+    # shape, against its f32 plain version at the bf16 limit.
+    q16, k16, v16 = (rnd(b, s_, n, 32).to(torch.bfloat16) for n in (H, KV, KV))
+    before = fa.launches
+    got = fa.flash_attention(q16, k16, v16)
+    torch.cuda.synchronize()
+    if fa.launches != before + 1:
+        fail("flash_attention hd 32: not one kernel launch")
+    err32 = check_close(torch, "flash_attention bf16 hd 32 (causal)", got,
+                        fa.flash_attention_plain(q16.float(), k16.float(), v16.float()))[0]
+    times["flash_attention"]["hd32"] = timed(
+        f"flash_attention bf16 hd 32 (b={b}, s={s_}, H={H}, KV={KV}, causal)",
+        lambda: fa.flash_attention(q16, k16, v16),
+        lambda: fa.flash_attention_plain(q16, k16, v16),
+        2 * (2 * q16.numel() + 2 * k16.numel()), 4 * H * 32 * pairs,
+        library=sdpa_causal(q16, k16, v16), peak=BF16_FLOPS)
+    times["flash_attention"]["hd32"]["max_abs_err"] = err32
     return errs, times
 
 
@@ -1600,7 +1645,8 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
     (``kv_block``, ``kv_pool_blocks``, ``kv_quant``): greedy, except (with
     ``sampled``) the last two, one seeded sampled prompt submitted twice;
     prompt ``solo`` rerun alone must repeat its batched stream. Returns the
-    kernels' launch counts over the concurrent run."""
+    kernels' launch counts over the concurrent run, each request's token
+    ids and the run's tok/s, TTFT p50 and ITL p50."""
     import numpy as np
 
     from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1645,16 +1691,11 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
         for name in ("flash_decode", "flash_cache_attention"):
             if counts[name] <= 0:
                 fail(f"{label}: kernel {name} was not launched on the main path")
-        gen_tokens = sum(len(r.token_ids) for r in results)
-        ttfts = sorted(r.ttft_s for r in results)
-        itls = [
-            (rq.token_times[-1] - rq.token_times[0]) / (len(rq.token_times) - 1)
-            for rq in reqs if len(rq.token_times) > 1
-        ]
+        stats = serve_stats(reqs, wall)
         log(f"{label}: {n} requests (prompts {list(lengths)}, 32 new tokens each) in "
-            f"{wall:.3f} s: {gen_tokens / wall:.1f} generated tok/s, TTFT p50 "
-            f"{statistics.median(ttfts) * 1e3:.1f} ms (max {ttfts[-1] * 1e3:.1f}), "
-            f"inter-token latency p50 {statistics.median(itls) * 1e3:.2f} ms; "
+            f"{wall:.3f} s: {stats['tok_s']:.1f} generated tok/s, TTFT p50 "
+            f"{stats['ttft_p50_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f}), "
+            f"inter-token latency p50 {stats['itl_p50_ms']:.2f} ms; "
             f"{eng.prefill_steps} prefill chunks, {eng.decode_windows} decode windows "
             "(warm-up included)")
         log(f"{label}: first tokens {[r.token_ids[:4] for r in results]}")
@@ -1666,7 +1707,216 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
                 "admission passes held back by a dry pool")
             if used != 0 or eng._allocator.n_free != total:
                 fail(f"{label}: {used} blocks still held after every request retired")
-        return counts
+        return counts, [r.token_ids for r in results], stats
+    finally:
+        eng.close()
+
+
+def serve_stats(reqs, wall: float) -> dict:
+    """Generated tok/s over the run's wall time, TTFT p50 and max, and the
+    p50 of each request's inter-token latency, over the requests that
+    emitted tokens (a reaped request counts what it emitted)."""
+    done = [r for r in reqs if r.token_times]
+    ttfts = sorted(r.ttft_s for r in done)
+    itls = [
+        (rq.token_times[-1] - rq.token_times[0]) / (len(rq.token_times) - 1)
+        for rq in done if len(rq.token_times) > 1
+    ]
+    return {"tok_s": sum(len(r.token_ids) for r in done) / wall,
+            "ttft_p50_ms": statistics.median(ttfts) * 1e3, "ttft_max_ms": ttfts[-1] * 1e3,
+            "itl_p50_ms": statistics.median(itls) * 1e3}
+
+
+class IdTokenizer:
+    """Decodes every id of a large vocabulary to text ("<id>" each, so a
+    stop string matches at token boundaries only); the byte tokenizer's
+    BOS/EOS ids. The serving phases submit token ids, so encode is the
+    byte tokenizer's."""
+
+    bos_id, eos_id = 256, 257
+
+    def encode(self, text: str) -> list:
+        return [self.bos_id] + list(text.encode("utf-8"))
+
+    def decode(self, ids) -> str:
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def _max_repeat(ids) -> int:
+    return max(collections.Counter(ids).values())
+
+
+def _stop_case(base: list, tok) -> tuple:
+    """A (prompt index, stop string, expected text, expected kept ids)
+    from the greedy baseline streams: the decoded text of tokens j, j+1
+    of a stream, where that string first occurs at token j, so the request
+    must stop there; j from 4 to 24 where a stream allows it (a stream
+    that loops early repeats its pairs), else the latest j below 4."""
+    for js in (range(4, 25), range(3, -1, -1)):
+        for i in (5, 4, 6, 7, 2, 3):
+            ids = base[i]
+            text = tok.decode(ids)
+            for j in js:
+                if j + 2 > len(ids):
+                    continue
+                stop = tok.decode(ids[j: j + 2])
+                cut = text.find(stop)
+                if cut == len(tok.decode(ids[:j])):
+                    return i, stop, text[:cut], ids[:j]
+    fail("serve options: no greedy baseline stream of two tokens or more")
+
+
+def phase_serve_options(torch, dev, params, base: list, base_stats: dict, **kv) -> dict:
+    """The reference's whole request surface through the port's engine at
+    full width: InferenceEngine(top_k=50, enable_top_p, enable_penalties,
+    top_logprobs=5, class_promote_s=5) serves 10 concurrent requests (32
+    new tokens each, the prompts of phase_serve) with mixed options, on
+    the cache ``kv`` asks for, and each is checked against the greedy
+    baseline streams ``base`` of phase_serve on the same cache:
+
+    two neutral greedy requests equal their baselines (the flags change
+    nothing for them); frequency 1.5 + presence 0.5 on the baseline that
+    repeats most changes it and repeats no token more often; logit_bias
+    {t: 100} emits only t; top_logprobs=5: every step's first alternative
+    is the token and its logprob equals the token's within 1e-5; a stop
+    string from a baseline's own text ends with finish_reason "stop", the
+    text cut at the match and ids and logprobs trimmed alike; two sampled
+    requests (temperature 0.8, top_p 0.9, one seed) are identical; one
+    request's Deadline expires once it has a token (an injectable clock,
+    so the expiry lands mid-stream whatever the host's timing) and one
+    request's CancelToken is cancelled after its first token: each raises
+    its lifecycle error after at least one token, and every slot and pool
+    block is free after the run. flash_decode and flash_cache_attention
+    must launch on this run. Returns the launch counts and the run's
+    tok/s, TTFT p50 and ITL p50."""
+    import numpy as np
+
+    from gofr_tpu_torch.errors import ErrorDeadlineExceeded, ErrorRequestCancelled
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+    from gofr_tpu_torch.serving.lifecycle import CancelToken, Deadline
+
+    tok = IdTokenizer()
+    eng = InferenceEngine(
+        "llama-3-8b", n_slots=8, max_len=2048, window_k=8, prefill_chunk=256,
+        prefill_batch=8, params=params, seed=0, device=dev, tokenizer=tok,
+        top_k=50, enable_top_p=True, enable_penalties=True, top_logprobs=5,
+        class_promote_s=5.0, **kv,
+    )
+    label = f"serve options llama-3-8b {json.dumps(kv) if kv else '(bf16 slot cache)'}"
+    try:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, eng.cfg.vocab_size, m).tolist() for m in LLAMA_PROMPTS]
+        pen_i = max(range(8), key=lambda i: _max_repeat(base[i]))
+        stop_i, stop, stop_text, stop_ids = _stop_case(base, tok)
+        forced = 12345 % eng.cfg.vocab_size
+        # Remaining 1e9 s until the request holds a token, then expired:
+        # no projected wait sheds it at submit, and it dies mid-stream.
+        box = {}
+        expired = Deadline(1e9, clock=lambda: 2e9 if box.get("deadline") is not None
+                           and box["deadline"].token_ids else 0.0)
+        cancel = CancelToken()
+        sampled = dict(temperature=0.8, top_p=0.9, seed=4242)
+        plan = [
+            ("neutral 0", 0, {}),
+            ("neutral 1", 1, {}),
+            ("penalties", pen_i, dict(frequency_penalty=1.5, presence_penalty=0.5)),
+            ("logit_bias", 3, dict(logit_bias={forced: 100.0})),
+            ("top_logprobs", 4, dict(top_logprobs=5)),
+            ("stop", stop_i, dict(stop=[stop])),
+            ("sampled a", 6, sampled),
+            ("sampled b", 6, sampled),
+            ("deadline", 8, dict(deadline=expired)),
+            ("cancel", 9, dict(cancel=cancel)),
+        ]
+        # Warm-up, off the record: a greedy request and one with every
+        # sampler option, so the run does not pay for loading the
+        # sampler's kernels at their first use.
+        eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
+        eng.generate_sync([1, 2, 3], max_new_tokens=9, timeout=600, temperature=0.8,
+                          top_p=0.9, frequency_penalty=0.5, presence_penalty=0.5,
+                          logit_bias={forced: 1.0}, top_logprobs=5, seed=1)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = {}
+        for name, i, kw in plan:
+            reqs[name] = eng.submit_generate(prompts[i], max_new_tokens=32, **kw)
+            if name == "deadline":
+                box["deadline"] = reqs[name]
+        if reqs["cancel"].stream.get(timeout=600) is None:
+            fail(f"{label}: the request to cancel ended before its first token")
+        cancel.cancel()
+        results, errors = {}, {}
+        for name, r in reqs.items():
+            try:
+                results[name] = r.future.result(timeout=600)
+            except (ErrorDeadlineExceeded, ErrorRequestCancelled) as exc:
+                errors[name] = exc
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        stats = serve_stats(list(reqs.values()), wall)
+        log(f"{label}: launch counts over the 10-request run: {counts}")
+        for k in ("flash_decode", "flash_cache_attention"):
+            if counts[k] <= 0:
+                fail(f"{label}: kernel {k} was not launched on the main path")
+        if set(errors) != {"deadline", "cancel"}:
+            fail(f"{label}: lifecycle errors {sorted(errors)}, expected deadline and cancel")
+        if not isinstance(errors["deadline"], ErrorDeadlineExceeded) or not isinstance(
+                errors["cancel"], ErrorRequestCancelled):
+            fail(f"{label}: wrong lifecycle errors {errors}")
+        for name in ("deadline", "cancel"):
+            n_tok = len(reqs[name].token_ids)
+            if not 1 <= n_tok < 32:
+                fail(f"{label}: the {name} request was retired after {n_tok} tokens")
+        for i in (0, 1):
+            if results[f"neutral {i}"].token_ids != base[i]:
+                fail(f"{label}: neutral request {i} differs from the default engine's "
+                     "greedy stream")
+        pen = results["penalties"].token_ids
+        if pen == base[pen_i] or _max_repeat(pen) > _max_repeat(base[pen_i]):
+            fail(f"{label}: penalties left prompt {pen_i}'s stream unchanged or repeated a "
+                 f"token more often ({_max_repeat(pen)} vs {_max_repeat(base[pen_i])})")
+        if results["logit_bias"].token_ids != [forced] * 32:
+            fail(f"{label}: logit_bias {{{forced}: 100}} emitted "
+                 f"{results['logit_bias'].token_ids[:8]}")
+        top = results["top_logprobs"]
+        top_err = max(abs(alts[0][1] - lp) for alts, lp in zip(
+            top.token_top_logprobs, top.token_logprobs))
+        if any(len(a) != 5 or a[0][0] != t for a, t in zip(
+                top.token_top_logprobs, top.token_ids)) or top_err > 1e-5:
+            fail(f"{label}: top_logprobs' first alternative is not the greedy token "
+                 f"(logprob gap {top_err})")
+        st = results["stop"]
+        if (st.finish_reason, st.text, st.token_ids) != ("stop", stop_text, stop_ids) or len(
+                st.token_logprobs) != len(st.token_ids):
+            fail(f"{label}: stop {stop!r} gave {st.finish_reason}, {len(st.token_ids)} ids, "
+                 f"{len(st.token_logprobs)} logprobs; expected {len(stop_ids)} ids")
+        if results["sampled a"].token_ids != results["sampled b"].token_ids:
+            fail(f"{label}: the two seeded top_p requests differ")
+        for name, res in results.items():
+            if not np.all(np.isfinite(res.token_logprobs)):
+                fail(f"{label}: {name} has non-finite logprobs")
+        if any(s is not None for s in eng._slots) or eng._prefilling:
+            fail(f"{label}: a slot is still held after the run")
+        if eng.reap_counts != {"deadline": 1, "cancelled": 1}:
+            fail(f"{label}: reaps {dict(eng.reap_counts)}")
+        if kv.get("kv_block"):
+            total, used, _ = eng.kv_pool_counts()
+            if used != 0 or eng._allocator.n_free != total:
+                fail(f"{label}: {used} pool blocks still held after the run")
+        log(f"{label}: every check passed: neutral streams equal the default engine's; "
+            f"penalties on prompt {pen_i} (max repeat {_max_repeat(pen)} vs "
+            f"{_max_repeat(base[pen_i])}); logit_bias forced {forced} x32; top_logprobs "
+            f"first-alternative gap {top_err:.2e}; stop {stop!r} cut at "
+            f"{len(stop_ids)} tokens; sampled pair identical; deadline after "
+            f"{len(reqs['deadline'].token_ids)} tokens, cancel after "
+            f"{len(reqs['cancel'].token_ids)}; reaps {dict(eng.reap_counts)}")
+        log(f"{label}: {stats['tok_s']:.1f} generated tok/s, TTFT p50 "
+            f"{stats['ttft_p50_ms']:.1f} ms, ITL p50 {stats['itl_p50_ms']:.2f} ms; beside the "
+            f"greedy serve on the same cache: {base_stats['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{base_stats['ttft_p50_ms']:.1f} ms, ITL p50 {base_stats['itl_p50_ms']:.2f} ms")
+        return {"counts": counts, "stats": stats}
     finally:
         eng.close()
 
@@ -1747,17 +1997,31 @@ def _profile_step(torch, name: str, fn) -> dict:
 
 
 def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
-                  context: int = 256, model: str = "") -> None:
+                  context: int = 256, model: str = "", sampler: bool = False) -> None:
     """Where the time goes in one 8-step decode window over S slots at
     ``context`` tokens each, and in one [S, 256] prefill chunk starting at
-    ``context``, through the engine's own programs. Each slot's first 256
-    positions hold a prompt; the rest up to ``context`` stay zero (the time
-    depends on the lengths, not on the values)."""
+    ``context``, through the engine's own programs (greedy, the sampler's
+    flags off). Each slot's first 256 positions hold a prompt; the rest up
+    to ``context`` stay zero (the time depends on the lengths, not on the
+    values). With ``sampler``, the window again with every sampler flag
+    on (top_k 50, top_p, penalties, top_logprobs 5) and every slot using
+    every option (temperature 0.8, top_p 0.9, both penalties, 300
+    logit_bias entries, 5 alternatives), and the sampler's own device time
+    per window (its 8 steps on [S, vocab] logits): every option with the
+    flags on, a greedy batch of neutral options with the flags on, and
+    greedy with the flags off."""
     from gofr_tpu_torch.models.transformer import rope_tables
     from gofr_tpu_torch.ops.kv_cache import KVCache
-    from gofr_tpu_torch.serving.programs import SlotPlanes, decode_window, prefill_chunk_step
+    from gofr_tpu_torch.serving.programs import (
+        SamplerFlags,
+        SlotPlanes,
+        decode_window,
+        prefill_chunk_step,
+        sample,
+    )
 
     P, c, k = S, 256, 8
+    off = SamplerFlags()
     gen = torch.Generator(device=dev).manual_seed(0)
     cache = KVCache.create(cfg.n_layers, S, max_len, cfg.n_kv_heads, cfg.head_dim,
                            dtype=cfg.dtype, device=dev)
@@ -1770,9 +2034,10 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
 
     def chunk(start: int) -> None:
         toks = torch.randint(0, cfg.vocab_size, (P, c), generator=gen, device=dev)
-        prefill_chunk_step(params, cache, cfg, rope, planes, toks, slots,
+        prefill_chunk_step(params, cache, cfg, rope, planes, off, toks, slots,
                            torch.full((P,), start, **i32), lens, ones, ones,
-                           torch.ones((P,), device=dev), ones, 2, False)
+                           torch.ones((P,), device=dev), ones, torch.ones((P,), device=dev),
+                           2, sampling=False)
 
     chunk(0)  # every slot holds a 256-token prompt
     planes.active.fill_(True)
@@ -1780,7 +2045,7 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
 
     def window() -> None:
         cache.lengths.copy_(lengths0)  # the same context every repetition
-        decode_window(params, cache, cfg, rope, planes, k, 2, False)
+        decode_window(params, cache, cfg, rope, planes, off, k, 2, sampling=False)
 
     tag = f"_{model}_ctx{context}" if model else ""
     from gofr_tpu_torch.ops.cuda import flash_decode as fd
@@ -1790,8 +2055,64 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
     log(f"profile decode_window_k8{tag}: flash_decode launches with a cluster of "
         f"{fd.launch_cluster_size(q, cache.k[0], None, window_rows)} blocks per (slot, kv "
         f"head) ({S} x {cfg.n_kv_heads} pairs)")
-    for name, fn in ((f"decode_window_k8{tag}", window),
-                     (f"prefill_chunk_{P}x{c}{tag}", lambda: chunk(context))):
+    steps = [(f"decode_window_k8{tag}", window),
+             (f"prefill_chunk_{P}x{c}{tag}", lambda: chunk(context))]
+    if sampler:
+        on = SamplerFlags(top_k=50, top_p=True, penalties=True, top_logprobs=5)
+        full = SlotPlanes.create(S, dev, cfg.vocab_size, on)
+        full.tokens.copy_(planes.tokens)
+        full.active.fill_(True)
+        full.temps.fill_(0.8)
+        full.greedy.fill_(False)
+        full.topps.fill_(0.9)
+        full.fpen.fill_(1.5)
+        full.ppen.fill_(0.5)
+        full.seeds.copy_(torch.arange(S, device=dev))
+        full.bidx.copy_(torch.stack([  # 300 distinct ids a slot
+            torch.randperm(cfg.vocab_size, generator=gen, device=dev)[:full.bidx.shape[1]]
+            for _ in range(S)]))
+        full.bval.copy_(torch.rand(full.bval.shape, generator=gen, device=dev) - 0.5)
+
+        def window_on() -> None:
+            cache.lengths.copy_(lengths0)
+            decode_window(params, cache, cfg, rope, full, on, k, 2, sampling=True,
+                          use_bias=True)
+
+        steps.insert(1, (f"decode_window_k8{tag}_every_sampler_option", window_on))
+        logits = torch.randn((S, cfg.vocab_size), generator=gen, device=dev)
+        inc = torch.ones((S, 1), **i32)
+
+        def sampler_on() -> None:
+            for _ in range(k):
+                nxt = sample(logits, full.seeds, full.nsteps, full.temps, full.greedy,
+                             full.topps, 2, on, sampling=True, bias=(full.bidx, full.bval),
+                             pen=(full.pcounts, full.fpen, full.ppen))[0]
+                full.pcounts.scatter_add_(1, nxt[:, None], inc)
+
+        def sampler_on_neutral() -> None:
+            # Flags on over a greedy batch with every option neutral: the
+            # penalties (zero) and the top-logprobs run all the same.
+            for _ in range(k):
+                nxt = sample(logits, neutral.seeds, neutral.nsteps, neutral.temps,
+                             neutral.greedy, neutral.topps, 2, on, sampling=False,
+                             pen=(neutral.pcounts, neutral.fpen, neutral.ppen))[0]
+                neutral.pcounts.scatter_add_(1, nxt[:, None], inc)
+
+        def sampler_off() -> None:
+            for _ in range(k):
+                sample(logits, planes.seeds, planes.nsteps, planes.temps, planes.greedy,
+                       planes.topps, 2, off, sampling=False)
+
+        neutral = SlotPlanes.create(S, dev, cfg.vocab_size, on)
+        on_ms, off_ms = device_ms(torch, sampler_on), device_ms(torch, sampler_off)
+        neutral_ms = device_ms(torch, sampler_on_neutral)
+        log("profile sampler: " + json.dumps({
+            "what": f"the sampler's device time per decode window ({k} steps, {S} slots, "
+                    f"vocab {cfg.vocab_size})",
+            "every_option_flags_on_ms": on_ms, "greedy_flags_off_ms": off_ms,
+            "greedy_neutral_flags_on_ms": neutral_ms,
+            "device_time_by": DEVICE_TIMER["by"]}))
+    for name, fn in steps:
         log("profile: " + json.dumps(_profile_step(torch, name, fn)))
     del cache
     torch.cuda.empty_cache()
@@ -1977,16 +2298,19 @@ def main() -> None:
             f"{time.perf_counter() - t0:.1f} s "
             f"({sum(p.numel() for p in params.values()) / 1e9:.2f} B parameters)")
         forward_counts = phase_forward(torch, dev, cfg, params)
-    counts = phase_serve(torch, dev, params)
+    counts, base, base_stats = phase_serve(torch, dev, params)
     pool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=161)
-    pool_counts = phase_serve(torch, dev, params, **pool_kv)
+    pool_counts, pool_base, pool_stats = phase_serve(torch, dev, params, **pool_kv)
+    options = {"bf16 slot cache": phase_serve_options(torch, dev, params, base, base_stats),
+               "int8 pool": phase_serve_options(torch, dev, params, pool_base, pool_stats,
+                                                **pool_kv)}
     bf16_tok, int8_tok = (cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, quant)
                           for quant in (False, True))
     log(f"serve: KV cache bytes a token: {bf16_tok} bf16, {int8_tok} int8 with scales; "
         f"bf16 slot cache (8 x 2048 tokens) {8 * 2048 * bf16_tok}, int8 slot cache "
         f"{8 * 2048 * int8_tok}, int8 pool (161 blocks of 32) {161 * 32 * int8_tok}")
     with torch.inference_mode():
-        phase_profile(torch, dev, cfg, params)
+        phase_profile(torch, dev, cfg, params, sampler=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2003,9 +2327,9 @@ def main() -> None:
         mforward_counts = phase_mistral_forward(torch, dev, mcfg, mparams)
     mserve = dict(model="mistral-7b", n_slots=4, max_len=8192, lengths=MISTRAL_PROMPTS,
                   sampled=False, solo=2)
-    mcounts = phase_serve(torch, dev, mparams, **mserve)
+    mcounts = phase_serve(torch, dev, mparams, **mserve)[0]
     mpool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=641)
-    mpool_counts = phase_serve(torch, dev, mparams, **mserve, **mpool_kv)
+    mpool_counts = phase_serve(torch, dev, mparams, **mserve, **mpool_kv)[0]
     bf16_tok, int8_tok = (mcfg.n_layers * kv_bytes(1, mcfg.n_kv_heads, mcfg.head_dim, quant)
                           for quant in (False, True))
     log(f"serve mistral-7b: KV cache bytes a token: {bf16_tok} bf16, {int8_tok} int8 with "
@@ -2098,6 +2422,10 @@ def main() -> None:
                        "launches_llama_tiny_f32": tiny_counts["llama-tiny-f32"][k],
                        "launches_llama_tiny": tiny_counts["llama-tiny"][k]}
         next(x for x in kernels if x["name"] == k)["f32_and_hd32"] = kernels_f32
+    # This slice's path: the mixed-option serves (sampler and lifecycle).
+    for k in ("flash_decode", "flash_cache_attention"):
+        next(x for x in kernels if x["name"] == k)["launches_serve_options"] = {
+            case: o["counts"][k] for case, o in options.items()}
     log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

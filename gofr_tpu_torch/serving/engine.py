@@ -2,25 +2,31 @@
 ``gofr_tpu/serving/engine.py`` ``InferenceEngine`` with the scheduling of
 ``serving/scheduler.py`` on this slice's configuration.
 
-A scheduler thread owns the device. Each pass admits queued requests into
-free cache slots, runs one fixed-shape [prefill_batch, prefill_chunk]
-chunk step for the slots mid-prefill (a long prompt takes several passes,
-so it never stalls decode), then one k-step decode window over all slots
-with one host fetch per window. A request retires on EOS, on its token
-budget or at the context limit, and its slot is reused.
+A scheduler thread owns the device. Each pass reaps cancelled and
+expired requests, admits queued requests into free cache slots, runs one
+fixed-shape [prefill_batch, prefill_chunk] chunk step for the slots
+mid-prefill (a long prompt takes several passes, so it never stalls
+decode), then one k-step decode window over all slots with one host
+fetch per window. A request retires on EOS, on a stop sequence, on its
+token budget or at the context limit, and its slot is reused.
 
-Only the slice's configuration is served: bf16 (or f32) weights, the
-slot cache or the paged block pool (``kv_block``, ``kv_pool_blocks``),
-bf16 or int8 K/V (``kv_quant``), tp=1, greedy and temperature sampling.
-Any option outside it raises ``NotImplementedError``; none is ignored.
+Served: bf16 (or f32) weights, the slot cache or the paged block pool
+(``kv_block``, ``kv_pool_blocks``), bf16 or int8 K/V (``kv_quant``),
+tp=1; the reference's sampler (temperature, engine-wide ``top_k``,
+per-request ``top_p``, frequency/presence penalties, ``logit_bias``,
+``top_logprobs``, stop sequences) behind the same engine flags; and the
+request lifecycle (deadlines, cancel tokens, tenants and SLO classes,
+the submit-time sheds, the class-priority admission queue). Any option
+outside it raises ``NotImplementedError``; none is ignored.
 
 With a pool, admission allocates each request's prompt blocks (plus one
 token) from a host-side ``BlockAllocator`` and a host mirror of the block
 table, uploaded to the device when it changed; before each decode window
 every live slot's allocation is grown to cover the window; retirement
-returns the blocks. A request the whole pool cannot hold fails at
-admission, one that waits on a dry pool stays at the head of the queue,
-and one whose pool runs dry mid-generation fails, as in the reference.
+and reaping return the blocks. A request the whole pool cannot hold fails
+at admission, one that waits on a dry pool stays at the head of the
+queue, and one whose pool runs dry mid-generation fails, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import random
 import threading
 import time
 import traceback
+from concurrent.futures import InvalidStateError
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Optional
 
@@ -40,36 +47,41 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.device import resolve_device
+from gofr_tpu_torch.errors import (
+    ErrorDeadlineExceeded,
+    ErrorInvalidParam,
+    ErrorPromptTooLong,
+    ErrorRequestCancelled,
+    ErrorTooManyRequests,
+)
 from gofr_tpu_torch.models.registry import get_model
 from gofr_tpu_torch.models.transformer import check_supported, init_params, rope_tables
 from gofr_tpu_torch.ops.kv_cache import BlockAllocator, KVCache, PagedKVCache
+from gofr_tpu_torch.serving.lifecycle import (
+    AggregateThroughput,
+    CancelToken,
+    ClassPriorityQueue,
+    Deadline,
+    coalesce_deadline,
+    normalize_slo_class,
+    parse_tenant_class_map,
+)
 from gofr_tpu_torch.serving.programs import (
+    SamplerFlags,
     SlotPlanes,
     decode_window,
     prefill_chunk_step,
 )
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
-from gofr_tpu_torch.serving.types import GenerationResult, GenRequest
+from gofr_tpu_torch.serving.types import LOGIT_BIAS_K, GenerationResult, GenRequest
 
 # Reference options this slice accepts only at their neutral value, each
 # with the ROADMAP item that ports it.
-_SAMPLER = "ROADMAP Queue 1 item 1: the rest of the sampler"
-_LIFECYCLE = "ROADMAP Queue 1 item 2: request lifecycle"
+_OPS_PLANE = "ROADMAP Queue 1 item 7: the operations plane"
 _NEUTRAL_SUBMIT_OPTIONS = {
-    "top_p": (1.0, _SAMPLER),
-    "frequency_penalty": (0.0, _SAMPLER),
-    "presence_penalty": (0.0, _SAMPLER),
-    "logit_bias": (None, _SAMPLER),
-    "top_logprobs": (0, _SAMPLER),
-    "stop": (None, _SAMPLER),
     "adapter": ("", "ROADMAP Queue 1 item 6: LoRA adapters"),
-    "deadline": (None, _LIFECYCLE),
-    "deadline_s": (None, _LIFECYCLE),
-    "cancel": (None, _LIFECYCLE),
-    "tenant": ("", _LIFECYCLE),
-    "slo_class": ("", _LIFECYCLE),
-    "pin_replica": (False, _LIFECYCLE),
-    "traceparent": (None, _LIFECYCLE),
+    "pin_replica": (False, _OPS_PLANE + " (the replica pool)"),
+    "traceparent": (None, _OPS_PLANE + " (request observability)"),
 }
 
 
@@ -88,6 +100,18 @@ class InferenceEngine:
     the plain versions of the kernels on the host. ``params`` is a port
     parameter dict (``weights.params_from_jax`` / ``init_params``) on that
     device; without it weights are made from ``seed`` on the device.
+
+    Sampler flags, as the reference's: ``top_k`` (engine-wide, 0 = off),
+    ``enable_top_p`` (per-request nucleus), ``enable_penalties`` (the
+    per-slot generated-token count plane), ``top_logprobs`` (the most
+    alternatives a request may ask for). Admission: ``queue_max``
+    requests and ``queue_max_tokens`` (prompt + budget, 0 = unbounded) in
+    the queue, ``tenant_queue_max`` queued requests per tenant (0 = off),
+    ``class_promote_s`` (SLO-class priority dequeue with this starvation
+    bound; 0 = FIFO), ``tenant_slo_class`` (``"acme=batch,..."``, each
+    tenant's default class) and ``expected_tps`` (the throughput prior of
+    projected-wait shedding; 0 = measured). ``truncate_prompts`` keeps the
+    tail of an overlong prompt instead of raising ``ErrorPromptTooLong``.
     """
 
     def __init__(
@@ -100,9 +124,20 @@ class InferenceEngine:
         pipeline_depth: int = 2,
         prefill_chunk: int = 256,
         prefill_batch: int = 8,
+        truncate_prompts: bool = False,
+        top_k: int = 0,
+        enable_top_p: bool = False,
+        enable_penalties: bool = False,
+        top_logprobs: int = 0,
         kv_block: int = 0,
         kv_pool_blocks: int = 0,
         kv_quant: str = "",
+        queue_max: int = 1024,
+        queue_max_tokens: int = 0,
+        class_promote_s: float = 5.0,
+        tenant_queue_max: int = 0,
+        tenant_slo_class: str = "",
+        expected_tps: float = 0.0,
         tokenizer: Any = None,
         params: Optional[dict] = None,
         seed: int = 0,
@@ -112,7 +147,7 @@ class InferenceEngine:
         if "auto_prefix" in unsupported:
             raise NotImplementedError(
                 "auto_prefix (the radix prefix cache over the block pool) is "
-                "not ported yet (ROADMAP Queue 1 item 5)"
+                "not ported yet (ROADMAP Queue 1 item 4)"
             )
         if unsupported:
             raise NotImplementedError(
@@ -156,6 +191,16 @@ class InferenceEngine:
         self.kv_block = int(kv_block)
         self.prefill_chunk = int(prefill_chunk)
         self.prefill_batch = int(prefill_batch)
+        self.truncate_prompts = bool(truncate_prompts)
+        # The sampler's features, each present only when enabled (the
+        # reference's compile choices).
+        self.enable_top_p = bool(enable_top_p)
+        self.enable_penalties = bool(enable_penalties)
+        self.top_logprobs = max(0, int(top_logprobs))
+        self.sampler = SamplerFlags(
+            top_k=max(0, int(top_k)), top_p=self.enable_top_p,
+            penalties=self.enable_penalties, top_logprobs=self.top_logprobs,
+        )
         self.tokenizer = tokenizer if tokenizer is not None else ByteTokenizer()
         self._seed = int(seed)
         self._base_seed = self._seed + 2
@@ -198,20 +243,44 @@ class InferenceEngine:
                 device=self.device,
             )
         self.rope = rope_tables(cfg, self.max_len, self.device)
-        self.planes = SlotPlanes.create(self.n_slots, self.device)
+        self.planes = SlotPlanes.create(
+            self.n_slots, self.device, cfg.vocab_size, self.sampler
+        )
 
         # Host-side scheduler state (scheduler thread only).
         self._slots: list[Optional[GenRequest]] = [None] * self.n_slots
         self._prefilling: dict[int, _Prefill] = {}
         self._seeds_host = np.zeros((self.n_slots,), dtype=np.int64)
+        self._bidx_host = np.full((self.n_slots, LOGIT_BIAS_K), -1, dtype=np.int64)
+        self._bval_host = np.zeros((self.n_slots, LOGIT_BIAS_K), dtype=np.float32)
         self._seeds_dirty = False
         self._slot_state_dirty = False
         # Device steps dispatched (prefill chunks / decode windows).
         self.prefill_steps = 0
         self.decode_windows = 0
 
-        self._pending: "queue.Queue[Optional[GenRequest]]" = queue.Queue()
-        # Requests taken off the queue but not yet admitted (loop only).
+        # Admission control (guarded by self._lock): the class-priority
+        # queue, its token backlog and per-tenant seats, and the aggregate
+        # throughput estimate behind projected-wait shedding.
+        self.queue_max = max(1, int(queue_max))
+        self.queue_max_tokens = max(0, int(queue_max_tokens))
+        self.class_promote_s = max(0.0, float(class_promote_s))
+        self.tenant_queue_max = max(0, int(tenant_queue_max))
+        self._tenant_class_map = parse_tenant_class_map(tenant_slo_class)
+        self._expected_tps = max(0.0, float(expected_tps))
+        self._tput = AggregateThroughput()
+        self._queued_tokens = 0
+        self._tenant_queued: dict[str, int] = {}
+        self._pending = ClassPriorityQueue(
+            maxsize=self.queue_max, promote_after_s=self.class_promote_s
+        )
+        # Submit-time sheds and lifecycle reaps, by reason (the
+        # reference's app_tpu_requests_shed_total{reason} and its
+        # deadline-exceeded / cancelled counters).
+        self.shed_counts: collections.Counter[str] = collections.Counter()
+        self.reap_counts: collections.Counter[str] = collections.Counter()
+        self._work = threading.Event()
+        # Requests taken off the queue that wait for KV blocks (loop only).
         self._backlog: "collections.deque[GenRequest]" = collections.deque()
         self._lock = threading.Lock()
         self._closed = False
@@ -248,58 +317,241 @@ class InferenceEngine:
         max_new_tokens: int = 128,
         temperature: float = 0.0,
         stop_on_eos: bool = True,
+        stop: Optional[list[str]] = None,
+        top_p: float = 1.0,
+        frequency_penalty: float = 0.0,
+        presence_penalty: float = 0.0,
         seed: Optional[int] = None,
+        logit_bias: Optional[dict] = None,
+        top_logprobs: int = 0,
+        deadline: Optional[Deadline] = None,
+        deadline_s: Optional[float] = None,
+        cancel: Optional[CancelToken] = None,
+        tenant: str = "",
+        slo_class: str = "",
         **options: Any,
     ) -> GenRequest:
-        """Queue a generate request; returns its record (``future`` resolves
-        with the ``GenerationResult``, ``stream`` yields token ids then
-        ``None``). Reference options outside this slice (top_p, penalties,
-        logit_bias, top_logprobs, stop sequences, adapters, deadlines,
-        cancel tokens, tenant, SLO class, replica pinning, trace context)
-        raise ``NotImplementedError`` unless at their neutral value; a name
-        the reference does not take raises ``TypeError``."""
+        """Queue a generate request; returns its record (``future``
+        resolves with the ``GenerationResult`` or the error that retired
+        it, ``stream`` yields token ids then ``None``). The checks, their
+        order, error types and messages are the reference's. ``adapter``,
+        ``pin_replica`` and ``traceparent`` are accepted at their neutral
+        value and raise ``NotImplementedError`` naming their ROADMAP item
+        otherwise; a name the reference does not take raises
+        ``TypeError``."""
         for key, val in options.items():
             if key not in _NEUTRAL_SUBMIT_OPTIONS:
                 raise TypeError(f"submit_generate() got an unexpected option {key!r}")
             neutral, item = _NEUTRAL_SUBMIT_OPTIONS[key]
-            if val is not None and val != neutral and (
-                not isinstance(val, (dict, list)) or val
-            ):
+            if val is not None and val != neutral:
                 raise NotImplementedError(f"{key}={val!r} is not ported yet ({item})")
-        if temperature < 0:
-            raise ValueError("temperature must be >= 0")
-        if int(max_new_tokens) < 1:
-            raise ValueError("max_new_tokens must be >= 1")
+        if not 0.0 < top_p <= 1.0:
+            raise ErrorInvalidParam(["top_p must be in (0, 1]"])
+        if top_p < 1.0 and not self.enable_top_p:
+            raise ErrorInvalidParam([
+                "top_p requires TPU_TOP_P=true (compiles the nucleus "
+                "sort into the sampler)"
+            ])
+        if frequency_penalty or presence_penalty:
+            if not self.enable_penalties:
+                raise ErrorInvalidParam([
+                    "frequency/presence penalties require TPU_PENALTIES="
+                    "true (compiles the per-slot token-count plane into "
+                    "the sampler)"
+                ])
+            if not (-2.0 <= frequency_penalty <= 2.0
+                    and -2.0 <= presence_penalty <= 2.0):
+                raise ErrorInvalidParam(["penalties must be in [-2, 2]"])
+        if top_logprobs:
+            if not 0 < int(top_logprobs) <= self.top_logprobs:
+                raise ErrorInvalidParam([
+                    f"top_logprobs must be in [1, {self.top_logprobs}] "
+                    f"(the engine compiles TPU_TOP_LOGPROBS="
+                    f"{self.top_logprobs} alternatives)"
+                    if self.top_logprobs else
+                    "top_logprobs requires TPU_TOP_LOGPROBS>0 (compiles "
+                    "the per-step alternatives top_k into the sampler)"
+                ])
+        bias = self._check_logit_bias(logit_bias) if logit_bias else {}
         ids = (
             self.tokenizer.encode(prompt) if isinstance(prompt, str)
             else [int(i) for i in prompt]
         )
+        # Overlong prompts are rejected up front unless truncation was
+        # enabled, which keeps the tail and flags the result.
+        max_prompt = self.max_prompt_tokens
+        truncated = False
+        if len(ids) > max_prompt:
+            if not self.truncate_prompts:
+                raise ErrorPromptTooLong(len(ids), max_prompt)
+            ids = ids[-max_prompt:]
+            truncated = True
+        # The reference decodes whatever it is given; torch's embedding
+        # gather raises on an empty row or an id outside the vocabulary,
+        # so those are refused here instead of failing the engine.
         if not ids:
-            raise ValueError("prompt must be at least one token")
+            raise ErrorInvalidParam(["prompt must be at least one token"])
         if any(not 0 <= i < self.cfg.vocab_size for i in ids):
-            raise ValueError(f"token ids must be in [0, {self.cfg.vocab_size})")
-        if len(ids) > self.max_prompt_tokens:
-            raise ValueError(
-                f"prompt of {len(ids)} tokens exceeds the engine's "
-                f"{self.max_prompt_tokens}"
-            )
+            raise ErrorInvalidParam([
+                f"prompt token ids must be in [0, {self.cfg.vocab_size})"
+            ])
+        # SLO class: an explicit, valid class wins, then the tenant's
+        # default, then "standard".
+        cls = normalize_slo_class(slo_class)
+        if not cls:
+            cls = self._tenant_class_map.get(str(tenant or "").lower(), "standard")
         req = GenRequest(
             prompt_ids=ids,
             max_new_tokens=int(max_new_tokens),
             temperature=float(temperature),
             stop_on_eos=bool(stop_on_eos),
+            truncated=truncated,
+            stop_texts=list(stop or []),
+            top_p=float(top_p),
+            frequency_penalty=float(frequency_penalty),
+            presence_penalty=float(presence_penalty),
+            # Unseeded requests draw a fresh seed (distinct streams).
             seed=(
                 int(seed) & 0x7FFFFFFF if seed is not None
                 else self._seed_rng.getrandbits(31)
             ),
+            logit_bias=bias,
+            top_logprobs=int(top_logprobs or 0),
+            deadline=coalesce_deadline(deadline, deadline_s),
+            tenant=str(tenant or ""),
+            slo_class=cls,
         )
+        if cancel is not None:
+            # Share the transport's token, so tripping it retires the
+            # request mid-decode.
+            req.cancel = cancel
+        self._enqueue(req)
+        return req
+
+    def _check_logit_bias(self, logit_bias: Any) -> dict[int, float]:
+        if not isinstance(logit_bias, dict):
+            raise ErrorInvalidParam([
+                "logit_bias must be an object mapping token ids to numbers"
+            ])
+        if len(logit_bias) > LOGIT_BIAS_K:
+            raise ErrorInvalidParam([
+                f"logit_bias supports at most {LOGIT_BIAS_K} entries"
+            ])
+        try:
+            if any(isinstance(t, float) and t != int(t) for t in logit_bias):
+                raise ValueError("fractional token id")
+            bias = {int(t): float(b) for t, b in logit_bias.items()}
+        except (TypeError, ValueError):
+            raise ErrorInvalidParam([
+                "logit_bias must map integral token ids to numbers"
+            ]) from None
+        if any(not 0 <= t < self.cfg.vocab_size for t in bias) or any(
+            not -100.0 <= b <= 100.0 for b in bias.values()
+        ):
+            raise ErrorInvalidParam([
+                f"logit_bias token ids must be in [0, "
+                f"{self.cfg.vocab_size}) and biases in [-100, 100]"
+            ])
+        return bias
+
+    def _throughput_tps(self) -> float:
+        """Tokens/s for projected-wait shedding: the ``expected_tps``
+        prior wins, then the measured aggregate rate, then 50 tok/s as the
+        cold-start floor."""
+        if self._expected_tps > 0:
+            return self._expected_tps
+        rate = self._tput.rate()
+        return rate if rate > 0 else 50.0
+
+    def _projected_wait_s(self, cost_tokens: int) -> float:
+        """Seconds of queue ahead of a request costing ``cost_tokens``
+        (prompt + budget). Read under ``self._lock``."""
+        return (self._queued_tokens + cost_tokens) / self._throughput_tps()
+
+    def _retry_after_s(self, cost: int) -> float:
+        """The Retry-After of an admission shed: the queue-drain
+        projection (the reference's ``shed_retry_after_s`` without the
+        brownout, tenant-ledger and control-plane floors, not ported)."""
+        return max(self._projected_wait_s(max(0, cost)), 0.5)
+
+    def _shed(self, reason: str) -> None:
+        self.shed_counts[reason] += 1
+
+    def _enqueue(self, req: GenRequest) -> None:
+        cost = len(req.prompt_ids) + req.max_new_tokens
         with self._lock:
             if self._closed:
                 raise RuntimeError("engine is closed")
             if self._error is not None:
                 raise RuntimeError("engine stopped after an error") from self._error
-            self._pending.put(req)
-        return req
+            wait_s = self._projected_wait_s(cost)
+            # Per-tenant quota first: one tenant's flood sheds on its own
+            # budget before it exhausts the global one.
+            if (
+                self.tenant_queue_max
+                and req.tenant
+                and self._tenant_queued.get(req.tenant, 0) >= self.tenant_queue_max
+            ):
+                retry = self._retry_after_s(cost)
+                self._shed("tenant_quota")
+                raise ErrorTooManyRequests(
+                    f"tenant {req.tenant!r} has "
+                    f"{self._tenant_queued[req.tenant]} queued request(s) "
+                    f"(TPU_TENANT_QUEUE_MAX={self.tenant_queue_max})",
+                    retry_after_s=retry,
+                )
+            if (
+                self.queue_max_tokens
+                and self._queued_tokens + cost > self.queue_max_tokens
+            ):
+                retry = self._retry_after_s(cost)
+                self._shed("queue_tokens")
+                raise ErrorTooManyRequests(
+                    f"submit queue token budget exhausted "
+                    f"({self._queued_tokens} queued + {cost} requested > "
+                    f"{self.queue_max_tokens}; TPU_QUEUE_TOKENS)",
+                    retry_after_s=retry,
+                )
+            # A deadline that cannot survive the projected queue wait is
+            # rejected now, before it burns a slot.
+            if req.deadline is not None and (
+                req.deadline.expired() or req.deadline.remaining() <= wait_s
+            ):
+                self._shed("deadline")
+                raise ErrorDeadlineExceeded(
+                    f"projected queue wait {wait_s:.2f}s exceeds the "
+                    f"request deadline "
+                    f"({max(req.deadline.remaining(), 0.0):.2f}s left)"
+                )
+            try:
+                self._pending.put_nowait(req)
+            except queue.Full:
+                retry = self._retry_after_s(cost)
+                self._shed("queue_full")
+                raise ErrorTooManyRequests(
+                    f"submit queue full ({self._pending.maxsize} requests; "
+                    f"TPU_QUEUE_MAX)",
+                    retry_after_s=retry,
+                ) from None
+            self._queued_tokens += cost
+            if self.tenant_queue_max and req.tenant:
+                self._tenant_queued[req.tenant] = (
+                    self._tenant_queued.get(req.tenant, 0) + 1
+                )
+        self._work.set()
+
+    def _note_dequeued(self, req: GenRequest) -> None:
+        """Return a popped request's tokens and tenant seat to the
+        submit budgets."""
+        cost = len(req.prompt_ids) + req.max_new_tokens
+        with self._lock:
+            self._queued_tokens = max(0, self._queued_tokens - cost)
+            if req.tenant and req.tenant in self._tenant_queued:
+                left = self._tenant_queued[req.tenant] - 1
+                if left > 0:
+                    self._tenant_queued[req.tenant] = left
+                else:
+                    del self._tenant_queued[req.tenant]
 
     def generate_sync(
         self, prompt: Any, timeout: float = 300.0, **kw: Any
@@ -317,7 +569,9 @@ class InferenceEngine:
         while True:
             tok = await loop.run_in_executor(None, req.stream.get)
             if tok is None:
-                if req.future.done() and req.future.exception() is not None:
+                if req.future.done() and not req.future.cancelled() and (
+                    req.future.exception() is not None
+                ):
                     raise req.future.exception()
                 return
             yield tok
@@ -344,7 +598,7 @@ class InferenceEngine:
             if self._closed:
                 return
             self._closed = True
-        self._pending.put(None)  # wake the loop
+        self._work.set()  # wake the loop
         self._thread.join(timeout=timeout)
         if self._thread.is_alive():
             raise RuntimeError("engine scheduler thread did not stop")
@@ -361,6 +615,10 @@ class InferenceEngine:
                 torch.cuda.set_device(self.device)
             with torch.inference_mode():
                 while not self._closed:
+                    # Cancelled and expired requests retire here, once a
+                    # pass, so a dead stream's slot and blocks free within
+                    # one decode window.
+                    self._reap_lifecycle()
                     self._admit()
                     busy = False
                     if self._prefilling:
@@ -370,45 +628,107 @@ class InferenceEngine:
                         self._decode_window()
                         busy = True
                     if not busy:
-                        self._wait_for_work()
+                        self._work.wait(timeout=0.05)
+                        self._work.clear()
         except Exception as exc:  # the loop's boundary: report, fail callers
             traceback.print_exc()
             with self._lock:
                 self._error = exc
             self._fail_all(exc)
 
-    def _next_request(self, timeout: Optional[float] = None) -> Optional[GenRequest]:
-        """The oldest queued request (waiting up to ``timeout`` when given),
-        or None."""
-        if self._backlog:
-            return self._backlog.popleft()
-        while True:
-            try:
-                req = (
-                    self._pending.get(timeout=timeout) if timeout
-                    else self._pending.get_nowait()
-                )
-            except queue.Empty:
-                return None
-            if req is not None:  # None only wakes the loop
-                return req
-            if timeout:
-                return None
-
-    def _wait_for_work(self) -> None:
-        req = self._next_request(timeout=0.05)
-        if req is not None:
-            self._backlog.appendleft(req)
+    def _pop_pending(self) -> Optional[GenRequest]:
+        try:
+            req = self._pending.get_nowait()
+        except queue.Empty:
+            return None
+        self._note_dequeued(req)
+        return req
 
     def _fail_all(self, exc: BaseException) -> None:
         reqs = [s for s in self._slots if s is not None]
         reqs += [st.request for st in self._prefilling.values()]
-        while (req := self._next_request()) is not None:
+        reqs += list(self._backlog)
+        self._backlog.clear()
+        while (req := self._pop_pending()) is not None:
             reqs.append(req)
         self._slots = [None] * self.n_slots
         self._prefilling.clear()
         for req in reqs:
-            self._fail(req, exc)
+            self._resolve(req, exc=exc)
+
+    @staticmethod
+    def _resolve(
+        req: GenRequest,
+        result: Optional[GenerationResult] = None,
+        exc: Optional[BaseException] = None,
+    ) -> None:
+        """Resolve the request's future (unless the caller cancelled it)
+        and end its stream."""
+        try:
+            if not req.future.done():
+                if exc is not None:
+                    req.future.set_exception(exc)
+                else:
+                    req.future.set_result(result)
+        except InvalidStateError:  # the caller cancelled concurrently
+            pass
+        req.stream.put(None)
+
+    # -- lifecycle reap ---------------------------------------------------
+
+    @staticmethod
+    def _reap_reason(req: GenRequest) -> Optional[str]:
+        """The one retirement predicate of the lifecycle: "cancelled",
+        "deadline" or None."""
+        if req.cancel.cancelled or req.future.cancelled():
+            return "cancelled"
+        if req.deadline is not None and req.deadline.expired():
+            return "deadline"
+        return None
+
+    def _reap_request(self, req: GenRequest, slot: int = -1) -> bool:
+        """Retire ``req`` if it was cancelled or its deadline expired: its
+        future gets the terminal error, its stream the sentinel, and
+        ``slot`` (when >= 0) is released with its KV blocks."""
+        reason = self._reap_reason(req)
+        if reason is None:
+            return False
+        if reason == "deadline":
+            exc: BaseException = ErrorDeadlineExceeded(
+                f"after {len(req.token_ids)} generated token(s)"
+            )
+        else:
+            exc = ErrorRequestCancelled()
+        self._resolve(req, exc=exc)
+        if slot >= 0:
+            self._release_slot(slot)
+        self.reap_counts[reason] += 1
+        return True
+
+    def _reap_lifecycle(self) -> None:
+        """Every live request the caller may have abandoned: active slots,
+        slots mid-prefill and requests waiting for KV blocks. Queued
+        requests are checked when admission pops them."""
+        for i, req in enumerate(self._slots):
+            if req is not None:
+                self._reap_request(req, slot=i)
+        for slot, st in list(self._prefilling.items()):
+            self._reap_request(st.request, slot=slot)
+        if self._backlog and any(
+            self._reap_reason(r) is not None for r in self._backlog
+        ):
+            kept = [r for r in self._backlog if not self._reap_request(r)]
+            self._backlog.clear()
+            self._backlog.extend(kept)
+
+    def _release_slot(self, slot: int) -> None:
+        self._slots[slot] = None
+        self._prefilling.pop(slot, None)
+        self._slot_state_dirty = True
+        if self.kv_block:
+            self._release_blocks(slot)
+
+    # -- admission ----------------------------------------------------------
 
     def _admit(self) -> None:
         free = [
@@ -416,9 +736,13 @@ class InferenceEngine:
             if s is None and i not in self._prefilling
         ]
         while free:
-            req = self._next_request()
+            req = self._backlog.popleft() if self._backlog else self._pop_pending()
             if req is None:
                 return
+            # A request cancelled or expired while queued never takes a
+            # slot.
+            if self._reap_request(req):
+                continue
             # Clamp the budget so the windows in flight past the last
             # token still land inside the cache (below the parking row).
             room = (
@@ -430,7 +754,7 @@ class InferenceEngine:
                 B = self.kv_block
                 need = (min(len(req.prompt_ids) + 1, self.max_len) + B - 1) // B
                 if need > self.cache.n_blocks - 1:
-                    self._fail(req, RuntimeError(
+                    self._resolve(req, exc=RuntimeError(
                         f"prompt needs {need} KV blocks but the pool has "
                         f"{self.cache.n_blocks - 1}; raise kv_pool_blocks"
                     ))
@@ -445,14 +769,13 @@ class InferenceEngine:
                 self._dispatched_tokens[free[0]] = 0
             slot = free.pop(0)
             self._seeds_host[slot] = req.seed
+            self._bidx_host[slot, :] = -1
+            self._bval_host[slot, :] = 0.0
+            for j, (tok, val) in enumerate(req.logit_bias.items()):
+                self._bidx_host[slot, j] = tok
+                self._bval_host[slot, j] = val
             self._seeds_dirty = True
             self._prefilling[slot] = _Prefill(request=req)
-
-    @staticmethod
-    def _fail(req: GenRequest, exc: BaseException) -> None:
-        if not req.future.done():
-            req.future.set_exception(exc)
-        req.stream.put(None)
 
     def _ensure_blocks(self, slot: int, tokens: int) -> bool:
         """Grow ``slot``'s allocation to cover ``tokens`` logical tokens.
@@ -495,6 +818,17 @@ class InferenceEngine:
     def _up(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    # -- device steps -------------------------------------------------------
+
+    def _uses(self, reqs: list[GenRequest]) -> dict[str, bool]:
+        """The sampler's host-known switches for a batch of requests: it
+        samples when some row is not greedy and adds the logit bias when
+        some row has one."""
+        return dict(
+            sampling=any(r.temperature > 0 for r in reqs),
+            use_bias=any(r.logit_bias for r in reqs),
+        )
+
     def _prefill_step(self) -> None:
         self._push_table()
         P, c = self.prefill_batch, self.prefill_chunk
@@ -506,6 +840,7 @@ class InferenceEngine:
         finalize = np.zeros((P,), dtype=bool)
         row_valid = np.zeros((P,), dtype=bool)
         temps = np.ones((P,), dtype=np.float32)
+        topps = np.ones((P,), dtype=np.float32)
         greedy = np.ones((P,), dtype=bool)
         for i, (slot, st) in enumerate(rows):
             ids = st.request.prompt_ids
@@ -515,6 +850,7 @@ class InferenceEngine:
             finalize[i] = st.done + len(chunk) >= len(ids)
             row_valid[i] = True
             temps[i] = max(st.request.temperature, 0.0)
+            topps[i] = st.request.top_p
             greedy[i] = st.request.temperature <= 0
         for i in range(len(rows), P):
             # Padding rows duplicate row 0: identical K/V writes to the
@@ -522,16 +858,19 @@ class InferenceEngine:
             # finalize merge.
             tokens[i] = tokens[0]
             slots[i], starts[i], lens[i] = slots[0], starts[0], lens[0]
-            temps[i], greedy[i] = temps[0], greedy[0]
+            temps[i], greedy[i], topps[i] = temps[0], greedy[0], topps[0]
         if self._seeds_dirty:
+            # Seeds and logit-bias rows change only at admission.
             self.planes.seeds.copy_(self._up(self._seeds_host))
+            self.planes.bidx.copy_(self._up(self._bidx_host))
+            self.planes.bval.copy_(self._up(self._bval_host))
             self._seeds_dirty = False
-        sampling = any(st.request.temperature > 0 for _, st in rows)
-        first, first_lp = prefill_chunk_step(
+        first, first_lp, top_i, top_l = prefill_chunk_step(
             self.params, self.cache, self.cfg, self.rope, self.planes,
-            self._up(tokens), self._up(slots), self._up(starts),
+            self.sampler, self._up(tokens), self._up(slots), self._up(starts),
             self._up(lens), self._up(finalize), self._up(row_valid),
-            self._up(temps), self._up(greedy), self._base_seed, sampling,
+            self._up(temps), self._up(greedy), self._up(topps),
+            self._base_seed, **self._uses([st.request for _, st in rows]),
         )
         self.prefill_steps += 1
         done_rows = []
@@ -543,13 +882,21 @@ class InferenceEngine:
         if not done_rows:
             return
         # The first token was sampled on the device with the chunk; fetch
-        # it now so it is emitted without waiting for a decode window.
-        first_h = first.cpu().numpy()
-        first_lp_h = first_lp.cpu().numpy()
+        # it (with its logprob and alternatives, one transfer) now so it
+        # is emitted without waiting for a decode window.
+        parts = [first.float()[:, None], first_lp[:, None]]
+        if top_i is not None:
+            parts += [top_i.float(), top_l]
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        T = self.top_logprobs
         for i, slot, req in done_rows:
             self._slots[slot] = req
             self._slot_state_dirty = True
-            self._emit(slot, req, int(first_h[i]), float(first_lp_h[i]))
+            top = None
+            if req.top_logprobs:
+                top = [(int(host[i, 2 + j]), float(host[i, 2 + T + j]))
+                       for j in range(req.top_logprobs)]
+            self._emit(slot, req, int(host[i, 0]), float(host[i, 1]), top)
 
     def _decode_window(self) -> None:
         if self.kv_block:
@@ -565,53 +912,79 @@ class InferenceEngine:
                 if self._ensure_blocks(i, need):
                     self._dispatched_tokens[i] += self.window_k
                     continue
-                self._fail(req, RuntimeError(
+                self._resolve(req, exc=RuntimeError(
                     "KV block pool exhausted mid-generation (raise "
                     "kv_pool_blocks or lower concurrency)"
                 ))
-                self._slots[i] = None
-                self._slot_state_dirty = True
-                self._release_blocks(i)
+                self._release_slot(i)
             self._push_table()
             if all(s is None for s in self._slots):
                 return
+        live = [r for r in self._slots if r is not None]
         if self._slot_state_dirty:
             active = np.zeros((self.n_slots,), dtype=bool)
             temps = np.ones((self.n_slots,), dtype=np.float32)
+            topps = np.ones((self.n_slots,), dtype=np.float32)
             greedy = np.ones((self.n_slots,), dtype=bool)
+            fpen = np.zeros((self.n_slots,), dtype=np.float32)
+            ppen = np.zeros((self.n_slots,), dtype=np.float32)
             for i, req in enumerate(self._slots):
                 if req is not None:
                     active[i] = True
                     temps[i] = max(req.temperature, 0.0)
+                    topps[i] = req.top_p
                     greedy[i] = req.temperature <= 0
+                    fpen[i] = req.frequency_penalty
+                    ppen[i] = req.presence_penalty
             self.planes.active.copy_(self._up(active))
             self.planes.temps.copy_(self._up(temps))
+            self.planes.topps.copy_(self._up(topps))
             self.planes.greedy.copy_(self._up(greedy))
+            self.planes.fpen.copy_(self._up(fpen))
+            self.planes.ppen.copy_(self._up(ppen))
             self._slot_state_dirty = False
-        sampling = any(r is not None and r.temperature > 0 for r in self._slots)
         emitted = decode_window(
             self.params, self.cache, self.cfg, self.rope, self.planes,
-            self.window_k, self._base_seed, sampling,
+            self.sampler, self.window_k, self._base_seed, **self._uses(live),
         )
         self.decode_windows += 1
         host = emitted.cpu().numpy()  # the window's one device→host fetch
+        T = self.top_logprobs
         for i, req in enumerate(list(self._slots)):
             if req is None:
                 continue
             for step in range(self.window_k):
-                if self._emit(i, req, int(host[0, step, i]), float(host[1, step, i])):
+                top = None
+                if req.top_logprobs:
+                    top = [(int(host[2 + j, step, i]), float(host[2 + T + j, step, i]))
+                           for j in range(req.top_logprobs)]
+                if self._emit(i, req, int(host[0, step, i]), float(host[1, step, i]), top):
                     break
 
-    def _emit(self, slot: int, req: GenRequest, tok: int, logprob: float) -> bool:
+    # -- emission and retirement -------------------------------------------
+
+    def _emit(
+        self,
+        slot: int,
+        req: GenRequest,
+        tok: int,
+        logprob: float,
+        top: Optional[list[tuple[int, float]]] = None,
+    ) -> bool:
         """Deliver one token; retire the request (and free its slot) when
         it is finished. Returns True on retirement."""
         now = time.time()
         if not req.token_ids:
             req.ttft_s = now - req.enqueued_at
+        if req.top_logprobs:
+            req.token_top_logprobs.append(top)
         req.token_ids.append(tok)
         req.token_logprobs.append(logprob)
         req.token_times.append(now)
         req.stream.put(tok)
+        # Every emission of every slot feeds the aggregate rate behind
+        # projected-wait shedding.
+        self._tput.note(1)
         if not self._finished(req):
             return False
         self._retire(slot, req)
@@ -621,29 +994,52 @@ class InferenceEngine:
         eos = self.tokenizer.eos_id
         if req.stop_on_eos and req.token_ids[-1] == eos:
             return True
+        if req.stop_texts:
+            text = self.tokenizer.decode(req.token_ids)
+            at = min(
+                (p for p in (text.find(s) for s in req.stop_texts) if p != -1),
+                default=-1,
+            )
+            if at != -1:
+                req.stop_cut = at
+                return True
         if len(req.token_ids) >= req.max_new_tokens:
             return True
         return len(req.prompt_ids) + len(req.token_ids) >= self.max_len - 1
 
     def _retire(self, slot: int, req: GenRequest) -> None:
-        ids = list(req.token_ids)
-        if req.stop_on_eos and ids[-1] == self.tokenizer.eos_id:
+        text = self.tokenizer.decode(req.token_ids)
+        ids, lps = list(req.token_ids), list(req.token_logprobs)
+        tops = list(req.token_top_logprobs) if req.top_logprobs else None
+        if req.stop_cut >= 0:
+            # Stop sequence: cut the text at the match and the ids,
+            # logprobs and alternatives to the longest prefix whose decode
+            # fits the kept text, so they stay aligned.
+            text = text[: req.stop_cut]
+            keep = 0
+            for i in range(1, len(ids) + 1):
+                if len(self.tokenizer.decode(ids[:i])) <= req.stop_cut:
+                    keep = i
+                else:
+                    break
+            ids, lps = ids[:keep], lps[:keep]
+            if tops is not None:
+                tops = tops[:keep]
+            reason = "stop"
+        elif req.stop_on_eos and ids and ids[-1] == self.tokenizer.eos_id:
             reason = "stop"
         else:
-            reason = "length"
+            reason = "length"  # token budget or context window exhausted
         result = GenerationResult(
-            text=self.tokenizer.decode(ids),
+            text=text,
             token_ids=ids,
             prompt_tokens=len(req.prompt_ids),
             ttft_s=req.ttft_s,
             duration_s=time.time() - req.enqueued_at,
-            token_logprobs=list(req.token_logprobs),
+            truncated=req.truncated,
+            token_logprobs=lps,
             finish_reason=reason,
+            token_top_logprobs=tops,
         )
-        self._slots[slot] = None
-        self._slot_state_dirty = True
-        if self.kv_block:
-            self._release_blocks(slot)
-        if not req.future.done():
-            req.future.set_result(result)
-        req.stream.put(None)
+        self._release_slot(slot)
+        self._resolve(req, result=result)

@@ -112,14 +112,17 @@ def test_prompt_limit_and_budget_match_reference(engine, ref_engine):
     (pipeline_depth 2): at max_len 128 and window_k 4 the longest prompt
     is 128 - 2 - 3*4 = 114, and a 100-token prompt gets at most
     128 - 1 - 100 - 12 = 15 tokens."""
-    from gofr_tpu.errors import ErrorPromptTooLong
+    from gofr_tpu.errors import ErrorPromptTooLong as RefErrorPromptTooLong
+    from gofr_tpu_torch.errors import ErrorPromptTooLong
 
     assert engine.max_prompt_tokens == ref_engine.max_prompt_tokens == 114
     long = list(range(2, 117))  # 115 tokens
-    with pytest.raises(ValueError, match="exceeds"):
+    with pytest.raises(ErrorPromptTooLong, match="exceeds") as got:
         engine.submit_generate(long)
-    with pytest.raises(ErrorPromptTooLong):
+    with pytest.raises(RefErrorPromptTooLong) as want:
         ref_engine.submit_generate(long)
+    assert str(got.value) == str(want.value)
+    assert got.value.status_code == want.value.status_code == 413
     prompt = np.random.default_rng(9).integers(0, 256, 100).tolist()
     kw = dict(max_new_tokens=30, stop_on_eos=False)
     want = _streams(ref_engine, [prompt], **kw)[0]
@@ -258,11 +261,16 @@ def test_concurrent_submitters_all_complete_with_solo_results(engine):
 
 
 def test_unported_options_raise(engine):
-    with pytest.raises(NotImplementedError):
+    """The sampler options are ported: top_p (with its engine flag) and
+    logit_bias are accepted; auto_prefix and MoE still raise."""
+    from gofr_tpu_torch.errors import ErrorInvalidParam
+
+    with pytest.raises(ErrorInvalidParam, match="TPU_TOP_P"):  # the flag is off here
         engine.submit_generate("x", top_p=0.5)
-    with pytest.raises(NotImplementedError):
-        engine.submit_generate("x", logit_bias={1: 2.0})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    res = engine.submit_generate("x", max_new_tokens=3, logit_bias={65: 100.0}).future.result(
+        timeout=120)
+    assert res.token_ids == [65, 65, 65]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         InferenceEngine(MODEL, device="cpu", auto_prefix=True)
     with pytest.raises(NotImplementedError):  # MoE: refused before any weights are made
         InferenceEngine("mixtral-8x7b", device="cpu")
@@ -271,8 +279,7 @@ def test_unported_options_raise(engine):
 def _non_neutral(name, default):
     """A value of the reference option ``name`` other than its default."""
     if default is None:
-        return {"deadline_s": 5.0, "stop": ["x"], "logit_bias": {1: 2.0},
-                "traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"}.get(name, object())
+        return {"traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"}.get(name, object())
     if isinstance(default, bool):
         return not default
     if isinstance(default, (int, float)):
@@ -290,8 +297,11 @@ def test_reference_submit_options_are_accepted_at_neutral_or_not_ported(engine):
     own = set(inspect.signature(InferenceEngine.submit_generate).parameters)
     ref = inspect.signature(RefEngine.submit_generate).parameters
     options = {n: p.default for n, p in ref.items() if n not in own}
-    assert {"deadline", "deadline_s", "cancel", "tenant", "slo_class", "pin_replica",
-            "traceparent", "top_p", "stop"} <= set(options)
+    # The sampler and lifecycle options are the port's own parameters now;
+    # what is left waits for LoRA and the operations plane.
+    assert set(options) == {"adapter", "pin_replica", "traceparent"}
+    assert {"deadline", "deadline_s", "cancel", "tenant", "slo_class", "top_p", "stop",
+            "frequency_penalty", "presence_penalty", "logit_bias", "top_logprobs"} <= own
     res = engine.submit_generate([1, 2, 3], max_new_tokens=2, **options).future.result(
         timeout=120)
     assert len(res.token_ids) >= 1
