@@ -46,6 +46,15 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    (neutral greedy, penalties, logit_bias, top_logprobs, a stop string,
    a seeded top_p pair, a deadline and a cancel token that retire their
    requests mid-stream), each held against the greedy streams of step 4;
+4b. serves the same model through the port's own App over HTTP: the App
+   built from config alone (TPU_MODEL=llama-3-8b, phase_serve's geometry,
+   the same seed-0 weights), add_openai_routes and a ctx.infer route;
+   phase_serve's 10 prompts as concurrent streaming /v1/completions over
+   real sockets, each greedy stream equal to phase_serve's token for
+   token; a chat completion, a ctx.infer request, an overlong prompt (413
+   before any SSE header) and a 0.05 s X-Request-Timeout (ends early);
+   /metrics against what the client received; tok/s, TTFT p50 and ITL
+   p50 over HTTP beside the direct engine's; App.stop frees every slot;
 5. profiles one 8-step decode window and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
    kernels launched and the top kernels by device time; the window again
@@ -86,12 +95,14 @@ from __future__ import annotations
 
 import collections
 import gc
+import http.client
 import json
 import math
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense bf16 and f32 rates.
@@ -234,13 +245,15 @@ def _profiler_traces_nothing() -> None:
             "behind a spin kernel (chip_smoke.queued_ms)")
 
 
-def device_ms(torch, fn, runs: int = DEVICE_RUNS) -> float:
+def device_ms(torch, fn, runs: int = DEVICE_RUNS, required: bool = True) -> float | None:
     """Device time of one call of ``fn``: every GPU kernel's time in a
     torch.profiler trace of ``runs`` calls (after a warm-up), over
     ``runs``. Unlike CUDA events around each call, it leaves out the
     host's launch time. Where the trace holds no GPU kernel, the time
     comes from ``queued_ms`` (DEVICE_TIMER says which), once a second
-    trace holds none either."""
+    trace holds none either. Where neither can time ``fn`` (it waits for
+    the device itself), the run fails, or returns None (not measured)
+    for a time that is not ``required``: a profile's, not a kernel's."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2 if DEVICE_TIMER["by"] == "torch.profiler" else 0):
@@ -256,7 +269,7 @@ def device_ms(torch, fn, runs: int = DEVICE_RUNS) -> float:
             return total_us / runs / 1e3
     _profiler_traces_nothing()
     ms = queued_ms(torch, fn, runs)
-    if ms is None:
+    if ms is None and required:
         fail("device_ms: torch.profiler traces no GPU kernel and the calls do not queue "
              "behind a spin kernel")
     return ms
@@ -1637,6 +1650,38 @@ def phase_mistral_full_sequence(torch, dev, cfg, params) -> dict:
     return out
 
 
+def watch_steps(eng) -> dict:
+    """From now on, the rows of each prefill chunk the engine runs (the
+    slots mid-prefill when it starts, at most prefill_batch: how admission
+    spread the requests over the scheduler's passes) and the host wall
+    time of each decode window (dispatch to tokens emitted, ms). Stop with
+    ``unwatch_steps(eng)``."""
+    seen = {"rows": [], "window_ms": []}
+    prefill, window = eng._prefill_step, eng._decode_window
+
+    def counted_prefill():
+        seen["rows"].append(min(len(eng._prefilling), eng.prefill_batch))
+        prefill()
+
+    def timed_window():
+        t0 = time.perf_counter()
+        window()
+        seen["window_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    eng._prefill_step, eng._decode_window = counted_prefill, timed_window
+    return seen
+
+
+def unwatch_steps(eng) -> None:
+    del eng._prefill_step, eng._decode_window
+
+
+def steps_line(seen: dict) -> str:
+    w = seen["window_ms"]
+    return (f"prefill rows per chunk {seen['rows']}; {len(w)} decode windows, host wall "
+            f"median {statistics.median(w):.1f} ms" if w else f"prefill rows {seen['rows']}")
+
+
 def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int = 8,
                 max_len: int = 2048, lengths: tuple = LLAMA_PROMPTS, sampled: bool = True,
                 solo: int = 4, **kv) -> dict:
@@ -1670,12 +1715,15 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
         eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
         torch.cuda.synchronize()
         reset_launch_counts()
+        seen = watch_steps(eng)
         t0 = time.perf_counter()
         reqs = [eng.submit_generate(p, **kw) for p, kw in zip(prompts, kws)]
         results = [r.future.result(timeout=600) for r in reqs]
         wall = time.perf_counter() - t0
+        unwatch_steps(eng)
         counts = launch_counts()
         log(f"{label}: launch counts over the {n}-request run: {counts}")
+        log(f"{label}: over the run: {steps_line(seen)}")
         eos = eng.tokenizer.eos_id
         for i, (r, res) in enumerate(zip(reqs, results)):
             m = len(res.token_ids)
@@ -1921,6 +1969,285 @@ def phase_serve_options(torch, dev, params, base: list, base_stats: dict, **kv) 
         eng.close()
 
 
+class _SSEClient(threading.Thread):
+    """One streaming /v1/completions request over its own socket: the
+    status, each SSE line with its arrival time (perf_counter), and the
+    submit time. Lines are parsed after the run, so the client's share of
+    the GIL while tokens arrive stays small."""
+
+    def __init__(self, port: int, body: dict, headers: dict | None = None) -> None:
+        super().__init__(daemon=True)
+        self.port, self.body, self.headers = port, body, dict(headers or {})
+        self.status, self.content_type, self.lines, self.error = 0, "", [], None
+
+    def run(self) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+        try:
+            self.t_submit = time.perf_counter()
+            conn.request("POST", "/v1/completions", body=json.dumps(self.body),
+                         headers={"Content-Type": "application/json", **self.headers})
+            resp = conn.getresponse()
+            self.status, self.content_type = resp.status, resp.getheader("Content-Type", "")
+            if self.content_type != "text/event-stream":
+                self.lines.append((time.perf_counter(), resp.read()))
+                return
+            while line := resp.readline():
+                if line.startswith(b"data: "):
+                    self.lines.append((time.perf_counter(), line[6:].strip()))
+        except Exception as exc:  # reported by the phase as a failed check
+            self.error = exc
+        finally:
+            conn.close()
+
+    def events(self) -> list:
+        """(arrival time, parsed event or "[DONE]") for an SSE response."""
+        return [(t, raw.decode() if raw == b"[DONE]" else json.loads(raw))
+                for t, raw in self.lines]
+
+    def token_arrivals(self) -> list:
+        """(arrival time, token id) for every id the stream delivered
+        (``stream_options.include_tokens``)."""
+        return [(t, tok) for t, ev in self.events() if isinstance(ev, dict)
+                for ch in ev.get("choices", []) for tok in ch.get("token_ids", [])]
+
+
+def _http_json(port: int, method: str, path: str, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_http(torch, dev, base: list, base_stats: dict, *, model: str = "llama-3-8b",
+               lengths: tuple = LLAMA_PROMPTS, geometry: dict | None = None) -> dict:
+    """The port's own App serving over HTTP at full width: App(config=
+    MockConfig) built from config alone (TPU_MODEL and phase_serve's
+    geometry, ports 0; the engine makes the same seed-0 weights as
+    phase_serve's), add_openai_routes and one ctx.infer route, started on
+    an event-loop thread. Checks: the engine is on CUDA and
+    /.well-known/health is UP and names the card; phase_serve's 10
+    prompts sent concurrently over real sockets as streaming
+    /v1/completions (token-id prompts, 32 tokens, include_tokens): the 8
+    greedy streams equal phase_serve's ``base`` token for token and the
+    seeded pair (temperature 0.8, seed 4242) equal each other; one chat
+    completion, one ctx.infer request, one overlong prompt that gets 413
+    with ErrorPromptTooLong's message before any SSE header, and one
+    request with X-Request-Timeout 0.05 that ends early (504, or a stream
+    ended by the deadline's error event); /metrics: app_tpu_tokens_generated
+    equals the tokens the client received and app_http_response counts
+    each (path, status) the client saw; flash_decode and
+    flash_cache_attention launched in the phase; after App.stop (no
+    TPU_DRAIN_S) every slot is free. Prints tok/s, TTFT p50 (client clock:
+    submit to the first SSE chunk that carries a token) and ITL p50 over
+    HTTP beside the direct engine's ``base_stats``."""
+    import asyncio
+
+    import numpy as np
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MockConfig
+    from gofr_tpu_torch.errors import ErrorPromptTooLong
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.openai_compat import add_openai_routes
+
+    geometry = geometry or {"TPU_KV_SLOTS": "8", "TPU_MAX_LEN": "2048",
+                            "TPU_DECODE_WINDOW": "8", "TPU_PREFILL_CHUNK": "256",
+                            "TPU_PREFILL_BATCH": "8"}
+    label = f"http {model}"
+    t0 = time.perf_counter()
+    app = App(config=MockConfig({
+        "APP_NAME": "chip-smoke", "HTTP_PORT": "0", "METRICS_PORT": "0",
+        "LOG_LEVEL": "WARN", "TPU_MODEL": model, "TPU_DEVICE": str(dev), **geometry}))
+    eng = app.container.tpu
+    log(f"{label}: App built from config in {time.perf_counter() - t0:.1f} s "
+        f"(engine on {eng.device}, {eng.n_slots} slots x {eng.max_len}, k={eng.window_k}, "
+        f"chunk {eng.prefill_batch} x {eng.prefill_chunk})")
+    add_openai_routes(app)
+
+    @app.post("/infer")
+    async def infer(ctx):
+        body = ctx.request.json()
+        return await ctx.infer(body["prompt"], max_new_tokens=32, temperature=0.0)
+
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, name="http-loop", daemon=True)
+    loop_thread.start()
+    stopped = False
+    try:
+        asyncio.run_coroutine_threadsafe(app.start(), loop).result(timeout=120)
+        port = app.http_port
+        if eng.device.type != dev.type:
+            fail(f"{label}: the App's engine is on {eng.device}, not {dev}")
+        status, raw = _http_json(port, "GET", "/.well-known/health")
+        health = json.loads(raw)["data"]
+        devices = health["details"]["tpu"]["details"]["devices"]
+        if status != 200 or health["status"] != "UP" or (
+                dev.type == "cuda" and torch.cuda.get_device_name(dev) not in devices[0]):
+            fail(f"{label}: /.well-known/health {status} {health['status']} {devices}")
+        log(f"{label}: /.well-known/health UP on {devices}")
+        seen = collections.Counter({("/.well-known/health", 200): 1})
+        received = 0  # generated tokens the client was sent
+        # Warm-up over HTTP, off the record (the first launches).
+        status, raw = _http_json(port, "POST", "/v1/completions", {
+            "prompt": [1, 2, 3], "max_tokens": 2, "temperature": 0})
+        seen[("/v1/completions", status)] += 1
+        received += json.loads(raw)["usage"]["completion_tokens"]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+        rng = np.random.default_rng(0)
+        vocab = eng.cfg.vocab_size
+        prompts = [rng.integers(0, vocab, m).tolist() for m in lengths]
+        n = len(prompts)
+        prompts[n - 1] = prompts[n - 2]
+        sampling = [dict(temperature=0.0)] * (n - 2) + [dict(temperature=0.8, seed=4242)] * 2
+        # The engine's own records of the run's requests (submit time,
+        # first-token time), to split the client's TTFT into the spread of
+        # arrivals, the engine's TTFT and the delivery.
+        submitted = []
+        submit = eng.submit_generate
+
+        def spy(*args, **kw):
+            req = submit(*args, **kw)
+            submitted.append(req)
+            return req
+
+        eng.submit_generate = spy
+        steps = watch_steps(eng)
+        reset_launch_counts()
+        clients = [_SSEClient(port, {
+            "prompt": p, "max_tokens": 32, "stream": True,
+            "stream_options": {"include_tokens": True}, **kw})
+            for p, kw in zip(prompts, sampling)]
+        t_run = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t_run
+        del eng.submit_generate
+        unwatch_steps(eng)
+        streams = []
+        for i, c in enumerate(clients):
+            seen[("/v1/completions", c.status)] += 1
+            if c.error is not None or c.status != 200 or c.content_type != "text/event-stream":
+                fail(f"{label}: stream {i}: status {c.status} {c.content_type} {c.error!r}")
+            events = c.events()
+            if events[-1][1] != "[DONE]" or "error" in events[-2][1]:
+                fail(f"{label}: stream {i} did not end cleanly: {events[-2:]}")
+            streams.append([tok for _, tok in c.token_arrivals()])
+            received += len(streams[-1])
+        for i in range(n - 2):
+            if streams[i] != base[i]:
+                fail(f"{label}: greedy stream {i} over HTTP differs from phase_serve's: "
+                     f"{streams[i][:8]} vs {base[i][:8]}")
+        if streams[n - 2] != streams[n - 1]:
+            fail(f"{label}: the two seeded sampled streams differ")
+        arrivals = [c.token_arrivals() for c in clients]
+        ttfts = sorted(a[0][0] - c.t_submit for a, c in zip(arrivals, clients))
+        itls = [(a[-1][0] - a[0][0]) / (len(a) - 1) for a in arrivals if len(a) > 1]
+        stats = {"tok_s": sum(len(s) for s in streams) / wall,
+                 "ttft_p50_ms": statistics.median(ttfts) * 1e3, "ttft_max_ms": ttfts[-1] * 1e3,
+                 "itl_p50_ms": statistics.median(itls) * 1e3}
+        t_first_submit = min(r.enqueued_at for r in submitted)
+        stats.update(
+            arrival_spread_ms=(max(r.enqueued_at for r in submitted) - t_first_submit) * 1e3,
+            engine_ttft_p50_ms=statistics.median(r.ttft_s for r in submitted) * 1e3,
+            engine_itl_p50_ms=statistics.median(
+                (r.token_times[-1] - r.token_times[0]) / (len(r.token_times) - 1)
+                for r in submitted if len(r.token_times) > 1) * 1e3)
+
+        status, raw = _http_json(port, "POST", "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hello"}], "max_tokens": 16,
+            "temperature": 0})
+        seen[("/v1/chat/completions", status)] += 1
+        chat = json.loads(raw)
+        if status != 200 or chat["object"] != "chat.completion":
+            fail(f"{label}: chat completion {status}: {raw[:200]!r}")
+        received += chat["usage"]["completion_tokens"]
+        status, raw = _http_json(port, "POST", "/infer", {"prompt": prompts[0]})
+        seen[("/infer", status)] += 1
+        infer_out = json.loads(raw)["data"]
+        if status != 201 or not 1 <= infer_out["tokens"] <= 32:
+            fail(f"{label}: ctx.infer {status}: {raw[:200]!r}")
+        received += infer_out["tokens"]
+        long_prompt = rng.integers(0, vocab, eng.max_len + 50).tolist()
+        too_long = _SSEClient(port, {"prompt": long_prompt, "max_tokens": 4, "stream": True})
+        too_long.run()
+        seen[("/v1/completions", too_long.status)] += 1
+        want = str(ErrorPromptTooLong(len(long_prompt), eng.max_prompt_tokens))
+        got = json.loads(too_long.lines[0][1]) if too_long.lines else {}
+        if (too_long.status, too_long.content_type) != (413, "application/json") or got.get(
+                "error", {}).get("message") != want:
+            fail(f"{label}: overlong prompt gave {too_long.status} {too_long.content_type} "
+                 f"{got}; expected 413 before any SSE header with {want!r}")
+        late = _SSEClient(port, {"prompt": prompts[3], "max_tokens": 32, "temperature": 0,
+                                 "stream": True, "stream_options": {"include_tokens": True}},
+                          headers={"X-Request-Timeout": "0.05"})
+        late.run()
+        seen[("/v1/completions", late.status)] += 1
+        if late.status == 504:
+            how = "504 before admission"
+        else:
+            events = late.events() if late.status == 200 else []
+            err = events[-2][1].get("error", {}) if len(events) >= 2 else {}
+            if err.get("code") != 504:
+                fail(f"{label}: the 0.05 s deadline request did not end early: "
+                     f"{late.status} {late.lines[-2:]}")
+            received += len(late.token_arrivals())
+            how = f"stream cut after {len(late.token_arrivals())} tokens"
+        counts = launch_counts()
+
+        status, raw = _http_json(app.metrics_port, "GET", "/metrics")
+        text = raw.decode()
+        m = re.search(r'^app_tpu_tokens_generated\{model="([^"]+)"\} (\S+)$', text, re.M)
+        if m is None or float(m.group(2)) != received:
+            fail(f"{label}: app_tpu_tokens_generated {m and m.group(2)} != {received} tokens "
+                 "the client received")
+        http_counts = collections.Counter()
+        for path, code, value in re.findall(
+                r'^app_http_response_count\{method="\w+",path="([^"]+)",status="(\d+)"\} '
+                r'(\d+)$', text, re.M):
+            http_counts[(path, int(code))] += int(value)
+        if http_counts != seen:
+            fail(f"{label}: app_http_response counts {dict(http_counts)} != the client's "
+                 f"{dict(seen)}")
+        for k in ("flash_decode", "flash_cache_attention"):
+            if counts[k] <= 0:
+                fail(f"{label}: kernel {k} was not launched in the HTTP phase")
+        log(f"{label}: launch counts over the phase: {counts}")
+        log(f"{label}: every check passed: 8 greedy streams equal phase_serve's, the seeded "
+            f"pair equal; chat {chat['usage']['completion_tokens']} tokens; ctx.infer "
+            f"{infer_out['tokens']} tokens; overlong prompt 413 before headers; deadline "
+            f"0.05 s: {how}; app_tpu_tokens_generated {received:.0f} = tokens received; "
+            f"app_http_response {dict(seen)}")
+        log(f"{label}: {n} streaming requests in {wall:.3f} s: {stats['tok_s']:.1f} generated "
+            f"tok/s, TTFT p50 {stats['ttft_p50_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f}), "
+            f"ITL p50 {stats['itl_p50_ms']:.2f} ms (client clock); the direct engine in "
+            f"phase_serve: {base_stats['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{base_stats['ttft_p50_ms']:.1f} ms, ITL p50 {base_stats['itl_p50_ms']:.2f} ms")
+        log(f"{label}: on the engine's clock: the {n} submits arrived over "
+            f"{stats['arrival_spread_ms']:.1f} ms, engine TTFT p50 (submit to first token) "
+            f"{stats['engine_ttft_p50_ms']:.1f} ms, engine ITL p50 "
+            f"{stats['engine_itl_p50_ms']:.2f} ms; {steps_line(steps)}")
+        asyncio.run_coroutine_threadsafe(app.stop(), loop).result(timeout=300)
+        stopped = True
+        if any(s is not None for s in eng._slots) or eng._prefilling or eng.state != "DOWN":
+            fail(f"{label}: after App.stop a slot is still held or the engine is "
+                 f"{eng.state}")
+        return {"counts": counts, "stats": stats}
+    finally:
+        if not stopped:
+            asyncio.run_coroutine_threadsafe(app.stop(), loop).result(timeout=300)
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(timeout=30)
+        loop.close()
+
+
 def _busy_ms(events) -> tuple[float, int]:
     """Union of the GPU kernel intervals (ms) and the number of kernels."""
     spans = sorted(
@@ -2104,14 +2431,18 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
                        planes.topps, 2, off, sampling=False)
 
         neutral = SlotPlanes.create(S, dev, cfg.vocab_size, on)
-        on_ms, off_ms = device_ms(torch, sampler_on), device_ms(torch, sampler_off)
-        neutral_ms = device_ms(torch, sampler_on_neutral)
+        # The sampler syncs with the host in places (the nucleus), so where
+        # the profiler traces nothing its time may not be measurable.
+        on_ms, off_ms, neutral_ms = (device_ms(torch, fn, required=False) for fn in (
+            sampler_on, sampler_off, sampler_on_neutral))
         log("profile sampler: " + json.dumps({
             "what": f"the sampler's device time per decode window ({k} steps, {S} slots, "
                     f"vocab {cfg.vocab_size})",
             "every_option_flags_on_ms": on_ms, "greedy_flags_off_ms": off_ms,
             "greedy_neutral_flags_on_ms": neutral_ms,
-            "device_time_by": DEVICE_TIMER["by"]}))
+            "device_time_by": DEVICE_TIMER["by"] if None not in (on_ms, off_ms, neutral_ms)
+            else DEVICE_TIMER["by"] + "; null: not measured (no trace, and the calls "
+                 "do not queue behind a spin kernel)"}))
     for name, fn in steps:
         log("profile: " + json.dumps(_profile_step(torch, name, fn)))
     del cache
@@ -2304,6 +2635,11 @@ def main() -> None:
     options = {"bf16 slot cache": phase_serve_options(torch, dev, params, base, base_stats),
                "int8 pool": phase_serve_options(torch, dev, params, pool_base, pool_stats,
                                                 **pool_kv)}
+    # The App over HTTP, with its own seed-0 weights beside these; freed
+    # (App.stop, then the engine dropped) before the profiles.
+    http_counts = phase_http(torch, dev, base, base_stats)["counts"]
+    gc.collect()
+    torch.cuda.empty_cache()
     bf16_tok, int8_tok = (cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, quant)
                           for quant in (False, True))
     log(f"serve: KV cache bytes a token: {bf16_tok} bf16, {int8_tok} int8 with scales; "
@@ -2422,10 +2758,11 @@ def main() -> None:
                        "launches_llama_tiny_f32": tiny_counts["llama-tiny-f32"][k],
                        "launches_llama_tiny": tiny_counts["llama-tiny"][k]}
         next(x for x in kernels if x["name"] == k)["f32_and_hd32"] = kernels_f32
-    # This slice's path: the mixed-option serves (sampler and lifecycle).
+    # The mixed-option serves (sampler and lifecycle) and the App over HTTP.
     for k in ("flash_decode", "flash_cache_attention"):
-        next(x for x in kernels if x["name"] == k)["launches_serve_options"] = {
-            case: o["counts"][k] for case, o in options.items()}
+        entry = next(x for x in kernels if x["name"] == k)
+        entry["launches_serve_options"] = {case: o["counts"][k] for case, o in options.items()}
+        entry["launches_http"] = http_counts[k]
     log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

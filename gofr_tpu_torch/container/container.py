@@ -1,0 +1,209 @@
+"""The central DI container (reference ``container/container.go:26-131``).
+
+Owns the logger, the metrics manager, and every configured datasource;
+creates each from config at boot like the reference's ``Create``
+(``container/container.go:56-131``), plus the TPU backend gated on
+``TPU_MODEL`` (the serving engine is a container member like
+``SQL``/``Redis``). Aggregate health mirrors ``container/health.go:8-28``.
+
+The port's copy of ``gofr_tpu/container/container.py``. The datasources
+(SQL, Redis, pub/sub) and the secondary encoder engine are not ported
+yet: their members stay ``None``, as in a reference container with none
+configured, and a config that asks for one raises ``NotImplementedError``
+naming its ROADMAP item. Instruments of unported layers are registered
+when those layers come.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Optional
+
+from gofr_tpu_torch.config.env import Config
+from gofr_tpu_torch.logging import Level, Logger, RemoteLevelLogger, level_from_string
+from gofr_tpu_torch.metrics import Manager, new_metrics_manager
+
+# Config keys of the datasources and engines the port does not have yet,
+# each with the ROADMAP item that ports it.
+_UNPORTED_DATASOURCES = (
+    ("DB_DIALECT", "ROADMAP Queue 1 item 2: datasource/sql"),
+    ("REDIS_HOST", "ROADMAP Queue 1 item 2: datasource/redis"),
+    ("PUBSUB_BACKEND", "ROADMAP Queue 1 item 2: pubsub/"),
+    ("TPU_EMBED_MODEL", "ROADMAP Queue 1 item 5: the encoder families"),
+)
+
+
+class Container:
+    def __init__(self, config: Config, logger: Optional[Logger] = None) -> None:
+        self.config = config
+        self.app_name = config.get_or_default("APP_NAME", "gofr-tpu-app")
+        self.app_version = config.get_or_default("APP_VERSION", "dev")
+        self.logger: Logger = logger or Logger(
+            level=level_from_string(config.get("LOG_LEVEL"), Level.INFO)
+        )
+        self.metrics: Manager = new_metrics_manager(self.logger)
+
+        self.sql = None
+        self.redis = None
+        self.pubsub = None
+        self.mongo = None
+        self.tpu = None  # net-new: TPU inference backend (SURVEY §2.6)
+        self.tpu_embed = None  # secondary encoder engine (TPU_EMBED_MODEL)
+        # Downstream service clients (gofr_tpu/service/) are not ported yet
+        # (ROADMAP Queue 1 item 7): the registry stays empty.
+        self.services: dict[str, Any] = {}
+
+        self._remote_logger: Optional[RemoteLevelLogger] = None
+
+    # -- creation (reference container/container.go:41-131) --------------
+
+    @classmethod
+    def create(cls, config: Config, logger: Optional[Logger] = None) -> "Container":
+        for key, item in _UNPORTED_DATASOURCES:
+            if config.get_or_default(key, ""):
+                raise NotImplementedError(
+                    f"{key} is set, but the port has no such datasource yet "
+                    f"({item})"
+                )
+        c = cls(config, logger=logger)
+        c.logger.infof(
+            "container created for app %s (version %s)", c.app_name, c.app_version
+        )
+
+        c.register_framework_metrics()
+
+        from gofr_tpu_torch.serving.backend import new_tpu_from_config
+
+        # An engine that cannot be built raises here (the reference logs
+        # and serves with no engine); nothing has been started yet.
+        c.tpu = new_tpu_from_config(config, c.logger, c.metrics)
+
+        remote_url = config.get_or_default("REMOTE_LOG_URL", "")
+        if remote_url:
+            interval = float(config.get_or_default("REMOTE_LOG_FETCH_INTERVAL", "15"))
+            c._remote_logger = RemoteLevelLogger(
+                c.logger, remote_url, interval, metrics=c.metrics
+            )
+            c._remote_logger.start()
+        return c
+
+    # -- service registry (reference gofr.go:189-199) ---------------------
+
+    def get_http_service(self, name: str):
+        return self.services.get(name)
+
+    def get_publisher(self):
+        return self.pubsub
+
+    # -- framework metrics (reference container/container.go:143-172) -----
+
+    def register_framework_metrics(self) -> None:
+        m = self.metrics
+        # System / app metrics.
+        m.new_gauge("app_go_routines", "number of async tasks + threads")
+        m.new_gauge("app_sys_memory_alloc", "resident memory bytes")
+        m.new_gauge("app_sys_total_alloc", "total allocated bytes")
+        m.new_gauge("app_go_numGC", "gc collection count")
+        m.new_gauge("app_go_sys", "runtime sys bytes")
+        # HTTP server (buckets follow container.go:153-154).
+        http_buckets = (0.001, 0.003, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 30)
+        m.new_histogram("app_http_response", "HTTP server response time in s", http_buckets)
+        # The serving engine's instruments (serving/engine.py records
+        # them), with the reference's names, descriptions and buckets.
+        m.new_gauge("app_tpu_queue_depth", "dynamic batcher queue depth")
+        m.new_gauge("app_tpu_kv_slots_in_use", "KV-cache slots occupied")
+        m.new_histogram(
+            "app_tpu_infer_latency", "device execute latency in s",
+            (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2, 5),
+        )
+        m.new_histogram(
+            "app_tpu_batch_size", "executed batch sizes",
+            (1, 2, 4, 8, 16, 32, 64, 128, 256),
+        )
+        m.new_counter("app_tpu_tokens_generated", "tokens generated")
+        m.new_gauge(
+            "app_tpu_kv_blocks_free", "paged KV cache: free pool blocks"
+        )
+        m.new_counter(
+            "app_tpu_requests_shed_total",
+            "submits rejected by admission control (429/504 before a slot)",
+        )
+        m.new_counter(
+            "app_tpu_requests_cancelled_total",
+            "sequences retired mid-decode by cancel/disconnect",
+        )
+        m.new_counter(
+            "app_tpu_deadline_exceeded_total",
+            "sequences retired because their deadline expired",
+        )
+        m.new_gauge(
+            "app_tpu_engine_state",
+            "engine health state machine "
+            "(0=SERVING 1=DEGRADED 2=RESTARTING 3=DOWN)",
+        )
+        m.new_gauge(
+            "app_tpu_decode_step_seconds",
+            "decode-step duration (window dispatch→processed over its "
+            "steps; includes pipeline queueing)",
+        )
+        m.new_gauge(
+            "app_tpu_kv_pool_occupancy_ratio",
+            "paged KV pool: used blocks / total blocks",
+        )
+
+    def push_system_metrics(self) -> None:
+        """Per-scrape system gauges (reference ``metrics/handler.go:21-35``)."""
+        import gc
+        import threading
+
+        self.metrics.set_gauge("app_go_routines", threading.active_count())
+        try:
+            with open("/proc/self/statm") as fp:
+                rss = int(fp.read().split()[1]) * 4096
+        except Exception:
+            rss = 0
+        self.metrics.set_gauge("app_sys_memory_alloc", rss)
+        self.metrics.set_gauge("app_go_numGC", sum(s.get("collections", 0) for s in gc.get_stats()))
+
+    # -- health (reference container/health.go:8-28) ----------------------
+
+    def health(self) -> dict:
+        out: dict[str, Any] = {
+            "name": self.app_name,
+            "version": self.app_version,
+            "status": "UP",
+            "startedAt": getattr(self, "_started_at", ""),
+        }
+        details: dict[str, Any] = {}
+        for name in ("sql", "redis", "pubsub", "tpu", "tpu_embed", "mongo"):
+            ds = getattr(self, name)
+            if ds is None or not hasattr(ds, "health_check"):
+                # health_check is opt-in for injected members (an engine
+                # set as container.tpu) — a minimal one must not flip the
+                # app to DEGRADED just for lacking one.
+                continue
+            try:
+                check = ds.health_check()
+            except Exception as exc:
+                check = {"status": "DOWN", "error": str(exc)}
+            details[name] = check
+            if check.get("status") != "UP":
+                out["status"] = "DEGRADED"
+        out["details"] = details
+        return out
+
+    def mark_started(self) -> None:
+        self._started_at = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+    async def close(self) -> None:
+        for name in ("sql", "redis", "pubsub", "tpu", "tpu_embed", "mongo"):
+            ds = getattr(self, name)
+            if ds is not None and hasattr(ds, "close"):
+                try:
+                    res = ds.close()
+                    if hasattr(res, "__await__"):
+                        await res
+                except Exception:
+                    pass
+        if self._remote_logger is not None:
+            self._remote_logger.stop()

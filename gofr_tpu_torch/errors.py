@@ -1,10 +1,12 @@
-"""Error types of the serving engine — the port's copies of the
-reference's ``gofr_tpu/errors.py`` classes that ``submit_generate`` and
-the request lifecycle raise.
+"""Framework and serving error types — the port's copies of the
+reference's ``gofr_tpu/errors.py`` classes: the HTTP vocabulary the
+router and the responder map, and the errors ``submit_generate`` and the
+request lifecycle raise.
 
 Each carries its HTTP status in ``status_code``, as the reference's do,
 so a responder maps error → status without string checks. The values
-and messages are the reference's.
+and messages are the reference's. ``ErrorNoHealthyReplica`` waits for the
+replica pool (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -18,6 +20,24 @@ class GofrError(Exception):
     status_code: int = 500
 
 
+class ErrorEntityNotFound(GofrError):
+    """404 — entity lookup miss."""
+
+    status_code = 404
+
+    def __init__(self, name: str, value: str) -> None:
+        super().__init__(f"No entity found with {name}: {value}")
+        self.name = name
+        self.value = value
+
+
+class ErrorEntityAlreadyExists(GofrError):
+    status_code = 409
+
+    def __init__(self) -> None:
+        super().__init__("entity already exists")
+
+
 class ErrorInvalidParam(GofrError):
     """400 — invalid parameter(s)."""
 
@@ -27,6 +47,61 @@ class ErrorInvalidParam(GofrError):
         self.params = list(params)
         count = len(self.params)
         super().__init__(f"'{count}' invalid parameter(s): {', '.join(self.params)}")
+
+
+class ErrorMissingParam(GofrError):
+    status_code = 400
+
+    def __init__(self, params: Sequence[str] = ()) -> None:
+        self.params = list(params)
+        count = len(self.params)
+        super().__init__(f"'{count}' missing parameter(s): {', '.join(self.params)}")
+
+
+class ErrorInvalidRoute(GofrError):
+    status_code = 404
+
+    def __init__(self) -> None:
+        super().__init__("route not registered")
+
+
+class ErrorRequestTimeout(GofrError):
+    status_code = 408
+
+    def __init__(self) -> None:
+        super().__init__("request timed out")
+
+
+class ErrorPanicRecovery(GofrError):
+    """500 — a handler raised an unexpected exception."""
+
+    status_code = 500
+
+    def __init__(self) -> None:
+        super().__init__("some unexpected error has occurred")
+
+
+class ErrorServiceUnavailable(GofrError):
+    """503 — e.g. a submit while the engine drains for shutdown."""
+
+    status_code = 503
+
+    def __init__(self, dependency: str = "") -> None:
+        msg = "service unavailable"
+        if dependency:
+            msg += f": {dependency}"
+        super().__init__(msg)
+
+
+class ErrorPayloadTooLarge(GofrError):
+    """413 — an uploaded payload exceeds a configured store limit."""
+
+    status_code = 413
+
+    def __init__(self, what: str, size: int, limit: int) -> None:
+        super().__init__(
+            f"{what} of {size} bytes exceeds the limit of {limit} bytes"
+        )
 
 
 class ErrorTooManyRequests(GofrError):

@@ -27,6 +27,15 @@ and reaping return the blocks. A request the whole pool cannot hold fails
 at admission, one that waits on a dry pool stays at the head of the
 queue, and one whose pool runs dry mid-generation fails, as in the
 reference.
+
+The engine is also the App's container member: ``from_config`` builds it
+from the ``TPU_*`` keys (the reference's names and defaults; a key of an
+unported feature set to anything but its default raises), ``start`` /
+``stop(drain_s)`` give the reference's drain semantics, ``health_check``
+feeds ``/.well-known/health``, and with a ``metrics`` manager it records
+the reference's ``app_tpu_*`` instruments once per prefill chunk or decode
+window. The scheduler thread starts at construction (the reference's
+starts in ``start``), so ``start_sync`` on a new engine is a no-op.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from gofr_tpu_torch.errors import (
     ErrorInvalidParam,
     ErrorPromptTooLong,
     ErrorRequestCancelled,
+    ErrorServiceUnavailable,
     ErrorTooManyRequests,
 )
 from gofr_tpu_torch.models.registry import get_model
@@ -81,8 +91,150 @@ _OPS_PLANE = "ROADMAP Queue 1 item 7: the operations plane"
 _NEUTRAL_SUBMIT_OPTIONS = {
     "adapter": ("", "ROADMAP Queue 1 item 6: LoRA adapters"),
     "pin_replica": (False, _OPS_PLANE + " (the replica pool)"),
-    "traceparent": (None, _OPS_PLANE + " (request observability)"),
 }
+
+# TPU_* keys the reference's from_config and backend read and the port
+# does not serve yet: (key, the reference's default, ROADMAP item). Set to
+# anything else, each raises NotImplementedError naming its item.
+_LOADERS = "ROADMAP Queue 1 item 6: loaders and device services"
+_DECODE_LOOP = "ROADMAP Queue 1 item 3: the decode loop"
+_PREFIX = "ROADMAP Queue 1 item 4: the prefix cache"
+_ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
+_MULTI = "ROADMAP Queue 1 item 8: multi-device"
+_UNPORTED_KEYS = (
+    ("TPU_CHECKPOINT", "", _LOADERS), ("TPU_QUANT", "", _LOADERS),
+    ("TPU_TOKENIZER", "", _LOADERS), ("TPU_HBM_BYTES", "0", _LOADERS),
+    ("TPU_ADMIT_MIN_HEADROOM", "0", _LOADERS),
+    ("TPU_COMPILE_CACHE_DIR", "", _LOADERS),
+    ("TPU_LORA_SLOTS", "0", _LOADERS), ("TPU_LORA_RANK", "16", _LOADERS),
+    ("TPU_LORA_TARGETS", "wq,wk,wv,wo", _LOADERS),
+    ("TPU_LORA_ADAPTERS", "", _LOADERS),
+    ("TPU_TP", "1", _MULTI), ("TPU_MESH_TP", "1", _MULTI),
+    ("TPU_MESH_CP", "1", _MULTI),
+    ("TPU_MEGA_WINDOWS", "0", _DECODE_LOOP),
+    ("TPU_PIPELINE_DEPTH", "2", _DECODE_LOOP),
+    ("TPU_PREFILL_DEPTH", "1", _DECODE_LOOP),
+    ("TPU_AUTO_PREFIX", "false", _PREFIX), ("TPU_PREFIX_SLOTS", "0", _PREFIX),
+    ("TPU_PREFIX_CACHE_BLOCKS", "0", _PREFIX),
+    ("TPU_PREFIX_EVICT_WM", "0", _PREFIX),
+    ("TPU_PREFIX_EVICT_HBM_FRAC", "0", _PREFIX),
+    ("TPU_QUEUE_PREFIX_AWARE", "0", _PREFIX),
+    ("TPU_EMBED_CHECKPOINT", "", _ENCODERS), ("TPU_EMBED_TOKENIZER", "", _ENCODERS),
+    ("TPU_MAX_BATCH", "8", _OPS_PLANE), ("TPU_BATCH_WAIT_MS", "5", _OPS_PLANE),
+    ("TPU_WATCHDOG_S", "0", _OPS_PLANE), ("TPU_RESTART_MAX", "0", _OPS_PLANE),
+    ("TPU_RESTART_BACKOFF_S", "0.5", _OPS_PLANE),
+    ("TPU_REPLAY_EXACT", "true", _OPS_PLANE),
+    ("TPU_TENANT_LEDGER", "1", _OPS_PLANE),
+    ("TPU_TENANT_LABEL_MAX", "8", _OPS_PLANE),
+    ("TPU_TENANT_TABLE_MAX", "256", _OPS_PLANE),
+    ("TPU_TENANT_FAIR_SHARE", "0", _OPS_PLANE),
+    ("TPU_SLO_TTFT_MS", "0", _OPS_PLANE), ("TPU_SLO_E2E_MS", "0", _OPS_PLANE),
+    ("TPU_SLO_AVAILABILITY", "0", _OPS_PLANE),
+    ("TPU_BROWNOUT", "1", _OPS_PLANE), ("TPU_BROWNOUT_ENTER", "2", _OPS_PLANE),
+    ("TPU_BROWNOUT_EXIT", "1", _OPS_PLANE),
+    ("TPU_BROWNOUT_SUSTAIN_S", "10", _OPS_PLANE),
+    ("TPU_BROWNOUT_EXIT_SUSTAIN_S", "30", _OPS_PLANE),
+    ("TPU_BROWNOUT_MAX_NEW", "256", _OPS_PLANE),
+    ("TPU_BROWNOUT_AIMD_CUT", "0.5", _OPS_PLANE),
+    ("TPU_BROWNOUT_RECOVER_PER_S", "0.02", _OPS_PLANE),
+    ("TPU_BROWNOUT_MIN_HEADROOM", "0", _OPS_PLANE),
+    ("TPU_CONTROL_PLANE", "1", _OPS_PLANE), ("TPU_CONTROL_STALE_S", "10", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_ENTER", "2", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_EXIT", "1", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_SUSTAIN_S", "10", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_EXIT_SUSTAIN_S", "30", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_MAX_NEW", "256", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_AIMD_CUT", "0.5", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_RECOVER_PER_S", "0.02", _OPS_PLANE),
+    ("TPU_CONTROL_TENANT_TABLE", "64", _OPS_PLANE),
+    ("TPU_CONTROL_HOST_RATIO", "0.85", _OPS_PLANE),
+    ("TPU_CONTROL_HOST_UTIL", "0.75", _OPS_PLANE),
+    ("TPU_CONTROL_HOST_SUSTAIN_S", "30", _OPS_PLANE),
+    ("TPU_CONTROL_PREDICT_WINDOW_S", "60", _OPS_PLANE),
+    ("TPU_CONTROL_PREDICT_HORIZON_S", "30", _OPS_PLANE),
+    ("TPU_CONTROL_PREDICT_DEPTH", "0", _OPS_PLANE),
+    ("TPU_CONTROL_PREDICT_HOLD_S", "30", _OPS_PLANE),
+    ("TPU_FLIGHT_RECORDER", "1", _OPS_PLANE), ("TPU_FLIGHT_RECORDS", "256", _OPS_PLANE),
+    ("TPU_FLIGHT_SLOW_S", "5", _OPS_PLANE),
+    ("TPU_LOOP_PROFILE", "1", _OPS_PLANE), ("TPU_LOOP_STALL_S", "1.0", _OPS_PLANE),
+    ("TPU_LOOP_STALL_FACTOR", "10", _OPS_PLANE),
+    ("TPU_LOOP_ANOMALIES", "64", _OPS_PLANE), ("TPU_LOOP_TRACE_MS", "0", _OPS_PLANE),
+    ("TPU_LOOP_TRACE_COOLDOWN_S", "60", _OPS_PLANE),
+    # The replica pool's keys (gofr_tpu/serving/backend.py).
+    ("TPU_REPLICA_OPS_ADDRS", "", _OPS_PLANE), ("TPU_REPLICA_ROLES", "", _OPS_PLANE),
+    ("TPU_ROUTE_WEIGHTED", "true", _OPS_PLANE),
+    ("TPU_PROBE_INTERVAL_S", "30", _OPS_PLANE),
+    ("TPU_PROBE_TIMEOUT_S", "30", _OPS_PLANE),
+    ("TPU_HEDGE_DELAY_S", "2.0", _OPS_PLANE), ("TPU_HEDGE_BUDGET", "8", _OPS_PLANE),
+    ("TPU_HEDGE_RATE_PER_S", "2", _OPS_PLANE),
+    ("TPU_POOL_MIN_REPLICAS", "", _OPS_PLANE),
+    ("TPU_POOL_MAX_REPLICAS", "0", _OPS_PLANE),
+    ("TPU_SCALE_UP_LOAD", "4", _OPS_PLANE), ("TPU_SCALE_DOWN_LOAD", "0.5", _OPS_PLANE),
+    ("TPU_SCALE_UP_HEADROOM", "0", _OPS_PLANE),
+    ("TPU_SCALE_UP_BROWNOUT", "1", _OPS_PLANE),
+    ("TPU_SCALE_UP_CONTROL", "1", _OPS_PLANE),
+    ("TPU_SCALE_UP_WAIT_S", "10", _OPS_PLANE),
+    ("TPU_SCALE_DOWN_WAIT_S", "60", _OPS_PLANE),
+    ("TPU_SCALE_INTERVAL_S", "5", _OPS_PLANE),
+    ("TPU_TRANSFER_RETRIES", "2", _OPS_PLANE),
+    ("TPU_TRANSFER_TIMEOUT_S", "10", _OPS_PLANE),
+    ("TPU_TRANSFER_LEG", "", _OPS_PLANE), ("TPU_SOURCE_TIMEOUT_S", "2.0", _OPS_PLANE),
+    ("TPU_REMOTE_STREAM", "true", _OPS_PLANE),
+    ("TPU_REMOTE_STREAM_IDLE_S", "30", _OPS_PLANE),
+)
+# Per-tenant SLO overrides (TPU_SLO_TENANT_<NAME>_TTFT_MS and kin) are
+# read by prefix, from the process environment and a MockConfig's map.
+_SLO_TENANT_PREFIX = "TPU_SLO_TENANT_"
+_TRUTHY = ("1", "true", "yes")
+_FALSY = ("", "0", "false", "no")
+# The engine state gauge's encoding (app_tpu_engine_state).
+_STATE_CODES = {"SERVING": 0, "DEGRADED": 1, "RESTARTING": 2, "DOWN": 3}
+
+
+def _is_default(raw: str, default: str) -> bool:
+    """``raw`` says the same as ``default``: equal text, equal numbers, or
+    the same truth value in the reference's spellings."""
+    a, b = raw.strip().lower(), default.lower()
+    if a == b:
+        return True
+    if (a in _TRUTHY and b in _TRUTHY) or (a in _FALSY and b in _FALSY):
+        return True
+    try:
+        return float(a) == float(b)
+    except ValueError:
+        return False
+
+
+def _truthy(config: Any, key: str, default: str) -> bool:
+    return config.get_or_default(key, default).strip().lower() in _TRUTHY
+
+
+def check_unported_keys(config: Any) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for the first
+    ``TPU_*`` key of an unported feature that is set to something other
+    than the reference's default. ``TPU_SPEC_TOKENS`` may be ``auto``
+    (the reference's default, which means off here) or 0."""
+    for key, default, item in _UNPORTED_KEYS:
+        raw = config.get(key)
+        if raw is not None and raw != "" and not _is_default(raw, default):
+            raise NotImplementedError(
+                f"{key}={raw!r} is not ported yet ({item}); the port serves "
+                f"it only at the reference's default {default!r}"
+            )
+    spec = config.get_or_default("TPU_SPEC_TOKENS", "auto").strip().lower()
+    if spec != "auto" and not _is_default(spec, "0"):
+        raise NotImplementedError(
+            f"TPU_SPEC_TOKENS={spec!r} is not ported yet ({_DECODE_LOOP}); "
+            "the port serves auto (off) or 0"
+        )
+    keys = set(os.environ)
+    keys.update(getattr(config, "_values", None) or ())
+    tenant_slo = sorted(k for k in keys if k.startswith(_SLO_TENANT_PREFIX))
+    if tenant_slo:
+        raise NotImplementedError(
+            f"{tenant_slo[0]} is set; per-tenant SLOs are not ported yet "
+            f"({_OPS_PLANE})"
+        )
 
 
 @dataclass
@@ -112,7 +264,13 @@ class InferenceEngine:
     tenant's default class) and ``expected_tps`` (the throughput prior of
     projected-wait shedding; 0 = measured). ``truncate_prompts`` keeps the
     tail of an overlong prompt instead of raising ``ErrorPromptTooLong``.
+    ``logger`` (a ``gofr_tpu_torch.logging.Logger``) gets the shed
+    warnings and reap notes; ``metrics`` (a ``gofr_tpu_torch.metrics``
+    manager with the container's instruments registered) gets the
+    ``app_tpu_*`` recordings.
     """
+
+    family = "llm"
 
     def __init__(
         self,
@@ -142,6 +300,8 @@ class InferenceEngine:
         params: Optional[dict] = None,
         seed: int = 0,
         device: Any = None,
+        logger: Any = None,
+        metrics: Any = None,
         **unsupported: Any,
     ) -> None:
         if "auto_prefix" in unsupported:
@@ -167,6 +327,9 @@ class InferenceEngine:
                           ("prefill_batch", prefill_batch)):
             if int(val) < 1:
                 raise ValueError(f"{name} must be >= 1, got {val}")
+        # The cache never outgrows the model's context (the reference's
+        # clamp).
+        max_len = min(int(max_len), get_model(model_name).config.max_len)
         if max_len < window_k + 4:
             raise ValueError(f"max_len {max_len} too small for window_k {window_k}")
         if kv_block < 0 or kv_pool_blocks < 0:
@@ -189,8 +352,10 @@ class InferenceEngine:
         self.window_k = int(window_k)
         self.pipeline_depth = int(pipeline_depth)
         self.kv_block = int(kv_block)
-        self.prefill_chunk = int(prefill_chunk)
-        self.prefill_batch = int(prefill_batch)
+        # The reference's clamps: a chunk of 16 to max_len tokens, no more
+        # prefill rows than slots.
+        self.prefill_chunk = max(16, min(int(prefill_chunk), self.max_len))
+        self.prefill_batch = max(1, min(int(prefill_batch), self.n_slots))
         self.truncate_prompts = bool(truncate_prompts)
         # The sampler's features, each present only when enabled (the
         # reference's compile choices).
@@ -258,6 +423,8 @@ class InferenceEngine:
         # Device steps dispatched (prefill chunks / decode windows).
         self.prefill_steps = 0
         self.decode_windows = 0
+        # Tokens emitted since the last app_tpu_tokens_generated add.
+        self._unpublished_tokens = 0
 
         # Admission control (guarded by self._lock): the class-priority
         # queue, its token backlog and per-tenant seats, and the aggregate
@@ -282,14 +449,20 @@ class InferenceEngine:
         self._work = threading.Event()
         # Requests taken off the queue that wait for KV blocks (loop only).
         self._backlog: "collections.deque[GenRequest]" = collections.deque()
+        self._logger = logger
+        self._metrics = metrics
+        # Lifecycle flags (written under self._lock): running, draining
+        # for a graceful stop (submits get 503), and the error that killed
+        # the scheduler. The scheduler sets _idle_evt once a drain finds
+        # no work left.
         self._lock = threading.Lock()
-        self._closed = False
+        self._running = False
+        self._draining = False
         self._error: Optional[BaseException] = None
-        self._thread = threading.Thread(
-            target=self._run, name=f"gofr-torch-engine-{model_name}",
-            daemon=True,
-        )
-        self._thread.start()
+        self._idle_evt = threading.Event()
+        self._state = "DOWN"
+        self._thread: Optional[threading.Thread] = None
+        self.start_sync()
 
     # ------------------------------------------------------------------
     # public API
@@ -329,15 +502,18 @@ class InferenceEngine:
         cancel: Optional[CancelToken] = None,
         tenant: str = "",
         slo_class: str = "",
+        traceparent: Optional[str] = None,
         **options: Any,
     ) -> GenRequest:
         """Queue a generate request; returns its record (``future``
         resolves with the ``GenerationResult`` or the error that retired
         it, ``stream`` yields token ids then ``None``). The checks, their
-        order, error types and messages are the reference's. ``adapter``,
-        ``pin_replica`` and ``traceparent`` are accepted at their neutral
-        value and raise ``NotImplementedError`` naming their ROADMAP item
-        otherwise; a name the reference does not take raises
+        order, error types and messages are the reference's.
+        ``traceparent`` (the caller's W3C trace context) is kept on the
+        request, as the reference keeps it with its request-observability
+        layer off. ``adapter`` and ``pin_replica`` are accepted at their
+        neutral value and raise ``NotImplementedError`` naming their
+        ROADMAP item otherwise; a name the reference does not take raises
         ``TypeError``."""
         for key, val in options.items():
             if key not in _NEUTRAL_SUBMIT_OPTIONS:
@@ -420,6 +596,7 @@ class InferenceEngine:
             deadline=coalesce_deadline(deadline, deadline_s),
             tenant=str(tenant or ""),
             slo_class=cls,
+            traceparent=traceparent,
         )
         if cancel is not None:
             # Share the transport's token, so tripping it retires the
@@ -474,16 +651,31 @@ class InferenceEngine:
         brownout, tenant-ledger and control-plane floors, not ported)."""
         return max(self._projected_wait_s(max(0, cost)), 0.5)
 
-    def _shed(self, reason: str) -> None:
+    def _shed(self, reason: str, retry_after_s: float) -> None:
         self.shed_counts[reason] += 1
+        if self._metrics is not None:
+            self._metrics.increment_counter(
+                "app_tpu_requests_shed_total",
+                "model", self.model_name, "reason", reason,
+            )
+        if self._logger is not None:
+            self._logger.warnf(
+                "shedding request (%s); retry in ~%.0fs", reason, retry_after_s,
+            )
 
     def _enqueue(self, req: GenRequest) -> None:
         cost = len(req.prompt_ids) + req.max_new_tokens
         with self._lock:
-            if self._closed:
-                raise RuntimeError("engine is closed")
+            if self._draining:
+                raise ErrorServiceUnavailable(
+                    "engine draining for shutdown; retry against another replica"
+                )
             if self._error is not None:
-                raise RuntimeError("engine stopped after an error") from self._error
+                raise RuntimeError(
+                    f"engine scheduler died: {self._error}"
+                ) from self._error
+            if not self._running:
+                raise RuntimeError("engine not started")
             wait_s = self._projected_wait_s(cost)
             # Per-tenant quota first: one tenant's flood sheds on its own
             # budget before it exhausts the global one.
@@ -493,7 +685,7 @@ class InferenceEngine:
                 and self._tenant_queued.get(req.tenant, 0) >= self.tenant_queue_max
             ):
                 retry = self._retry_after_s(cost)
-                self._shed("tenant_quota")
+                self._shed("tenant_quota", retry)
                 raise ErrorTooManyRequests(
                     f"tenant {req.tenant!r} has "
                     f"{self._tenant_queued[req.tenant]} queued request(s) "
@@ -505,7 +697,7 @@ class InferenceEngine:
                 and self._queued_tokens + cost > self.queue_max_tokens
             ):
                 retry = self._retry_after_s(cost)
-                self._shed("queue_tokens")
+                self._shed("queue_tokens", retry)
                 raise ErrorTooManyRequests(
                     f"submit queue token budget exhausted "
                     f"({self._queued_tokens} queued + {cost} requested > "
@@ -517,7 +709,7 @@ class InferenceEngine:
             if req.deadline is not None and (
                 req.deadline.expired() or req.deadline.remaining() <= wait_s
             ):
-                self._shed("deadline")
+                self._shed("deadline", wait_s)
                 raise ErrorDeadlineExceeded(
                     f"projected queue wait {wait_s:.2f}s exceeds the "
                     f"request deadline "
@@ -527,7 +719,7 @@ class InferenceEngine:
                 self._pending.put_nowait(req)
             except queue.Full:
                 retry = self._retry_after_s(cost)
-                self._shed("queue_full")
+                self._shed("queue_full", retry)
                 raise ErrorTooManyRequests(
                     f"submit queue full ({self._pending.maxsize} requests; "
                     f"TPU_QUEUE_MAX)",
@@ -591,18 +783,163 @@ class InferenceEngine:
     def infer_sync(self, inputs: Any, model: str = "", **kw: Any) -> dict:
         return self._infer_dict(self.generate_sync(inputs, **kw))
 
-    def close(self, timeout: float = 30.0) -> None:
-        """Stop the scheduler thread; requests still queued or in flight
-        fail with ``RuntimeError``."""
+    # -- lifecycle (the reference's start/stop and drain semantics) --------
+
+    async def start(self) -> None:
+        self.start_sync()
+
+    def start_sync(self) -> None:
+        """Start the scheduler thread; a no-op while it runs (the
+        constructor starts it), a restart after a stop."""
         with self._lock:
-            if self._closed:
+            if self._running:
                 return
-            self._closed = True
+            self._running = True
+            self._draining = False
+            self._error = None
+            self._queued_tokens = 0
+            self._tenant_queued.clear()
+            self._idle_evt.clear()
+        self._tput.reset()
+        self._set_state("SERVING")
+        self._thread = threading.Thread(
+            target=self._run, name=f"gofr-torch-engine-{self.model_name}",
+            daemon=True,
+        )
+        self._thread.start()
+
+    async def stop(self, drain_s: float = 0.0) -> None:
+        if drain_s > 0:
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.stop_sync, drain_s
+            )
+        else:
+            self.stop_sync()
+
+    def stop_sync(self, drain_s: float = 0.0, timeout: float = 30.0) -> None:
+        """Stop the engine. ``drain_s > 0`` is graceful: new submits get
+        503 while queued and in-flight generations run to completion, up
+        to ``drain_s`` seconds. Whatever is left then fails with
+        ``RuntimeError``; later submits raise (503 after a graceful stop,
+        "engine not started" after a hard one, as in the reference)."""
+        if drain_s > 0 and self._running:
+            with self._lock:
+                self._draining = True
+                self._idle_evt.clear()
+            self._work.set()
+            deadline = time.monotonic() + drain_s
+            while (left := deadline - time.monotonic()) > 0:
+                # Only the scheduler declares the engine idle (it checks
+                # every queue under the lock), so a request in transit
+                # between two structures is never missed.
+                if self._idle_evt.wait(timeout=left) or not self._running:
+                    break
+        with self._lock:
+            self._running = False
         self._work.set()  # wake the loop
-        self._thread.join(timeout=timeout)
-        if self._thread.is_alive():
-            raise RuntimeError("engine scheduler thread did not stop")
-        self._fail_all(RuntimeError("engine closed"))
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=timeout)
+            if thread.is_alive():
+                raise RuntimeError("engine scheduler thread did not stop")
+            self._thread = None
+            self._fail_all(RuntimeError("engine stopped"))
+        self._set_state("DOWN")
+
+    def close(self, timeout: float = 30.0) -> None:
+        """Stop the engine at once; requests still queued or in flight
+        fail with ``RuntimeError``."""
+        self.stop_sync(timeout=timeout)
+
+    @property
+    def state(self) -> str:
+        return self._state
+
+    def _set_state(self, state: str) -> None:
+        """SERVING, DEGRADED (the scheduler died) or DOWN (stopped),
+        mirrored to the app_tpu_engine_state gauge."""
+        self._state = state
+        if self._metrics is not None:
+            self._metrics.set_gauge(
+                "app_tpu_engine_state", _STATE_CODES.get(state, 3),
+                "model", self.model_name,
+            )
+
+    def lora_names(self) -> list[str]:
+        """Loaded LoRA adapters: none until LoRA is ported (ROADMAP Queue
+        1 item 6)."""
+        return []
+
+    def health_check(self) -> dict:
+        """The reference's health payload for the state the port has."""
+        if self.device.type == "cuda":
+            devices = [f"{self.device} ({torch.cuda.get_device_name(self.device)})"]
+        else:
+            devices = [str(self.device)]
+        details: dict[str, Any] = {
+            "model": self.model_name,
+            "family": self.family,
+            "devices": devices,
+            "running": self._running,
+            "state": self._state,
+            "kv_slots": {
+                "total": self.n_slots,
+                "in_use": sum(1 for s in self._slots if s is not None),
+            },
+            "max_len": self.max_len,
+            "pending": self._pending.qsize(),
+            "prefilling": len(self._prefilling),
+        }
+        if self.kv_block:
+            details["kv_blocks"] = {
+                "block": self.kv_block,
+                "total": self.cache.n_blocks - 1,  # block 0 parks
+                "free": self._allocator.n_free,
+            }
+        up = self._running and self._state == "SERVING"
+        return {"status": "UP" if up else "DOWN", "state": self._state,
+                "details": details}
+
+    @classmethod
+    def from_config(
+        cls, config: Any, logger: Any = None, metrics: Any = None,
+    ) -> "InferenceEngine":
+        """Build the engine from ``TPU_*`` keys, with the key names and
+        defaults of the reference's ``InferenceEngine.from_config``.
+        ``TPU_DEVICE`` (``cuda``, ``cuda:N`` or ``cpu``; unset = ``cuda``)
+        is the port's own key. A key of a feature the port does not serve
+        yet raises ``NotImplementedError`` unless it holds the reference's
+        default (``check_unported_keys``)."""
+        check_unported_keys(config)
+
+        def num(key: str, default: str, kind: type = int) -> Any:
+            return kind(config.get_or_default(key, default))
+
+        return cls(
+            config.get_or_default("TPU_MODEL", "llama-tiny"),
+            n_slots=num("TPU_KV_SLOTS", "8"),
+            max_len=num("TPU_MAX_LEN", "1024"),
+            window_k=num("TPU_DECODE_WINDOW", "8"),
+            prefill_chunk=num("TPU_PREFILL_CHUNK", "256"),
+            prefill_batch=num("TPU_PREFILL_BATCH", "8"),
+            kv_quant=config.get_or_default("TPU_KV_QUANT", ""),
+            kv_block=num("TPU_KV_BLOCK", "0"),
+            kv_pool_blocks=num("TPU_KV_POOL_BLOCKS", "0"),
+            truncate_prompts=_truthy(config, "TPU_TRUNCATE_PROMPTS", "false"),
+            top_k=num("TPU_TOP_K", "0"),
+            top_logprobs=num("TPU_TOP_LOGPROBS", "0"),
+            enable_top_p=_truthy(config, "TPU_TOP_P", "false"),
+            enable_penalties=_truthy(config, "TPU_PENALTIES", "false"),
+            queue_max=num("TPU_QUEUE_MAX", "1024"),
+            queue_max_tokens=num("TPU_QUEUE_TOKENS", "0"),
+            class_promote_s=num("TPU_QUEUE_CLASS_PROMOTE_S", "5", float),
+            tenant_queue_max=num("TPU_TENANT_QUEUE_MAX", "0"),
+            tenant_slo_class=config.get_or_default("TPU_TENANT_SLO_CLASS", ""),
+            expected_tps=num("TPU_EXPECTED_TPS", "0", float),
+            device=config.get_or_default("TPU_DEVICE", "") or None,
+            logger=logger,
+            metrics=metrics,
+        )
 
     # ------------------------------------------------------------------
     # scheduler loop (its own thread; the only code that touches the
@@ -614,7 +951,7 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             with torch.inference_mode():
-                while not self._closed:
+                while self._running:
                     # Cancelled and expired requests retire here, once a
                     # pass, so a dead stream's slot and blocks free within
                     # one decode window.
@@ -628,13 +965,30 @@ class InferenceEngine:
                         self._decode_window()
                         busy = True
                     if not busy:
+                        if self._draining:
+                            self._note_idle()
                         self._work.wait(timeout=0.05)
                         self._work.clear()
         except Exception as exc:  # the loop's boundary: report, fail callers
             traceback.print_exc()
             with self._lock:
                 self._error = exc
+                self._running = False
+            self._set_state("DEGRADED")
+            if self._logger is not None:
+                self._logger.errorf("engine scheduler died: %s", exc)
             self._fail_all(exc)
+            self._idle_evt.set()  # a drain waiting on this engine ends
+
+    def _note_idle(self) -> None:
+        """During a drain: publish idle once nothing is queued, waiting
+        for blocks, prefilling or decoding (submits are refused by then,
+        so idle stays idle)."""
+        with self._lock:
+            if (self._pending.qsize() == 0 and not self._backlog
+                    and not self._prefilling
+                    and all(s is None for s in self._slots)):
+                self._idle_evt.set()
 
     def _pop_pending(self) -> Optional[GenRequest]:
         try:
@@ -703,6 +1057,17 @@ class InferenceEngine:
         if slot >= 0:
             self._release_slot(slot)
         self.reap_counts[reason] += 1
+        if self._metrics is not None:
+            self._metrics.increment_counter(
+                "app_tpu_deadline_exceeded_total" if reason == "deadline"
+                else "app_tpu_requests_cancelled_total",
+                "model", self.model_name,
+            )
+        if self._logger is not None:
+            self._logger.debugf(
+                "retired request (%s) after %d token(s)",
+                reason, len(req.token_ids),
+            )
         return True
 
     def _reap_lifecycle(self) -> None:
@@ -727,6 +1092,11 @@ class InferenceEngine:
         self._slot_state_dirty = True
         if self.kv_block:
             self._release_blocks(slot)
+            if self._metrics is not None:
+                self._metrics.set_gauge(
+                    "app_tpu_kv_blocks_free", self._allocator.n_free,
+                    "model", self.model_name,
+                )
 
     # -- admission ----------------------------------------------------------
 
@@ -796,6 +1166,11 @@ class InferenceEngine:
             row.append(blk)
             self._table_dirty = True
         self.kv_blocks_peak = max(self.kv_blocks_peak, self.kv_pool_counts()[1])
+        if self._metrics is not None and len(row) != start_len:
+            self._metrics.set_gauge(
+                "app_tpu_kv_blocks_free", self._allocator.n_free,
+                "model", self.model_name,
+            )
         return True
 
     def _release_blocks(self, slot: int) -> None:
@@ -865,6 +1240,7 @@ class InferenceEngine:
             self.planes.bidx.copy_(self._up(self._bidx_host))
             self.planes.bval.copy_(self._up(self._bval_host))
             self._seeds_dirty = False
+        t0 = time.time()
         first, first_lp, top_i, top_l = prefill_chunk_step(
             self.params, self.cache, self.cfg, self.rope, self.planes,
             self.sampler, self._up(tokens), self._up(slots), self._up(starts),
@@ -873,6 +1249,13 @@ class InferenceEngine:
             self._base_seed, **self._uses([st.request for _, st in rows]),
         )
         self.prefill_steps += 1
+        if self._metrics is not None:
+            self._metrics.record_histogram(
+                "app_tpu_infer_latency", time.time() - t0, "kind", "prefill"
+            )
+            self._metrics.record_histogram(
+                "app_tpu_batch_size", len(rows), "batcher", "prefill"
+            )
         done_rows = []
         for i, (slot, st) in enumerate(rows):
             st.done += int(lens[i])
@@ -880,6 +1263,7 @@ class InferenceEngine:
                 del self._prefilling[slot]
                 done_rows.append((i, slot, st.request))
         if not done_rows:
+            self._publish_step_metrics()
             return
         # The first token was sampled on the device with the chunk; fetch
         # it (with its logprob and alternatives, one transfer) now so it
@@ -897,6 +1281,25 @@ class InferenceEngine:
                 top = [(int(host[i, 2 + j]), float(host[i, 2 + T + j]))
                        for j in range(req.top_logprobs)]
             self._emit(slot, req, int(host[i, 0]), float(host[i, 1]), top)
+        self._publish_step_metrics()
+
+    def _publish_step_metrics(self) -> None:
+        """Once per prefill chunk or decode window: the tokens emitted
+        since the last call, and the slot, queue and pool gauges."""
+        m = self._metrics
+        if m is None:
+            return
+        if self._unpublished_tokens:
+            m.add_counter("app_tpu_tokens_generated", self._unpublished_tokens,
+                          "model", self.model_name)
+            self._unpublished_tokens = 0
+        in_use = sum(1 for s in self._slots if s is not None)
+        m.set_gauge("app_tpu_kv_slots_in_use", in_use, "model", self.model_name)
+        m.set_gauge("app_tpu_queue_depth", self._pending.qsize(), "batcher", "generate")
+        if self.kv_block:
+            total, used, _ = self.kv_pool_counts()
+            m.set_gauge("app_tpu_kv_pool_occupancy_ratio", used / max(1, total),
+                        "model", self.model_name)
 
     def _decode_window(self) -> None:
         if self.kv_block:
@@ -919,6 +1322,7 @@ class InferenceEngine:
                 self._release_slot(i)
             self._push_table()
             if all(s is None for s in self._slots):
+                self._publish_step_metrics()
                 return
         live = [r for r in self._slots if r is not None]
         if self._slot_state_dirty:
@@ -943,12 +1347,29 @@ class InferenceEngine:
             self.planes.fpen.copy_(self._up(fpen))
             self.planes.ppen.copy_(self._up(ppen))
             self._slot_state_dirty = False
+        t0 = time.time()
         emitted = decode_window(
             self.params, self.cache, self.cfg, self.rope, self.planes,
             self.sampler, self.window_k, self._base_seed, **self._uses(live),
         )
         self.decode_windows += 1
+        t_fetch = time.time()
         host = emitted.cpu().numpy()  # the window's one device→host fetch
+        if self._metrics is not None:
+            # decode_fetch: the host's wait for the window;
+            # decode_window_pipeline: dispatch to fetched, one window in
+            # flight (the reference's pipeline of depth 1).
+            now = time.time()
+            self._metrics.record_histogram(
+                "app_tpu_infer_latency", now - t_fetch, "kind", "decode_fetch"
+            )
+            self._metrics.record_histogram(
+                "app_tpu_infer_latency", now - t0, "kind", "decode_window_pipeline"
+            )
+            self._metrics.set_gauge(
+                "app_tpu_decode_step_seconds", (now - t0) / self.window_k,
+                "model", self.model_name,
+            )
         T = self.top_logprobs
         for i, req in enumerate(list(self._slots)):
             if req is None:
@@ -960,6 +1381,7 @@ class InferenceEngine:
                            for j in range(req.top_logprobs)]
                 if self._emit(i, req, int(host[0, step, i]), float(host[1, step, i]), top):
                     break
+        self._publish_step_metrics()
 
     # -- emission and retirement -------------------------------------------
 
@@ -985,6 +1407,7 @@ class InferenceEngine:
         # Every emission of every slot feeds the aggregate rate behind
         # projected-wait shedding.
         self._tput.note(1)
+        self._unpublished_tokens += 1
         if not self._finished(req):
             return False
         self._retire(slot, req)

@@ -88,3 +88,12 @@ class GenRequest:
     # SLO class (interactive | standard | batch): the admission queue's
     # dequeue priority.
     slo_class: str = "standard"
+    # The caller's W3C trace context (the HTTP tracer middleware's span).
+    traceparent: Optional[str] = None
+
+    def cancel_request(self) -> None:
+        """Transport-side cancel (client disconnect, abandoned stream):
+        trips the token the scheduler reaps on and cancels the future, so
+        a request not yet admitted resolves at once."""
+        self.cancel.cancel()
+        self.future.cancel()

@@ -278,8 +278,6 @@ def test_unported_options_raise(engine):
 
 def _non_neutral(name, default):
     """A value of the reference option ``name`` other than its default."""
-    if default is None:
-        return {"traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"}.get(name, object())
     if isinstance(default, bool):
         return not default
     if isinstance(default, (int, float)):
@@ -297,11 +295,13 @@ def test_reference_submit_options_are_accepted_at_neutral_or_not_ported(engine):
     own = set(inspect.signature(InferenceEngine.submit_generate).parameters)
     ref = inspect.signature(RefEngine.submit_generate).parameters
     options = {n: p.default for n, p in ref.items() if n not in own}
-    # The sampler and lifecycle options are the port's own parameters now;
-    # what is left waits for LoRA and the operations plane.
-    assert set(options) == {"adapter", "pin_replica", "traceparent"}
+    # The sampler and lifecycle options and the trace context are the
+    # port's own parameters now; what is left waits for LoRA and the
+    # replica pool.
+    assert set(options) == {"adapter", "pin_replica"}
     assert {"deadline", "deadline_s", "cancel", "tenant", "slo_class", "top_p", "stop",
-            "frequency_penalty", "presence_penalty", "logit_bias", "top_logprobs"} <= own
+            "frequency_penalty", "presence_penalty", "logit_bias", "top_logprobs",
+            "traceparent"} <= own
     res = engine.submit_generate([1, 2, 3], max_new_tokens=2, **options).future.result(
         timeout=120)
     assert len(res.token_ids) >= 1
@@ -310,6 +310,20 @@ def test_reference_submit_options_are_accepted_at_neutral_or_not_ported(engine):
             engine.submit_generate("x", **{name: _non_neutral(name, default)})
     with pytest.raises(TypeError, match="unexpected option"):
         engine.submit_generate("x", not_an_option=1)
+
+
+def test_traceparent_request_is_served_like_the_reference(engine, ref_engine):
+    """A request carrying a W3C ``traceparent`` (every OpenAI request
+    behind the tracer middleware) is served, with the reference's tokens;
+    the port keeps the context on the request."""
+    tp = "00-" + "1" * 32 + "-" + "2" * 16 + "-01"
+    prompt = _prompts()[0]
+    req = engine.submit_generate(prompt, max_new_tokens=6, traceparent=tp)
+    got = req.future.result(timeout=120).token_ids
+    want = ref_engine.submit_generate(prompt, max_new_tokens=6, traceparent=tp).future.result(
+        timeout=120).token_ids
+    assert req.traceparent == tp
+    assert got == want and len(got) == 6
 
 
 def test_no_cuda_and_no_explicit_cpu_raises(monkeypatch, jax_params):
