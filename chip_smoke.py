@@ -55,7 +55,20 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    before any SSE header) and a 0.05 s X-Request-Timeout (ends early);
    /metrics against what the client received; tok/s, TTFT p50 and ITL
    p50 over HTTP beside the direct engine's; App.stop frees every slot;
-5. profiles one 8-step decode window and one [8, 256] prefill chunk with
+4c. the decode loop (every serve above already runs it: pipeline depth 2,
+   each window a CUDA graph replay, launches counted through replays, no
+   stream sync allowed in a serve): the captured window against the eager
+   one on copies of one state, every static variant (greedy / sampled x
+   logit bias; tokens identical, logprobs within 1e-3, launches equal);
+   one mega window (m = 4, a conditional WHILE node) against plain
+   windows with windows_run = min(m, ceil(max(remaining) / k)); the
+   capture time and graph pool bytes; then phase_serve's 10 prompts at
+   pipeline depth 1 and 3 and at mega 4: greedy streams equal
+   phase_serve's (a difference passes only at a top-2 logit margin below
+   1e-2), tok/s, TTFT p50, ITL p50, windows, mega dispatches, launches and
+   stream syncs per setting;
+5. profiles one 8-step decode window (eager, then as a CUDA graph replay)
+   and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
    kernels launched and the top kernels by device time; the window again
    with every sampler option on every slot, and the sampler's own device
@@ -66,7 +79,9 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    steps, kernels against the plain path on the slot cache, a pool of 32,
    int8 caches, and with the window off, which must move only the rows
    past it); 6 concurrent requests (prompts 17 to 6,500 tokens) through
-   InferenceEngine(max_len=8192) on the bf16 slot cache and on an int8
+   InferenceEngine(max_len=8192) on the bf16 slot cache, again at
+   prefill depth 4 (multi-chunk prefill: streams equal, dispatches and
+   TTFT p50 beside depth 1's), and on an int8
    pool of 641 blocks of 32; and transformer_prefill on a right-padded
    [2, 8192] batch and transformer_forward on [1, 8192], the windowed
    flash_attention's two entry points; then profiles one decode window
@@ -1651,35 +1666,86 @@ def phase_mistral_full_sequence(torch, dev, cfg, params) -> dict:
 
 
 def watch_steps(eng) -> dict:
-    """From now on, the rows of each prefill chunk the engine runs (the
+    """From now on, the rows of each prefill dispatch the engine makes (the
     slots mid-prefill when it starts, at most prefill_batch: how admission
     spread the requests over the scheduler's passes) and the host wall
-    time of each decode window (dispatch to tokens emitted, ms). Stop with
+    time of each decode window from its dispatch to its tokens emitted
+    (ms; with pipeline_depth windows queued before it). Stop with
     ``unwatch_steps(eng)``."""
     seen = {"rows": [], "window_ms": []}
-    prefill, window = eng._prefill_step, eng._decode_window
+    prefill, process = eng._prefill_step, eng._process_window
 
     def counted_prefill():
-        seen["rows"].append(min(len(eng._prefilling), eng.prefill_batch))
-        prefill()
+        if eng._prefilling:
+            seen["rows"].append(min(len(eng._prefilling), eng.prefill_batch))
+        return prefill()
 
-    def timed_window():
-        t0 = time.perf_counter()
-        window()
-        seen["window_ms"].append((time.perf_counter() - t0) * 1e3)
+    def timed_window(win):
+        process(win)
+        seen["window_ms"].append((time.time() - win.t0) * 1e3)
 
-    eng._prefill_step, eng._decode_window = counted_prefill, timed_window
+    eng._prefill_step, eng._process_window = counted_prefill, timed_window
     return seen
 
 
 def unwatch_steps(eng) -> None:
-    del eng._prefill_step, eng._decode_window
+    del eng._prefill_step, eng._process_window
 
 
 def steps_line(seen: dict) -> str:
     w = seen["window_ms"]
-    return (f"prefill rows per chunk {seen['rows']}; {len(w)} decode windows, host wall "
-            f"median {statistics.median(w):.1f} ms" if w else f"prefill rows {seen['rows']}")
+    return (f"prefill rows per dispatch {seen['rows']}; {len(w)} decode dispatches, "
+            f"dispatch to processed median {statistics.median(w):.1f} ms" if w
+            else f"prefill rows {seen['rows']}")
+
+
+# Stream synchronizations (torch.cuda.set_sync_debug_mode "warn": a
+# synchronizing copy, .item(), .cpu() ...) counted by the warnings hook
+# main installs, while ``count_syncs`` is on.
+SYNCS = {"on": False, "n": 0, "first": []}
+
+
+def count_syncs(torch, on: bool) -> int:
+    """Turn sync counting on (from 0) or off; returns the count so far."""
+    torch.cuda.set_sync_debug_mode("warn" if on else 0)
+    if on:
+        SYNCS.update(n=0, first=[])
+    SYNCS["on"] = on
+    return SYNCS["n"]
+
+
+def check_sync_counter(torch, dev) -> None:
+    """The counter must see a sync it is known to be shown: one .item() on
+    another thread, as the engine's scheduler thread would make it."""
+    count_syncs(torch, True)
+    t = threading.Thread(target=lambda: torch.ones(1, device=dev).item())
+    t.start()
+    t.join()
+    n = count_syncs(torch, False)
+    log(f"sync counter: one .item() on another thread counted {n} stream sync(s)")
+    if n < 1:
+        fail("the stream-sync counter does not see a known sync: its zeros mean nothing")
+
+
+def _install_sync_hook() -> None:
+    import traceback
+    import warnings
+
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            if SYNCS["on"]:
+                SYNCS["n"] += 1
+                if len(SYNCS["first"]) < 3:
+                    SYNCS["first"].append("".join(traceback.format_stack(limit=8)))
+            return
+        if "Synchronization debug mode is a prototype" in str(message):
+            return
+        shown(message, category, filename, lineno, file, line)
+
+    warnings.showwarning = show
+    warnings.filterwarnings("always", message=".*called a synchronizing")
 
 
 def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int = 8,
@@ -1687,11 +1753,14 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
                 solo: int = 4, **kv) -> dict:
     """Concurrent requests (more than the slots) through the port's engine,
     32 new tokens each, on the slot cache or on the cache ``kv`` asks for
-    (``kv_block``, ``kv_pool_blocks``, ``kv_quant``): greedy, except (with
-    ``sampled``) the last two, one seeded sampled prompt submitted twice;
-    prompt ``solo`` rerun alone must repeat its batched stream. Returns the
-    kernels' launch counts over the concurrent run, each request's token
-    ids and the run's tok/s, TTFT p50 and ITL p50."""
+    (``kv_block``, ``kv_pool_blocks``, ``kv_quant``; and the decode loop's
+    ``pipeline_depth``, ``mega_windows``, ``prefill_depth``): greedy, except
+    (with ``sampled``) the last two, one seeded sampled prompt submitted
+    twice; prompt ``solo`` rerun alone must repeat its batched stream; the
+    run may make no stream synchronization. Returns the
+    kernels' launch counts over the concurrent run (graph replays counted),
+    each request's token ids and the run's tok/s, TTFT p50, ITL p50,
+    decode windows, mega dispatches, prefill dispatches and stream syncs."""
     import numpy as np
 
     from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
@@ -1714,15 +1783,29 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
         # Warm-up: cuBLAS handles and the first launches, off the record.
         eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
         torch.cuda.synchronize()
+        if eng._graphs is not None:
+            log(f"{label}: decode programs captured as CUDA graphs, capture s by variant "
+                + json.dumps({k: round(v, 3) for k, v in eng._graphs.capture_s.items()}))
         reset_launch_counts()
         seen = watch_steps(eng)
+        steps0 = (eng.decode_windows, eng.mega_dispatches, eng.prefill_steps)
+        count_syncs(torch, True)
         t0 = time.perf_counter()
         reqs = [eng.submit_generate(p, **kw) for p, kw in zip(prompts, kws)]
         results = [r.future.result(timeout=600) for r in reqs]
         wall = time.perf_counter() - t0
+        syncs = count_syncs(torch, False)
         unwatch_steps(eng)
         counts = launch_counts()
+        windows, megas, prefills = (a - b for a, b in zip(
+            (eng.decode_windows, eng.mega_dispatches, eng.prefill_steps), steps0))
         log(f"{label}: launch counts over the {n}-request run: {counts}")
+        log(f"{label}: {windows} decode windows ({megas} mega dispatches, windows run "
+            f"{list(eng.windows_run)[-megas:] if megas else []}), {prefills} prefill "
+            f"dispatches, {syncs} stream syncs ({syncs / max(windows, 1):.3f} a window)")
+        if syncs:
+            fail(f"{label}: {syncs} stream synchronizations in the run; the first at\n"
+                 + "\n".join(SYNCS["first"]))
         log(f"{label}: over the run: {steps_line(seen)}")
         eos = eng.tokenizer.eos_id
         for i, (r, res) in enumerate(zip(reqs, results)):
@@ -1740,11 +1823,13 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
             if counts[name] <= 0:
                 fail(f"{label}: kernel {name} was not launched on the main path")
         stats = serve_stats(reqs, wall)
+        stats.update(windows=windows, mega_dispatches=megas, prefill_dispatches=prefills,
+                     syncs=syncs, counts=counts)
         log(f"{label}: {n} requests (prompts {list(lengths)}, 32 new tokens each) in "
             f"{wall:.3f} s: {stats['tok_s']:.1f} generated tok/s, TTFT p50 "
             f"{stats['ttft_p50_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f}), "
             f"inter-token latency p50 {stats['itl_p50_ms']:.2f} ms; "
-            f"{eng.prefill_steps} prefill chunks, {eng.decode_windows} decode windows "
+            f"{eng.prefill_steps} prefill dispatches, {eng.decode_windows} decode windows "
             "(warm-up included)")
         log(f"{label}: first tokens {[r.token_ids[:4] for r in results]}")
         log(f"{label}: KV cache {eng.cache.hbm_bytes()} bytes on the card")
@@ -1967,6 +2052,237 @@ def phase_serve_options(torch, dev, params, base: list, base_stats: dict, **kv) 
         return {"counts": counts, "stats": stats}
     finally:
         eng.close()
+
+
+def first_difference(torch, cfg, params, prompt: list, want: list, got: list) -> dict | None:
+    """Where a greedy stream ``got`` leaves ``want`` (None if it does not):
+    the step, the two tokens and the top-2 logit margin there, from the
+    plain forward over the prompt and the common prefix (a near-tie below
+    NEAR_TIE is accepted as reduction order, anything else is a state
+    hazard)."""
+    from gofr_tpu_torch.models.transformer import transformer_forward
+
+    step = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if step is None:
+        return None if len(want) == len(got) else {"step": min(len(want), len(got)),
+                                                   "margin": float("inf")}
+    ids = torch.tensor([prompt + want[:step]], device=params["embed"].device)
+    logits = transformer_forward(params, ids, cfg)[0, -1].float()
+    top = torch.topk(logits, 2).values
+    return {"step": step, "want": want[step], "got": got[step],
+            "margin": float(top[0] - top[1])}
+
+
+# A greedy stream may leave another only at a top-2 logit margin below this.
+NEAR_TIE = 1e-2
+
+
+def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> dict:
+    """The decode loop at phase_serve's geometry (Llama-3-8B, 8 slots,
+    max_len 2048, k = 8): (1) the captured window against the eager one on
+    copies of one state after a prefill, every static variant (greedy /
+    sampled x logit bias): identical tokens, logprobs within 1e-3, an
+    identical cache, the same launches (counted through the replay); the
+    mega window (m = 4, a WHILE node) against plain windows, with
+    windows_run equal to the reference's exit on the same budgets: two
+    sets of budgets without EOS, where it is min(m, ceil(max(remaining) /
+    k)), and one where slot 6 stops on an EOS id its third plain window
+    produces, where the device's EOS exit ends the loop early; the capture
+    time per variant and the graph pools' bytes; (2) phase_serve's 10
+    prompts at pipeline depth 1 and 3 and at mega 4 (depth 2 is
+    phase_serve's own run): greedy streams equal phase_serve's (a
+    difference passes only as a near-tie), the seeded pair equal, no
+    stream sync, tok/s, TTFT p50, ITL p50, windows, mega dispatches and
+    launches per setting."""
+    from gofr_tpu_torch.models.transformer import rope_tables
+    from gofr_tpu_torch.ops.cuda import launch_counts, replayed, reset_launch_counts
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+    from gofr_tpu_torch.serving import programs as pg
+
+    S, L, k, m, c = 8, 2048, 8, 4, 256
+    flags = pg.SamplerFlags()
+    rope = rope_tables(cfg, L, dev)
+    with torch.inference_mode():
+        def state():
+            cache = KVCache.create(cfg.n_layers, S, L, cfg.n_kv_heads, cfg.head_dim,
+                                   dtype=cfg.dtype, device=dev)
+            return cache, pg.SlotPlanes.create(S, dev, cfg.vocab_size, flags)
+
+        def copy_state(dst, src):
+            for a, b in ((dst[0].k, src[0].k), (dst[0].v, src[0].v),
+                         (dst[0].lengths, src[0].lengths)):
+                a.copy_(b)
+            for f in ("tokens", "nsteps", "seeds", "temps", "greedy", "active", "topps",
+                      "fpen", "ppen", "pcounts", "bidx", "bval"):
+                getattr(dst[1], f).copy_(getattr(src[1], f))
+
+        def win(st, sampling, use_bias):
+            return pg.decode_window(params, st[0], cfg, rope, st[1], flags, k, 2,
+                                    sampling=sampling, use_bias=use_bias)
+
+        def capture(**fns):
+            """DecodeGraphs on ``graphed`` while every slot of it is
+            inactive, as the engine captures before its first request:
+            (the graphs, seconds with the warm-ups, pool bytes reserved)."""
+            graphed[1].active.fill_(False)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            graphs = pg.DecodeGraphs(**fns)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+            return graphs, seconds, torch.cuda.memory_reserved() - reserved0
+
+        eager, graphed = state(), state()
+        graphs, capture_s, pool = capture(window_fn=lambda s, b: win(graphed, s, b))
+        log(f"decode loop: captured 4 window variants in {capture_s:.2f} s (warm-up "
+            "included); capture alone by variant "
+            + json.dumps({key: round(v, 3) for key, v in graphs.capture_s.items()})
+            + f"; graph memory pool {pool} bytes reserved; launches a replayed window "
+            + json.dumps({str(v): g.launches for v, g in graphs.windows.items()}))
+
+        # One prefill chunk puts a prompt in every slot.
+        gen = torch.Generator(device=dev).manual_seed(0)
+        i32 = dict(dtype=torch.int32, device=dev)
+        ones = torch.ones((S,), dtype=torch.bool, device=dev)
+        lens = torch.tensor((1, 17, 64, 100, 150, 200, 255, 256), **i32)
+        toks = torch.randint(0, cfg.vocab_size, (S, c), generator=gen, device=dev)
+        planes = eager[1]
+        planes.seeds.copy_(torch.arange(S, device=dev) * 7 + 1)
+        planes.bidx[:, :3] = torch.randint(0, cfg.vocab_size, (S, 3), generator=gen, device=dev)
+        planes.bval[:, :3] = 5.0
+        sampled_rows = torch.arange(S, device=dev) % 2 == 1
+        pg.prefill_chunk_step(params, eager[0], cfg, rope, planes, flags, toks,
+                              torch.arange(S, **i32), torch.zeros((S,), **i32), lens, ones,
+                              ones, torch.full((S,), 0.8, device=dev), ~sampled_rows,
+                              torch.ones((S,), device=dev), 2, sampling=True)
+        planes.active.fill_(True)
+        planes.temps.fill_(0.8)
+        planes.greedy.copy_(~sampled_rows)
+        start = state()
+        copy_state(start, eager)
+        results = {}
+        for v in pg.VARIANTS:
+            copy_state(eager, start)
+            copy_state(graphed, start)
+            reset_launch_counts()
+            e = win(eager, *v).clone()
+            torch.cuda.synchronize()
+            eager_counts = launch_counts()
+            reset_launch_counts()
+            g = graphs.window(*v).clone()
+            torch.cuda.synchronize()
+            graph_counts = launch_counts()
+            dlp = float((e[1] - g[1]).abs().max())
+            results[str(v)] = {"tokens_equal": bool(torch.equal(e[0], g[0])),
+                               "max_abs_dlogprob": dlp, "bitwise": bool(torch.equal(e, g)),
+                               "cache_equal": bool(torch.equal(eager[0].k, graphed[0].k)
+                                                   and torch.equal(eager[0].v, graphed[0].v)),
+                               "launches_eager": eager_counts, "launches_graph": graph_counts}
+            r = results[str(v)]
+            if not r["tokens_equal"] or dlp > 1e-3 or not r["cache_equal"]:
+                fail(f"decode loop: the captured window {v} differs from the eager one: {r}")
+            if eager_counts != graph_counts or graph_counts["flash_decode"] != k * cfg.n_layers:
+                fail(f"decode loop: launches eager {eager_counts} vs replayed {graph_counts}")
+        log("decode loop: captured window vs eager, (sampling, use_bias): "
+            + json.dumps({key: {x: y for x, y in r.items() if not x.startswith("launches")}
+                          for key, r in results.items()})
+            + f"; launches a window eager = replayed = {graph_counts}")
+        del graphs
+
+        # m plain windows from the start; the EOS id of the mega graphs is
+        # a token slot 6 first produces in its third window, so that the
+        # device's EOS exit is reached on the card.
+        copy_state(eager, start)
+        plain = torch.cat([win(eager, False, False) for _ in range(m)], dim=1)
+        streams = plain[0].long().t().tolist()  # [S][m·k]
+        eos_slot, s6 = 6, streams[6]
+        eos = s6[next((p for p in range(2 * k, 3 * k) if s6[p] not in s6[:p]), 2 * k)]
+        mega = pg.MegaState.create(S, k, m, 0, dev)
+        megas, mega_capture_s, mega_pool = capture(mega_fns=(
+            lambda: pg.mega_begin(mega),
+            lambda s, b: pg.mega_step(params, graphed[0], cfg, rope, graphed[1], flags, k,
+                                      m, 2, eos, mega, sampling=s, use_bias=b),
+            mega.go))
+        log(f"decode loop: captured 4 mega-body variants in {mega_capture_s:.2f} s (warm-up "
+            "included); capture alone by variant "
+            + json.dumps({key: round(v, 3) for key, v in megas.capture_s.items()})
+            + f"; graph memory pool {mega_pool} bytes reserved; EOS id {eos}")
+
+        def exit_after(remaining, stop):
+            """The reference's exit on the host: windows run while (w < m)
+            & any(remaining > 0), remaining less k a window, 0 on EOS
+            where the slot stops on it."""
+            rem, w = list(remaining), 0
+            while w < m and any(x > 0 for x in rem):
+                rem = [0 if stop[i] and eos in streams[i][w * k:(w + 1) * k]
+                       else max(0, x - k) for i, x in enumerate(rem)]
+                w += 1
+            return w
+
+        no_stop = (False,) * S
+        eos_stop = tuple(i == eos_slot for i in range(S))
+        for remaining, stop in (((0, 5, 9, 17, 3, 12, 30, 1), no_stop),
+                                ((0, 5, 9, 12, 3, 1, 0, 2), no_stop),
+                                ((0, 5, 9, 3, 3, 1, 30, 1), eos_stop)):
+            want_w = exit_after(remaining, stop)
+            budget_w = min(m, -(-max(remaining) // k))
+            if stop is no_stop and want_w != budget_w:
+                fail(f"decode loop: the exit {want_w} is not min(m, ceil(max / k)) {budget_w}")
+            if stop is eos_stop and want_w >= budget_w:
+                fail(f"decode loop: EOS id {eos} does not end slot {eos_slot}'s windows early")
+            copy_state(graphed, start)
+            mega.remaining.copy_(torch.tensor(remaining, device=dev))
+            mega.eos_stop.copy_(torch.tensor(stop, device=dev))
+            reset_launch_counts()
+            record = megas.mega(False, False)
+            torch.cuda.synchronize()
+            w = int(mega.w)
+            replayed(record, w)
+            got, want = mega.emitted[:, : w * k], plain[:, : want_w * k]
+            ok = (w == want_w and torch.equal(got[0], want[0])
+                  and float((got[1] - want[1]).abs().max()) <= 1e-3
+                  and not mega.emitted[:, w * k:].any())
+            log(f"decode loop: mega window (m={m}) with remaining {list(remaining)}, EOS stop "
+                f"{[i for i, x in enumerate(stop) if x]}: windows_run {w} (the reference's exit "
+                f"{want_w}; budgets alone {budget_w}); tokens equal to {want_w} plain windows: "
+                f"{w == want_w and bool(torch.equal(got[0], want[0]))}, bitwise "
+                f"{w == want_w and bool(torch.equal(got, want))}; launches {launch_counts()}")
+            if not ok:
+                fail("decode loop: the mega window's graph differs from plain windows")
+            if launch_counts()["flash_decode"] != w * k * cfg.n_layers:
+                fail("decode loop: the mega window's launches are not its windows'")
+        del megas, eager, graphed, start, mega, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    rng = __import__("numpy").random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in LLAMA_PROMPTS]
+    settings = {"depth 2 (phase_serve's run)": base_stats}
+    for label, kw in (("depth 1", dict(pipeline_depth=1)), ("depth 3", dict(pipeline_depth=3)),
+                      ("mega 4 depth 2", dict(mega_windows=4))):
+        counts, streams, stats = phase_serve(torch, dev, params, **kw)
+        for i in range(len(LLAMA_PROMPTS) - 2):  # the greedy ones
+            diff = first_difference(torch, cfg, params, prompts[i], base[i], streams[i])
+            if diff is None:
+                continue
+            log(f"decode loop {label}: request {i} leaves phase_serve's stream: {diff}")
+            if diff["margin"] >= NEAR_TIE:
+                fail(f"decode loop {label}: request {i} differs from phase_serve's stream "
+                     f"at a top-2 margin {diff['margin']:.4g} >= {NEAR_TIE}: a state hazard")
+        for name in ("flash_decode", "flash_cache_attention"):
+            if counts[name] <= 0:
+                fail(f"decode loop {label}: kernel {name} was not launched")
+        settings[label] = stats
+    log("decode loop settings: " + json.dumps({
+        label: {key: st.get(key) for key in (
+            "tok_s", "ttft_p50_ms", "itl_p50_ms", "windows", "mega_dispatches",
+            "prefill_dispatches", "syncs", "counts")}
+        for label, st in settings.items()}))
+    return {"capture_s": capture_s, "pool_bytes": pool, "mega_capture_s": mega_capture_s,
+            "mega_pool_bytes": mega_pool, "settings": settings}
 
 
 class _SSEClient(threading.Thread):
@@ -2324,7 +2640,8 @@ def _profile_step(torch, name: str, fn) -> dict:
 
 
 def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
-                  context: int = 256, model: str = "", sampler: bool = False) -> None:
+                  context: int = 256, model: str = "", sampler: bool = False,
+                  graph: bool = False) -> None:
     """Where the time goes in one 8-step decode window over S slots at
     ``context`` tokens each, and in one [S, 256] prefill chunk starting at
     ``context``, through the engine's own programs (greedy, the sampler's
@@ -2336,7 +2653,9 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
     logit_bias entries, 5 alternatives), and the sampler's own device time
     per window (its 8 steps on [S, vocab] logits): every option with the
     flags on, a greedy batch of neutral options with the flags on, and
-    greedy with the flags off."""
+    greedy with the flags off. With ``graph``, the window again as the
+    engine runs it on the card: one replay of its CUDA graph (the capture
+    time and the graph pool's bytes printed)."""
     from gofr_tpu_torch.models.transformer import rope_tables
     from gofr_tpu_torch.ops.kv_cache import KVCache
     from gofr_tpu_torch.serving.programs import (
@@ -2384,6 +2703,19 @@ def phase_profile(torch, dev, cfg, params, *, S: int = 8, max_len: int = 2048,
         f"head) ({S} x {cfg.n_kv_heads} pairs)")
     steps = [(f"decode_window_k8{tag}", window),
              (f"prefill_chunk_{P}x{c}{tag}", lambda: chunk(context))]
+    if graph:
+        from gofr_tpu_torch.serving.programs import Captured
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        captured = Captured(window, torch.cuda.graph_pool_handle())
+        torch.cuda.empty_cache()
+        log(f"profile decode_window_k8{tag}_graph_replay: captured in "
+            f"{captured.capture_s:.3f} s (after one eager warm-up window), graph memory pool "
+            f"{torch.cuda.memory_reserved() - reserved0} bytes reserved, "
+            f"{captured.launches} launches a replay")
+        steps.insert(1, (f"decode_window_k8{tag}_graph_replay", captured.replay))
     if sampler:
         on = SamplerFlags(top_k=50, top_p=True, penalties=True, top_logprobs=5)
         full = SlotPlanes.create(S, dev, cfg.vocab_size, on)
@@ -2577,6 +2909,7 @@ def phase_prefill_padded(torch, dev, cfg, params) -> None:
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2594,6 +2927,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    _install_sync_hook()
+    check_sync_counter(torch, dev)
 
     t_start = time.perf_counter()
     t0 = time.perf_counter()
@@ -2645,8 +2980,9 @@ def main() -> None:
     log(f"serve: KV cache bytes a token: {bf16_tok} bf16, {int8_tok} int8 with scales; "
         f"bf16 slot cache (8 x 2048 tokens) {8 * 2048 * bf16_tok}, int8 slot cache "
         f"{8 * 2048 * int8_tok}, int8 pool (161 blocks of 32) {161 * 32 * int8_tok}")
+    decode_loop = phase_decode_loop(torch, dev, cfg, params, base, base_stats)
     with torch.inference_mode():
-        phase_profile(torch, dev, cfg, params, sampler=True)
+        phase_profile(torch, dev, cfg, params, sampler=True, graph=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2663,7 +2999,24 @@ def main() -> None:
         mforward_counts = phase_mistral_forward(torch, dev, mcfg, mparams)
     mserve = dict(model="mistral-7b", n_slots=4, max_len=8192, lengths=MISTRAL_PROMPTS,
                   sampled=False, solo=2)
-    mcounts = phase_serve(torch, dev, mparams, **mserve)[0]
+    mcounts, mbase, mstats = phase_serve(torch, dev, mparams, **mserve)
+    # Multi-chunk prefill: the 6 prompts (~25 chunks of 256 the longest)
+    # at prefill depth 4 against the run above (depth 1).
+    mdeep_counts, mdeep, mdeep_stats = phase_serve(torch, dev, mparams, **mserve,
+                                                   prefill_depth=4)
+    mprompts = [np.random.default_rng(0).integers(0, mcfg.vocab_size, n).tolist()
+                for n in MISTRAL_PROMPTS]
+    for i, (a, b) in enumerate(zip(mbase, mdeep)):
+        diff = first_difference(torch, mcfg, mparams, mprompts[i], a, b)
+        if diff is not None:
+            log(f"serve mistral-7b prefill depth 4: request {i} leaves depth 1's stream: {diff}")
+            if diff["margin"] >= NEAR_TIE:
+                fail(f"serve mistral-7b prefill depth 4: request {i} differs from depth 1 at "
+                     f"a top-2 margin {diff['margin']:.4g}: a state hazard")
+    log("serve mistral-7b prefill depth 1 -> 4: prefill dispatches "
+        f"{mstats['prefill_dispatches']} -> {mdeep_stats['prefill_dispatches']}, TTFT p50 "
+        f"{mstats['ttft_p50_ms']:.1f} -> {mdeep_stats['ttft_p50_ms']:.1f} ms, tok/s "
+        f"{mstats['tok_s']:.1f} -> {mdeep_stats['tok_s']:.1f}")
     mpool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=641)
     mpool_counts = phase_serve(torch, dev, mparams, **mserve, **mpool_kv)[0]
     bf16_tok, int8_tok = (mcfg.n_layers * kv_bytes(1, mcfg.n_kv_heads, mcfg.head_dim, quant)
@@ -2763,6 +3116,9 @@ def main() -> None:
         entry = next(x for x in kernels if x["name"] == k)
         entry["launches_serve_options"] = {case: o["counts"][k] for case, o in options.items()}
         entry["launches_http"] = http_counts[k]
+        entry["launches_decode_loop"] = {label: st["counts"][k] for label, st in
+                                         decode_loop["settings"].items()}
+        entry["launches_mistral_prefill_depth_4"] = mdeep_counts[k]
     log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -399,8 +399,12 @@ def decode_step(
     later steps read back, and quantized at the commit. Inactive slots
     park that write at ``max_len - 1`` (a pool: block 0, offset
     ``block - 1``; a slot mid-prefill must not have its fresh K/V at
-    ``lengths`` overwritten) and keep their length. Returns [S, vocab] f32
-    logits; ``cache.lengths`` grows by one on active slots.
+    ``lengths`` overwritten) and keep their length, and so does an active
+    slot whose cache is full (``lengths == max_len``: a mega window keeps
+    stepping a slot whose budget ran out while others continue, where the
+    reference's scatter drops the out-of-range update). Returns [S, vocab]
+    f32 logits; ``cache.lengths`` grows by one on active slots below
+    ``max_len``.
     """
     S = cache.n_slots
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -433,14 +437,15 @@ def decode_step(
         new_v.append(v)
     # Commit every layer's token in one scatter: [L, S, KV, hd] values at
     # [l, s, kv, write_pos[s]] (a pool: [l, table[s, pos // B], kv, pos % B]).
+    write = active & (lengths < max_len)
     if paged:
         B = cache.block
         blk = table.gather(1, (positions // B)[:, None])[:, 0].long()
-        row = torch.where(active, blk, 0)
-        write_pos = torch.where(active, positions % B, B - 1)
+        row = torch.where(write, blk, 0)
+        write_pos = torch.where(write, positions % B, B - 1)
     else:
         row = torch.arange(S, device=dev)
-        write_pos = torch.where(active, lengths, max_len - 1).long()
+        write_pos = torch.where(write, lengths, max_len - 1).long()
     idx = (
         torch.arange(cfg.n_layers, device=dev)[:, None, None],
         row[None, :, None],
@@ -455,6 +460,6 @@ def decode_step(
         cache.v_s.index_put_(idx, v_sc)
     cache.k.index_put_(idx, k_all)
     cache.v.index_put_(idx, v_all)
-    cache.lengths += active.to(torch.int32)
+    cache.lengths += write.to(torch.int32)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()

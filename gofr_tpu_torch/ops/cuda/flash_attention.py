@@ -22,11 +22,12 @@ from typing import Optional
 
 import torch
 
-from gofr_tpu_torch.ops.cuda import _build
+from gofr_tpu_torch.ops.cuda import _build, _count
 from gofr_tpu_torch.ops.cuda.flash_decode import _check, check_query_dtype
 
 NEG_INF = -1e30
-# Kernel launches since the last reset (bumped by the wrapper only).
+# Kernel launches the device ran since the last reset (``_count``: one
+# per eager launch, a graph's recorded launches per replay).
 launches = 0
 _fns: dict = {}
 
@@ -189,6 +190,5 @@ def flash_attention(
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
-    global launches
-    launches += 1
+    _count.launched(__name__)
     return out

@@ -33,11 +33,12 @@ from typing import Optional
 
 import torch
 
-from gofr_tpu_torch.ops.cuda import _build
+from gofr_tpu_torch.ops.cuda import _build, _count
 from gofr_tpu_torch.ops.kv_cache import paged_view
 
 NEG_INF = -1e30
-# Kernel launches since the last reset (bumped by the wrapper only).
+# Kernel launches the device ran since the last reset (``_count``: one
+# per eager launch, a graph's recorded launches per replay).
 launches = 0
 _fn = None
 
@@ -293,8 +294,7 @@ def flash_decode(
         q, k_cache, v_cache, lengths, k_new, v_new, k_scale, v_scale, block_table,
         hd**-0.5 if scale is None else scale, window,
         launch_cluster_size(q, k_cache, block_table, window))
-    global launches
-    launches += 1
+    _count.launched(__name__)
     return out
 
 

@@ -22,12 +22,13 @@ from typing import Optional
 
 import torch
 
-from gofr_tpu_torch.ops.cuda import _build
+from gofr_tpu_torch.ops.cuda import _build, _count
 from gofr_tpu_torch.ops.cuda.flash_decode import _check, _ptr, check_cache, check_query_dtype
 from gofr_tpu_torch.ops.kv_cache import paged_view
 
 NEG_INF = -1e30
-# Kernel launches since the last reset (bumped by the wrapper only).
+# Kernel launches the device ran since the last reset (``_count``: one
+# per eager launch, a graph's recorded launches per replay).
 launches = 0
 _fns: dict = {}
 
@@ -173,6 +174,5 @@ def flash_cache_attention(
         raise RuntimeError(
             f"flash_cache_attention launch failed: cudaError {rc}"
         )
-    global launches
-    launches += 1
+    _count.launched(__name__)
     return out

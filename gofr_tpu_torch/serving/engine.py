@@ -6,9 +6,24 @@ A scheduler thread owns the device. Each pass reaps cancelled and
 expired requests, admits queued requests into free cache slots, runs one
 fixed-shape [prefill_batch, prefill_chunk] chunk step for the slots
 mid-prefill (a long prompt takes several passes, so it never stalls
-decode), then one k-step decode window over all slots with one host
-fetch per window. A request retires on EOS, on a stop sequence, on its
-token budget or at the context limit, and its slot is reused.
+decode; with ``prefill_depth`` > 1, rows with at least two full chunks
+left take up to that many in one dispatch; while under a quarter of the
+slots decode, it keeps prefilling), then dispatches one k-step decode
+window over all slots (``mega_windows`` > 1: up to that many windows in
+one dispatch, with the reference's device-side exit) and processes the
+oldest window once ``pipeline_depth`` windows are in flight: windows are
+pipelined, window n+D dispatched before window n is fetched, and each
+window's processing uses the slot snapshot of its dispatch. A prompt's
+first token, sampled on the device with its last chunk, is emitted when
+its copy to the host lands. A request retires on EOS, on a stop
+sequence, on its token budget or at the context limit, and its slot is
+reused.
+
+On the card the decode programs run as CUDA graphs captured per static
+variant when the scheduler starts (``programs.DecodeGraphs``), host
+arrays go up through pinned staging buffers without a wait, and each
+window's block comes down into pinned memory behind an event: the only
+host wait of a steady-state window is that event.
 
 Served: bf16 (or f32) weights, the slot cache or the paged block pool
 (``kv_block``, ``kv_pool_blocks``), bf16 or int8 K/V (``kv_quant``),
@@ -66,6 +81,7 @@ from gofr_tpu_torch.errors import (
 )
 from gofr_tpu_torch.models.registry import get_model
 from gofr_tpu_torch.models.transformer import check_supported, init_params, rope_tables
+from gofr_tpu_torch.ops.cuda import replayed
 from gofr_tpu_torch.ops.kv_cache import BlockAllocator, KVCache, PagedKVCache
 from gofr_tpu_torch.serving.lifecycle import (
     AggregateThroughput,
@@ -77,10 +93,16 @@ from gofr_tpu_torch.serving.lifecycle import (
     parse_tenant_class_map,
 )
 from gofr_tpu_torch.serving.programs import (
+    DecodeGraphs,
+    MegaState,
     SamplerFlags,
     SlotPlanes,
     decode_window,
+    mega_begin,
+    mega_step,
+    mega_window,
     prefill_chunk_step,
+    prefill_multi_chunk,
 )
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 from gofr_tpu_torch.serving.types import LOGIT_BIAS_K, GenerationResult, GenRequest
@@ -97,7 +119,7 @@ _NEUTRAL_SUBMIT_OPTIONS = {
 # does not serve yet: (key, the reference's default, ROADMAP item). Set to
 # anything else, each raises NotImplementedError naming its item.
 _LOADERS = "ROADMAP Queue 1 item 6: loaders and device services"
-_DECODE_LOOP = "ROADMAP Queue 1 item 3: the decode loop"
+_SPEC = "ROADMAP Queue 1 item 3: exact-verify speculative decoding"
 _PREFIX = "ROADMAP Queue 1 item 4: the prefix cache"
 _ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
 _MULTI = "ROADMAP Queue 1 item 8: multi-device"
@@ -111,9 +133,6 @@ _UNPORTED_KEYS = (
     ("TPU_LORA_ADAPTERS", "", _LOADERS),
     ("TPU_TP", "1", _MULTI), ("TPU_MESH_TP", "1", _MULTI),
     ("TPU_MESH_CP", "1", _MULTI),
-    ("TPU_MEGA_WINDOWS", "0", _DECODE_LOOP),
-    ("TPU_PIPELINE_DEPTH", "2", _DECODE_LOOP),
-    ("TPU_PREFILL_DEPTH", "1", _DECODE_LOOP),
     ("TPU_AUTO_PREFIX", "false", _PREFIX), ("TPU_PREFIX_SLOTS", "0", _PREFIX),
     ("TPU_PREFIX_CACHE_BLOCKS", "0", _PREFIX),
     ("TPU_PREFIX_EVICT_WM", "0", _PREFIX),
@@ -224,7 +243,7 @@ def check_unported_keys(config: Any) -> None:
     spec = config.get_or_default("TPU_SPEC_TOKENS", "auto").strip().lower()
     if spec != "auto" and not _is_default(spec, "0"):
         raise NotImplementedError(
-            f"TPU_SPEC_TOKENS={spec!r} is not ported yet ({_DECODE_LOOP}); "
+            f"TPU_SPEC_TOKENS={spec!r} is not ported yet ({_SPEC}); "
             "the port serves auto (off) or 0"
         )
     keys = set(os.environ)
@@ -235,6 +254,23 @@ def check_unported_keys(config: Any) -> None:
             f"{tenant_slo[0]} is set; per-tenant SLOs are not ported yet "
             f"({_OPS_PLANE})"
         )
+
+
+@dataclass
+class _Window:
+    """A dispatched decode window, until it is processed: its block on
+    the host (pinned memory the device fills; the array itself on the
+    CPU), the event after that copy (None on the CPU), the slots'
+    requests at dispatch, the dispatch time, and for a mega window the
+    windows run (on the host once the event passed) and the captured
+    body's launch record (None when it ran eagerly)."""
+
+    host: np.ndarray
+    event: Any
+    snapshot: list
+    t0: float
+    wrun: Any = None
+    record: Any = None
 
 
 @dataclass
@@ -252,6 +288,11 @@ class InferenceEngine:
     the plain versions of the kernels on the host. ``params`` is a port
     parameter dict (``weights.params_from_jax`` / ``init_params``) on that
     device; without it weights are made from ``seed`` on the device.
+
+    The decode loop, as the reference's: ``pipeline_depth`` windows in
+    flight (at least 1), ``mega_windows`` k-step windows a dispatch (0 or
+    1 = one), ``prefill_depth`` full chunks a multi-chunk prefill dispatch
+    (1 = off).
 
     Sampler flags, as the reference's: ``top_k`` (engine-wide, 0 = off),
     ``enable_top_p`` (per-request nucleus), ``enable_penalties`` (the
@@ -280,6 +321,8 @@ class InferenceEngine:
         max_len: int = 1024,
         window_k: int = 8,
         pipeline_depth: int = 2,
+        mega_windows: int = 0,
+        prefill_depth: int = 1,
         prefill_chunk: int = 256,
         prefill_batch: int = 8,
         truncate_prompts: bool = False,
@@ -315,13 +358,6 @@ class InferenceEngine:
                 f"{sorted(unsupported)} (ROADMAP: the rest of the serving "
                 "features)"
             )
-        if pipeline_depth != 2:
-            raise NotImplementedError(
-                "the port runs one decode window at a time; pipeline_depth "
-                "only sizes the room reserved for windows in flight and "
-                f"stays at the reference's default 2, got {pipeline_depth} "
-                "(ROADMAP Queue 1 item 3)"
-            )
         for name, val in (("n_slots", n_slots), ("window_k", window_k),
                           ("prefill_chunk", prefill_chunk),
                           ("prefill_batch", prefill_batch)):
@@ -330,8 +366,15 @@ class InferenceEngine:
         # The cache never outgrows the model's context (the reference's
         # clamp).
         max_len = min(int(max_len), get_model(model_name).config.max_len)
-        if max_len < window_k + 4:
-            raise ValueError(f"max_len {max_len} too small for window_k {window_k}")
+        reserve = 1 + (max(1, int(pipeline_depth)) + 1) * int(window_k)
+        if max_len <= reserve:
+            raise ValueError(
+                f"max_len={max_len} too small: need > {reserve} "
+                f"(1 + (pipeline_depth+1)*window_k*(spec_tokens+1)) so "
+                f"admission can reserve pipelined-window overshoot "
+                f"room; lower window_k/pipeline_depth/spec_tokens or "
+                f"raise max_len"
+            )
         if kv_block < 0 or kv_pool_blocks < 0:
             raise ValueError("kv_block and kv_pool_blocks must be >= 0")
         if kv_block and max_len % kv_block:
@@ -350,7 +393,9 @@ class InferenceEngine:
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.window_k = int(window_k)
-        self.pipeline_depth = int(pipeline_depth)
+        self.pipeline_depth = max(1, int(pipeline_depth))
+        self.mega_windows = max(0, int(mega_windows))
+        self.prefill_depth = max(1, int(prefill_depth))
         self.kv_block = int(kv_block)
         # The reference's clamps: a chunk of 16 to max_len tokens, no more
         # prefill rows than slots.
@@ -411,6 +456,14 @@ class InferenceEngine:
         self.planes = SlotPlanes.create(
             self.n_slots, self.device, cfg.vocab_size, self.sampler
         )
+        # The mega window's fixed device buffers, and on the card the
+        # captured decode programs (made when the scheduler starts).
+        self._mega = (
+            MegaState.create(self.n_slots, self.window_k, self.mega_windows,
+                             self.top_logprobs, self.device)
+            if self.mega_windows > 1 else None
+        )
+        self._graphs: Optional[DecodeGraphs] = None
 
         # Host-side scheduler state (scheduler thread only).
         self._slots: list[Optional[GenRequest]] = [None] * self.n_slots
@@ -420,9 +473,18 @@ class InferenceEngine:
         self._bval_host = np.zeros((self.n_slots, LOGIT_BIAS_K), dtype=np.float32)
         self._seeds_dirty = False
         self._slot_state_dirty = False
-        # Device steps dispatched (prefill chunks / decode windows).
+        # Tokens each live slot's dispatched windows cover (1 at admission
+        # to decode: the prompt's first token), the windows in flight,
+        # and the first tokens whose copy to the host is on its way.
+        self._tokens_in_flight = [0] * self.n_slots
+        self._inflight: "collections.deque[_Window]" = collections.deque()
+        self._prefill_emits: list[tuple] = []
+        # Device steps dispatched (prefill dispatches, k-step windows,
+        # mega dispatches) and the windows each recent mega dispatch ran.
         self.prefill_steps = 0
         self.decode_windows = 0
+        self.mega_dispatches = 0
+        self.windows_run: "collections.deque[int]" = collections.deque(maxlen=1024)
         # Tokens emitted since the last app_tpu_tokens_generated add.
         self._unpublished_tokens = 0
 
@@ -920,6 +982,9 @@ class InferenceEngine:
             n_slots=num("TPU_KV_SLOTS", "8"),
             max_len=num("TPU_MAX_LEN", "1024"),
             window_k=num("TPU_DECODE_WINDOW", "8"),
+            pipeline_depth=num("TPU_PIPELINE_DEPTH", "2"),
+            mega_windows=num("TPU_MEGA_WINDOWS", "0"),
+            prefill_depth=num("TPU_PREFILL_DEPTH", "1"),
             prefill_chunk=num("TPU_PREFILL_CHUNK", "256"),
             prefill_batch=num("TPU_PREFILL_BATCH", "8"),
             kv_quant=config.get_or_default("TPU_KV_QUANT", ""),
@@ -951,24 +1016,10 @@ class InferenceEngine:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             with torch.inference_mode():
+                if self.device.type == "cuda" and self._graphs is None:
+                    self._capture_graphs()
                 while self._running:
-                    # Cancelled and expired requests retire here, once a
-                    # pass, so a dead stream's slot and blocks free within
-                    # one decode window.
-                    self._reap_lifecycle()
-                    self._admit()
-                    busy = False
-                    if self._prefilling:
-                        self._prefill_step()
-                        busy = True
-                    if any(s is not None for s in self._slots):
-                        self._decode_window()
-                        busy = True
-                    if not busy:
-                        if self._draining:
-                            self._note_idle()
-                        self._work.wait(timeout=0.05)
-                        self._work.clear()
+                    self._pass()
         except Exception as exc:  # the loop's boundary: report, fail callers
             traceback.print_exc()
             with self._lock:
@@ -980,13 +1031,69 @@ class InferenceEngine:
             self._fail_all(exc)
             self._idle_evt.set()  # a drain waiting on this engine ends
 
+    def _pass(self) -> None:
+        """One scheduler pass, the reference's loop body
+        (``gofr_tpu/serving/scheduler.py::_scheduler_loop``)."""
+        # Cancelled and expired requests retire here, once a pass, so a
+        # dead stream's slot and blocks free within one decode window.
+        self._reap_lifecycle()
+        self._admit()
+        progressed = self._prefill_step()
+        # Wave admission: while live streams fill under a quarter of the
+        # slots, another chunk costs them little next to the idle
+        # capacity, so keep prefilling; past that, one chunk a pass.
+        while progressed and sum(s is not None for s in self._slots) * 4 < self.n_slots:
+            self._admit()
+            if not self._prefill_step():
+                break
+        self._flush_prefill_emits()
+        any_active = any(s is not None for s in self._slots)
+        if not any_active and not self._inflight:
+            if self._prefill_emits:
+                time.sleep(0.001)  # a first token's copy is on its way
+            elif not progressed:
+                if self._draining:
+                    self._note_idle()
+                self._work.wait(timeout=0.05)
+                self._work.clear()
+            return
+        # Dispatch only while some live slot still has budget beyond what
+        # the windows in flight cover: a wave of same-length requests
+        # otherwise ends in windows whose tokens are all dropped.
+        wants_more = any(
+            req is not None and self._tokens_in_flight[i] < req.max_new_tokens
+            for i, req in enumerate(self._slots)
+        )
+        if wants_more and (win := self._dispatch_window()) is not None:
+            self._inflight.append(win)
+        elif not self._inflight and self._prefill_emits:
+            time.sleep(0.001)  # only first tokens are on their way
+        while len(self._inflight) > (self.pipeline_depth if wants_more else 0):
+            self._process_window(self._inflight.popleft())
+
+    def _capture_graphs(self) -> None:
+        """Capture the decode programs before the first request, while
+        every slot is inactive (the capture's eager warm-up runs then park
+        their writes and add 0 to the slots' counters)."""
+        if self._mega is not None:
+            self._graphs = DecodeGraphs(mega_fns=(
+                lambda: mega_begin(self._mega),
+                lambda sampling, use_bias: self._mega_step(sampling, use_bias),
+                self._mega.go,
+            ))
+        else:
+            self._graphs = DecodeGraphs(
+                window_fn=lambda sampling, use_bias: self._window_eager(sampling, use_bias)
+            )
+
     def _note_idle(self) -> None:
         """During a drain: publish idle once nothing is queued, waiting
         for blocks, prefilling or decoding (submits are refused by then,
         so idle stays idle)."""
         with self._lock:
             if (self._pending.qsize() == 0 and not self._backlog
-                    and not self._prefilling
+                    and not self._prefilling and not self._inflight
+                    and not self._prefill_emits
                     and all(s is None for s in self._slots)):
                 self._idle_evt.set()
 
@@ -1007,6 +1114,9 @@ class InferenceEngine:
             reqs.append(req)
         self._slots = [None] * self.n_slots
         self._prefilling.clear()
+        self._inflight.clear()
+        self._prefill_emits = []
+        self._slot_state_dirty = True
         for req in reqs:
             self._resolve(req, exc=exc)
 
@@ -1191,7 +1301,31 @@ class InferenceEngine:
             self._table_dirty = False
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        """A host array on the engine's device. On the card it goes through
+        a pinned staging copy with ``non_blocking``: the host does not wait
+        for the device (a pageable copy would wait for every window in
+        flight), and PyTorch's pinned-memory cache keeps the staging buffer
+        until an event says the copy ran."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor):
+        """Enqueue ``t``'s copy to the host: (its host array, the event
+        after the copy). On the CPU the array is a copy made now and the
+        event None. The array is valid once the event has passed. On the
+        card it lands in fresh pinned memory from PyTorch's caching host
+        allocator, which hands a block out again only once it is freed and
+        the copy's event has passed; stream order runs the copy before a
+        later replay rewrites ``t``."""
+        if self.device.type != "cuda":
+            return t.numpy().copy(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host.numpy(), event
 
     # -- device steps -------------------------------------------------------
 
@@ -1204,10 +1338,27 @@ class InferenceEngine:
             use_bias=any(r.logit_bias for r in reqs),
         )
 
-    def _prefill_step(self) -> None:
+    def _prefill_step(self) -> bool:
+        """One prefill dispatch for the slots mid-prefill: a multi-chunk
+        dispatch when ``prefill_depth`` > 1 and some row has two full
+        chunks left before its last, else one [P, c] chunk step whose
+        finalizing rows sample their first token on the device and move
+        to decode (the token is emitted when its copy lands). Returns
+        whether it dispatched."""
+        if not self._prefilling:
+            return False
         self._push_table()
+        if self._seeds_dirty:
+            # Seeds and logit-bias rows change only at admission.
+            self.planes.seeds.copy_(self._up(self._seeds_host))
+            self.planes.bidx.copy_(self._up(self._bidx_host))
+            self.planes.bval.copy_(self._up(self._bval_host))
+            self._seeds_dirty = False
+        self.prefill_steps += 1
+        rows = list(self._prefilling.items())[: self.prefill_batch]
+        if self.prefill_depth > 1 and self._prefill_multi(rows):
+            return True
         P, c = self.prefill_batch, self.prefill_chunk
-        rows = list(self._prefilling.items())[:P]
         tokens = np.zeros((P, c), dtype=np.int64)
         slots = np.zeros((P,), dtype=np.int32)
         starts = np.zeros((P,), dtype=np.int32)
@@ -1234,12 +1385,6 @@ class InferenceEngine:
             tokens[i] = tokens[0]
             slots[i], starts[i], lens[i] = slots[0], starts[0], lens[0]
             temps[i], greedy[i], topps[i] = temps[0], greedy[0], topps[0]
-        if self._seeds_dirty:
-            # Seeds and logit-bias rows change only at admission.
-            self.planes.seeds.copy_(self._up(self._seeds_host))
-            self.planes.bidx.copy_(self._up(self._bidx_host))
-            self.planes.bval.copy_(self._up(self._bval_host))
-            self._seeds_dirty = False
         t0 = time.time()
         first, first_lp, top_i, top_l = prefill_chunk_step(
             self.params, self.cache, self.cfg, self.rope, self.planes,
@@ -1248,7 +1393,6 @@ class InferenceEngine:
             self._up(temps), self._up(greedy), self._up(topps),
             self._base_seed, **self._uses([st.request for _, st in rows]),
         )
-        self.prefill_steps += 1
         if self._metrics is not None:
             self._metrics.record_histogram(
                 "app_tpu_infer_latency", time.time() - t0, "kind", "prefill"
@@ -1262,30 +1406,93 @@ class InferenceEngine:
             if finalize[i]:
                 del self._prefilling[slot]
                 done_rows.append((i, slot, st.request))
-        if not done_rows:
-            self._publish_step_metrics()
+        if done_rows:
+            # The first tokens were sampled on the device with the chunk;
+            # their copy to the host (with logprob and alternatives, one
+            # transfer) is enqueued now and they are emitted when it lands
+            # (_flush_prefill_emits), before any window's tokens.
+            parts = [first.float()[:, None], first_lp[:, None]]
+            if top_i is not None:
+                parts += [top_i.float(), top_l]
+            host, event = self._to_host(torch.cat(parts, dim=1))
+            for i, slot, req in done_rows:
+                self._slots[slot] = req
+                self._slot_state_dirty = True
+                self._tokens_in_flight[slot] = 1
+                self._prefill_emits.append((host, event, i, slot, req))
+        self._publish_step_metrics()
+        return True
+
+    def _prefill_multi(self, rows: list) -> bool:
+        """The reference's multi-chunk branch: rows with at least two full
+        chunks before their last one take ``d`` = min(their chunks left,
+        ``prefill_depth``) chunks in one dispatch (no sampling, no length
+        update; the last chunk always takes the single-chunk step). Only
+        these deep rows join: a short prompt admitted beside a long one
+        must not turn the dispatch off for it. Returns whether it
+        dispatched."""
+        P, c = self.prefill_batch, self.prefill_chunk
+        deep = [
+            (slot, st, rem)
+            for slot, st in rows
+            for rem in [(len(st.request.prompt_ids) - st.done - 1) // c]
+            if rem >= 2
+        ]
+        if not deep:
+            return False
+        d = min(min(rem for _, _, rem in deep), self.prefill_depth)
+        tokens3 = np.zeros((d, P, c), dtype=np.int64)
+        slots = np.zeros((P,), dtype=np.int32)
+        starts = np.zeros((P,), dtype=np.int32)
+        for i, (slot, st, _) in enumerate(deep):
+            ids = st.request.prompt_ids
+            for j in range(d):
+                lo = st.done + j * c
+                tokens3[j, i, :] = ids[lo: lo + c]
+            slots[i], starts[i] = slot, st.done
+        for i in range(len(deep), P):  # padding rows duplicate row 0
+            tokens3[:, i, :] = tokens3[:, 0, :]
+            slots[i], starts[i] = slots[0], starts[0]
+        t0 = time.time()
+        prefill_multi_chunk(self.params, self.cache, self.cfg, self.rope,
+                            self._up(tokens3), self._up(slots), self._up(starts))
+        for _, st, _ in deep:
+            st.done += d * c
+        if self._metrics is not None:
+            self._metrics.record_histogram(
+                "app_tpu_infer_latency", time.time() - t0, "kind", "prefill_multi"
+            )
+        self._publish_step_metrics()
+        return True
+
+    def _flush_prefill_emits(self) -> None:
+        """Emit each finished prompt's first token whose copy to the host
+        has landed (an event poll; no wait), in dispatch order. A request
+        reaped meanwhile retires instead."""
+        if not self._prefill_emits:
             return
-        # The first token was sampled on the device with the chunk; fetch
-        # it (with its logprob and alternatives, one transfer) now so it
-        # is emitted without waiting for a decode window.
-        parts = [first.float()[:, None], first_lp[:, None]]
-        if top_i is not None:
-            parts += [top_i.float(), top_l]
-        host = torch.cat(parts, dim=1).cpu().numpy()
+        keep = []
         T = self.top_logprobs
-        for i, slot, req in done_rows:
-            self._slots[slot] = req
-            self._slot_state_dirty = True
+        for entry in self._prefill_emits:
+            host, event, row, slot, req = entry
+            if req.future.done() or req.token_ids:
+                continue
+            if self._reap_request(req, slot=slot if self._slots[slot] is req else -1):
+                continue
+            if event is not None and not event.query():
+                keep.append(entry)
+                continue
             top = None
             if req.top_logprobs:
-                top = [(int(host[i, 2 + j]), float(host[i, 2 + T + j]))
+                top = [(int(host[row, 2 + j]), float(host[row, 2 + T + j]))
                        for j in range(req.top_logprobs)]
-            self._emit(slot, req, int(host[i, 0]), float(host[i, 1]), top)
-        self._publish_step_metrics()
+            self._emit(slot, req, int(host[row, 0]), float(host[row, 1]), top)
+        self._prefill_emits = keep
 
     def _publish_step_metrics(self) -> None:
-        """Once per prefill chunk or decode window: the tokens emitted
-        since the last call, and the slot, queue and pool gauges."""
+        """Once per prefill dispatch or processed decode window: the tokens
+        emitted since the last call, and the slot, queue and pool
+        gauges."""
         m = self._metrics
         if m is None:
             return
@@ -1301,80 +1508,178 @@ class InferenceEngine:
             m.set_gauge("app_tpu_kv_pool_occupancy_ratio", used / max(1, total),
                         "model", self.model_name)
 
-    def _decode_window(self) -> None:
+    def _window_eager(self, sampling: bool, use_bias: bool) -> torch.Tensor:
+        return decode_window(
+            self.params, self.cache, self.cfg, self.rope, self.planes,
+            self.sampler, self.window_k, self._base_seed,
+            sampling=sampling, use_bias=use_bias,
+        )
+
+    def _mega_step(self, sampling: bool, use_bias: bool) -> None:
+        mega_step(
+            self.params, self.cache, self.cfg, self.rope, self.planes,
+            self.sampler, self.window_k, self.mega_windows, self._base_seed,
+            self.tokenizer.eos_id, self._mega, sampling=sampling, use_bias=use_bias,
+        )
+
+    def _refresh_slot_state(self) -> None:
+        """Upload the [n_slots] request planes once the slots' composition
+        changed; a steady-state window uploads nothing."""
+        if not self._slot_state_dirty:
+            return
+        active = np.zeros((self.n_slots,), dtype=bool)
+        temps = np.ones((self.n_slots,), dtype=np.float32)
+        topps = np.ones((self.n_slots,), dtype=np.float32)
+        greedy = np.ones((self.n_slots,), dtype=bool)
+        fpen = np.zeros((self.n_slots,), dtype=np.float32)
+        ppen = np.zeros((self.n_slots,), dtype=np.float32)
+        for i, req in enumerate(self._slots):
+            if req is not None:
+                active[i] = True
+                temps[i] = max(req.temperature, 0.0)
+                topps[i] = req.top_p
+                greedy[i] = req.temperature <= 0
+                fpen[i] = req.frequency_penalty
+                ppen[i] = req.presence_penalty
+        self.planes.active.copy_(self._up(active))
+        self.planes.temps.copy_(self._up(temps))
+        self.planes.topps.copy_(self._up(topps))
+        self.planes.greedy.copy_(self._up(greedy))
+        self.planes.fpen.copy_(self._up(fpen))
+        self.planes.ppen.copy_(self._up(ppen))
+        self._slot_state_dirty = False
+
+    def _dispatch_window(self) -> Optional[_Window]:
+        """Dispatch one k-step window (with ``mega_windows`` > 1, one mega
+        window) without waiting for it, and enqueue its block's copy to
+        the host; None when a dry block pool failed every live request
+        and nothing is left to dispatch. The returned snapshot of the
+        slots matters: by processing time a retired slot may hold a new
+        request."""
+        k, mega = self.window_k, self.mega_windows
+        remaining = eos_stop = None
+        if mega > 1:
+            # Each slot's tokens not yet covered, for the device's exit:
+            # it runs windows until every slot's is covered or its EOS
+            # came (where the request stops on EOS), at most mega.
+            remaining = np.zeros((self.n_slots,), dtype=np.int64)
+            eos_stop = np.zeros((self.n_slots,), dtype=bool)
+            for i, req in enumerate(self._slots):
+                if req is not None:
+                    remaining[i] = max(0, req.max_new_tokens - self._tokens_in_flight[i])
+                    eos_stop[i] = req.stop_on_eos
         if self.kv_block:
-            # Allocation stays ahead of the window about to run (its writes
-            # land before the host sees its tokens). A dry pool mid-stream
-            # fails the request: the honest outcome of an oversubscribed
-            # pool.
+            # Allocation stays ahead of the windows in flight (their writes
+            # land before the host sees their tokens): a slot's real
+            # writes in a mega window cover its remaining tokens, and its
+            # junk past them parks in block 0. A dry pool mid-stream fails
+            # the request: the honest outcome of an oversubscribed pool.
             for i, req in enumerate(self._slots):
                 if req is None:
                     continue
-                need = (len(req.prompt_ids) + self._dispatched_tokens[i]
-                        + self.window_k + 1)
+                wt = k if mega <= 1 else min(mega, -(-int(remaining[i]) // k)) * k
+                need = len(req.prompt_ids) + self._dispatched_tokens[i] + wt + 1
                 if self._ensure_blocks(i, need):
-                    self._dispatched_tokens[i] += self.window_k
+                    self._dispatched_tokens[i] += wt
                     continue
                 self._resolve(req, exc=RuntimeError(
                     "KV block pool exhausted mid-generation (raise "
                     "kv_pool_blocks or lower concurrency)"
                 ))
                 self._release_slot(i)
+                if mega > 1:
+                    remaining[i], eos_stop[i] = 0, False
             self._push_table()
             if all(s is None for s in self._slots):
                 self._publish_step_metrics()
-                return
-        live = [r for r in self._slots if r is not None]
-        if self._slot_state_dirty:
-            active = np.zeros((self.n_slots,), dtype=bool)
-            temps = np.ones((self.n_slots,), dtype=np.float32)
-            topps = np.ones((self.n_slots,), dtype=np.float32)
-            greedy = np.ones((self.n_slots,), dtype=bool)
-            fpen = np.zeros((self.n_slots,), dtype=np.float32)
-            ppen = np.zeros((self.n_slots,), dtype=np.float32)
-            for i, req in enumerate(self._slots):
-                if req is not None:
-                    active[i] = True
-                    temps[i] = max(req.temperature, 0.0)
-                    topps[i] = req.top_p
-                    greedy[i] = req.temperature <= 0
-                    fpen[i] = req.frequency_penalty
-                    ppen[i] = req.presence_penalty
-            self.planes.active.copy_(self._up(active))
-            self.planes.temps.copy_(self._up(temps))
-            self.planes.topps.copy_(self._up(topps))
-            self.planes.greedy.copy_(self._up(greedy))
-            self.planes.fpen.copy_(self._up(fpen))
-            self.planes.ppen.copy_(self._up(ppen))
-            self._slot_state_dirty = False
+                return None  # the dry pool failed every live request
+        for i, req in enumerate(self._slots):
+            if req is not None:
+                self._tokens_in_flight[i] += (
+                    min(k * mega, int(remaining[i])) if mega > 1 else k
+                )
+        self._refresh_slot_state()
+        use = self._uses([r for r in self._slots if r is not None])
         t0 = time.time()
-        emitted = decode_window(
-            self.params, self.cache, self.cfg, self.rope, self.planes,
-            self.sampler, self.window_k, self._base_seed, **self._uses(live),
-        )
+        if mega > 1:
+            state = self._mega
+            state.remaining.copy_(self._up(remaining))
+            state.eos_stop.copy_(self._up(eos_stop))
+            record = None
+            if self._graphs is not None:
+                record = self._graphs.mega(**use)
+            else:
+                mega_window(
+                    self.params, self.cache, self.cfg, self.rope, self.planes,
+                    self.sampler, k, mega, self._base_seed, self.tokenizer.eos_id,
+                    state, **use,
+                )
+            self.mega_dispatches += 1
+            host, _ = self._to_host(state.emitted)
+            wrun, event = self._to_host(state.w)
+            return _Window(host, event, list(self._slots), t0, wrun, record)
+        if self._graphs is not None:
+            emitted = self._graphs.window(**use)
+        else:
+            emitted = self._window_eager(**use)
         self.decode_windows += 1
+        host, event = self._to_host(emitted)
+        return _Window(host, event, list(self._slots), t0)
+
+    def _process_window(self, win: _Window) -> None:
+        """Wait for a window's block (the loop's one host wait on the
+        device), then emit its tokens to the requests of its snapshot that
+        are still live. While a mega window runs, the host keeps admitting
+        and prefilling (the chunks queue behind it on the stream) and
+        emits first tokens that land."""
         t_fetch = time.time()
-        host = emitted.cpu().numpy()  # the window's one device→host fetch
+        if win.event is not None:
+            if self._prefill_emits or win.wrun is not None:
+                while not win.event.query():
+                    if win.wrun is not None:
+                        self._admit()
+                        self._prefill_step()
+                    self._flush_prefill_emits()
+                    time.sleep(0.001)  # a readiness poll, not a delay
+            win.event.synchronize()
+        steps = self.window_k
+        if win.wrun is not None:
+            n = int(win.wrun)
+            steps = n * self.window_k
+            self.decode_windows += n
+            self.windows_run.append(n)
+            if win.record is not None:
+                replayed(win.record, n)
         if self._metrics is not None:
-            # decode_fetch: the host's wait for the window;
-            # decode_window_pipeline: dispatch to fetched, one window in
-            # flight (the reference's pipeline of depth 1).
+            # decode_fetch: the host's blocking wait (what pipelining
+            # hides); decode_window_pipeline: dispatch to processed, with
+            # pipeline_depth windows queued (not one window's latency).
             now = time.time()
             self._metrics.record_histogram(
                 "app_tpu_infer_latency", now - t_fetch, "kind", "decode_fetch"
             )
             self._metrics.record_histogram(
-                "app_tpu_infer_latency", now - t0, "kind", "decode_window_pipeline"
+                "app_tpu_infer_latency", now - win.t0, "kind", "decode_window_pipeline"
             )
-            self._metrics.set_gauge(
-                "app_tpu_decode_step_seconds", (now - t0) / self.window_k,
-                "model", self.model_name,
-            )
-        T = self.top_logprobs
-        for i, req in enumerate(list(self._slots)):
+            if steps:
+                self._metrics.set_gauge(
+                    "app_tpu_decode_step_seconds", (now - win.t0) / steps,
+                    "model", self.model_name,
+                )
+        # First tokens copied before this window landed before it.
+        self._flush_prefill_emits()
+        host, T = win.host, self.top_logprobs
+        for i, req in enumerate(win.snapshot):
             if req is None:
                 continue
-            for step in range(self.window_k):
+            if req.future.done():
+                # Retired by an earlier window (its tokens here overshoot)
+                # or cancelled by the caller mid-flight: free the slot if
+                # it still holds the request.
+                if self._slots[i] is req:
+                    self._reap_request(req, slot=i)
+                continue
+            for step in range(steps):
                 top = None
                 if req.top_logprobs:
                     top = [(int(host[2 + j, step, i]), float(host[2 + T + j, step, i]))

@@ -1,12 +1,18 @@
 """Device programs of the serving engine: the sampler, the chunked-prefill
-step and the k-step decode window — the port of the reference's
-``serving/programs.py`` (``sample``, ``row_keys``, ``_prefill_core``,
-``make_decode_body``/``decode_window``).
+step, the multi-chunk prefill, the k-step decode window and the mega
+window — the port of the reference's ``serving/programs.py`` (``sample``,
+``row_keys``, ``_prefill_core``, ``prefill_multi_chunk``,
+``make_decode_body``/``decode_window``, ``mega_window``), without
+speculation.
 
 PyTorch runs eagerly, so a "program" is a function that enqueues its
 work on the current stream and returns device tensors; the per-slot
 planes (``SlotPlanes``) are updated in place on the device, and the host
-reads one block per decode window.
+reads one block per decode window. On the card the engine replays the
+decode programs as CUDA graphs (``DecodeGraphs``): the reference's one
+jitted dispatch per window is one graph launch here, and the mega
+window's device-side exit is a conditional WHILE node
+(``ops/cuda/graph_while.py``).
 
 The sampler runs the reference's order: ``logit_bias`` on the raw f32
 logits, then frequency/presence penalties over the generated tokens,
@@ -30,8 +36,9 @@ categorical sample. It does not reproduce JAX's threefry bits.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -41,6 +48,7 @@ from gofr_tpu_torch.models.transformer import (
     decode_step,
     prefill_chunk,
 )
+from gofr_tpu_torch.ops.cuda import _count, record_counts
 from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
 from gofr_tpu_torch.serving.types import LOGIT_BIAS_K
 
@@ -311,3 +319,218 @@ def decode_window(
             emitted[2: 2 + T, step] = top_i.T.float()
             emitted[2 + T:, step] = top_l.T
     return emitted
+
+
+def prefill_multi_chunk(
+    params: dict,
+    cache: KVCache | PagedKVCache,
+    cfg: TransformerConfig,
+    rope: Rope,
+    tokens3: torch.Tensor,
+    slots: torch.Tensor,
+    starts0: torch.Tensor,
+) -> None:
+    """``d`` full, non-finalizing [P, c] chunks in one host call
+    (``tokens3`` [d, P, c]; chunk i of row r starts at ``starts0[r] + i *
+    c``), the port of the reference's ``prefill_multi_chunk``: the chunks
+    are enqueued back to back with no fetch between them. No sampling and
+    no length update: both belong to the finalize chunk, which always goes
+    through ``prefill_chunk_step``. Padding rows duplicate row 0."""
+    d, P, c = tokens3.shape
+    lens = torch.full((P,), c, dtype=torch.int32, device=tokens3.device)
+    for i in range(d):
+        prefill_chunk(params, tokens3[i], cache, slots, starts0 + i * c, lens, cfg,
+                      rope=rope)
+
+
+@dataclass
+class MegaState:
+    """The device state of a mega window, in fixed buffers that a captured
+    graph binds: the [2 + 2T, m·k, S] block (``decode_window``'s rows,
+    window w at columns w·k .. w·k + k), the windows run, each slot's
+    tokens still to cover (``remaining``, set by the host before each
+    dispatch), whether an EOS retires the slot (``eos_stop``) and the
+    loop's condition ``go`` (int32: what the WHILE node reads)."""
+
+    emitted: torch.Tensor  # f32
+    w: torch.Tensor  # [] int64
+    remaining: torch.Tensor  # [S] int64
+    eos_stop: torch.Tensor  # [S] bool
+    go: torch.Tensor  # [] int32
+
+    @classmethod
+    def create(cls, n_slots: int, k: int, m: int, top_logprobs: int,
+               device: torch.device) -> "MegaState":
+        return cls(
+            emitted=torch.zeros((2 + 2 * top_logprobs, m * k, n_slots), device=device),
+            w=torch.zeros((), dtype=torch.long, device=device),
+            remaining=torch.zeros((n_slots,), dtype=torch.long, device=device),
+            eos_stop=torch.zeros((n_slots,), dtype=torch.bool, device=device),
+            go=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+
+def mega_begin(state: MegaState) -> None:
+    """Before the first window: no window run, a zero block, and the
+    reference's condition ``(w < m) & any(remaining > 0)`` at w = 0."""
+    state.w.zero_()
+    state.emitted.zero_()
+    state.go.copy_((state.remaining > 0).any())
+
+
+def mega_step(
+    params: dict,
+    cache: KVCache | PagedKVCache,
+    cfg: TransformerConfig,
+    rope: Rope,
+    planes: SlotPlanes,
+    flags: SamplerFlags,
+    k: int,
+    m: int,
+    base_seed: int,
+    eos_id: int,
+    state: MegaState,
+    *,
+    sampling: bool,
+    use_bias: bool = False,
+) -> None:
+    """One window of the mega loop, all on the device (the body of the
+    reference's ``win_body``): a k-step ``decode_window``, its block
+    stored at columns w·k .., each slot's ``remaining`` less k (0 once the
+    window produced EOS where ``eos_stop`` holds), w + 1, and the next
+    condition."""
+    e = decode_window(params, cache, cfg, rope, planes, flags, k, base_seed,
+                      sampling=sampling, use_bias=use_bias)
+    cols = state.w * k + torch.arange(k, device=e.device)
+    state.emitted.index_copy_(1, cols, e)
+    hit = (e[0] == eos_id).any(dim=0) & state.eos_stop
+    state.remaining.copy_(torch.where(hit, 0, (state.remaining - k).clamp(min=0)))
+    state.w += 1
+    state.go.copy_((state.w < m) & (state.remaining > 0).any())
+
+
+def mega_window(
+    params: dict,
+    cache: KVCache | PagedKVCache,
+    cfg: TransformerConfig,
+    rope: Rope,
+    planes: SlotPlanes,
+    flags: SamplerFlags,
+    k: int,
+    m: int,
+    base_seed: int,
+    eos_id: int,
+    state: MegaState,
+    *,
+    sampling: bool,
+    use_bias: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Up to ``m`` k-step windows in one call, with the reference's exit:
+    windows run while ``(w < m) & any(remaining > 0)``. Returns the
+    state's block and windows run; columns past ``w·k`` are zeros the host
+    must not read. Slots whose budget ran out while others continue keep
+    computing junk in their own rows of the cache (writes past ``max_len``
+    park), which the host drops after retirement. This is the plain
+    version: the condition is read on the host once a window (on the card
+    the engine runs ``DecodeGraphs.mega``, the same steps under a WHILE
+    node)."""
+    mega_begin(state)
+    while bool(state.go):
+        mega_step(params, cache, cfg, rope, planes, flags, k, m, base_seed, eos_id,
+                  state, sampling=sampling, use_bias=use_bias)
+    return state.emitted, state.w
+
+
+# The static variants of the decode programs: the reference's
+# static_argnames (sampling, use_bias) for the engine's k and flags.
+VARIANTS = tuple((s, b) for s in (False, True) for b in (False, True))
+
+
+class Captured:
+    """One CUDA graph capture of ``fn`` on ``pool``, on the calling
+    thread (``capture_error_mode="thread_local"``: the App's other threads
+    may keep using the card). ``fn`` runs once eagerly on a side stream
+    first (kernels' one-time set-up, cuBLAS handles, the decode kernel's
+    cluster-size query). ``out`` is what the capture returned (static:
+    every replay rewrites it), ``launches`` the kernel launches one replay
+    runs, by kernel name. With ``keep_graph`` the graph is kept
+    uninstantiated for ``raw()``, to be built into another graph."""
+
+    def __init__(self, fn: Callable[[], object], pool: object, *,
+                 keep_graph: bool = False) -> None:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+        t0 = time.perf_counter()
+        with _count.recording() as record, torch.cuda.graph(
+            self.graph, pool=pool, capture_error_mode="thread_local"
+        ):
+            self.out = fn()
+        self.capture_s = time.perf_counter() - t0
+        self.record = record
+        self.launches = record_counts(record)
+
+    def replay(self) -> object:
+        self.graph.replay()
+        _count.replayed(self.record)
+        return self.out
+
+    def raw(self) -> int:
+        return self.graph.raw_cuda_graph()
+
+
+class DecodeGraphs:
+    """The engine's decode programs as CUDA graphs, captured once per
+    static variant on the engine's own planes, cache and weights, in one
+    graph memory pool per engine, and replayed on the current stream.
+    Give one of the two programs: an engine with mega windows dispatches
+    only mega windows, one without only k-step windows.
+
+    With ``window_fn``, ``window(sampling, use_bias)`` replays the k-step
+    ``decode_window`` and returns its static block. With ``mega_fns``
+    (``mega_begin``, ``mega_step`` and the state's ``go``),
+    ``mega(sampling, use_bias)`` launches the mega window: a graph whose
+    WHILE node runs the captured ``mega_step`` while the device's ``go``
+    says so (``ops/cuda/graph_while.py``); the caller reads ``state.w``
+    and counts the returned launch record once per window run.
+
+    Capture runs every variant once eagerly and so advances every active
+    slot: build this only while no slot is active (inactive slots park
+    their writes and add 0 to their counters)."""
+
+    def __init__(self, window_fn: Optional[Callable[[bool, bool], torch.Tensor]] = None,
+                 mega_fns: Optional[tuple] = None) -> None:
+        if (window_fn is None) == (mega_fns is None):
+            raise ValueError("DecodeGraphs captures either window_fn or mega_fns")
+        self.pool = torch.cuda.graph_pool_handle()
+        self.windows: dict = {}
+        self.megas: dict = {}
+        if window_fn is not None:
+            self.windows = {
+                v: Captured(lambda v=v: window_fn(*v), self.pool) for v in VARIANTS
+            }
+        else:
+            from gofr_tpu_torch.ops.cuda.graph_while import WhileGraph
+
+            begin_fn, step_fn, go = mega_fns
+            self.prologue = Captured(begin_fn, self.pool, keep_graph=True)
+            for v in VARIANTS:
+                begin_fn()  # the warm-up window starts at w = 0
+                body = Captured(lambda v=v: step_fn(*v), self.pool, keep_graph=True)
+                self.megas[v] = (WhileGraph(self.prologue.raw(), body.raw(), go), body)
+        self.capture_s = {f"window {v}": c.capture_s for v, c in self.windows.items()}
+        self.capture_s.update({f"mega {v}": b.capture_s for v, (_, b) in self.megas.items()})
+
+    def window(self, sampling: bool, use_bias: bool) -> torch.Tensor:
+        return self.windows[(sampling, use_bias)].replay()
+
+    def mega(self, sampling: bool, use_bias: bool):
+        """Launch the mega window; returns the body's launch record (count
+        it with ``ops.cuda.replayed(record, windows_run)``)."""
+        graph, body = self.megas[(sampling, use_bias)]
+        graph.launch()
+        return body.record

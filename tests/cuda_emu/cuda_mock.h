@@ -74,6 +74,50 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
 
+// CUDA graphs (csrc/graph_while.cu) have no CPU mode: the types compile,
+// and every call reports cudaErrorNotSupported.
+#define CUDART_VERSION 12080
+typedef struct MockGraph* cudaGraph_t;
+typedef struct MockGraphExec* cudaGraphExec_t;
+typedef struct MockGraphNode* cudaGraphNode_t;
+typedef unsigned long long cudaGraphConditionalHandle;
+enum { cudaGraphCondAssignDefault = 1 };
+enum cudaGraphCondType { cudaGraphCondTypeIf, cudaGraphCondTypeWhile };
+enum cudaGraphNodeType { cudaGraphNodeTypeConditional = 13 };
+struct cudaKernelNodeParams {
+  void* func;
+  dim3 gridDim, blockDim;
+  unsigned sharedMemBytes;
+  void** kernelParams;
+  void** extra;
+};
+struct cudaConditionalNodeParams {
+  cudaGraphConditionalHandle handle;
+  cudaGraphCondType type;
+  unsigned size;
+  cudaGraph_t* phGraph_out;
+};
+struct cudaGraphNodeParams {
+  cudaGraphNodeType type;
+  cudaConditionalNodeParams conditional;
+};
+inline int cudaGraphCreate(cudaGraph_t*, unsigned) { return cudaErrorNotSupported; }
+inline int cudaGraphConditionalHandleCreate(cudaGraphConditionalHandle*, cudaGraph_t, unsigned,
+                                            unsigned) { return cudaErrorNotSupported; }
+inline int cudaGraphAddChildGraphNode(cudaGraphNode_t*, cudaGraph_t, const cudaGraphNode_t*,
+                                      size_t, cudaGraph_t) { return cudaErrorNotSupported; }
+inline int cudaGraphAddKernelNode(cudaGraphNode_t*, cudaGraph_t, const cudaGraphNode_t*, size_t,
+                                  const cudaKernelNodeParams*) { return cudaErrorNotSupported; }
+inline int cudaGraphAddNode(cudaGraphNode_t*, cudaGraph_t, const cudaGraphNode_t*, size_t,
+                            cudaGraphNodeParams*) { return cudaErrorNotSupported; }
+inline int cudaGraphInstantiate(cudaGraphExec_t*, cudaGraph_t, unsigned long long) {
+  return cudaErrorNotSupported;
+}
+inline int cudaGraphLaunch(cudaGraphExec_t, cudaStream_t) { return cudaErrorNotSupported; }
+inline int cudaGraphExecDestroy(cudaGraphExec_t) { return cudaErrorNotSupported; }
+inline int cudaGraphDestroy(cudaGraph_t) { return cudaErrorNotSupported; }
+inline void cudaGraphSetConditional(cudaGraphConditionalHandle, unsigned) {}
+
 struct MockBarrier {
   unsigned gen = 0, count = 0;
 };

@@ -107,11 +107,12 @@ def test_greedy_streams_equal_reference_engine_on_kv_variants(port_params, jax_p
         eng.close()
 
 
-def test_prompt_limit_and_budget_match_reference(engine, ref_engine):
+def test_prompt_limit_and_budget_match_reference(engine, ref_engine, port_params):
     """Room for the windows in flight, as the reference reserves it
     (pipeline_depth 2): at max_len 128 and window_k 4 the longest prompt
     is 128 - 2 - 3*4 = 114, and a 100-token prompt gets at most
-    128 - 1 - 100 - 12 = 15 tokens."""
+    128 - 1 - 100 - 12 = 15 tokens. At depth 3 the engine serves with one
+    window more reserved: 110 and 11."""
     from gofr_tpu.errors import ErrorPromptTooLong as RefErrorPromptTooLong
     from gofr_tpu_torch.errors import ErrorPromptTooLong
 
@@ -128,8 +129,13 @@ def test_prompt_limit_and_budget_match_reference(engine, ref_engine):
     want = _streams(ref_engine, [prompt], **kw)[0]
     assert len(want) == 15
     assert _streams(engine, [prompt], **kw)[0] == want
-    with pytest.raises(NotImplementedError, match="pipeline_depth"):
-        InferenceEngine(MODEL, device="cpu", pipeline_depth=3)
+    deep = InferenceEngine(MODEL, params=port_params, tokenizer=ByteTokenizer(),
+                           device="cpu", pipeline_depth=3, **GEOMETRY)
+    try:
+        assert deep.pipeline_depth == 3 and deep.max_prompt_tokens == 110
+        assert _streams(deep, [prompt], **kw)[0] == want[:11]
+    finally:
+        deep.close()
 
 
 def test_tight_pool_defers_admission_and_completes(engine, port_params):

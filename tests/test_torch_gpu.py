@@ -649,3 +649,102 @@ def test_flash_attention_hd32_on_gpu(cuda_device, b, s_q, s_kv, H, KV, causal, l
     torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
     zero = want.float().abs().amax(dim=(-1, -2)) == 0
     assert torch.all(got[zero] == 0)
+
+
+def _decode_state(dev, cfg, S, L, flags):
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+    from gofr_tpu_torch.serving.programs import SlotPlanes
+
+    cache = KVCache.create(cfg.n_layers, S, L, cfg.n_kv_heads, cfg.head_dim, dtype=cfg.dtype,
+                           device=dev)
+    return cache, SlotPlanes.create(S, dev, cfg.vocab_size, flags)
+
+
+def _copy_decode_state(dst, src):
+    for a, b in ((dst[0].k, src[0].k), (dst[0].v, src[0].v), (dst[0].lengths, src[0].lengths)):
+        a.copy_(b)
+    for name in ("tokens", "nsteps", "seeds", "temps", "greedy", "active", "topps", "fpen",
+                 "ppen", "pcounts", "bidx", "bval"):
+        getattr(dst[1], name).copy_(getattr(src[1], name))
+
+
+@pytest.mark.gpu
+def test_captured_decode_window_and_mega_window_match_eager_on_gpu(cuda_device):
+    """llama-tiny (bf16, hd 32) on 4 slots: the decode programs captured as
+    CUDA graphs while every slot is inactive, then replayed on a copy of a
+    state after a prefill, against the eager programs on the other copy:
+    every static variant's tokens identical and logprobs within 1e-3, the
+    launch counters under replay equal to the eager counts; the mega
+    window's WHILE graph runs min(m, ceil(max(remaining) / k)) windows and
+    gives the plain windows' tokens."""
+    import math
+
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import init_params, rope_tables
+    from gofr_tpu_torch.ops.cuda import launch_counts, replayed, reset_launch_counts
+    from gofr_tpu_torch.serving import programs as pg
+
+    cfg = get_model("llama-tiny").config
+    S, L, k, m = 4, 256, 4, 3
+    flags = pg.SamplerFlags()
+    with torch.inference_mode():
+        params = init_params(cfg, 0, cuda_device)
+        rope = rope_tables(cfg, L, cuda_device)
+        eager, graphed = (_decode_state(cuda_device, cfg, S, L, flags) for _ in range(2))
+        mega = pg.MegaState.create(S, k, m, 0, cuda_device)
+
+        def win(st, sampling, use_bias):
+            return pg.decode_window(params, st[0], cfg, rope, st[1], flags, k, 2,
+                                    sampling=sampling, use_bias=use_bias)
+
+        graphs = pg.DecodeGraphs(window_fn=lambda s, b: win(graphed, s, b))
+        megas = pg.DecodeGraphs(mega_fns=(
+            lambda: pg.mega_begin(mega),
+            lambda s, b: pg.mega_step(params, graphed[0], cfg, rope, graphed[1], flags, k, m,
+                                      2, 2**30, mega, sampling=s, use_bias=b),
+            mega.go))
+        i32 = dict(dtype=torch.int32, device=cuda_device)
+        ones = torch.ones((S,), dtype=torch.bool, device=cuda_device)
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (S, 32), generator=gen, device=cuda_device)
+        planes = eager[1]
+        planes.bidx[:, 0] = 7
+        planes.bval[:, 0] = 4.0
+        pg.prefill_chunk_step(params, eager[0], cfg, rope, planes, flags, toks,
+                              torch.arange(S, **i32), torch.zeros((S,), **i32),
+                              torch.tensor([1, 9, 20, 32], **i32), ones, ones,
+                              torch.ones((S,), device=cuda_device), ones,
+                              torch.ones((S,), device=cuda_device), 2, sampling=False)
+        planes.active.fill_(True)
+        planes.temps.fill_(0.8)
+        planes.greedy.copy_(torch.tensor([True, False, True, False], device=cuda_device))
+        start = _decode_state(cuda_device, cfg, S, L, flags)
+        _copy_decode_state(start, eager)
+        for v in pg.VARIANTS:
+            _copy_decode_state(eager, start)
+            _copy_decode_state(graphed, start)
+            reset_launch_counts()
+            want = win(eager, *v).clone()
+            torch.cuda.synchronize()
+            eager_counts = launch_counts()
+            reset_launch_counts()
+            got = graphs.window(*v).clone()
+            torch.cuda.synchronize()
+            assert launch_counts() == eager_counts
+            assert eager_counts["flash_decode"] == k * cfg.n_layers
+            assert torch.equal(got[0], want[0]), v
+            assert float((got[1] - want[1]).abs().max()) <= 1e-3
+        remaining = (0, 3, 6, 1)
+        _copy_decode_state(eager, start)
+        _copy_decode_state(graphed, start)
+        n = min(m, math.ceil(max(remaining) / k))
+        plain = torch.cat([win(eager, False, False) for _ in range(n)], dim=1)
+        mega.remaining.copy_(torch.tensor(remaining, device=cuda_device))
+        reset_launch_counts()
+        record = megas.mega(False, False)
+        torch.cuda.synchronize()
+        assert int(mega.w) == n == 2
+        replayed(record, int(mega.w))
+        assert launch_counts()["flash_decode"] == n * k * cfg.n_layers
+        assert torch.equal(mega.emitted[0, : n * k], plain[0])
+        assert not mega.emitted[:, n * k:].any()

@@ -535,6 +535,7 @@ _CONFIG = {
     "TPU_QUEUE_TOKENS": "999", "TPU_QUEUE_CLASS_PROMOTE_S": "2.5",
     "TPU_TENANT_QUEUE_MAX": "4", "TPU_TENANT_SLO_CLASS": "acme=batch",
     "TPU_EXPECTED_TPS": "123", "TPU_TRUNCATE_PROMPTS": "yes", "TPU_SPEC_TOKENS": "auto",
+    "TPU_PIPELINE_DEPTH": "3", "TPU_MEGA_WINDOWS": "4", "TPU_PREFILL_DEPTH": "4",
 }
 
 
@@ -543,7 +544,8 @@ def _geometry(e) -> dict:
         "n_slots", "max_len", "window_k", "prefill_chunk", "prefill_batch", "kv_block",
         "truncate_prompts", "top_logprobs", "enable_top_p", "enable_penalties", "queue_max",
         "queue_max_tokens", "class_promote_s", "tenant_queue_max", "_tenant_class_map",
-        "_expected_tps", "max_prompt_tokens", "model_name", "family")}
+        "_expected_tps", "max_prompt_tokens", "model_name", "family", "pipeline_depth",
+        "mega_windows", "prefill_depth")}
 
 
 @pytest.mark.parametrize("config", [_CONFIG, {"TPU_MODEL": MODEL}], ids=["set", "defaults"])
