@@ -67,6 +67,20 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    phase_serve's (a difference passes only at a top-2 logit margin below
    1e-2), tok/s, TTFT p50, ITL p50, windows, mega dispatches, launches and
    stream syncs per setting;
+4d. exact-verify speculative decoding (G = 2 drafts a step by n-gram
+   lookup, verified through the plain decode step once per candidate
+   position): the captured spec window against the eager one on copies
+   of one state, every static variant (tokens and counts identical,
+   logprobs within 1e-3, flash_decode launched k·(G+1)·layers times a
+   window, counted through the replay); the mega spec window (m = 4)
+   against plain spec windows, windows_run by the delivered-count exit,
+   an EOS case ending early; phase_serve's 10 prompts at G = 2 on the bf16
+   slot cache and the int8 pool, and 4 repeated-text prompts, each stream
+   equal to the G = 0 stream (a greedy difference passes only at a top-2
+   margin below 1e-2), with tok/s, TTFT p50, ITL p50, tokens a live step,
+   windows, launches, pool peak and stream syncs beside G = 0's; a profile
+   of one replayed spec window; and (in 5a) Mistral-7B's 6 requests at
+   G = 2 against G = 0;
 5. profiles one 8-step decode window (eager, then as a CUDA graph replay)
    and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
@@ -1670,10 +1684,13 @@ def watch_steps(eng) -> dict:
     slots mid-prefill when it starts, at most prefill_batch: how admission
     spread the requests over the scheduler's passes) and the host wall
     time of each decode window from its dispatch to its tokens emitted
-    (ms; with pipeline_depth windows queued before it). Stop with
+    (ms; with pipeline_depth windows queued before it), and on a
+    speculative engine the tokens its live steps produced and their
+    number (``spec``: [tokens, live steps]). Stop with
     ``unwatch_steps(eng)``."""
-    seen = {"rows": [], "window_ms": []}
+    seen = {"rows": [], "window_ms": [], "spec": [0, 0]}
     prefill, process = eng._prefill_step, eng._process_window
+    G = eng.spec_tokens
 
     def counted_prefill():
         if eng._prefilling:
@@ -1683,6 +1700,11 @@ def watch_steps(eng) -> dict:
     def timed_window(win):
         process(win)
         seen["window_ms"].append((time.time() - win.t0) * 1e3)
+        if G:
+            steps = eng.window_k * (int(win.wrun) if win.wrun is not None else 1)
+            counts = win.host[2 * G + 2, :steps]
+            seen["spec"][0] += int(counts.sum())
+            seen["spec"][1] += int((counts > 0).sum())
 
     eng._prefill_step, eng._process_window = counted_prefill, timed_window
     return seen
@@ -1825,6 +1847,13 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
         stats = serve_stats(reqs, wall)
         stats.update(windows=windows, mega_dispatches=megas, prefill_dispatches=prefills,
                      syncs=syncs, counts=counts)
+        if eng.spec_tokens:
+            tokens, steps = seen["spec"]
+            stats["tokens_per_step"] = tokens / max(steps, 1)
+            log(f"{label}: speculative steps produced {tokens} tokens in {steps} live "
+                f"steps: {stats['tokens_per_step']:.3f} a step")
+        if kv.get("kv_block"):
+            stats["pool_peak_blocks"] = eng.kv_blocks_peak
         log(f"{label}: {n} requests (prompts {list(lengths)}, 32 new tokens each) in "
             f"{wall:.3f} s: {stats['tok_s']:.1f} generated tok/s, TTFT p50 "
             f"{stats['ttft_p50_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f}), "
@@ -2077,6 +2106,49 @@ def first_difference(torch, cfg, params, prompt: list, want: list, got: list) ->
 NEAR_TIE = 1e-2
 
 
+def decode_state(torch, dev, cfg, S: int, L: int, history_len: int = 1) -> tuple:
+    """A slot cache of S x L tokens and sampler planes (flags off; a
+    history plane of ``history_len`` columns), all zero."""
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+    from gofr_tpu_torch.serving import programs as pg
+
+    cache = KVCache.create(cfg.n_layers, S, L, cfg.n_kv_heads, cfg.head_dim, dtype=cfg.dtype,
+                           device=dev)
+    return cache, pg.SlotPlanes.create(S, dev, cfg.vocab_size, pg.SamplerFlags(),
+                                       history_len=history_len)
+
+
+def copy_decode_state(dst: tuple, src: tuple, kv: bool = True) -> None:
+    """Copy ``src``'s lengths and planes into ``dst``, and its K/V unless
+    ``kv`` is False (a window then reruns from the same lengths, tokens,
+    counters and history over other cache contents)."""
+    dst[0].lengths.copy_(src[0].lengths)
+    if kv:
+        dst[0].k.copy_(src[0].k)
+        dst[0].v.copy_(src[0].v)
+    for f in ("tokens", "nsteps", "seeds", "temps", "greedy", "active", "topps", "fpen",
+              "ppen", "pcounts", "bidx", "bval", "history"):
+        getattr(dst[1], f).copy_(getattr(src[1], f))
+
+
+def capture_decode_graphs(torch, planes, **fns) -> tuple:
+    """``DecodeGraphs(**fns)`` while every slot of ``planes`` is inactive,
+    as the engine captures before its first request: (the graphs, seconds
+    with the warm-ups, graph pool bytes reserved)."""
+    from gofr_tpu_torch.serving import programs as pg
+
+    planes.active.fill_(False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    graphs = pg.DecodeGraphs(**fns)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return graphs, seconds, torch.cuda.memory_reserved() - reserved0
+
+
 def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> dict:
     """The decode loop at phase_serve's geometry (Llama-3-8B, 8 slots,
     max_len 2048, k = 8): (1) the captured window against the eager one on
@@ -2096,47 +2168,19 @@ def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> 
     launches per setting."""
     from gofr_tpu_torch.models.transformer import rope_tables
     from gofr_tpu_torch.ops.cuda import launch_counts, replayed, reset_launch_counts
-    from gofr_tpu_torch.ops.kv_cache import KVCache
     from gofr_tpu_torch.serving import programs as pg
 
     S, L, k, m, c = 8, 2048, 8, 4, 256
     flags = pg.SamplerFlags()
     rope = rope_tables(cfg, L, dev)
     with torch.inference_mode():
-        def state():
-            cache = KVCache.create(cfg.n_layers, S, L, cfg.n_kv_heads, cfg.head_dim,
-                                   dtype=cfg.dtype, device=dev)
-            return cache, pg.SlotPlanes.create(S, dev, cfg.vocab_size, flags)
-
-        def copy_state(dst, src):
-            for a, b in ((dst[0].k, src[0].k), (dst[0].v, src[0].v),
-                         (dst[0].lengths, src[0].lengths)):
-                a.copy_(b)
-            for f in ("tokens", "nsteps", "seeds", "temps", "greedy", "active", "topps",
-                      "fpen", "ppen", "pcounts", "bidx", "bval"):
-                getattr(dst[1], f).copy_(getattr(src[1], f))
-
         def win(st, sampling, use_bias):
             return pg.decode_window(params, st[0], cfg, rope, st[1], flags, k, 2,
                                     sampling=sampling, use_bias=use_bias)
 
-        def capture(**fns):
-            """DecodeGraphs on ``graphed`` while every slot of it is
-            inactive, as the engine captures before its first request:
-            (the graphs, seconds with the warm-ups, pool bytes reserved)."""
-            graphed[1].active.fill_(False)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            reserved0 = torch.cuda.memory_reserved()
-            t0 = time.perf_counter()
-            graphs = pg.DecodeGraphs(**fns)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            torch.cuda.empty_cache()
-            return graphs, seconds, torch.cuda.memory_reserved() - reserved0
-
-        eager, graphed = state(), state()
-        graphs, capture_s, pool = capture(window_fn=lambda s, b: win(graphed, s, b))
+        eager, graphed = (decode_state(torch, dev, cfg, S, L) for _ in range(2))
+        graphs, capture_s, pool = capture_decode_graphs(
+            torch, graphed[1], window_fn=lambda s, b: win(graphed, s, b))
         log(f"decode loop: captured 4 window variants in {capture_s:.2f} s (warm-up "
             "included); capture alone by variant "
             + json.dumps({key: round(v, 3) for key, v in graphs.capture_s.items()})
@@ -2161,12 +2205,12 @@ def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> 
         planes.active.fill_(True)
         planes.temps.fill_(0.8)
         planes.greedy.copy_(~sampled_rows)
-        start = state()
-        copy_state(start, eager)
+        start = decode_state(torch, dev, cfg, S, L)
+        copy_decode_state(start, eager)
         results = {}
         for v in pg.VARIANTS:
-            copy_state(eager, start)
-            copy_state(graphed, start)
+            copy_decode_state(eager, start)
+            copy_decode_state(graphed, start)
             reset_launch_counts()
             e = win(eager, *v).clone()
             torch.cuda.synchronize()
@@ -2195,13 +2239,13 @@ def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> 
         # m plain windows from the start; the EOS id of the mega graphs is
         # a token slot 6 first produces in its third window, so that the
         # device's EOS exit is reached on the card.
-        copy_state(eager, start)
+        copy_decode_state(eager, start)
         plain = torch.cat([win(eager, False, False) for _ in range(m)], dim=1)
         streams = plain[0].long().t().tolist()  # [S][m·k]
         eos_slot, s6 = 6, streams[6]
         eos = s6[next((p for p in range(2 * k, 3 * k) if s6[p] not in s6[:p]), 2 * k)]
         mega = pg.MegaState.create(S, k, m, 0, dev)
-        megas, mega_capture_s, mega_pool = capture(mega_fns=(
+        megas, mega_capture_s, mega_pool = capture_decode_graphs(torch, graphed[1], mega_fns=(
             lambda: pg.mega_begin(mega),
             lambda s, b: pg.mega_step(params, graphed[0], cfg, rope, graphed[1], flags, k,
                                       m, 2, eos, mega, sampling=s, use_bias=b),
@@ -2233,7 +2277,7 @@ def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> 
                 fail(f"decode loop: the exit {want_w} is not min(m, ceil(max / k)) {budget_w}")
             if stop is eos_stop and want_w >= budget_w:
                 fail(f"decode loop: EOS id {eos} does not end slot {eos_slot}'s windows early")
-            copy_state(graphed, start)
+            copy_decode_state(graphed, start)
             mega.remaining.copy_(torch.tensor(remaining, device=dev))
             mega.eos_stop.copy_(torch.tensor(stop, device=dev))
             reset_launch_counts()
@@ -2283,6 +2327,278 @@ def phase_decode_loop(torch, dev, cfg, params, base: list, base_stats: dict) -> 
         for label, st in settings.items()}))
     return {"capture_s": capture_s, "pool_bytes": pool, "mega_capture_s": mega_capture_s,
             "mega_pool_bytes": mega_pool, "settings": settings}
+
+
+# Repeated text, the n-gram draft's best case: the reference's BENCH_PROMPTS
+# (tests/test_spec_decoding.py) as byte ids.
+SPEC_PROMPTS = tuple([ord(ch) for ch in ("abcdefgh"[i % 4:] + "abcdefgh" * 12)[:64]]
+                     for i in range(4))
+
+
+def check_streams(torch, cfg, params, label: str, prompts: list, want: list, got: list,
+                  greedy: list) -> None:
+    """``got`` must equal ``want`` stream for stream: a greedy stream may
+    leave it only at a top-2 logit margin below NEAR_TIE (reduction order,
+    from the plain forward), a sampled one not at all."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        if not greedy[i]:
+            fail(f"{label}: sampled request {i} differs from the spec-off stream")
+        diff = first_difference(torch, cfg, params, prompts[i], a, b)
+        log(f"{label}: request {i} leaves the spec-off stream: {diff}")
+        if diff["margin"] >= NEAR_TIE:
+            fail(f"{label}: request {i} differs from the spec-off stream at a top-2 margin "
+                 f"{diff['margin']:.4g} >= {NEAR_TIE}: a state hazard")
+
+
+def serve_repeated(torch, dev, params, G: int) -> tuple:
+    """SPEC_PROMPTS (32 greedy tokens each) through an engine at G, all
+    submitted at once: (streams, tokens a live step, launch counts)."""
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine("llama-3-8b", n_slots=8, max_len=2048, window_k=8, prefill_chunk=256,
+                          prefill_batch=8, params=params, seed=0, device=dev, spec_tokens=G)
+    try:
+        eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        seen = watch_steps(eng)
+        reqs = [eng.submit_generate(list(p), max_new_tokens=32, stop_on_eos=False)
+                for p in SPEC_PROMPTS]
+        streams = [r.future.result(timeout=600).token_ids for r in reqs]
+        unwatch_steps(eng)
+        tokens, steps = seen["spec"]
+        return streams, tokens / max(steps, 1) if G else 1.0, launch_counts()
+    finally:
+        eng.close()
+
+
+def phase_spec(torch, dev, cfg, params, base: list, base_stats: dict, pool_base: list,
+               pool_stats: dict, pool_kv: dict) -> dict:
+    """Exact-verify speculative decoding at phase_serve's geometry
+    (Llama-3-8B, 8 slots, max_len 2048, k = 8, G = 2): (1) the captured
+    spec window against the eager one on copies of one state after a
+    prefill of repeated text, every static variant (greedy / sampled x
+    logit bias): tokens and counts identical, logprobs within 1e-3, the
+    same lengths and history, flash_decode launched k·(G+1)·layers times a
+    window, counted through the replay; the capture time and graph pool
+    bytes; (2) the mega spec window (m = 4, a WHILE node) against plain
+    spec windows, with windows_run equal to the reference's exit, where a
+    window takes from each budget the tokens it delivered: two budget sets
+    and one where slot 6 stops on an EOS id among the tokens its third
+    window delivers; (3) phase_serve's 10 prompts at G = 2 on the bf16
+    slot cache and on the int8 pool, held against the G = 0 streams of
+    this run (phase_serve's), and SPEC_PROMPTS at G = 2 against G = 0,
+    with tok/s, TTFT p50, ITL p50, tokens a live step, windows, launches,
+    pool peak and stream syncs beside G = 0's; (4) a profile of one
+    replayed spec window."""
+    from gofr_tpu_torch.models.transformer import rope_tables
+    from gofr_tpu_torch.ops.cuda import launch_counts, replayed, reset_launch_counts
+    from gofr_tpu_torch.serving import programs as pg
+
+    S, L, k, m, c, G = 8, 2048, 8, 4, 256, 2
+    rows = pg.spec_rows(G)
+    flags = pg.SamplerFlags()
+    rope = rope_tables(cfg, L, dev)
+    out: dict = {}
+    with torch.inference_mode():
+        def win(st, sampling, use_bias):
+            return pg.spec_window(params, st[0], cfg, rope, st[1], flags, k, G, 2,
+                                  sampling=sampling, use_bias=use_bias)
+
+        eager, graphed = (decode_state(torch, dev, cfg, S, L, history_len=L) for _ in range(2))
+        graphs, capture_s, pool = capture_decode_graphs(
+            torch, graphed[1], window_fn=lambda s, b: win(graphed, s, b))
+        log(f"spec: captured 4 spec-window variants (k={k}, G={G}) in {capture_s:.2f} s "
+            "(warm-up included); capture alone by variant "
+            + json.dumps({key: round(v, 3) for key, v in graphs.capture_s.items()})
+            + f"; graph memory pool {pool} bytes reserved; launches a replayed window "
+            + json.dumps({str(v): g.launches for v, g in graphs.windows.items()}))
+        out.update(capture_s=capture_s, pool_bytes=pool,
+                   capture_by_variant=dict(graphs.capture_s))
+
+        # One prefill chunk of repeated text in every slot (rotated per
+        # slot), so that the drafts find their bigrams.
+        gen = torch.Generator(device=dev).manual_seed(0)
+        i32 = dict(dtype=torch.int32, device=dev)
+        ones = torch.ones((S,), dtype=torch.bool, device=dev)
+        lens = torch.tensor((1, 17, 64, 100, 150, 200, 255, 256), **i32)
+        motif = torch.randint(0, cfg.vocab_size, (16,), generator=gen, device=dev)
+        toks = torch.stack([motif.roll(i).repeat(c // 16) for i in range(S)])
+        planes = eager[1]
+        planes.seeds.copy_(torch.arange(S, device=dev) * 7 + 1)
+        planes.bidx[:, :3] = torch.randint(0, cfg.vocab_size, (S, 3), generator=gen, device=dev)
+        planes.bval[:, :3] = 5.0
+        sampled_rows = torch.arange(S, device=dev) % 2 == 1
+        pg.prefill_chunk_step(params, eager[0], cfg, rope, planes, flags, toks,
+                              torch.arange(S, **i32), torch.zeros((S,), **i32), lens, ones,
+                              ones, torch.full((S,), 0.8, device=dev), ~sampled_rows,
+                              torch.ones((S,), device=dev), 2, sampling=True, history=True)
+        planes.active.fill_(True)
+        planes.temps.fill_(0.8)
+        planes.greedy.copy_(~sampled_rows)
+        start = decode_state(torch, dev, cfg, S, L, history_len=L)
+        copy_decode_state(start, eager)
+        results = {}
+        for v in pg.VARIANTS:
+            copy_decode_state(eager, start)
+            copy_decode_state(graphed, start)
+            reset_launch_counts()
+            e = win(eager, *v).clone()
+            torch.cuda.synchronize()
+            eager_counts = launch_counts()
+            reset_launch_counts()
+            g = graphs.window(*v).clone()
+            torch.cuda.synchronize()
+            graph_counts = launch_counts()
+            counts = e[2 * G + 2]
+            r = {"tokens_equal": bool(torch.equal(e[: G + 1], g[: G + 1])),
+                 "counts_equal": bool(torch.equal(counts, g[2 * G + 2])),
+                 "max_abs_dlogprob": float((e[G + 1: 2 * G + 2] - g[G + 1: 2 * G + 2])
+                                           .abs().max()),
+                 "bitwise": bool(torch.equal(e, g)),
+                 "state_equal": bool(torch.equal(eager[0].lengths, graphed[0].lengths)
+                                     and torch.equal(eager[1].history, graphed[1].history)
+                                     and torch.equal(eager[1].nsteps, graphed[1].nsteps)),
+                 "tokens_a_step": float(counts.mean()),
+                 "launches_eager": eager_counts, "launches_graph": graph_counts}
+            results[str(v)] = r
+            if not (r["tokens_equal"] and r["counts_equal"] and r["state_equal"]) \
+                    or r["max_abs_dlogprob"] > 1e-3:
+                fail(f"spec: the captured spec window {v} differs from the eager one: {r}")
+            if eager_counts != graph_counts or \
+                    graph_counts["flash_decode"] != k * (G + 1) * cfg.n_layers:
+                fail(f"spec: launches eager {eager_counts} vs replayed {graph_counts}, "
+                     f"want k·(G+1)·layers = {k * (G + 1) * cfg.n_layers} flash_decode")
+        log("spec: captured window vs eager, (sampling, use_bias): "
+            + json.dumps({key: {x: y for x, y in r.items() if not x.startswith("launches")}
+                          for key, r in results.items()})
+            + f"; launches a window eager = replayed = {graph_counts}")
+        out["graph_vs_eager"] = results
+        out["launches_a_window"] = graph_counts
+
+        # (4) One replayed spec window, profiled; each repetition starts
+        # from the same lengths, tokens, counters and history.
+        copy_decode_state(graphed, start)
+
+        def replay():
+            copy_decode_state(graphed, start, kv=False)
+            graphs.window(False, False)
+
+        prof = _profile_step(torch, "spec_window_k8_G2_graph_replay", replay)
+        log("profile: " + json.dumps(prof))
+        out["profile"] = prof
+        del graphs
+
+        # (2) m plain spec windows from the start, and the host's exit rule.
+        copy_decode_state(eager, start)
+        plain = torch.cat([win(eager, False, False) for _ in range(m)], dim=1)
+        ptoks = plain[: G + 1].long().cpu()  # [G+1, m·k, S]
+        pcounts = plain[2 * G + 2].long().cpu()  # [m·k, S]
+
+        def delivered(w, i):
+            """Slot i's tokens in plain window w, in order."""
+            return [int(ptoks[j, t, i]) for t in range(w * k, (w + 1) * k)
+                    for j in range(int(pcounts[t, i]))]
+
+        eos_slot = 6
+        seen6 = delivered(0, eos_slot) + delivered(1, eos_slot)
+        eos = next((t for t in delivered(2, eos_slot) if t not in seen6),
+                   delivered(2, eos_slot)[0])
+        mega = pg.MegaState.create(S, k, m, 0, dev, spec_tokens=G)
+        megas, mega_capture_s, mega_pool = capture_decode_graphs(torch, graphed[1], mega_fns=(
+            lambda: pg.mega_begin(mega),
+            lambda s, b: pg.mega_step(params, graphed[0], cfg, rope, graphed[1], flags, k,
+                                      m, 2, eos, mega, sampling=s, use_bias=b,
+                                      spec_tokens=G),
+            mega.go))
+        log(f"spec: captured 4 mega spec bodies in {mega_capture_s:.2f} s (warm-up "
+            "included); capture alone by variant "
+            + json.dumps({key: round(v, 3) for key, v in megas.capture_s.items()})
+            + f"; graph memory pool {mega_pool} bytes reserved; EOS id {eos}")
+        out.update(mega_capture_s=mega_capture_s, mega_pool_bytes=mega_pool)
+
+        def exit_after(remaining, stop):
+            """The reference's mega spec exit on the host: windows run while
+            (w < m) & any(remaining > 0); a window takes from each budget
+            the tokens it delivered, and zeroes it where the slot stops on
+            an EOS among them."""
+            rem, w = list(remaining), 0
+            while w < m and any(x > 0 for x in rem):
+                rem = [0 if stop[i] and eos in delivered(w, i)
+                       else max(0, x - len(delivered(w, i))) for i, x in enumerate(rem)]
+                w += 1
+            return w
+
+        no_stop = (False,) * S
+        eos_stop = tuple(i == eos_slot for i in range(S))
+        mega_runs = []
+        for remaining, stop in (((0, 5, 9, 17, 3, 12, 30, 1), no_stop),
+                                ((0, 40, 9, 70, 3, 1, 0, 2), no_stop),
+                                ((0, 5, 9, 3, 3, 1, 200, 1), eos_stop)):
+            want_w = exit_after(remaining, stop)
+            plain_w = min(m, -(-max(remaining) // k))  # at k tokens a window
+            if stop is eos_stop and want_w >= exit_after(remaining, no_stop):
+                fail(f"spec: EOS id {eos} does not end slot {eos_slot}'s windows early")
+            copy_decode_state(graphed, start)
+            mega.remaining.copy_(torch.tensor(remaining, device=dev))
+            mega.eos_stop.copy_(torch.tensor(stop, device=dev))
+            reset_launch_counts()
+            record = megas.mega(False, False)
+            torch.cuda.synchronize()
+            w = int(mega.w)
+            replayed(record, w)
+            got, want = mega.emitted[:, : w * k], plain[:, : want_w * k]
+            equal = (w == want_w and torch.equal(got[: G + 1], want[: G + 1])
+                     and torch.equal(got[2 * G + 2], want[2 * G + 2]))
+            ok = (equal and float((got[G + 1: 2 * G + 2] - want[G + 1: 2 * G + 2])
+                                  .abs().max()) <= 1e-3
+                  and not mega.emitted[:, w * k:].any())
+            run = {"remaining": list(remaining), "eos_stop": [i for i, x in enumerate(stop) if x],
+                   "windows_run": w, "reference_exit": want_w, "at_k_a_window": plain_w,
+                   "equal_to_plain": equal, "bitwise": w == want_w and bool(torch.equal(got, want)),
+                   "launches": launch_counts()}
+            mega_runs.append(run)
+            log("spec: mega spec window (m=4): " + json.dumps(run))
+            if not ok:
+                fail("spec: the mega spec window's graph differs from plain spec windows")
+            if launch_counts()["flash_decode"] != w * k * (G + 1) * cfg.n_layers:
+                fail("spec: the mega spec window's launches are not its windows'")
+        out["mega"] = mega_runs
+        del megas, eager, graphed, start, mega, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (3) The A/B serves: G = 2 against G = 0 (phase_serve's runs).
+    rng = __import__("numpy").random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in LLAMA_PROMPTS]
+    prompts[-1] = prompts[-2]
+    greedy = [True] * (len(prompts) - 2) + [False, False]
+    keys = ("tok_s", "ttft_p50_ms", "itl_p50_ms", "tokens_per_step", "windows",
+            "prefill_dispatches", "syncs", "pool_peak_blocks", "counts")
+    ab = {}
+    for label, kv, want, want_stats in (("bf16 slot cache", {}, base, base_stats),
+                                        ("int8 pool", pool_kv, pool_base, pool_stats)):
+        counts, streams, stats = phase_serve(torch, dev, params, spec_tokens=G, **kv)
+        check_streams(torch, cfg, params, f"spec serve {label}", prompts, want, streams, greedy)
+        for name in ("flash_decode", "flash_cache_attention"):
+            if counts[name] <= 0:
+                fail(f"spec serve {label}: kernel {name} was not launched")
+        ab[label] = {f"G={g}": {x: st.get(x) for x in keys}
+                     for g, st in ((0, want_stats), (G, stats))}
+        log(f"spec A/B {label}: " + json.dumps(ab[label]))
+    rep = {}
+    for g in (0, G):
+        rep[g] = serve_repeated(torch, dev, params, g)
+    check_streams(torch, cfg, params, "spec serve repeated text", list(SPEC_PROMPTS),
+                  rep[0][0], rep[G][0], [True] * len(SPEC_PROMPTS))
+    log(f"spec repeated text ({len(SPEC_PROMPTS)} prompts of 64 byte ids, 32 greedy tokens): "
+        f"G={G} produced {rep[G][1]:.3f} tokens a live step; flash_decode launches "
+        f"G=0 {rep[0][2]['flash_decode']}, G={G} {rep[G][2]['flash_decode']}")
+    out.update(ab=ab, repeated_tokens_per_step=rep[G][1])
+    return out
 
 
 class _SSEClient(threading.Thread):
@@ -2981,6 +3297,7 @@ def main() -> None:
         f"bf16 slot cache (8 x 2048 tokens) {8 * 2048 * bf16_tok}, int8 slot cache "
         f"{8 * 2048 * int8_tok}, int8 pool (161 blocks of 32) {161 * 32 * int8_tok}")
     decode_loop = phase_decode_loop(torch, dev, cfg, params, base, base_stats)
+    spec = phase_spec(torch, dev, cfg, params, base, base_stats, pool_base, pool_stats, pool_kv)
     with torch.inference_mode():
         phase_profile(torch, dev, cfg, params, sampler=True, graph=True)
     del params
@@ -3017,6 +3334,14 @@ def main() -> None:
         f"{mstats['prefill_dispatches']} -> {mdeep_stats['prefill_dispatches']}, TTFT p50 "
         f"{mstats['ttft_p50_ms']:.1f} -> {mdeep_stats['ttft_p50_ms']:.1f} ms, tok/s "
         f"{mstats['tok_s']:.1f} -> {mdeep_stats['tok_s']:.1f}")
+    # Speculative decoding past the window: G = 2 against depth 1's run.
+    mspec_counts, mspec, mspec_stats = phase_serve(torch, dev, mparams, **mserve, spec_tokens=2)
+    check_streams(torch, mcfg, mparams, "spec serve mistral-7b", mprompts, mbase, mspec,
+                  [True] * len(mprompts))
+    log("spec A/B mistral-7b bf16 slot cache: " + json.dumps(
+        {f"G={g}": {x: st.get(x) for x in ("tok_s", "ttft_p50_ms", "itl_p50_ms",
+                                           "tokens_per_step", "windows", "syncs", "counts")}
+         for g, st in ((0, mstats), (2, mspec_stats))}))
     mpool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=641)
     mpool_counts = phase_serve(torch, dev, mparams, **mserve, **mpool_kv)[0]
     bf16_tok, int8_tok = (mcfg.n_layers * kv_bytes(1, mcfg.n_kv_heads, mcfg.head_dim, quant)
@@ -3119,6 +3444,10 @@ def main() -> None:
         entry["launches_decode_loop"] = {label: st["counts"][k] for label, st in
                                          decode_loop["settings"].items()}
         entry["launches_mistral_prefill_depth_4"] = mdeep_counts[k]
+        entry["launches_spec"] = {
+            "a replayed spec window (k=8, G=2)": spec["launches_a_window"].get(k, 0),
+            **{f"serve {label} G=2": ab["G=2"]["counts"][k] for label, ab in spec["ab"].items()},
+            "serve mistral-7b G=2": mspec_counts[k]}
     log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

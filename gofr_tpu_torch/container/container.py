@@ -121,6 +121,11 @@ class Container:
             (1, 2, 4, 8, 16, 32, 64, 128, 256),
         )
         m.new_counter("app_tpu_tokens_generated", "tokens generated")
+        m.new_histogram(
+            "app_tpu_spec_tokens_per_step",
+            "speculative decoding: tokens accepted per live step",
+            (1, 1.5, 2, 2.5, 3, 4, 5, 6, 8),
+        )
         m.new_gauge(
             "app_tpu_kv_blocks_free", "paged KV cache: free pool blocks"
         )

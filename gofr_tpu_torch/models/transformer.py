@@ -463,3 +463,43 @@ def decode_step(
     cache.lengths += write.to(torch.int32)
     x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float()
+
+
+def ngram_draft(
+    history: torch.Tensor,
+    lengths: torch.Tensor,
+    current: torch.Tensor,
+    n_draft: int,
+) -> torch.Tensor:
+    """Prompt-lookup drafting, the counterpart of the reference's
+    ``ngram_draft``: continue the most recent prior occurrence of the
+    current context in the slot's own token history.
+
+    history: [S, max_len] (prompt and generated tokens; entries past
+    lengths+1 are stale); lengths: [S] tokens in history BEFORE current;
+    current: [S] the token about to be fed to the model (at
+    history[lengths]). Matches the bigram (history[p-1], history[p]) ==
+    (previous, current), a unigram match when the context has fewer than
+    2 tokens, at positions strictly before ``lengths``, and drafts
+    ``history[p+1 : p+1+n_draft]`` of the last match p. No match repeats
+    ``current``. Returns [S, n_draft] of history's dtype. Static shapes
+    only (gather and where), so it runs inside a captured graph."""
+    S, T = history.shape
+    lengths = lengths.long()
+    pos = torch.arange(T, device=history.device)[None, :]  # [1, T]
+    prev_idx = (lengths - 1).clamp(min=0)
+    prev = history.gather(1, prev_idx[:, None])[:, 0]
+    hist_prev = torch.cat(
+        [torch.zeros((S, 1), dtype=history.dtype, device=history.device),
+         history[:, :-1]], dim=1,
+    )
+    m1 = history == current[:, None]
+    m2 = m1 & (hist_prev == prev[:, None])
+    match = torch.where((lengths >= 2)[:, None], m2, m1)
+    match = match & (pos < lengths[:, None])
+    p_star = torch.where(match, pos, -1).amax(dim=1)  # [S]
+    gidx = (
+        p_star[:, None] + 1 + torch.arange(n_draft, device=history.device)[None, :]
+    ).clamp(0, T - 1)
+    draft = history.gather(1, gidx)
+    return torch.where((p_star >= 0)[:, None], draft, current[:, None].to(history.dtype))

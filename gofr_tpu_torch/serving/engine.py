@@ -19,6 +19,14 @@ its copy to the host lands. A request retires on EOS, on a stop
 sequence, on its token budget or at the context limit, and its slot is
 reused.
 
+With ``spec_tokens`` = G > 0 (``TPU_SPEC_TOKENS``) each window is a
+speculative one, the reference's exact verify: every step drafts G tokens
+by n-gram lookup in the slot's token history and verifies them through
+the plain decode step, one candidate position at a time, so a step emits
+1 to G+1 tokens and the streams are the spec-off streams. ``auto`` turns
+it on only where the reference does (``resolve_spec_tokens``: a TPU
+backend), so on ``cuda`` it stays off unless asked for.
+
 On the card the decode programs run as CUDA graphs captured per static
 variant when the scheduler starts (``programs.DecodeGraphs``), host
 arrays go up through pinned staging buffers without a wait, and each
@@ -103,6 +111,7 @@ from gofr_tpu_torch.serving.programs import (
     mega_window,
     prefill_chunk_step,
     prefill_multi_chunk,
+    spec_window,
 )
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 from gofr_tpu_torch.serving.types import LOGIT_BIAS_K, GenerationResult, GenRequest
@@ -119,7 +128,6 @@ _NEUTRAL_SUBMIT_OPTIONS = {
 # does not serve yet: (key, the reference's default, ROADMAP item). Set to
 # anything else, each raises NotImplementedError naming its item.
 _LOADERS = "ROADMAP Queue 1 item 6: loaders and device services"
-_SPEC = "ROADMAP Queue 1 item 3: exact-verify speculative decoding"
 _PREFIX = "ROADMAP Queue 1 item 4: the prefix cache"
 _ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
 _MULTI = "ROADMAP Queue 1 item 8: multi-device"
@@ -231,8 +239,7 @@ def _truthy(config: Any, key: str, default: str) -> bool:
 def check_unported_keys(config: Any) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for the first
     ``TPU_*`` key of an unported feature that is set to something other
-    than the reference's default. ``TPU_SPEC_TOKENS`` may be ``auto``
-    (the reference's default, which means off here) or 0."""
+    than the reference's default."""
     for key, default, item in _UNPORTED_KEYS:
         raw = config.get(key)
         if raw is not None and raw != "" and not _is_default(raw, default):
@@ -240,12 +247,6 @@ def check_unported_keys(config: Any) -> None:
                 f"{key}={raw!r} is not ported yet ({item}); the port serves "
                 f"it only at the reference's default {default!r}"
             )
-    spec = config.get_or_default("TPU_SPEC_TOKENS", "auto").strip().lower()
-    if spec != "auto" and not _is_default(spec, "0"):
-        raise NotImplementedError(
-            f"TPU_SPEC_TOKENS={spec!r} is not ported yet ({_SPEC}); "
-            "the port serves auto (off) or 0"
-        )
     keys = set(os.environ)
     keys.update(getattr(config, "_values", None) or ())
     tenant_slo = sorted(k for k in keys if k.startswith(_SLO_TENANT_PREFIX))
@@ -254,6 +255,86 @@ def check_unported_keys(config: Any) -> None:
             f"{tenant_slo[0]} is set; per-tenant SLOs are not ported yet "
             f"({_OPS_PLANE})"
         )
+
+
+# Draft length the TPU_SPEC_TOKENS=auto default resolves to where the
+# bench gate holds (BENCH_SPEC_WORKLOAD: G=2 is the measured knee —
+# longer drafts inflate the per-step decode-forward count faster than
+# n-gram acceptance grows).
+SPEC_AUTO_TOKENS = 2
+
+
+def resolve_spec_tokens(
+    raw: str,
+    backend: str,
+    enable_penalties: bool,
+    top_logprobs: int,
+) -> "tuple[int, Optional[str]]":
+    """Resolve ``TPU_SPEC_TOKENS`` (``auto``/int) to a draft count.
+
+    ``auto`` — the default — flips speculation ON exactly where the
+    two-metric bench gate holds, and OFF where it measurably does not:
+
+    * The numerics-exact spec window runs the decode-step program once
+      per candidate position, so device compute per emitted token is
+      never below the plain decode window's; speculation's entire win
+      is per-dispatch amortization (an accepted draft means fewer
+      windows — fewer host↔device round trips and scheduler passes —
+      per token). On dispatch/host-overhead-bound TPU serving (the
+      regime ``app_tpu_loop_host_overhead_ratio`` measures) the
+      BENCH_SPEC_WORKLOAD A/B holds: tok/s up, host overhead flat. On
+      compute-bound backends (CPU) the same A/B measures tok/s DOWN —
+      the extra forwards dominate — so ``auto`` resolves to 0 there
+      rather than shipping the gate's own counterexample.
+    * Compile features the spec window's emission block excludes
+      (penalties' evolving count plane, the top_logprobs alternatives
+      plane) win over an *implicit* default: ``auto`` resolves to 0
+      with a boot note instead of refusing to boot. An EXPLICIT
+      ``TPU_SPEC_TOKENS>0`` alongside them still raises in the
+      constructor — that combination is a contradiction the user
+      typed, not one a default created.
+
+    Returns ``(spec_tokens, note)``; ``note`` explains any auto
+    resolution so boots are attributable in logs. The port's engine
+    passes its device type (``"cuda"`` or ``"cpu"``) as ``backend``.
+    """
+    val = (raw or "auto").strip().lower()
+    if val == "auto":
+        conflicts = [
+            name
+            for name, on in (
+                ("TPU_PENALTIES", enable_penalties),
+                ("TPU_TOP_LOGPROBS", top_logprobs > 0),
+            )
+            if on
+        ]
+        if conflicts:
+            return 0, (
+                "speculative decoding default-on skipped: "
+                + "/".join(conflicts)
+                + " needs per-step planes the spec window's emission "
+                "block excludes (set TPU_SPEC_TOKENS explicitly to "
+                "choose the other way)"
+            )
+        if backend != "tpu":
+            return 0, (
+                f"speculative decoding stays off on backend={backend!r}: "
+                "the exact verify pays one decode forward per emitted "
+                "token, and the BENCH_SPEC_WORKLOAD gate (tok/s up AND "
+                "host_overhead_ratio flat) only holds on dispatch-bound "
+                "TPU serving (set TPU_SPEC_TOKENS>0 to force)"
+            )
+        return SPEC_AUTO_TOKENS, (
+            f"speculative decoding ON by default (G={SPEC_AUTO_TOKENS}, "
+            "numerics-exact verify; TPU_SPEC_TOKENS=0 disables)"
+        )
+    try:
+        n = int(val)
+    except ValueError:
+        raise ValueError(
+            f"TPU_SPEC_TOKENS={raw!r}: expected an integer or 'auto'"
+        ) from None
+    return max(0, n), None
 
 
 @dataclass
@@ -292,7 +373,8 @@ class InferenceEngine:
     The decode loop, as the reference's: ``pipeline_depth`` windows in
     flight (at least 1), ``mega_windows`` k-step windows a dispatch (0 or
     1 = one), ``prefill_depth`` full chunks a multi-chunk prefill dispatch
-    (1 = off).
+    (1 = off), ``spec_tokens`` drafts verified a step (0 = off; exclusive
+    with penalties and ``top_logprobs``, as in the reference).
 
     Sampler flags, as the reference's: ``top_k`` (engine-wide, 0 = off),
     ``enable_top_p`` (per-request nucleus), ``enable_penalties`` (the
@@ -323,6 +405,7 @@ class InferenceEngine:
         pipeline_depth: int = 2,
         mega_windows: int = 0,
         prefill_depth: int = 1,
+        spec_tokens: int = 0,
         prefill_chunk: int = 256,
         prefill_batch: int = 8,
         truncate_prompts: bool = False,
@@ -366,7 +449,23 @@ class InferenceEngine:
         # The cache never outgrows the model's context (the reference's
         # clamp).
         max_len = min(int(max_len), get_model(model_name).config.max_len)
-        reserve = 1 + (max(1, int(pipeline_depth)) + 1) * int(window_k)
+        if enable_penalties and spec_tokens > 0:
+            raise ValueError(
+                "TPU_PENALTIES and TPU_SPEC_TOKENS are mutually exclusive: "
+                "penalties evolve within a step sequence, which breaks the "
+                "parallel speculative verify"
+            )
+        if top_logprobs and spec_tokens > 0:
+            raise ValueError(
+                "TPU_TOP_LOGPROBS and TPU_SPEC_TOKENS are mutually "
+                "exclusive (the verify step has no per-emission "
+                "alternatives plane)"
+            )
+        # Each speculative step verifies spec_tokens drafts + 1, so a
+        # window can write up to window_k * (spec_tokens+1) positions.
+        self.spec_tokens = max(0, int(spec_tokens))
+        step_tokens = int(window_k) * (self.spec_tokens + 1)
+        reserve = 1 + (max(1, int(pipeline_depth)) + 1) * step_tokens
         if max_len <= reserve:
             raise ValueError(
                 f"max_len={max_len} too small: need > {reserve} "
@@ -454,13 +553,14 @@ class InferenceEngine:
             )
         self.rope = rope_tables(cfg, self.max_len, self.device)
         self.planes = SlotPlanes.create(
-            self.n_slots, self.device, cfg.vocab_size, self.sampler
+            self.n_slots, self.device, cfg.vocab_size, self.sampler,
+            history_len=self.max_len if self.spec_tokens else 1,
         )
         # The mega window's fixed device buffers, and on the card the
         # captured decode programs (made when the scheduler starts).
         self._mega = (
             MegaState.create(self.n_slots, self.window_k, self.mega_windows,
-                             self.top_logprobs, self.device)
+                             self.top_logprobs, self.device, self.spec_tokens)
             if self.mega_windows > 1 else None
         )
         self._graphs: Optional[DecodeGraphs] = None
@@ -971,11 +1071,24 @@ class InferenceEngine:
         ``TPU_DEVICE`` (``cuda``, ``cuda:N`` or ``cpu``; unset = ``cuda``)
         is the port's own key. A key of a feature the port does not serve
         yet raises ``NotImplementedError`` unless it holds the reference's
-        default (``check_unported_keys``)."""
+        default (``check_unported_keys``). ``TPU_SPEC_TOKENS`` is resolved
+        by ``resolve_spec_tokens`` before the constructor, with the
+        device's type as the backend (so ``auto`` is 0 here); its note
+        goes to ``logger``."""
         check_unported_keys(config)
 
         def num(key: str, default: str, kind: type = int) -> Any:
             return kind(config.get_or_default(key, default))
+
+        device = resolve_device(config.get_or_default("TPU_DEVICE", "") or None)
+        top_logprobs = num("TPU_TOP_LOGPROBS", "0")
+        penalties = _truthy(config, "TPU_PENALTIES", "false")
+        spec_tokens, spec_note = resolve_spec_tokens(
+            config.get_or_default("TPU_SPEC_TOKENS", "auto"),
+            device.type, penalties, top_logprobs,
+        )
+        if spec_note and logger is not None:
+            logger.infof("%s", spec_note)
 
         return cls(
             config.get_or_default("TPU_MODEL", "llama-tiny"),
@@ -985,6 +1098,7 @@ class InferenceEngine:
             pipeline_depth=num("TPU_PIPELINE_DEPTH", "2"),
             mega_windows=num("TPU_MEGA_WINDOWS", "0"),
             prefill_depth=num("TPU_PREFILL_DEPTH", "1"),
+            spec_tokens=spec_tokens,
             prefill_chunk=num("TPU_PREFILL_CHUNK", "256"),
             prefill_batch=num("TPU_PREFILL_BATCH", "8"),
             kv_quant=config.get_or_default("TPU_KV_QUANT", ""),
@@ -992,16 +1106,16 @@ class InferenceEngine:
             kv_pool_blocks=num("TPU_KV_POOL_BLOCKS", "0"),
             truncate_prompts=_truthy(config, "TPU_TRUNCATE_PROMPTS", "false"),
             top_k=num("TPU_TOP_K", "0"),
-            top_logprobs=num("TPU_TOP_LOGPROBS", "0"),
+            top_logprobs=top_logprobs,
             enable_top_p=_truthy(config, "TPU_TOP_P", "false"),
-            enable_penalties=_truthy(config, "TPU_PENALTIES", "false"),
+            enable_penalties=penalties,
             queue_max=num("TPU_QUEUE_MAX", "1024"),
             queue_max_tokens=num("TPU_QUEUE_TOKENS", "0"),
             class_promote_s=num("TPU_QUEUE_CLASS_PROMOTE_S", "5", float),
             tenant_queue_max=num("TPU_TENANT_QUEUE_MAX", "0"),
             tenant_slo_class=config.get_or_default("TPU_TENANT_SLO_CLASS", ""),
             expected_tps=num("TPU_EXPECTED_TPS", "0", float),
-            device=config.get_or_default("TPU_DEVICE", "") or None,
+            device=device,
             logger=logger,
             metrics=metrics,
         )
@@ -1228,6 +1342,7 @@ class InferenceEngine:
             room = (
                 self.max_len - 1 - len(req.prompt_ids)
                 - (self.pipeline_depth + 1) * self.window_k
+                * (self.spec_tokens + 1)
             )
             req.max_new_tokens = max(1, min(req.max_new_tokens, room))
             if self.kv_block:
@@ -1235,8 +1350,9 @@ class InferenceEngine:
                 need = (min(len(req.prompt_ids) + 1, self.max_len) + B - 1) // B
                 if need > self.cache.n_blocks - 1:
                     self._resolve(req, exc=RuntimeError(
-                        f"prompt needs {need} KV blocks but the pool has "
-                        f"{self.cache.n_blocks - 1}; raise kv_pool_blocks"
+                        f"prompt needs {need} KV blocks but the pool "
+                        f"has {self.cache.n_blocks - 1}; raise "
+                        f"TPU_KV_POOL_BLOCKS"
                     ))
                     continue
                 # Cover the prompt and the first decode token now; windows
@@ -1392,6 +1508,7 @@ class InferenceEngine:
             self._up(lens), self._up(finalize), self._up(row_valid),
             self._up(temps), self._up(greedy), self._up(topps),
             self._base_seed, **self._uses([st.request for _, st in rows]),
+            history=bool(self.spec_tokens),
         )
         if self._metrics is not None:
             self._metrics.record_histogram(
@@ -1455,7 +1572,8 @@ class InferenceEngine:
             slots[i], starts[i] = slots[0], starts[0]
         t0 = time.time()
         prefill_multi_chunk(self.params, self.cache, self.cfg, self.rope,
-                            self._up(tokens3), self._up(slots), self._up(starts))
+                            self._up(tokens3), self._up(slots), self._up(starts),
+                            self.planes.history if self.spec_tokens else None)
         for _, st, _ in deep:
             st.done += d * c
         if self._metrics is not None:
@@ -1509,6 +1627,12 @@ class InferenceEngine:
                         "model", self.model_name)
 
     def _window_eager(self, sampling: bool, use_bias: bool) -> torch.Tensor:
+        if self.spec_tokens:
+            return spec_window(
+                self.params, self.cache, self.cfg, self.rope, self.planes,
+                self.sampler, self.window_k, self.spec_tokens, self._base_seed,
+                sampling=sampling, use_bias=use_bias,
+            )
         return decode_window(
             self.params, self.cache, self.cfg, self.rope, self.planes,
             self.sampler, self.window_k, self._base_seed,
@@ -1520,6 +1644,7 @@ class InferenceEngine:
             self.params, self.cache, self.cfg, self.rope, self.planes,
             self.sampler, self.window_k, self.mega_windows, self._base_seed,
             self.tokenizer.eos_id, self._mega, sampling=sampling, use_bias=use_bias,
+            spec_tokens=self.spec_tokens,
         )
 
     def _refresh_slot_state(self) -> None:
@@ -1570,21 +1695,26 @@ class InferenceEngine:
                     eos_stop[i] = req.stop_on_eos
         if self.kv_block:
             # Allocation stays ahead of the windows in flight (their writes
-            # land before the host sees their tokens): a slot's real
-            # writes in a mega window cover its remaining tokens, and its
-            # junk past them parks in block 0. A dry pool mid-stream fails
-            # the request: the honest outcome of an oversubscribed pool.
+            # land before the host sees their tokens): a window writes
+            # k·(G+1) positions (a speculative step writes every
+            # candidate's K/V); a slot's real writes in a mega window
+            # cover its remaining tokens in at most ceil(remaining / k)
+            # windows (a window produces at least k), and its junk past
+            # them parks in block 0. A dry pool mid-stream fails the
+            # request: the honest outcome of an oversubscribed pool.
+            step_tokens = k * (self.spec_tokens + 1)
             for i, req in enumerate(self._slots):
                 if req is None:
                     continue
-                wt = k if mega <= 1 else min(mega, -(-int(remaining[i]) // k)) * k
+                wt = (step_tokens if mega <= 1
+                      else min(mega, -(-int(remaining[i]) // k)) * step_tokens)
                 need = len(req.prompt_ids) + self._dispatched_tokens[i] + wt + 1
                 if self._ensure_blocks(i, need):
                     self._dispatched_tokens[i] += wt
                     continue
                 self._resolve(req, exc=RuntimeError(
-                    "KV block pool exhausted mid-generation (raise "
-                    "kv_pool_blocks or lower concurrency)"
+                    "KV block pool exhausted mid-generation "
+                    "(raise TPU_KV_POOL_BLOCKS or lower concurrency)"
                 ))
                 self._release_slot(i)
                 if mega > 1:
@@ -1593,6 +1723,8 @@ class InferenceEngine:
             if all(s is None for s in self._slots):
                 self._publish_step_metrics()
                 return None  # the dry pool failed every live request
+        # The tokens the windows are sure to produce (a speculative step
+        # produces at least one).
         for i, req in enumerate(self._slots):
             if req is not None:
                 self._tokens_in_flight[i] += (
@@ -1612,7 +1744,7 @@ class InferenceEngine:
                 mega_window(
                     self.params, self.cache, self.cfg, self.rope, self.planes,
                     self.sampler, k, mega, self._base_seed, self.tokenizer.eos_id,
-                    state, **use,
+                    state, spec_tokens=self.spec_tokens, **use,
                 )
             self.mega_dispatches += 1
             host, _ = self._to_host(state.emitted)
@@ -1668,7 +1800,7 @@ class InferenceEngine:
                 )
         # First tokens copied before this window landed before it.
         self._flush_prefill_emits()
-        host, T = win.host, self.top_logprobs
+        host, T, G = win.host, self.top_logprobs, self.spec_tokens
         for i, req in enumerate(win.snapshot):
             if req is None:
                 continue
@@ -1679,6 +1811,16 @@ class InferenceEngine:
                 if self._slots[i] is req:
                     self._reap_request(req, slot=i)
                 continue
+            if G:
+                # Each step's first counts tokens, in order, up to the
+                # first that finishes the request.
+                toks = ((host[j, step, i], host[G + 1 + j, step, i])
+                        for step in range(steps)
+                        for j in range(int(host[2 * G + 2, step, i])))
+                for tok, lp in toks:
+                    if self._emit(i, req, int(tok), float(lp)):
+                        break
+                continue
             for step in range(steps):
                 top = None
                 if req.top_logprobs:
@@ -1686,6 +1828,16 @@ class InferenceEngine:
                            for j in range(req.top_logprobs)]
                 if self._emit(i, req, int(host[0, step, i]), float(host[1, step, i]), top):
                     break
+        if G and self._metrics is not None:
+            # Acceptance: tokens a live step produced (1 = no draft
+            # accepted, G+1 = all), averaged over the window.
+            counts = host[2 * G + 2, :steps]
+            live = counts > 0
+            if live.any():
+                self._metrics.record_histogram(
+                    "app_tpu_spec_tokens_per_step", float(counts[live].mean()),
+                    "model", self.model_name,
+                )
         self._publish_step_metrics()
 
     # -- emission and retirement -------------------------------------------

@@ -1,9 +1,10 @@
 """Device programs of the serving engine: the sampler, the chunked-prefill
-step, the multi-chunk prefill, the k-step decode window and the mega
-window — the port of the reference's ``serving/programs.py`` (``sample``,
-``row_keys``, ``_prefill_core``, ``prefill_multi_chunk``,
-``make_decode_body``/``decode_window``, ``mega_window``), without
-speculation.
+step, the multi-chunk prefill, the k-step decode window, the mega window
+and their speculative counterparts — the port of the reference's
+``serving/programs.py`` (``sample``, ``row_keys``, ``_prefill_core``,
+``prefill_multi_chunk`` and their ``_hist`` variants,
+``make_decode_body``/``decode_window``, ``mega_window``,
+``make_spec_body``/``spec_window``, ``mega_spec_window``).
 
 PyTorch runs eagerly, so a "program" is a function that enqueues its
 work on the current stream and returns device tensors; the per-slot
@@ -46,6 +47,7 @@ from gofr_tpu_torch.models.transformer import (
     Rope,
     TransformerConfig,
     decode_step,
+    ngram_draft,
     prefill_chunk,
 )
 from gofr_tpu_torch.ops.cuda import _count, record_counts
@@ -173,8 +175,10 @@ class SlotPlanes:
     """Per-slot device state: the token entering the next decode step,
     the slot's sample counter, and the sampling contract of the request it
     holds ([n_slots] each), the generated-token counts ([n_slots, vocab]
-    int32 with penalties, else [n_slots, 1]) and the sparse logit bias
-    ([n_slots, LOGIT_BIAS_K], ids padded with -1)."""
+    int32 with penalties, else [n_slots, 1]), the sparse logit bias
+    ([n_slots, LOGIT_BIAS_K], ids padded with -1) and the token history
+    the drafts are looked up in ([n_slots, max_len] with speculation,
+    else [n_slots, 1]: prompt and generated tokens by position)."""
 
     tokens: torch.Tensor  # int64
     nsteps: torch.Tensor  # int64
@@ -188,6 +192,7 @@ class SlotPlanes:
     pcounts: torch.Tensor  # int32
     bidx: torch.Tensor  # int64
     bval: torch.Tensor  # f32
+    history: torch.Tensor  # int64
 
     @classmethod
     def create(
@@ -196,6 +201,7 @@ class SlotPlanes:
         device: torch.device,
         vocab_size: int = 1,
         flags: SamplerFlags = SamplerFlags(),
+        history_len: int = 1,
     ) -> "SlotPlanes":
         def z(dtype: torch.dtype, *shape: int) -> torch.Tensor:
             return torch.zeros((n_slots, *shape), dtype=dtype, device=device)
@@ -211,7 +217,22 @@ class SlotPlanes:
             bidx=torch.full((n_slots, LOGIT_BIAS_K), -1, dtype=torch.long,
                             device=device),
             bval=z(torch.float32, LOGIT_BIAS_K),
+            history=z(torch.long, history_len),
         )
+
+
+def record_history(
+    history: torch.Tensor, slots: torch.Tensor, starts: torch.Tensor,
+    tokens: torch.Tensor,
+) -> None:
+    """Write a [P, c] chunk's tokens into the history plane at ``starts +
+    arange(c)``, clipped to the last column (the reference's ``_hist``
+    prefill variants; padding rows duplicate row 0, so they write the same
+    values)."""
+    c = tokens.shape[1]
+    hpos = (starts.long()[:, None]
+            + torch.arange(c, device=tokens.device)[None, :]).clamp(0, history.shape[1] - 1)
+    history.index_put_((slots.long()[:, None], hpos), tokens.to(history.dtype))
 
 
 def prefill_chunk_step(
@@ -234,18 +255,23 @@ def prefill_chunk_step(
     *,
     sampling: bool,
     use_bias: bool = False,
+    history: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """One [P, c] chunk: write K/V and attend; on rows whose prompt
     finishes (``finalize`` and ``row_valid``) sample the first token with
     counter 0 (logit bias and filters apply; penalties do not: no token
     was generated yet) and merge it into the slot planes on the device,
     set the slot's cache length and its counter to 1, and (penalties)
-    reset the slot's counts to the first token. Padding rows duplicate
-    row 0 (identical writes; ``row_valid`` keeps them out of the merge).
-    Returns the rows' (first token, logprob, top ids, top logprobs)."""
+    reset the slot's counts to the first token. With ``history``
+    (speculation on) the chunk's tokens are also recorded in
+    ``planes.history``. Padding rows duplicate row 0 (identical writes;
+    ``row_valid`` keeps them out of the merge). Returns the rows' (first
+    token, logprob, top ids, top logprobs)."""
     logits = prefill_chunk(
         params, tokens, cache, slots, starts, lens, cfg, rope=rope
     )
+    if history:
+        record_history(planes.history, slots, starts, tokens)
     sl = slots.long()
     first, first_lp, top_i, top_l = sample(
         logits, planes.seeds[sl], torch.zeros_like(sl), temps, greedy, topps,
@@ -321,6 +347,121 @@ def decode_window(
     return emitted
 
 
+def spec_rows(spec_tokens: int) -> int:
+    """Rows of a speculative window's block: G+1 tokens, G+1 logprobs and
+    the count."""
+    return 2 * (spec_tokens + 1) + 1
+
+
+def spec_step(
+    params: dict,
+    cache: KVCache | PagedKVCache,
+    cfg: TransformerConfig,
+    rope: Rope,
+    planes: SlotPlanes,
+    flags: SamplerFlags,
+    spec_tokens: int,
+    base_seed: int,
+    *,
+    sampling: bool,
+    use_bias: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One speculative step over every slot, the body of the reference's
+    ``make_spec_body``: draft G = ``spec_tokens`` tokens with
+    ``ngram_draft``, run ``decode_step`` on the current token and each
+    draft in turn (each commits its K/V and advances the length like a
+    plain step), sample position j at counter ``nsteps + j`` on active
+    slots, and accept the longest prefix of drafts equal to what was
+    sampled. Position j's sample is the token a spec-off stream produces
+    there whenever the drafts before it were accepted, so the step
+    produces ``counts`` = accepted + 1 tokens (0 on inactive slots): the
+    accepted drafts and the bonus sampled after them.
+
+    Afterwards the history holds the current token and the accepted drafts
+    at ``lengths0 ..`` and the bonus at ``lengths0 + counts`` (rejected
+    drafts and inactive slots park at the last column: the scatter must
+    not write one position twice with different values), the cache
+    length is rewound to ``lengths0 + counts`` (K/V written past it are
+    never attended and are overwritten in order), the counter advances by
+    ``counts`` and the bonus is the next step's token. Returns the tokens
+    produced at each position [S, G+1], their logprobs and ``counts``
+    [S]; the first ``counts`` positions are the step's output."""
+    G = spec_tokens
+    active = planes.active
+    step_inc = active.to(torch.long)
+    lengths0 = cache.lengths.clone()
+    draft = ngram_draft(planes.history, lengths0, planes.tokens, G)  # [S, G]
+    inputs = torch.cat([planes.tokens[:, None], draft], dim=1)  # [S, G+1]
+    bias = (planes.bidx, planes.bval) if use_bias else None
+    counter = planes.nsteps.clone()
+    chosen, chosen_lp = [], []
+    for j in range(G + 1):
+        logits = decode_step(params, inputs[:, j], cache, active, cfg, rope=rope)
+        nxt, nlp, _, _ = sample(
+            logits, planes.seeds, counter, planes.temps, planes.greedy,
+            planes.topps, base_seed, flags, sampling=sampling, bias=bias,
+        )
+        counter += step_inc
+        chosen.append(nxt)
+        chosen_lp.append(nlp)
+    tokens = torch.stack(chosen, dim=1)  # [S, G+1]
+    logps = torch.stack(chosen_lp, dim=1)
+    acc = torch.cumprod((draft == tokens[:, :G]).to(torch.long), dim=1).sum(dim=1)
+    counts = torch.where(active, acc + 1, 0)
+    bonus = tokens.gather(1, acc[:, None])[:, 0]
+    S, T = planes.history.shape
+    cols = torch.arange(G + 2, device=tokens.device)
+    hpos = lengths0.long()[:, None] + cols[None, :]
+    hpos[:, G + 1] = lengths0 + counts
+    keep = (cols[None, :] <= acc[:, None]) | (cols[None, :] == G + 1)
+    keep = keep & active[:, None]
+    hpos = torch.where(keep, hpos.clamp(max=T - 1), T - 1)
+    planes.history.index_put_(
+        (torch.arange(S, device=tokens.device)[:, None], hpos),
+        torch.cat([inputs, bonus[:, None]], dim=1),
+    )
+    # A slot stepped past its budget inside a mega window stops at the
+    # cache's end, as decode_step stops it.
+    cache.lengths.copy_(torch.clamp(lengths0 + counts, max=cache.max_len))
+    planes.nsteps += counts
+    planes.tokens.copy_(bonus)
+    return tokens, logps, counts
+
+
+def spec_window(
+    params: dict,
+    cache: KVCache | PagedKVCache,
+    cfg: TransformerConfig,
+    rope: Rope,
+    planes: SlotPlanes,
+    flags: SamplerFlags,
+    k: int,
+    spec_tokens: int,
+    base_seed: int,
+    *,
+    sampling: bool,
+    use_bias: bool = False,
+) -> torch.Tensor:
+    """k ``spec_step``s over every slot on the device (the reference's
+    ``spec_window``); returns the [``spec_rows(G)``, k, S] f32 block the
+    host fetches once per window: rows 0 .. G the tokens each step
+    produced at positions 0 .. G, rows G+1 .. 2G+1 their logprobs, row
+    2G+2 the step's count (the first count positions are its output)."""
+    G = spec_tokens
+    S = planes.tokens.shape[0]
+    emitted = torch.empty((spec_rows(G), k, S), dtype=torch.float32,
+                          device=planes.tokens.device)
+    for step in range(k):
+        tokens, logps, counts = spec_step(
+            params, cache, cfg, rope, planes, flags, G, base_seed,
+            sampling=sampling, use_bias=use_bias,
+        )
+        emitted[: G + 1, step] = tokens.T.float()
+        emitted[G + 1: 2 * G + 2, step] = logps.T
+        emitted[2 * G + 2, step] = counts.float()
+    return emitted
+
+
 def prefill_multi_chunk(
     params: dict,
     cache: KVCache | PagedKVCache,
@@ -329,25 +470,31 @@ def prefill_multi_chunk(
     tokens3: torch.Tensor,
     slots: torch.Tensor,
     starts0: torch.Tensor,
+    history: Optional[torch.Tensor] = None,
 ) -> None:
     """``d`` full, non-finalizing [P, c] chunks in one host call
     (``tokens3`` [d, P, c]; chunk i of row r starts at ``starts0[r] + i *
-    c``), the port of the reference's ``prefill_multi_chunk``: the chunks
-    are enqueued back to back with no fetch between them. No sampling and
-    no length update: both belong to the finalize chunk, which always goes
-    through ``prefill_chunk_step``. Padding rows duplicate row 0."""
+    c``), the port of the reference's ``prefill_multi_chunk`` (and, given
+    the ``history`` plane, of ``prefill_multi_chunk_hist``: each chunk's
+    tokens are recorded there): the chunks are enqueued back to back with
+    no fetch between them. No sampling and no length update: both belong
+    to the finalize chunk, which always goes through
+    ``prefill_chunk_step``. Padding rows duplicate row 0."""
     d, P, c = tokens3.shape
     lens = torch.full((P,), c, dtype=torch.int32, device=tokens3.device)
     for i in range(d):
-        prefill_chunk(params, tokens3[i], cache, slots, starts0 + i * c, lens, cfg,
-                      rope=rope)
+        starts = starts0 + i * c
+        prefill_chunk(params, tokens3[i], cache, slots, starts, lens, cfg, rope=rope)
+        if history is not None:
+            record_history(history, slots, starts, tokens3[i])
 
 
 @dataclass
 class MegaState:
     """The device state of a mega window, in fixed buffers that a captured
-    graph binds: the [2 + 2T, m·k, S] block (``decode_window``'s rows,
-    window w at columns w·k .. w·k + k), the windows run, each slot's
+    graph binds: the [rows, m·k, S] block (``decode_window``'s 2 + 2T rows,
+    or ``spec_window``'s ``spec_rows(G)``; window w at columns w·k .. w·k +
+    k), the windows run, each slot's
     tokens still to cover (``remaining``, set by the host before each
     dispatch), whether an EOS retires the slot (``eos_stop``) and the
     loop's condition ``go`` (int32: what the WHILE node reads)."""
@@ -360,9 +507,10 @@ class MegaState:
 
     @classmethod
     def create(cls, n_slots: int, k: int, m: int, top_logprobs: int,
-               device: torch.device) -> "MegaState":
+               device: torch.device, spec_tokens: int = 0) -> "MegaState":
+        rows = spec_rows(spec_tokens) if spec_tokens else 2 + 2 * top_logprobs
         return cls(
-            emitted=torch.zeros((2 + 2 * top_logprobs, m * k, n_slots), device=device),
+            emitted=torch.zeros((rows, m * k, n_slots), device=device),
             w=torch.zeros((), dtype=torch.long, device=device),
             remaining=torch.zeros((n_slots,), dtype=torch.long, device=device),
             eos_stop=torch.zeros((n_slots,), dtype=torch.bool, device=device),
@@ -393,18 +541,34 @@ def mega_step(
     *,
     sampling: bool,
     use_bias: bool = False,
+    spec_tokens: int = 0,
 ) -> None:
     """One window of the mega loop, all on the device (the body of the
-    reference's ``win_body``): a k-step ``decode_window``, its block
-    stored at columns w·k .., each slot's ``remaining`` less k (0 once the
-    window produced EOS where ``eos_stop`` holds), w + 1, and the next
-    condition."""
-    e = decode_window(params, cache, cfg, rope, planes, flags, k, base_seed,
-                      sampling=sampling, use_bias=use_bias)
+    reference's ``win_body``, or with ``spec_tokens`` of
+    ``mega_spec_window``'s): a k-step ``decode_window`` (``spec_window``),
+    its block stored at columns w·k .., each slot's ``remaining`` less
+    the tokens the window produced for it (k; speculative: the sum of its
+    counts), 0 once the window produced EOS where ``eos_stop`` holds
+    (speculative: among the first ``counts`` tokens of a step, so a
+    rejected draft never ends a budget), w + 1, and the next condition."""
+    if spec_tokens:
+        G = spec_tokens
+        e = spec_window(params, cache, cfg, rope, planes, flags, k, G, base_seed,
+                        sampling=sampling, use_bias=use_bias)
+        counts = e[2 * G + 2]  # [k, S]
+        valid = torch.arange(G + 1, device=e.device)[:, None, None] < counts[None]
+        hit = ((e[: G + 1] == eos_id) & valid).any(dim=1).any(dim=0)
+        delivered = counts.sum(dim=0).long()
+    else:
+        e = decode_window(params, cache, cfg, rope, planes, flags, k, base_seed,
+                          sampling=sampling, use_bias=use_bias)
+        hit = (e[0] == eos_id).any(dim=0)
+        delivered = k
     cols = state.w * k + torch.arange(k, device=e.device)
     state.emitted.index_copy_(1, cols, e)
-    hit = (e[0] == eos_id).any(dim=0) & state.eos_stop
-    state.remaining.copy_(torch.where(hit, 0, (state.remaining - k).clamp(min=0)))
+    hit = hit & state.eos_stop
+    state.remaining.copy_(
+        torch.where(hit, 0, (state.remaining - delivered).clamp(min=0)))
     state.w += 1
     state.go.copy_((state.w < m) & (state.remaining > 0).any())
 
@@ -424,9 +588,11 @@ def mega_window(
     *,
     sampling: bool,
     use_bias: bool = False,
+    spec_tokens: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Up to ``m`` k-step windows in one call, with the reference's exit:
-    windows run while ``(w < m) & any(remaining > 0)``. Returns the
+    """Up to ``m`` k-step windows (speculative ones with ``spec_tokens``)
+    in one call, with the reference's exit: windows run while ``(w < m) &
+    any(remaining > 0)``. Returns the
     state's block and windows run; columns past ``w·k`` are zeros the host
     must not read. Slots whose budget ran out while others continue keep
     computing junk in their own rows of the cache (writes past ``max_len``
@@ -437,7 +603,7 @@ def mega_window(
     mega_begin(state)
     while bool(state.go):
         mega_step(params, cache, cfg, rope, planes, flags, k, m, base_seed, eos_id,
-                  state, sampling=sampling, use_bias=use_bias)
+                  state, sampling=sampling, use_bias=use_bias, spec_tokens=spec_tokens)
     return state.emitted, state.w
 
 
@@ -491,8 +657,10 @@ class DecodeGraphs:
     only mega windows, one without only k-step windows.
 
     With ``window_fn``, ``window(sampling, use_bias)`` replays the k-step
-    ``decode_window`` and returns its static block. With ``mega_fns``
-    (``mega_begin``, ``mega_step`` and the state's ``go``),
+    window (``decode_window``, or ``spec_window`` on a speculative
+    engine) and returns its static block. With ``mega_fns``
+    (``mega_begin``, ``mega_step`` — plain or speculative — and the
+    state's ``go``),
     ``mega(sampling, use_bias)`` launches the mega window: a graph whose
     WHILE node runs the captured ``mega_step`` while the device's ``go``
     says so (``ops/cuda/graph_while.py``); the caller reads ``state.w``

@@ -274,11 +274,22 @@ def test_multi_chunk_prefill_mixed_lengths(port_params, jax_params):
 
 
 @pytest.mark.parametrize("mega", [0, 4])
-def test_dry_pool_failing_every_slot_dispatches_no_window(port_params, monkeypatch, mega):
+def test_dry_pool_failing_every_slot_dispatches_no_window(port_params, jax_params,
+                                                          monkeypatch, mega):
     """A lone request outgrows a pool of three blocks of 16 mid-generation:
-    it fails with the reference's error, and no window (k-step or mega) is
+    it fails with the reference's error, the reference engine's message
+    for the same request word for word, and no window (k-step or mega) is
     dispatched once the top-up has released every slot."""
     from gofr_tpu_torch.serving import engine as engine_mod
+
+    prompt = np.random.default_rng(4).integers(0, 256, 20).tolist()
+    ref = _ref(jax_params, kv_block=16, kv_pool_blocks=4, mega_windows=mega)
+    try:
+        with pytest.raises(RuntimeError) as want:
+            ref.submit_generate(prompt, max_new_tokens=30,
+                                stop_on_eos=False).future.result(timeout=120)
+    finally:
+        ref.stop_sync()
 
     eng = _port(port_params, kv_block=16, kv_pool_blocks=4, mega_windows=mega)
     live_at_dispatch = []
@@ -295,10 +306,12 @@ def test_dry_pool_failing_every_slot_dispatches_no_window(port_params, monkeypat
     monkeypatch.setattr(eng, "_window_eager", window)
     monkeypatch.setattr(engine_mod, "mega_window", mega_window)
     try:
-        prompt = np.random.default_rng(4).integers(0, 256, 20).tolist()
         r = eng.submit_generate(prompt, max_new_tokens=30, stop_on_eos=False)
-        with pytest.raises(RuntimeError, match="exhausted mid-generation"):
+        with pytest.raises(RuntimeError, match="exhausted mid-generation") as got:
             r.future.result(timeout=120)
+        assert str(got.value) == str(want.value) == (
+            "KV block pool exhausted mid-generation (raise TPU_KV_POOL_BLOCKS or lower "
+            "concurrency)")
     finally:
         eng.close()  # joins the scheduler: the pass that failed it is over
     assert live_at_dispatch and all(live_at_dispatch)
@@ -324,12 +337,25 @@ def test_capture_records_launches_and_replay_counts_them():
     assert fd.launches == before[0] + 9
 
 
-def test_spec_tokens_still_raises_naming_speculative_decoding():
+def test_spec_tokens_key_builds_a_speculative_engine_that_serves():
+    """TPU_SPEC_TOKENS=2 builds an engine with spec_tokens == 2 whose
+    stream equals a spec-off engine's on the same seed-0 weights."""
     from gofr_tpu_torch.config import MockConfig
 
-    cfg = MockConfig({"TPU_MODEL": MODEL, "TPU_DEVICE": "cpu", "TPU_SPEC_TOKENS": "2"})
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        InferenceEngine.from_config(cfg)
+    eng = InferenceEngine.from_config(MockConfig({
+        "TPU_MODEL": MODEL, "TPU_DEVICE": "cpu", "TPU_KV_SLOTS": "2", "TPU_MAX_LEN": "128",
+        "TPU_DECODE_WINDOW": "4", "TPU_SPEC_TOKENS": "2"}))
+    try:
+        assert eng.spec_tokens == 2
+        got = eng.generate_sync(LONG[:40], max_new_tokens=10, stop_on_eos=False)
+    finally:
+        eng.close()
+    plain = InferenceEngine(MODEL, n_slots=2, max_len=128, window_k=4, device="cpu")
+    try:
+        want = plain.generate_sync(LONG[:40], max_new_tokens=10, stop_on_eos=False)
+    finally:
+        plain.close()
+    assert got.token_ids == want.token_ids and len(got.token_ids) == 10
 
 
 def test_decode_loop_keys_serve_at_other_values(port_params):

@@ -162,23 +162,24 @@ def test_pool_errors_match_reference(port_params, jax_params):
     """Four allocatable blocks of 16: a 70-token prompt needs five and
     fails at admission; two 20-token prompts generating 30 tokens each
     outgrow the pool, and one of them fails mid-generation — the same
-    RuntimeErrors in both engines. The port's pool is whole afterwards."""
+    RuntimeErrors, message for message, in both engines. The port's pool
+    is whole afterwards."""
     kw = dict(**GEOMETRY, kv_block=16, kv_pool_blocks=5)
     rng = np.random.default_rng(4)
     big = rng.integers(0, 256, 70).tolist()
     pair = [rng.integers(0, 256, 20).tolist() for _ in range(2)]
 
     def outcomes(eng):
-        with pytest.raises(RuntimeError, match="KV blocks but the pool has 4"):
+        with pytest.raises(RuntimeError, match="KV blocks but the pool has 4") as too_big:
             eng.submit_generate(big, max_new_tokens=4).future.result(timeout=120)
+        out = [str(too_big.value)]
         reqs = [eng.submit_generate(p, max_new_tokens=30, stop_on_eos=False) for p in pair]
-        out = []
         for r in reqs:
             try:
                 out.append(len(r.future.result(timeout=120).token_ids))
             except RuntimeError as exc:
                 assert "exhausted mid-generation" in str(exc)
-                out.append("exhausted")
+                out.append(str(exc))
         return out
 
     ref = _ref_engine(jax_params, **kw)
@@ -193,7 +194,11 @@ def test_pool_errors_match_reference(port_params, jax_params):
         assert eng.kv_pool_counts() == (4, 0, 0)
     finally:
         eng.close()
-    assert sorted(map(str, got)) == sorted(map(str, want)) == ["30", "exhausted"]
+    assert got[0] == want[0] == (
+        "prompt needs 5 KV blocks but the pool has 4; raise TPU_KV_POOL_BLOCKS")
+    assert sorted(map(str, got[1:])) == sorted(map(str, want[1:])) == [
+        "30", "KV block pool exhausted mid-generation (raise TPU_KV_POOL_BLOCKS or lower "
+        "concurrency)"]
 
 
 def test_seeded_sampling_is_batch_independent(engine):

@@ -651,20 +651,20 @@ def test_flash_attention_hd32_on_gpu(cuda_device, b, s_q, s_kv, H, KV, causal, l
     assert torch.all(got[zero] == 0)
 
 
-def _decode_state(dev, cfg, S, L, flags):
+def _decode_state(dev, cfg, S, L, flags, history_len=1):
     from gofr_tpu_torch.ops.kv_cache import KVCache
     from gofr_tpu_torch.serving.programs import SlotPlanes
 
     cache = KVCache.create(cfg.n_layers, S, L, cfg.n_kv_heads, cfg.head_dim, dtype=cfg.dtype,
                            device=dev)
-    return cache, SlotPlanes.create(S, dev, cfg.vocab_size, flags)
+    return cache, SlotPlanes.create(S, dev, cfg.vocab_size, flags, history_len=history_len)
 
 
 def _copy_decode_state(dst, src):
     for a, b in ((dst[0].k, src[0].k), (dst[0].v, src[0].v), (dst[0].lengths, src[0].lengths)):
         a.copy_(b)
     for name in ("tokens", "nsteps", "seeds", "temps", "greedy", "active", "topps", "fpen",
-                 "ppen", "pcounts", "bidx", "bval"):
+                 "ppen", "pcounts", "bidx", "bval", "history"):
         getattr(dst[1], name).copy_(getattr(src[1], name))
 
 
@@ -748,3 +748,119 @@ def test_captured_decode_window_and_mega_window_match_eager_on_gpu(cuda_device):
         assert launch_counts()["flash_decode"] == n * k * cfg.n_layers
         assert torch.equal(mega.emitted[0, : n * k], plain[0])
         assert not mega.emitted[:, n * k:].any()
+
+
+@pytest.mark.gpu
+def test_captured_spec_window_and_mega_spec_window_match_eager_on_gpu(cuda_device):
+    """llama-tiny (bf16) on 4 slots at G = 2: the speculative window
+    captured while every slot is inactive, replayed on a copy of a state
+    after a prefill (a repeated prompt, so drafts accept), against the
+    eager window on the other copy: every static variant's tokens and
+    counts identical, logprobs within 1e-3, flash_decode launched k·(G+1)
+    times a layer, counted through the replay; the mega spec window's
+    WHILE graph gives the plain spec windows' tokens and counts."""
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import init_params, rope_tables
+    from gofr_tpu_torch.ops.cuda import launch_counts, replayed, reset_launch_counts
+    from gofr_tpu_torch.serving import programs as pg
+
+    cfg = get_model("llama-tiny").config
+    S, L, k, m, G = 4, 256, 4, 3, 2
+    flags = pg.SamplerFlags()
+    with torch.inference_mode():
+        params = init_params(cfg, 0, cuda_device)
+        rope = rope_tables(cfg, L, cuda_device)
+        eager, graphed = (_decode_state(cuda_device, cfg, S, L, flags, L) for _ in range(2))
+        mega = pg.MegaState.create(S, k, m, 0, cuda_device, spec_tokens=G)
+
+        def win(st, sampling, use_bias):
+            return pg.spec_window(params, st[0], cfg, rope, st[1], flags, k, G, 2,
+                                  sampling=sampling, use_bias=use_bias)
+
+        graphs = pg.DecodeGraphs(window_fn=lambda s, b: win(graphed, s, b))
+        megas = pg.DecodeGraphs(mega_fns=(
+            lambda: pg.mega_begin(mega),
+            lambda s, b: pg.mega_step(params, graphed[0], cfg, rope, graphed[1], flags, k, m,
+                                      2, 2**30, mega, sampling=s, use_bias=b, spec_tokens=G),
+            mega.go))
+        i32 = dict(dtype=torch.int32, device=cuda_device)
+        ones = torch.ones((S,), dtype=torch.bool, device=cuda_device)
+        toks = torch.tensor([list(range(5, 13)) * 4] * S, device=cuda_device)
+        planes = eager[1]
+        planes.bidx[:, 0] = 7
+        planes.bval[:, 0] = 4.0
+        pg.prefill_chunk_step(params, eager[0], cfg, rope, planes, flags, toks,
+                              torch.arange(S, **i32), torch.zeros((S,), **i32),
+                              torch.tensor([9, 17, 24, 32], **i32), ones, ones,
+                              torch.ones((S,), device=cuda_device), ones,
+                              torch.ones((S,), device=cuda_device), 2, sampling=False,
+                              history=True)
+        planes.active.fill_(True)
+        planes.temps.fill_(0.8)
+        planes.greedy.copy_(torch.tensor([True, False, True, False], device=cuda_device))
+        start = _decode_state(cuda_device, cfg, S, L, flags, L)
+        _copy_decode_state(start, eager)
+        for v in pg.VARIANTS:
+            _copy_decode_state(eager, start)
+            _copy_decode_state(graphed, start)
+            reset_launch_counts()
+            want = win(eager, *v).clone()
+            torch.cuda.synchronize()
+            eager_counts = launch_counts()
+            reset_launch_counts()
+            got = graphs.window(*v).clone()
+            torch.cuda.synchronize()
+            assert launch_counts() == eager_counts
+            assert eager_counts["flash_decode"] == k * (G + 1) * cfg.n_layers
+            assert torch.equal(got[: G + 1], want[: G + 1]), v
+            assert torch.equal(got[2 * G + 2], want[2 * G + 2]), v
+            assert float((got[G + 1: 2 * G + 2] - want[G + 1: 2 * G + 2]).abs().max()) <= 1e-3
+            assert torch.equal(eager[0].lengths, graphed[0].lengths)
+            assert torch.equal(eager[1].history, graphed[1].history)
+        assert int(want[2 * G + 2].max()) > 1  # drafts were accepted
+        _copy_decode_state(eager, start)
+        _copy_decode_state(graphed, start)
+        plain = torch.cat([win(eager, False, False) for _ in range(m)], dim=1)
+        mega.remaining.copy_(torch.full((S,), 10**6, device=cuda_device))
+        reset_launch_counts()
+        record = megas.mega(False, False)
+        torch.cuda.synchronize()
+        assert int(mega.w) == m
+        replayed(record, m)
+        assert launch_counts()["flash_decode"] == m * k * (G + 1) * cfg.n_layers
+        assert torch.equal(mega.emitted[: G + 1], plain[: G + 1])
+        assert torch.equal(mega.emitted[2 * G + 2], plain[2 * G + 2])
+
+
+@pytest.mark.gpu
+def test_spec_engine_captures_nothing_after_start_on_gpu(cuda_device, monkeypatch):
+    """A speculative engine captures its graphs when its scheduler starts;
+    greedy, seeded-sampled and logit-bias traffic afterwards captures no
+    graph (the counterpart of the reference's zero steady-state
+    recompiles with spec on), and its streams equal a spec-off engine's
+    on the same weights."""
+    from gofr_tpu_torch.serving import programs as pg
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    variants = (dict(max_new_tokens=8, temperature=0.0, stop_on_eos=False),
+                dict(max_new_tokens=8, temperature=0.8, seed=3, stop_on_eos=False),
+                dict(max_new_tokens=8, temperature=0.0, stop_on_eos=False,
+                     logit_bias={5: -100.0}))
+    prompt = ("abcdefgh" * 4)[:30]
+    out = {}
+    for G in (0, 2):
+        eng = InferenceEngine("llama-tiny", n_slots=4, max_len=256, window_k=4,
+                              spec_tokens=G, device=cuda_device)
+        try:
+            eng.generate_sync(prompt, **variants[0])  # the scheduler has captured
+            captured = []
+            orig = pg.Captured.__init__
+            monkeypatch.setattr(pg.Captured, "__init__",
+                                lambda self, *a, **kw: captured.append(1) or orig(self, *a, **kw))
+            out[G] = [eng.generate_sync(prompt, **kw).token_ids for kw in variants]
+            monkeypatch.setattr(pg.Captured, "__init__", orig)
+            assert captured == []
+            assert len(eng._graphs.windows) == 4
+        finally:
+            eng.close()
+    assert out[2] == out[0]

@@ -561,7 +561,7 @@ def test_from_config_matches_the_reference(config):
         assert port.sampler.top_k == ref._top_k
         if port.kv_block:
             assert port.cache.n_blocks == ref.cache.n_blocks
-        assert ref.spec_tokens == 0
+        assert port.spec_tokens == ref.spec_tokens == 0
     finally:
         port.close()
 
@@ -578,7 +578,7 @@ def test_every_reference_key_is_served_or_refused():
     served = set(re.findall(r'"(TPU_[A-Z0-9_]+)"',
                             inspect.getsource(InferenceEngine.from_config)))
     refused = {k for k, _, _ in port_engine_mod._UNPORTED_KEYS}
-    elsewhere = {"TPU_SPEC_TOKENS", "TPU_REPLICAS", "TPU_REPLICA_ADDRS", "TPU_EMBED_MODEL"}
+    elsewhere = {"TPU_REPLICAS", "TPU_REPLICA_ADDRS", "TPU_EMBED_MODEL"}
     assert ref_keys - served - refused - elsewhere == set()
     assert not served & refused
 
@@ -616,7 +616,6 @@ def test_unported_key_raises_with_its_item(key, default, item):
 
 
 @pytest.mark.parametrize("config,item", [
-    ({"TPU_SPEC_TOKENS": "2"}, "item 3"),
     ({"TPU_SLO_TENANT_ACME_TTFT_MS": "500"}, "item 7"),
     ({"TPU_REPLICAS": "2"}, "item 7"),
     ({"TPU_REPLICA_ADDRS": "http://127.0.0.1:1"}, "item 7"),
@@ -626,7 +625,7 @@ def test_unported_key_raises_with_its_item(key, default, item):
     ({"REDIS_HOST": "localhost"}, "item 2"),
     ({"PUBSUB_BACKEND": "memory"}, "item 2"),
     ({"TPU_EMBED_MODEL": "bert-tiny"}, "item 5"),
-], ids=["spec tokens", "tenant slo", "replicas", "replica addrs", "trace exporter",
+], ids=["tenant slo", "replicas", "replica addrs", "trace exporter",
         "async plane", "sql", "redis", "pubsub", "embed model"])
 def test_unported_app_config_raises(config, item):
     base = {"HTTP_PORT": "0", "METRICS_PORT": "0", "TPU_MODEL": MODEL, "TPU_DEVICE": "cpu",
@@ -646,6 +645,27 @@ def test_app_from_config_serves_on_the_cpu_when_asked():
         assert len(eng.generate_sync([1, 2, 3], max_new_tokens=3).token_ids) == 3
     finally:
         eng.close()
+
+
+def test_app_serves_speculative_decoding_from_config():
+    """TPU_SPEC_TOKENS=2 through the App: the container's engine drafts 2
+    tokens a step, serves, and records the acceptance histogram the
+    container registered (app_tpu_spec_tokens_per_step)."""
+    app = gofr_tpu_torch.App(config=gofr_tpu_torch.config.MockConfig({
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "TPU_MODEL": MODEL, "TPU_DEVICE": "cpu",
+        "TPU_KV_SLOTS": "2", "TPU_MAX_LEN": "128", "TPU_DECODE_WINDOW": "4",
+        "TPU_SPEC_TOKENS": "2"}))
+    eng = app.container.tpu
+    try:
+        assert eng.spec_tokens == 2
+        assert len(eng.generate_sync([1, 2, 3] * 4, max_new_tokens=9,
+                                     stop_on_eos=False).token_ids) == 9
+    finally:
+        eng.close()
+    hist = next(i for i in app.container.metrics.instruments()
+                if i.name == "app_tpu_spec_tokens_per_step")
+    (_, (total, n)), = hist.collect().values()
+    assert n >= 2 and 1.0 <= total / n <= 3.0
 
 
 def test_app_with_a_model_and_no_cuda_raises(monkeypatch):
