@@ -81,6 +81,22 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    windows, launches, pool peak and stream syncs beside G = 0's; a profile
    of one replayed spec window; and (in 5a) Mistral-7B's 6 requests at
    G = 2 against G = 0;
+4e. the prefix cache: the serving kernels on block tables in which every
+   slot aliases the same 32 physical blocks (decode at 1,056 to 1,424
+   tokens; prefill chunks from done = 1,024 and a row at 1,023), bf16 and
+   int8, against their plain versions and bit for bit against the
+   contiguous kernel; paged_copy_block bit for bit on 32-layer bf16 and
+   int8 pools; then a shared 1,024-token system prompt, 10 suffixes of 32
+   to 400 tokens (2 seeded sampled) and the system prompt alone, through
+   a bf16 pool of 513 x 32 with auto_prefix off and on (primed), an int8
+   pool of 161 x 32 under a 64-block cap (eviction runs; against an int8
+   pool of 513 off), the bf16 slot cache with the explicit prefix pool
+   (prefix_slots 2, register_prefix_sync) against none, and the primed
+   pool at G = 2 and at prefill depth 3: every warm stream equal to its
+   cold one (a greedy difference only at a near-tie), lookups and hit
+   tokens as the traffic implies, 0 stream syncs, the block invariant
+   after idle; tok/s, TTFT p50, ITL p50, prefill dispatches and rows, peak
+   and cached blocks and evictions, off and on;
 5. profiles one 8-step decode window (eager, then as a CUDA graph replay)
    and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
@@ -2339,17 +2355,20 @@ def check_streams(torch, cfg, params, label: str, prompts: list, want: list, got
                   greedy: list) -> None:
     """``got`` must equal ``want`` stream for stream: a greedy stream may
     leave it only at a top-2 logit margin below NEAR_TIE (reduction order,
-    from the plain forward), a sampled one not at all."""
+    from the plain forward), a sampled one not at all. Logs how many
+    streams were equal bit for bit."""
     for i, (a, b) in enumerate(zip(want, got)):
         if a == b:
             continue
         if not greedy[i]:
-            fail(f"{label}: sampled request {i} differs from the spec-off stream")
+            fail(f"{label}: sampled request {i} differs from the baseline stream")
         diff = first_difference(torch, cfg, params, prompts[i], a, b)
-        log(f"{label}: request {i} leaves the spec-off stream: {diff}")
+        log(f"{label}: request {i} leaves the baseline stream: {diff}")
         if diff["margin"] >= NEAR_TIE:
-            fail(f"{label}: request {i} differs from the spec-off stream at a top-2 margin "
+            fail(f"{label}: request {i} differs from the baseline stream at a top-2 margin "
                  f"{diff['margin']:.4g} >= {NEAR_TIE}: a state hazard")
+    same = sum(a == b for a, b in zip(want, got))
+    log(f"{label}: {same} of {len(got)} streams equal to the baseline bit for bit")
 
 
 def serve_repeated(torch, dev, params, G: int) -> tuple:
@@ -2598,6 +2617,339 @@ def phase_spec(torch, dev, cfg, params, base: list, base_stats: dict, pool_base:
         f"G={G} produced {rep[G][1]:.3f} tokens a live step; flash_decode launches "
         f"G=0 {rep[0][2]['flash_decode']}, G={G} {rep[G][2]['flash_decode']}")
     out.update(ab=ab, repeated_tokens_per_step=rep[G][1])
+    return out
+
+
+# -- the prefix cache (phase_prefix) ---------------------------------------
+
+# A system prompt of 1,024 token ids shared by 10 requests with distinct
+# suffixes (the last two seeded sampled), and an 11th that is the system
+# prompt alone (a whole-prompt hit: the boundary block copied on write).
+PREFIX_SYSTEM = 1024
+PREFIX_SUFFIXES = (32, 75, 128, 190, 250, 300, 333, 380, 400, 364)
+
+
+def prefix_traffic(vocab: int) -> tuple:
+    """(system, prompts, kws, greedy flags, priming prompt) from seed 11."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+    prompts = [system + rng.integers(0, vocab, n).tolist() for n in PREFIX_SUFFIXES]
+    prompts.append(list(system))
+    kws = [dict(max_new_tokens=32)] * len(prompts)
+    kws[8:10] = [dict(max_new_tokens=32, temperature=0.8, seed=4242)] * 2
+    greedy = [kw.get("temperature", 0.0) <= 0 for kw in kws]
+    return system, prompts, kws, greedy, system + rng.integers(0, vocab, 64).tolist()
+
+
+def pool_invariant(eng, label: str) -> None:
+    """After idle: each pool block's refcount equals the slot tables and
+    the radix index that hold it, and the free list holds exactly the
+    blocks nothing holds."""
+    refs: dict = {}
+    held = [b for row in eng._slot_blocks for b in row]
+    if eng._radix is not None:
+        held += eng._radix.cached_block_ids()
+    for b in held:
+        refs[b] = refs.get(b, 0) + 1
+    alloc = eng._allocator
+    free = list(alloc.free_blocks)
+    bad = [b for b in range(1, alloc.n_blocks)
+           if alloc.refcount(b) != refs.get(b, 0) or ((b in free) != (refs.get(b, 0) == 0))]
+    if bad or len(set(free)) != len(free):
+        fail(f"{label}: the block invariant fails at blocks {bad[:8]} "
+             f"(free list {len(free)} entries, {len(set(free))} distinct)")
+    log(f"{label}: block invariant holds after idle: {len(free)} free, "
+        f"{len(held)} references held ({eng.kv_pool_counts()[2]} blocks cached)")
+
+
+def serve_prefix(torch, dev, params, label: str, traffic: tuple, *, prime: bool = False,
+                 register: bool = False, **kv) -> dict:
+    """``traffic``'s 11 requests at once through an engine at phase_serve's
+    geometry (8 slots, max_len 2048, k 8, chunk 8 x 256, depth 2) with
+    ``kv``; before them (off the record) the warm-up, with ``prime`` the
+    priming request and with ``register`` ``register_prefix_sync(system)``.
+    Returns the streams, the launch counts of the wave and its figures:
+    tok/s, TTFT p50, ITL p50, prefill dispatches and rows, peak pool
+    blocks, cached blocks, evictions, index lookups and hit tokens, pool
+    loads, stream syncs. Every request must finish (32 tokens or EOS) and
+    the run may make no stream sync; a pool's block invariant must hold
+    after idle."""
+    import numpy as np
+
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    system, prompts, kws, _, priming = traffic
+    eng = InferenceEngine("llama-3-8b", n_slots=8, max_len=2048, window_k=8,
+                          prefill_chunk=256, prefill_batch=8, params=params, seed=0,
+                          device=dev, **kv)
+    try:
+        eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
+        if prime:
+            eng.generate_sync(priming, max_new_tokens=2, timeout=600)
+        if register:
+            row = eng.register_prefix_sync(system, timeout=600)
+            log(f"{label}: the system prompt registered in prefix pool row {row}")
+        loads = [0]
+        if eng._prefix_pool is not None:
+            load = eng._prefix_pool.load
+            eng._prefix_pool.load = lambda *a: (loads.__setitem__(0, loads[0] + 1), load(*a))
+        torch.cuda.synchronize()
+        radix = eng._radix
+        before = (eng._prefix_lookups, eng._prefix_hit_tokens,
+                  radix.evicted if radix is not None else 0, eng.prefill_steps)
+        if kv.get("kv_block"):
+            eng.kv_blocks_peak = 0
+        reset_launch_counts()
+        seen = watch_steps(eng)
+        count_syncs(torch, True)
+        t0 = time.perf_counter()
+        reqs = [eng.submit_generate(p, **kw) for p, kw in zip(prompts, kws)]
+        results = []
+        for i, r in enumerate(reqs):
+            try:
+                results.append(r.future.result(timeout=600))
+            except Exception as exc:  # a failed request fails the phase
+                fail(f"{label}: request {i} failed: {exc!r}")
+        wall = time.perf_counter() - t0
+        syncs = count_syncs(torch, False)
+        unwatch_steps(eng)
+        counts = launch_counts()
+        if syncs:
+            fail(f"{label}: {syncs} stream synchronizations in the run; the first at\n"
+                 + "\n".join(SYNCS["first"]))
+        eos = eng.tokenizer.eos_id
+        for i, res in enumerate(results):
+            m = len(res.token_ids)
+            if not (m == 32 or (res.finish_reason == "stop" and res.token_ids[-1] == eos)):
+                fail(f"{label}: request {i} ended with {m} tokens ({res.finish_reason})")
+            if not np.all(np.isfinite(res.token_logprobs)):
+                fail(f"{label}: request {i} has non-finite logprobs")
+        for name in ("flash_decode", "flash_cache_attention"):
+            if counts[name] <= 0:
+                fail(f"{label}: kernel {name} was not launched on the main path")
+        stats = serve_stats(reqs, wall)
+        stats.update(
+            prefill_dispatches=eng.prefill_steps - before[3], prefill_rows=seen["rows"],
+            lookups=eng._prefix_lookups - before[0], hit_tokens=eng._prefix_hit_tokens - before[1],
+            evictions=(radix.evicted if radix is not None else 0) - before[2],
+            pool_loads=loads[0], syncs=syncs, counts=counts)
+        if kv.get("kv_block"):
+            total, used, cached = eng.kv_pool_counts()
+            stats.update(pool_blocks=total, peak_blocks=eng.kv_blocks_peak, cached_blocks=cached)
+        log(f"{label}: 11 requests (system {PREFIX_SYSTEM} + suffixes "
+            f"{list(PREFIX_SUFFIXES)}, the system alone; 32 new tokens) in {wall:.3f} s: "
+            + json.dumps({k: v for k, v in stats.items() if k != "counts"}))
+        log(f"{label}: launch counts {counts}")
+        if kv.get("kv_block"):
+            deadline = time.monotonic() + 30
+            while (any(s is not None for s in eng._slots) or eng._prefilling
+                   or eng._inflight) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            pool_invariant(eng, label)
+            if radix is None and eng.kv_pool_counts()[1] != 0:
+                fail(f"{label}: blocks still held after every request retired")
+        stats["streams"] = [r.token_ids for r in results]
+        return stats
+    finally:
+        eng.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_prefix_kernels(torch, dev) -> dict:
+    """The serving kernels where the prefix cache takes them, at the
+    serving shapes (H 32, KV 8, hd 128, blocks of 32, max_len 2048): every
+    slot's table aliases the same 32 physical blocks (the cached system
+    prompt) before its own; flash_decode at lengths 1,056 to 1,424 (split
+    and written), flash_cache_attention on chunks that start at done =
+    1,024 and one row at 1,023 (a whole-prompt hit's last position); bf16
+    and int8 pools, each against its plain version in f32 (row error /
+    row rms under ROW_REL_TOL) and bit for bit against the contiguous
+    kernel on the gathered rows. Then ``paged_copy_block`` on Llama-3-8B's
+    32-layer pools, bf16 and int8: the destination is bit for bit the
+    source, every other block unchanged; its time beside its byte bound."""
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+    from gofr_tpu_torch.ops.cuda import flash_prefill as fp
+    from gofr_tpu_torch.ops.kv_cache import (
+        PagedKVCache,
+        fake_quantize_kv,
+        paged_copy_block,
+        paged_view,
+        quantize_kv,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(1024)
+    H, KV, hd, B, max_len, S = 32, 8, 128, 32, 2048, 8
+    shared = PREFIX_SYSTEM // B
+    lengths = [PREFIX_SYSTEM + n for n in PREFIX_SUFFIXES[:S]]
+    own = [-(-(n + 1) // B) - shared for n in lengths]
+    n_blocks = 1 + shared + sum(own) + 8
+    perm = (torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1).tolist()
+    table = torch.zeros((S, max_len // B), dtype=torch.int32)
+    table[:, :shared] = torch.tensor(perm[:shared], dtype=torch.int32)
+    i = shared
+    for r in range(S):
+        table[r, shared: shared + own[r]] = torch.tensor(perm[i: i + own[r]], dtype=torch.int32)
+        i += own[r]
+    table = table.to(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lens = torch.tensor(lengths, **i32)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def f32(d):
+        return {k: (t.float() if t.dtype == torch.bfloat16 else t) for k, t in d.items()}
+
+    out: dict = {"flash_decode": [], "flash_cache_attention": []}
+    q, kn, vn = rnd(S, H, hd), rnd(S, KV, hd), rnd(S, KV, hd)
+    rows = [(r, PREFIX_SYSTEM, min(256, PREFIX_SUFFIXES[r])) for r in range(S - 1)]
+    rows.append((S - 1, PREFIX_SYSTEM - 1, 1))
+    qp = rnd(len(rows), 256, H, hd)
+    slots, starts, plens = (torch.tensor([r[j] for r in rows], **i32) for j in range(3))
+    for quant in (False, True):
+        k, v = rnd(n_blocks, KV, B, hd), rnd(n_blocks, KV, B, hd)
+        pools = dict(k_cache=k, v_cache=v)
+        knq, vnq = kn, vn
+        if quant:
+            (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+            pools = dict(k_cache=kq, v_cache=vq, k_scale=ks, v_scale=vs)
+            knq, vnq = fake_quantize_kv(kn), fake_quantize_kv(vn)
+        paged = dict(pools, block_table=table)
+        flat_k, flat_v, flat_ks, flat_vs = paged_view(
+            table, pools["k_cache"], pools["v_cache"], torch.arange(S, device=dev),
+            pools.get("k_scale"), pools.get("v_scale"))
+        flat = dict(k_cache=flat_k.contiguous(), v_cache=flat_v.contiguous())
+        if quant:
+            flat.update(k_scale=flat_ks.contiguous(), v_scale=flat_vs.contiguous())
+        tag = "int8 pool" if quant else "bf16 pool"
+        errs, rels = [], []
+        for conv, new in (("split", dict(k_new=knq, v_new=vnq)), ("written", {})):
+            name = f"prefix flash_decode {tag} ({conv}), 8 slots aliasing 32 blocks"
+            got = fd.flash_decode(q, lengths=lens, **new, **paged)
+            e, r = check_close(torch, name, got, fd.flash_decode_plain(
+                q.float(), lengths=lens, **f32(new), **f32(paged)))
+            d = (got.float() - fd.flash_decode(q, lengths=lens, **new, **flat).float()
+                 ).abs().max().item()
+            log(f"{name}: max|aliased pool - contiguous| {d}; limit {PAGED_VS_CONTIGUOUS_TOL}")
+            if d > PAGED_VS_CONTIGUOUS_TOL:
+                fail(f"{name}: the aliased pool's result differs from the contiguous one")
+            errs.append(e)
+            rels.append(r)
+        out["flash_decode"].append(dict(case=f"prefix {tag}, aliased table", max_abs_err=max(errs),
+                                        max_row_rel_err=max(rels), lengths=lengths))
+        name = f"prefix flash_cache_attention {tag}, chunks from done = 1024 over aliased blocks"
+        got = fp.flash_cache_attention(qp, slots=slots, starts=starts, lens=plens, **paged)
+        e, r = check_close(torch, name, got, fp.flash_cache_attention_plain(
+            qp.float(), slots=slots, starts=starts, lens=plens, **f32(paged)))
+        d = (got.float() - fp.flash_cache_attention(
+            qp, slots=slots, starts=starts, lens=plens, **flat).float()).abs().max().item()
+        log(f"{name}: max|aliased pool - contiguous| {d}; limit {PAGED_VS_CONTIGUOUS_TOL}")
+        if d > PAGED_VS_CONTIGUOUS_TOL:
+            fail(f"{name}: the aliased pool's result differs from the contiguous one")
+        out["flash_cache_attention"].append(dict(
+            case=f"prefix {tag}, aliased table", max_abs_err=e, max_row_rel_err=r,
+            rows=[list(x) for x in rows]))
+        del pools, paged, flat, k, v
+    # paged_copy_block at Llama-3-8B's 32 layers.
+    out["paged_copy_block"] = []
+    for quant in ("", "int8"):
+        cache = PagedKVCache.create(32, 2, 64, KV, hd, quant=quant, block=B, n_blocks=6,
+                                    device=dev)
+        planes = [t for t in (cache.k, cache.v, cache.k_s, cache.v_s) if t is not None]
+        for t in planes:
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        before = [t.clone() for t in planes]
+        paged_copy_block(cache, 2, 5)
+        torch.cuda.synchronize()
+        for t, old in zip(planes, before):
+            bits = (lambda x: x.view(torch.int16) if x.dtype == torch.bfloat16 else x)
+            if not torch.equal(bits(t[:, 5]), bits(old[:, 2])):
+                fail(f"paged_copy_block {quant or 'bf16'}: the copy is not the source bit for bit")
+            keep = [b for b in range(6) if b != 5]
+            if not torch.equal(bits(t[:, keep]), bits(old[:, keep])):
+                fail(f"paged_copy_block {quant or 'bf16'}: a block other than the target changed")
+        nbytes = 2 * cache.block_bytes()
+        ms = time_ms(torch, lambda: paged_copy_block(cache, 2, 5))
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"prefix paged_copy_block {quant or 'bf16'} (32 layers, block of 32, K, V"
+            f"{' and scales' if quant else ''}): bit for bit the source, other blocks "
+            f"unchanged; {ms:.4f} ms ({cache.k.shape[0] * (4 if quant else 2)} copies), "
+            f"bound {bound:.5f} ms ({nbytes} bytes read and written)")
+        out["paged_copy_block"].append(dict(case=quant or "bf16", ms=ms, bound_ms=bound,
+                                            bytes=nbytes))
+        del cache, planes, before
+    return out
+
+
+def phase_prefix(torch, dev, cfg, params) -> dict:
+    """The prefix cache at Llama-3-8B's full width and depth on
+    phase_serve's geometry: phase_prefix_kernels, then ``prefix_traffic``
+    through (a) a bf16 pool of 513 blocks of 32, ``auto_prefix`` off, then
+    on (one priming request first); (b) an int8 pool of 513 off, then the
+    int8 pool of 161 with ``auto_prefix`` and ``prefix_cache_blocks`` 64
+    (a primed wave that would need about twice the pool unshared and
+    retires more full prompt blocks than the cap: eviction must run, no
+    request may fail); (c) the bf16 slot cache without, then with
+    ``prefix_slots`` 2 and ``register_prefix_sync(system)``; (d) (a)'s warm
+    run again at ``spec_tokens`` 2 and at ``prefill_depth`` 3. Every warm
+    stream equals its cold counterpart or leaves it only at a greedy
+    near-tie (check_streams); the index's lookups and hit tokens are what
+    the traffic implies; 0 stream syncs; the block invariant after idle."""
+    out: dict = {"kernels": phase_prefix_kernels(torch, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    traffic = prefix_traffic(cfg.vocab_size)
+    prompts, greedy = traffic[1], traffic[3]
+    n = len(prompts)
+    # Every request but the last hits the system prompt's 32 blocks; the
+    # last is the system prompt alone, whose last position is recomputed.
+    want_hit = (n - 1) * PREFIX_SYSTEM + PREFIX_SYSTEM - 1
+    bf16_pool = dict(kv_block=32, kv_pool_blocks=513)
+    runs = {
+        "a off": dict(**bf16_pool),
+        "a on": dict(**bf16_pool, auto_prefix=True, prime=True),
+        "b off": dict(kv_block=32, kv_quant="int8", kv_pool_blocks=513),
+        "b on": dict(kv_block=32, kv_quant="int8", kv_pool_blocks=161, auto_prefix=True,
+                     prefix_cache_blocks=64, prime=True),
+        "c off": {},
+        "c on": dict(prefix_slots=2, register=True),
+        "d spec 2": dict(**bf16_pool, auto_prefix=True, prime=True, spec_tokens=2),
+        "d prefill depth 3": dict(**bf16_pool, auto_prefix=True, prime=True, prefill_depth=3),
+    }
+    cold = {"a on": "a off", "b on": "b off", "c on": "c off", "d spec 2": "a off",
+            "d prefill depth 3": "a off"}
+    stats: dict = {}
+    for name, kv in runs.items():
+        stats[name] = serve_prefix(torch, dev, params, f"prefix {name}", traffic, **kv)
+        if name in cold:
+            check_streams(torch, cfg, params, f"prefix {name} against {cold[name]}", prompts,
+                          stats[cold[name]]["streams"], stats[name]["streams"], greedy)
+    for name in ("a on", "b on", "d spec 2", "d prefill depth 3"):
+        st = stats[name]
+        if st["lookups"] < n or st["hit_tokens"] != want_hit:
+            fail(f"prefix {name}: {st['lookups']} lookups and {st['hit_tokens']} hit tokens; "
+                 f"the traffic implies at least {n} and exactly {want_hit}")
+    if stats["b on"]["evictions"] <= 0:
+        fail("prefix b on: the 64-block cap evicted nothing")
+    if stats["c on"]["pool_loads"] != n:
+        fail(f"prefix c on: {stats['c on']['pool_loads']} prefix-pool loads for {n} requests")
+    for name in ("a off", "b off", "c off"):
+        if stats[name]["hit_tokens"] or stats[name]["pool_loads"]:
+            fail(f"prefix {name}: the cache is off but served a hit")
+    keys = ("tok_s", "ttft_p50_ms", "itl_p50_ms", "prefill_dispatches", "peak_blocks",
+            "cached_blocks", "evictions", "lookups", "hit_tokens", "pool_loads")
+    for off, on in (("a off", "a on"), ("b off", "b on"), ("c off", "c on"),
+                    ("a off", "d spec 2"), ("a off", "d prefill depth 3")):
+        log(f"prefix {off} -> {on}: " + json.dumps(
+            {k: [stats[off].get(k), stats[on].get(k)] for k in keys}))
+    out["runs"] = {k: {x: y for x, y in st.items() if x != "streams"} for k, st in stats.items()}
     return out
 
 
@@ -3298,6 +3650,7 @@ def main() -> None:
         f"{8 * 2048 * int8_tok}, int8 pool (161 blocks of 32) {161 * 32 * int8_tok}")
     decode_loop = phase_decode_loop(torch, dev, cfg, params, base, base_stats)
     spec = phase_spec(torch, dev, cfg, params, base, base_stats, pool_base, pool_stats, pool_kv)
+    prefix = phase_prefix(torch, dev, cfg, params)
     with torch.inference_mode():
         phase_profile(torch, dev, cfg, params, sampler=True, graph=True)
     del params
@@ -3417,8 +3770,9 @@ def main() -> None:
         case.update(launches=mfull[entry], launches_from=f"mistral-7b {entry} [., 8192]")
         kstats["flash_attention"]["cases"].append(case)
     for k in replaces:
-        kstats[k]["max_abs_err"] = max(c["max_abs_err"] for c in kstats[k]["cases"])
-        kstats[k]["max_row_rel_err"] = max(c["max_row_rel_err"] for c in kstats[k]["cases"])
+        checks = kstats[k]["cases"] + prefix["kernels"].get(k, [])
+        kstats[k]["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        kstats[k]["max_row_rel_err"] = max(c["max_row_rel_err"] for c in checks)
     kernels = [
         {
             "name": k, "route": "cuda", "source": sources[k], "replaces": replaces[k],
@@ -3448,6 +3802,10 @@ def main() -> None:
             "a replayed spec window (k=8, G=2)": spec["launches_a_window"].get(k, 0),
             **{f"serve {label} G=2": ab["G=2"]["counts"][k] for label, ab in spec["ab"].items()},
             "serve mistral-7b G=2": mspec_counts[k]}
+        # The prefix cache's serves (launches over each wave) and the
+        # kernel held on tables that alias shared blocks.
+        entry["launches_prefix"] = {run: st["counts"][k] for run, st in prefix["runs"].items()}
+        entry["prefix_aliased"] = prefix["kernels"][k]
     log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

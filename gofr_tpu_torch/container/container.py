@@ -121,6 +121,9 @@ class Container:
             (1, 2, 4, 8, 16, 32, 64, 128, 256),
         )
         m.new_counter("app_tpu_tokens_generated", "tokens generated")
+        m.new_counter(
+            "app_tpu_prefix_hits", "prompts admitted via prefix-KV reuse"
+        )
         m.new_histogram(
             "app_tpu_spec_tokens_per_step",
             "speculative decoding: tokens accepted per live step",
@@ -128,6 +131,22 @@ class Container:
         )
         m.new_gauge(
             "app_tpu_kv_blocks_free", "paged KV cache: free pool blocks"
+        )
+        # The prefix cache (TPU_AUTO_PREFIX): radix-index lookups at
+        # admission, prompt tokens served by aliased cached blocks instead
+        # of prefill, and the index's resident block count.
+        m.new_counter(
+            "app_tpu_prefix_lookup_total",
+            "radix prefix-cache lookups at admission (result=hit|miss)",
+        )
+        m.new_counter(
+            "app_tpu_prefix_hit_tokens_total",
+            "prompt tokens admission-aliased from cached KV blocks "
+            "(prefill skipped)",
+        )
+        m.new_gauge(
+            "app_tpu_prefix_cached_blocks",
+            "KV blocks currently held by the radix prefix index",
         )
         m.new_counter(
             "app_tpu_requests_shed_total",

@@ -9,6 +9,8 @@
   allocator never hands it out, and unallocated table entries point at
   it, so nothing in it is ever attended.
 * ``BlockAllocator``, the host-side refcounted allocator over the pool.
+* ``paged_copy_block``, the copy-on-write of one pool block (prefix
+  sharing).
 
 Int8 mode (``quant="int8"``): K/V are stored as int8 with one f32 absmax
 scale per (layer, row, kv head, position), set to 1 at creation. The
@@ -227,6 +229,21 @@ class BlockAllocator:
                 self._free.append(bid)
                 return True
             return False
+
+
+def paged_copy_block(cache: PagedKVCache, src: int, dst: int) -> None:
+    """Copy pool block ``src`` onto block ``dst`` across every layer (K, V
+    and the int8 scale planes when present), in place: the copy-on-write
+    step of prefix sharing, the reference's ``paged_copy_block``. When a
+    cached prefix covers a slot's whole prompt, the finalize chunk still
+    rewrites the last prompt position, so the boundary block is duplicated
+    first and the slot's table points at the copy. ``src`` and ``dst`` are
+    host ints, so nothing is uploaded and the host does not wait; the
+    copies go on the current stream, after every program queued before
+    them."""
+    for t in (cache.k, cache.v, cache.k_s, cache.v_s):
+        if t is not None:
+            t[:, dst].copy_(t[:, src])
 
 
 def paged_view(

@@ -51,6 +51,22 @@ at admission, one that waits on a dry pool stays at the head of the
 queue, and one whose pool runs dry mid-generation fails, as in the
 reference.
 
+The prefix cache, as the reference's. With ``auto_prefix`` (a pool only)
+a retiring request's full prompt blocks go into a radix index
+(``serving/radix_cache.py``) instead of back to the free list, and
+admission aliases the longest cached prefix into the new slot's table:
+the prefill starts at the hit, no byte moves. When the hit covers the
+whole prompt the boundary block is copied on write (``paged_copy_block``)
+because the last chunk rewrites its last position. Cached blocks nobody
+references are evicted, LRU, when the free list runs dry, over
+``prefix_cache_blocks``, or below ``prefix_evict_watermark`` free blocks.
+With ``prefix_slots`` (the slot cache only) ``register_prefix`` prefills a
+prefix once into a pool (``serving/prefix_cache.py``) whose rows admission
+copies into a matching request's slot. Every cache write, the copies
+included, goes on the engine's one stream in issue order, so a copy or a
+reused block lands after the windows in flight that still write the
+slots' earlier occupants.
+
 The engine is also the App's container member: ``from_config`` builds it
 from the ``TPU_*`` keys (the reference's names and defaults; a key of an
 unported feature set to anything but its default raises), ``start`` /
@@ -90,7 +106,12 @@ from gofr_tpu_torch.errors import (
 from gofr_tpu_torch.models.registry import get_model
 from gofr_tpu_torch.models.transformer import check_supported, init_params, rope_tables
 from gofr_tpu_torch.ops.cuda import replayed
-from gofr_tpu_torch.ops.kv_cache import BlockAllocator, KVCache, PagedKVCache
+from gofr_tpu_torch.ops.kv_cache import (
+    BlockAllocator,
+    KVCache,
+    PagedKVCache,
+    paged_copy_block,
+)
 from gofr_tpu_torch.serving.lifecycle import (
     AggregateThroughput,
     CancelToken,
@@ -113,6 +134,8 @@ from gofr_tpu_torch.serving.programs import (
     prefill_multi_chunk,
     spec_window,
 )
+from gofr_tpu_torch.serving.prefix_cache import PrefixPool
+from gofr_tpu_torch.serving.radix_cache import RadixPrefixIndex
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
 from gofr_tpu_torch.serving.types import LOGIT_BIAS_K, GenerationResult, GenRequest
 
@@ -128,7 +151,6 @@ _NEUTRAL_SUBMIT_OPTIONS = {
 # does not serve yet: (key, the reference's default, ROADMAP item). Set to
 # anything else, each raises NotImplementedError naming its item.
 _LOADERS = "ROADMAP Queue 1 item 6: loaders and device services"
-_PREFIX = "ROADMAP Queue 1 item 4: the prefix cache"
 _ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
 _MULTI = "ROADMAP Queue 1 item 8: multi-device"
 _UNPORTED_KEYS = (
@@ -141,11 +163,8 @@ _UNPORTED_KEYS = (
     ("TPU_LORA_ADAPTERS", "", _LOADERS),
     ("TPU_TP", "1", _MULTI), ("TPU_MESH_TP", "1", _MULTI),
     ("TPU_MESH_CP", "1", _MULTI),
-    ("TPU_AUTO_PREFIX", "false", _PREFIX), ("TPU_PREFIX_SLOTS", "0", _PREFIX),
-    ("TPU_PREFIX_CACHE_BLOCKS", "0", _PREFIX),
-    ("TPU_PREFIX_EVICT_WM", "0", _PREFIX),
-    ("TPU_PREFIX_EVICT_HBM_FRAC", "0", _PREFIX),
-    ("TPU_QUEUE_PREFIX_AWARE", "0", _PREFIX),
+    # The HBM ledger that derives this watermark (device_telemetry).
+    ("TPU_PREFIX_EVICT_HBM_FRAC", "0", _LOADERS),
     ("TPU_EMBED_CHECKPOINT", "", _ENCODERS), ("TPU_EMBED_TOKENIZER", "", _ENCODERS),
     ("TPU_MAX_BATCH", "8", _OPS_PLANE), ("TPU_BATCH_WAIT_MS", "5", _OPS_PLANE),
     ("TPU_WATCHDOG_S", "0", _OPS_PLANE), ("TPU_RESTART_MAX", "0", _OPS_PLANE),
@@ -391,6 +410,13 @@ class InferenceEngine:
     warnings and reap notes; ``metrics`` (a ``gofr_tpu_torch.metrics``
     manager with the container's instruments registered) gets the
     ``app_tpu_*`` recordings.
+
+    The prefix cache, as the reference's: ``auto_prefix`` (needs
+    ``kv_block``), ``prefix_cache_blocks`` (cap on cached blocks, 0 = the
+    pool), ``prefix_evict_watermark`` (free blocks the loop keeps by
+    evicting, 0 = off), ``queue_prefix_aware`` (a request with a hit pops
+    first within its class); ``prefix_slots`` (rows of the explicit prefix
+    pool, slot cache only; see ``register_prefix``).
     """
 
     family = "llm"
@@ -416,6 +442,11 @@ class InferenceEngine:
         kv_block: int = 0,
         kv_pool_blocks: int = 0,
         kv_quant: str = "",
+        auto_prefix: bool = False,
+        prefix_cache_blocks: int = 0,
+        prefix_evict_watermark: int = 0,
+        prefix_slots: int = 0,
+        queue_prefix_aware: bool = False,
         queue_max: int = 1024,
         queue_max_tokens: int = 0,
         class_promote_s: float = 5.0,
@@ -430,11 +461,12 @@ class InferenceEngine:
         metrics: Any = None,
         **unsupported: Any,
     ) -> None:
-        if "auto_prefix" in unsupported:
+        if unsupported.get("prefix_evict_hbm_frac"):
             raise NotImplementedError(
-                "auto_prefix (the radix prefix cache over the block pool) is "
-                "not ported yet (ROADMAP Queue 1 item 4)"
+                "prefix_evict_hbm_frac (the eviction watermark derived from "
+                f"the HBM ledger) is not ported yet ({_LOADERS})"
             )
+        unsupported.pop("prefix_evict_hbm_frac", None)
         if unsupported:
             raise NotImplementedError(
                 "engine options outside this slice of the torch port: "
@@ -479,6 +511,19 @@ class InferenceEngine:
         if kv_block and max_len % kv_block:
             raise ValueError(
                 f"max_len={max_len} must be a multiple of kv_block={kv_block}"
+            )
+        # The reference's prefix-cache validation, word for word.
+        if auto_prefix and not kv_block:
+            raise ValueError(
+                "TPU_AUTO_PREFIX requires the paged KV cache "
+                "(TPU_KV_BLOCK > 0): prefix hits alias pool blocks "
+                "through the block table"
+            )
+        if kv_block and prefix_slots > 0:
+            raise ValueError(
+                "prefix-KV reuse and the paged cache are mutually "
+                "exclusive (the pool copies slot rows; use "
+                "TPU_AUTO_PREFIX for paged prefix sharing)"
             )
         self.device = resolve_device(device)
         if kv_block % 16 and self.device.type == "cuda":
@@ -551,6 +596,30 @@ class InferenceEngine:
                 cfg.head_dim, dtype=cfg.dtype, quant=kv_quant,
                 device=self.device,
             )
+        # The prefix cache. The radix index maps token content to physical
+        # pool blocks; the explicit pool copies slot-cache rows.
+        self.auto_prefix = bool(auto_prefix)
+        self.prefix_cache_blocks = max(0, int(prefix_cache_blocks))
+        self.prefix_evict_watermark = max(0, int(prefix_evict_watermark))
+        # The reference derives it from the HBM ledger when the explicit
+        # watermark is 0; that ledger is not ported, so it is the knob.
+        self.effective_evict_watermark = self.prefix_evict_watermark
+        self.prefix_slots = max(0, int(prefix_slots))
+        self.queue_prefix_aware = bool(queue_prefix_aware)
+        self._radix: Optional[RadixPrefixIndex] = (
+            RadixPrefixIndex(self.kv_block, self._allocator,
+                             max_blocks=self.prefix_cache_blocks)
+            if self.auto_prefix else None
+        )
+        self._prefix_pool: Optional[PrefixPool] = (
+            PrefixPool(self.prefix_slots, self.cache) if self.prefix_slots else None
+        )
+        # Host mirrors of app_tpu_prefix_{lookup,hit_tokens}_total, and the
+        # (free, cached) signature of the last watermark sweep that found
+        # nothing to evict (the loop skips re-scanning until it changes).
+        self._prefix_lookups = 0
+        self._prefix_hit_tokens = 0
+        self._wm_fruitless: Optional[tuple[int, int]] = None
         self.rope = rope_tables(cfg, self.max_len, self.device)
         self.planes = SlotPlanes.create(
             self.n_slots, self.device, cfg.vocab_size, self.sampler,
@@ -600,8 +669,16 @@ class InferenceEngine:
         self._tput = AggregateThroughput()
         self._queued_tokens = 0
         self._tenant_queued: dict[str, int] = {}
+        # Prefix-aware admission order probes the index without mutating
+        # it (peek: no increfs, no LRU refresh).
+        prefix_probe = None
+        if self.queue_prefix_aware and self._radix is not None:
+            radix = self._radix
+            prefix_probe = lambda req: radix.peek(  # noqa: E731
+                list(req.prompt_ids), req.aid) > 0
         self._pending = ClassPriorityQueue(
-            maxsize=self.queue_max, promote_after_s=self.class_promote_s
+            maxsize=self.queue_max, promote_after_s=self.class_promote_s,
+            prefix_probe=prefix_probe,
         )
         # Submit-time sheds and lifecycle reaps, by reason (the
         # reference's app_tpu_requests_shed_total{reason} and its
@@ -638,13 +715,15 @@ class InferenceEngine:
         return self.max_len - 2 - (self.pipeline_depth + 1) * self.window_k
 
     def kv_pool_counts(self) -> tuple[int, int, int]:
-        """``(total, used, cached)`` blocks of the paged pool: allocatable
-        blocks (block 0 parks), blocks held by live tables, and 0 (no
-        radix cache yet). ``(0, 0, 0)`` for the slot cache."""
+        """``(total, used, cached)`` blocks of the paged pool, the
+        reference's accounting: allocatable blocks (block 0 parks), blocks
+        held by live tables or the radix index, and the index's
+        (reclaimable) share. ``(0, 0, 0)`` for the slot cache."""
         if not self.kv_block:
             return 0, 0, 0
         total = self.cache.n_blocks - 1
-        return total, max(0, total - self._allocator.n_free), 0
+        cached = self._radix.n_cached_blocks if self._radix is not None else 0
+        return total, max(0, total - self._allocator.n_free), cached
 
     def submit_generate(
         self,
@@ -907,6 +986,50 @@ class InferenceEngine:
                 else:
                     del self._tenant_queued[req.tenant]
 
+    def register_prefix(self, prompt: str | list[int], adapter: str = "") -> GenRequest:
+        """Prefill a shared prompt prefix once and park its K/V rows in the
+        prefix pool; a later prompt starting with it has the rows copied
+        into its slot at admission and prefills only the rest. The
+        request's future resolves with the pool row. Needs ``prefix_slots
+        > 0`` (``TPU_PREFIX_SLOTS``); the checks and messages are the
+        reference's. ``adapter`` raises ``NotImplementedError`` (LoRA is
+        not ported)."""
+        if adapter:
+            raise NotImplementedError(
+                f"adapter={adapter!r} is not ported yet "
+                f"({_NEUTRAL_SUBMIT_OPTIONS['adapter'][1]})"
+            )
+        if self._prefix_pool is None:
+            raise RuntimeError(
+                "prefix pool disabled — construct the engine with "
+                "prefix_slots > 0 (TPU_PREFIX_SLOTS)"
+            )
+        ids = (
+            self.tokenizer.encode(prompt) if isinstance(prompt, str)
+            else [int(i) for i in prompt]
+        )
+        if not ids:
+            raise ValueError("prefix must be at least one token")
+        if len(ids) > self.max_prompt_tokens:
+            raise ErrorPromptTooLong(len(ids), self.max_prompt_tokens)
+        if any(not 0 <= i < self.cfg.vocab_size for i in ids):
+            raise ErrorInvalidParam([
+                f"prompt token ids must be in [0, {self.cfg.vocab_size})"
+            ])
+        req = GenRequest(
+            prompt_ids=ids, max_new_tokens=1, temperature=0.0,
+            stop_on_eos=False, seed=0, prefix_store=True,
+        )
+        self._enqueue(req)
+        return req
+
+    def register_prefix_sync(
+        self, prompt: Any, timeout: float = 300.0, adapter: str = ""
+    ) -> int:
+        return self.register_prefix(prompt, adapter=adapter).future.result(
+            timeout=timeout
+        )
+
     def generate_sync(
         self, prompt: Any, timeout: float = 300.0, **kw: Any
     ) -> GenerationResult:
@@ -1058,6 +1181,12 @@ class InferenceEngine:
                 "total": self.cache.n_blocks - 1,  # block 0 parks
                 "free": self._allocator.n_free,
             }
+            if self._radix is not None:
+                details["prefix_cache"] = {
+                    "cached_blocks": self._radix.n_cached_blocks,
+                    "lookups": self._prefix_lookups,
+                    "hit_tokens": self._prefix_hit_tokens,
+                }
         up = self._running and self._state == "SERVING"
         return {"status": "UP" if up else "DOWN", "state": self._state,
                 "details": details}
@@ -1104,6 +1233,13 @@ class InferenceEngine:
             kv_quant=config.get_or_default("TPU_KV_QUANT", ""),
             kv_block=num("TPU_KV_BLOCK", "0"),
             kv_pool_blocks=num("TPU_KV_POOL_BLOCKS", "0"),
+            auto_prefix=_truthy(config, "TPU_AUTO_PREFIX", "false"),
+            prefix_cache_blocks=num("TPU_PREFIX_CACHE_BLOCKS", "0"),
+            prefix_evict_watermark=num("TPU_PREFIX_EVICT_WM", "0"),
+            prefix_slots=num("TPU_PREFIX_SLOTS", "0"),
+            # The reference's reading: anything but an off spelling is on.
+            queue_prefix_aware=config.get_or_default(
+                "TPU_QUEUE_PREFIX_AWARE", "0").lower() not in _FALSY,
             truncate_prompts=_truthy(config, "TPU_TRUNCATE_PROMPTS", "false"),
             top_k=num("TPU_TOP_K", "0"),
             top_logprobs=top_logprobs,
@@ -1151,6 +1287,8 @@ class InferenceEngine:
         # Cancelled and expired requests retire here, once a pass, so a
         # dead stream's slot and blocks free within one decode window.
         self._reap_lifecycle()
+        if self._radix is not None:
+            self._radix_watermark_sweep()
         self._admit()
         progressed = self._prefill_step()
         # Wave admission: while live streams fill under a quarter of the
@@ -1231,6 +1369,11 @@ class InferenceEngine:
         self._inflight.clear()
         self._prefill_emits = []
         self._slot_state_dirty = True
+        if self.kv_block:
+            # Failed requests index nothing; their rows must be empty for
+            # the next admission, which aliases cached blocks from row 0.
+            for slot in range(self.n_slots):
+                self._release_blocks(slot)
         for req in reqs:
             self._resolve(req, exc=exc)
 
@@ -1311,16 +1454,25 @@ class InferenceEngine:
             self._backlog.extend(kept)
 
     def _release_slot(self, slot: int) -> None:
+        """Free a slot and (pool) drop its block references, indexing the
+        full prompt blocks of a request that finished its prefill in the
+        radix cache first (a slot mid-prefill holds no request in
+        ``_slots``, so its blocks are never indexed)."""
+        req = self._slots[slot]
         self._slots[slot] = None
         self._prefilling.pop(slot, None)
         self._slot_state_dirty = True
         if self.kv_block:
-            self._release_blocks(slot)
+            adopted: set[int] = set()
+            if self._radix is not None and req is not None:
+                adopted = self._cache_prompt_blocks(req, slot)
+            self._release_blocks(slot, adopted)
             if self._metrics is not None:
                 self._metrics.set_gauge(
                     "app_tpu_kv_blocks_free", self._allocator.n_free,
                     "model", self.model_name,
                 )
+                self._publish_prefix_gauge()
 
     # -- admission ----------------------------------------------------------
 
@@ -1339,15 +1491,17 @@ class InferenceEngine:
                 continue
             # Clamp the budget so the windows in flight past the last
             # token still land inside the cache (below the parking row).
+            ids = req.prompt_ids
             room = (
-                self.max_len - 1 - len(req.prompt_ids)
+                self.max_len - 1 - len(ids)
                 - (self.pipeline_depth + 1) * self.window_k
                 * (self.spec_tokens + 1)
             )
             req.max_new_tokens = max(1, min(req.max_new_tokens, room))
+            cached_done = 0
             if self.kv_block:
                 B = self.kv_block
-                need = (min(len(req.prompt_ids) + 1, self.max_len) + B - 1) // B
+                need = (min(len(ids) + 1, self.max_len) + B - 1) // B
                 if need > self.cache.n_blocks - 1:
                     self._resolve(req, exc=RuntimeError(
                         f"prompt needs {need} KV blocks but the pool "
@@ -1355,10 +1509,15 @@ class InferenceEngine:
                         f"TPU_KV_POOL_BLOCKS"
                     ))
                     continue
+                # The prefix cache: alias the longest cached full-block
+                # prefix into the slot's table and prefill the rest.
+                cached_done = self._alias_prefix_blocks(free[0], req)
                 # Cover the prompt and the first decode token now; windows
                 # top up before they run. A dry pool holds the request at
-                # the head of the queue until retirements refill it.
-                if not self._ensure_blocks(free[0], len(req.prompt_ids) + 1):
+                # the head of the queue until retirements refill it, and
+                # drops any aliased references (the row must be empty).
+                if not self._ensure_blocks(free[0], len(ids) + 1):
+                    self._release_blocks(free[0])
                     self._backlog.appendleft(req)
                     self.kv_admission_waits += 1
                     return
@@ -1371,18 +1530,64 @@ class InferenceEngine:
                 self._bidx_host[slot, j] = tok
                 self._bval_host[slot, j] = val
             self._seeds_dirty = True
-            self._prefilling[slot] = _Prefill(request=req)
+            # The aliased blocks hold positions [0, done); done < the
+            # prompt's length, so the last chunk still runs and samples
+            # the first token.
+            state = self._prefilling[slot] = _Prefill(request=req, done=cached_done)
+            if self._prefix_pool is not None and not req.prefix_store:
+                idx, plen = self._prefix_pool.lookup(ids, req.aid)
+                if idx >= 0:
+                    # Copy the pooled rows in and prefill the remainder
+                    # (rewriting the boundary position is idempotent).
+                    self._prefix_pool.load(self.cache, idx, slot, plen)
+                    state.done = min(plen, len(ids) - 1)
+                    if self._metrics is not None:
+                        self._metrics.increment_counter(
+                            "app_tpu_prefix_hits", "model", self.model_name
+                        )
+            if cached_done:
+                # Counted once admission is certain: a dry-pool deferral
+                # walks the index again when the request is readmitted.
+                self._prefix_hit_tokens += cached_done
+                if self._metrics is not None:
+                    self._metrics.add_counter(
+                        "app_tpu_prefix_hit_tokens_total", cached_done,
+                        "model", self.model_name,
+                    )
+
+    def _publish_prefix_gauge(self) -> None:
+        """``app_tpu_prefix_cached_blocks``, after any path that grows or
+        shrinks the radix index."""
+        if self._metrics is not None and self._radix is not None:
+            self._metrics.set_gauge(
+                "app_tpu_prefix_cached_blocks", self._radix.n_cached_blocks,
+                "model", self.model_name,
+            )
+
+    def _alloc_block(self) -> Optional[int]:
+        """One free pool block, evicting an unreferenced cached block (LRU)
+        when the free list is dry: cached prefixes never starve live
+        requests."""
+        bid = self._allocator.alloc()
+        if bid is None and self._radix is not None and self._radix.evict(1):
+            bid = self._allocator.alloc()
+            self._publish_prefix_gauge()
+        return bid
 
     def _ensure_blocks(self, slot: int, tokens: int) -> bool:
         """Grow ``slot``'s allocation to cover ``tokens`` logical tokens.
-        False when the pool is dry, with any partial grab rolled back."""
+        False when the pool is dry, with any partial grab rolled back. A
+        shortfall first evicts cached blocks in one batch."""
         B = self.kv_block
         target = min((min(tokens, self.max_len) + B - 1) // B,
                      self._table_host.shape[1])
         row = self._slot_blocks[slot]
         start_len = len(row)
+        shortfall = (target - start_len) - self._allocator.n_free
+        if shortfall > 0 and self._radix is not None and self._radix.evict(shortfall):
+            self._publish_prefix_gauge()
         while len(row) < target:
-            blk = self._allocator.alloc()
+            blk = self._alloc_block()
             if blk is None:
                 while len(row) > start_len:  # roll back the partial grab
                     self._table_host[slot, len(row) - 1] = 0
@@ -1399,16 +1604,108 @@ class InferenceEngine:
             )
         return True
 
-    def _release_blocks(self, slot: int) -> None:
-        """Return ``slot``'s blocks to the pool and clear its table row."""
+    def _release_blocks(self, slot: int, adopted: frozenset | set = frozenset()) -> None:
+        """Drop ``slot``'s references on its table row, skipping the blocks
+        whose reference the radix index just adopted, and clear the row.
+        Blocks still aliased by other slots or cached survive."""
         row = self._slot_blocks[slot]
         if row:
             for blk in row:
-                self._allocator.decref(blk)
+                if blk not in adopted:
+                    self._allocator.decref(blk)
             self._slot_blocks[slot] = []
             self._table_host[slot, :] = 0
             self._table_dirty = True
         self._dispatched_tokens[slot] = 0
+
+    def _cache_prompt_blocks(self, req: GenRequest, slot: int) -> set[int]:
+        """Index a retiring request's full prompt blocks in the radix cache
+        instead of freeing them. Only blocks the prompt covers wholly
+        qualify (the boundary and decode blocks hold generated tokens), and
+        only for a completed prefill. Returns the blocks whose reference
+        the index adopted."""
+        if req.prefix_store or req.effective_prompt_len <= 0:
+            return set()
+        row = self._slot_blocks[slot]
+        n_full = min(len(req.prompt_ids) // self.kv_block, len(row))
+        if n_full <= 0:
+            return set()
+        flags = self._radix.insert(req.prompt_ids, row[:n_full], req.aid)
+        return {row[j] for j, f in enumerate(flags) if f}
+
+    def _alias_prefix_blocks(self, slot: int, req: GenRequest) -> int:
+        """Admission's zero-copy prefix hit: alias the longest cached
+        full-block prefix of the prompt into ``slot``'s (empty) table row
+        and return the prompt tokens the prefill may skip. The lookup's
+        references move to the row. When the hit covers the whole prompt,
+        the last chunk rewrites the last prompt position, so the boundary
+        block is copied on write and the row points at the copy (a slot
+        never writes a block with refcount > 1); with no block free for
+        the copy, the last aliased block is surrendered instead."""
+        radix = self._radix
+        if radix is None or req.prefix_store:
+            return 0
+        ids = req.prompt_ids
+        blocks, matched = radix.lookup(ids, req.aid)
+        self._prefix_lookups += 1
+        if self._metrics is not None:
+            self._metrics.increment_counter(
+                "app_tpu_prefix_lookup_total", "model", self.model_name,
+                "result", "hit" if blocks else "miss",
+            )
+        if not blocks:
+            return 0
+        B, width = self.kv_block, self._table_host.shape[1]
+        for bid in blocks[width:]:
+            self._allocator.decref(bid)  # beyond the table's width
+        blocks = blocks[:width]
+        matched = len(blocks) * B
+        done = min(matched, len(ids) - 1)
+        row = self._slot_blocks[slot]
+        for j, bid in enumerate(blocks):
+            self._table_host[slot, j] = bid
+            row.append(bid)
+        self._table_dirty = True
+        if done < matched:
+            src = row[-1]
+            dst = self._alloc_block()
+            if dst is None:
+                row.pop()
+                self._table_host[slot, len(row)] = 0
+                self._allocator.decref(src)
+                done = min(len(row) * B, len(ids) - 1)
+            else:
+                paged_copy_block(self.cache, src, dst)
+                row[-1] = dst
+                self._table_host[slot, len(row) - 1] = dst
+                self._allocator.decref(src)
+        return done
+
+    def _radix_watermark_sweep(self) -> None:
+        """Keep ``effective_evict_watermark`` pool blocks free by evicting
+        LRU cached blocks once a loop pass, so admission under pressure
+        finds free blocks instead of evicting inside its own grow (0 =
+        off). After a sweep that found nothing evictable it waits until
+        the free count or the cache changes."""
+        wm = self.effective_evict_watermark
+        if not wm:
+            return
+        short = wm - self._allocator.n_free
+        if short <= 0:
+            return
+        sig = (self._allocator.n_free, self._radix.n_cached_blocks)
+        if sig == self._wm_fruitless:
+            return
+        if self._radix.evict(short):
+            self._wm_fruitless = None
+            self._publish_prefix_gauge()
+            if self._metrics is not None:
+                self._metrics.set_gauge(
+                    "app_tpu_kv_blocks_free", self._allocator.n_free,
+                    "model", self.model_name,
+                )
+        else:
+            self._wm_fruitless = sig
 
     def _push_table(self) -> None:
         """Upload the block-table mirror if admission or top-ups changed it."""
@@ -1521,8 +1818,17 @@ class InferenceEngine:
         for i, (slot, st) in enumerate(rows):
             st.done += int(lens[i])
             if finalize[i]:
+                st.request.effective_prompt_len = st.done
                 del self._prefilling[slot]
-                done_rows.append((i, slot, st.request))
+                if st.request.prefix_store:
+                    # Park the rows in the prefix pool (a copy queued after
+                    # this chunk); the slot goes straight back to the free
+                    # list and the future gets the pool row.
+                    idx = self._prefix_pool.store(
+                        st.request.prompt_ids, self.cache, slot, st.request.aid)
+                    self._resolve(st.request, result=idx)
+                else:
+                    done_rows.append((i, slot, st.request))
         if done_rows:
             # The first tokens were sampled on the device with the chunk;
             # their copy to the host (with logprob and alternatives, one

@@ -153,9 +153,17 @@ class ClassPriorityQueue:
 
     The ``queue.Queue`` subset the engine uses (``put_nowait``,
     ``get_nowait``, ``qsize``, ``empty``, ``maxsize``): put on submit
-    threads, get on the scheduler thread, one lock. (The reference's
-    ``prefix_probe`` tie-break waits for the prefix cache.)
+    threads, get on the scheduler thread, one lock.
+
+    ``prefix_probe`` (``TPU_QUEUE_PREFIX_AWARE``): within the chosen class,
+    the first of the lane's ``PREFIX_SCAN`` head entries the probe says
+    has a prefix-cache hit pops ahead of its peers (a promoted pick is
+    exempt: the starvation bound is an ordering contract). None keeps the
+    pop order.
     """
+
+    #: Prefix-aware pop scans at most this many entries from the lane head.
+    PREFIX_SCAN = 16
 
     def __init__(
         self,
@@ -163,10 +171,12 @@ class ClassPriorityQueue:
         *,
         promote_after_s: float = 0.0,
         clock: Callable[[], float] = time.monotonic,
+        prefix_probe: Optional[Callable[[Any], bool]] = None,
     ) -> None:
         self.maxsize = int(maxsize)
         self.promote_after_s = float(promote_after_s)
         self._clock = clock
+        self._prefix_probe = prefix_probe
         self._lock = threading.Lock()
         # rank → FIFO of (enqueued_at, request); rank 1 is THE queue when
         # classing is off.
@@ -194,6 +204,7 @@ class ClassPriorityQueue:
         with self._lock:
             now = self._clock()
             pick: Optional[int] = None
+            promoted = False
             if self.promote_after_s > 0:
                 # Starvation bound first: among heads past the promotion
                 # age, the oldest wins whatever its class.
@@ -206,11 +217,25 @@ class ClassPriorityQueue:
                         oldest is None or at < oldest
                     ):
                         oldest, pick = at, rank
+                promoted = pick is not None
             if pick is None:
                 pick = next((r for r in (0, 1, 2) if self._lanes[r]), None)
             if pick is None:
                 raise _queue.Empty
-            return self._lanes[pick].popleft()[1]
+            lane = self._lanes[pick]
+            if self._prefix_probe is not None and not promoted:
+                for i in range(min(len(lane), self.PREFIX_SCAN)):
+                    try:
+                        hit = bool(self._prefix_probe(lane[i][1]))
+                    except Exception:  # a probe's fault must not wedge dequeue
+                        hit = False
+                    if hit:
+                        if i == 0:
+                            break
+                        req = lane[i][1]
+                        del lane[i]
+                        return req
+            return lane.popleft()[1]
 
 
 def coalesce_deadline(

@@ -90,6 +90,15 @@ class GenRequest:
     slo_class: str = "standard"
     # The caller's W3C trace context (the HTTP tracer middleware's span).
     traceparent: Optional[str] = None
+    # Prompt tokens in the cache once the prefill finished (0 before): a
+    # request whose prefill completed has its full prompt blocks indexed
+    # by the prefix cache when it retires.
+    effective_prompt_len: int = 0
+    # A register_prefix request: its prefill parks the rows in the prefix
+    # pool and resolves the future with the pool row; it never decodes.
+    prefix_store: bool = False
+    # Adapter slot (0 = base model; the port serves no adapter yet).
+    aid: int = 0
 
     def cancel_request(self) -> None:
         """Transport-side cancel (client disconnect, abandoned stream):

@@ -271,9 +271,10 @@ def test_concurrent_submitters_all_complete_with_solo_results(engine):
         assert results[i] == toks
 
 
-def test_unported_options_raise(engine):
+def test_unported_options_raise(engine, jax_params):
     """The sampler options are ported: top_p (with its engine flag) and
-    logit_bias are accepted; auto_prefix and MoE still raise."""
+    logit_bias are accepted; auto_prefix without a pool raises the
+    reference's ValueError; MoE still raises."""
     from gofr_tpu_torch.errors import ErrorInvalidParam
 
     with pytest.raises(ErrorInvalidParam, match="TPU_TOP_P"):  # the flag is off here
@@ -281,8 +282,12 @@ def test_unported_options_raise(engine):
     res = engine.submit_generate("x", max_new_tokens=3, logit_bias={65: 100.0}).future.result(
         timeout=120)
     assert res.token_ids == [65, 65, 65]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError) as want:
+        RefEngine(MODEL, params=jax_params, auto_prefix=True)
+    with pytest.raises(ValueError) as got:
         InferenceEngine(MODEL, device="cpu", auto_prefix=True)
+    assert str(got.value) == str(want.value)
+    assert "TPU_KV_BLOCK" in str(got.value)
     with pytest.raises(NotImplementedError):  # MoE: refused before any weights are made
         InferenceEngine("mixtral-8x7b", device="cpu")
 

@@ -13,7 +13,13 @@ from gofr_tpu_torch.ops.attention import FlashAttentionFn
 from gofr_tpu_torch.ops.cuda import flash_attention as fa
 from gofr_tpu_torch.ops.cuda import flash_decode as fd
 from gofr_tpu_torch.ops.cuda import flash_prefill as fp
-from gofr_tpu_torch.ops.kv_cache import fake_quantize_kv, quantize_kv
+from gofr_tpu_torch.ops.kv_cache import (
+    PagedKVCache,
+    fake_quantize_kv,
+    paged_copy_block,
+    paged_view,
+    quantize_kv,
+)
 
 
 @pytest.fixture
@@ -155,6 +161,99 @@ def test_flash_cache_attention_variants_match_plain_on_gpu(cuda_device, variant)
     if flat is not None:
         assert torch.equal(got, fp.flash_cache_attention(q, slots=slots, starts=starts,
                                                          lens=lens, **flat))
+
+
+def _aliased_pool(gen, dev, quant, S, KV, B, hd, max_len, shared, lengths):
+    """A pool whose table gives every row the same ``shared`` physical
+    blocks (a cached prefix the prefix cache aliases) before its own,
+    under a shuffled block order; with ``quant`` int8 values and scales.
+    Returns (pool kwargs with the table, the rows gathered as a slot
+    cache)."""
+    own = [-(-(n + 1) // B) - shared for n in lengths]
+    n_blocks = 1 + shared + sum(own) + 2
+    perm = (torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1).tolist()
+    table = torch.zeros((S, max_len // B), dtype=torch.int32)
+    table[:, :shared] = torch.tensor(perm[:shared], dtype=torch.int32)
+    at = shared
+    for r in range(S):
+        table[r, shared: shared + own[r]] = torch.tensor(perm[at: at + own[r]],
+                                                         dtype=torch.int32)
+        at += own[r]
+    table = table.to(dev)
+    k, v = (torch.randn((n_blocks, KV, B, hd), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pool = dict(k_cache=k, v_cache=v)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        pool = dict(k_cache=k, v_cache=v, k_scale=ks, v_scale=vs)
+    gathered = paged_view(table, pool["k_cache"], pool["v_cache"], torch.arange(S, device=dev),
+                          pool.get("k_scale"), pool.get("v_scale"))
+    flat = {key: t.contiguous() for key, t in
+            zip(("k_cache", "v_cache", "k_scale", "v_scale"), gathered) if t is not None}
+    return dict(pool, block_table=table), flat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_serving_kernels_on_aliased_tables_on_gpu(cuda_device, quant):
+    """The prefix cache's case: every slot's table aliases the same 4
+    physical blocks (refcount > 1) before its own; decode past them (split
+    and written) and a prefill that starts at done = 128, the first
+    position past the aliased blocks, with a row at 127 (a whole-prompt
+    hit's last position): against the plain versions, and bit for bit the
+    contiguous kernel on the gathered rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    S, H, KV, hd, B, max_len, shared = 4, 32, 8, 128, 32, 512, 4
+    lengths = [150, 200, 300, 500]
+    kw, flat = _aliased_pool(gen, cuda_device, quant, S, KV, B, hd, max_len, shared, lengths)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    q = torch.randn((S, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    new = {key: torch.randn((S, KV, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+           for key in ("k_new", "v_new")}
+    if quant:
+        new = {key: fake_quantize_kv(t) for key, t in new.items()}
+    lens = torch.tensor(lengths, **i32)
+    for conv in ({}, new):
+        got = fd.flash_decode(q, lengths=lens, **conv, **kw)
+        want = fd.flash_decode_plain(q, lengths=lens, **conv, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+        assert torch.equal(got, fd.flash_decode(q, lengths=lens, **conv, **flat))
+    rows = [(0, 128, 22), (1, 128, 64), (2, 128, 64), (3, 127, 1)]
+    slots, starts, plens = (torch.tensor([r[j] for r in rows], **i32) for j in range(3))
+    qp = torch.randn((4, 64, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    before = fp.launches
+    got = fp.flash_cache_attention(qp, slots=slots, starts=starts, lens=plens, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == before + 1
+    want = fp.flash_cache_attention_plain(qp, slots=slots, starts=starts, lens=plens, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    assert torch.equal(got, fp.flash_cache_attention(qp, slots=slots, starts=starts,
+                                                     lens=plens, **flat))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["", "int8"], ids=["bf16", "int8"])
+def test_paged_copy_block_is_the_source_bit_for_bit_on_gpu(cuda_device, quant):
+    """The copy-on-write of a boundary block across 32 layers: the target
+    block's K, V (and scales) are the source's bits, every other block is
+    unchanged."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    cache = PagedKVCache.create(32, 2, 64, 8, 128, quant=quant, block=32, n_blocks=6,
+                                device=cuda_device)
+    planes = [t for t in (cache.k, cache.v, cache.k_s, cache.v_s) if t is not None]
+    for t in planes:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=cuda_device))
+        else:
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda_device))
+    before = [t.clone() for t in planes]
+    paged_copy_block(cache, 2, 5)
+    torch.cuda.synchronize()
+    for t, old in zip(planes, before):
+        bits, was = (x.view(torch.int16) if x.dtype == torch.bfloat16 else x for x in (t, old))
+        assert torch.equal(bits[:, 5], was[:, 2])
+        keep = [b for b in range(6) if b != 5]
+        assert torch.equal(bits[:, keep], was[:, keep])
 
 
 @pytest.mark.gpu
