@@ -639,54 +639,71 @@ def decode_cluster_sweep(torch, dev) -> list:
     return out
 
 
-def phase_kernel_variants(torch, dev) -> dict:
-    """The serving kernels' paged (B=32, B=128), int8 and paged+int8 (B=32)
-    variants at the llama-3-8b serving shapes of ``phase_kernels``: each
-    against its plain version run in f32, each paged case against the
-    contiguous kernel on the same logical keys (must be bit-equal);
-    kernel, plain and bound times. No single PyTorch call computes paged
-    or int8-scaled attention, so ``library_ms`` is null."""
-    from gofr_tpu_torch.ops.cuda import flash_decode as fd
-    from gofr_tpu_torch.ops.cuda import flash_prefill as fp
-    from gofr_tpu_torch.ops.kv_cache import fake_quantize_kv, quantize_kv
+# The serving kernels' cache variants: (label, int8, pool block or 0).
+KV_VARIANTS = [("paged B=32", False, 32), ("paged B=128", False, 128),
+               ("int8", True, 0), ("paged+int8 B=32", True, 32)]
+# The rows of a prefill chunk held at serving shapes (slot, start, valid
+# tokens): starts 0/256/1024/..., one short row, the last row a padding
+# duplicate of row 0.
+PREFILL_ROWS = [(0, 0, 256), (1, 256, 256), (2, 1024, 256), (3, 512, 100),
+                (4, 1536, 256), (5, 0, 37), (6, 1792, 200), (0, 0, 256)]
+DECODE_LENGTHS = [0, 1, 100, 257, 1000, 1536, 700, 2047]
 
-    gen = torch.Generator(device=dev).manual_seed(2024)
-    H, KV, hd, max_len, S = 32, 8, 128, 2048, 8
-    i32 = dict(dtype=torch.int32, device=dev)
-    variants = [("paged B=32", False, 32), ("paged B=128", False, 128),
-                ("int8", True, 0), ("paged+int8 B=32", True, 32)]
+
+def _bound(bytes_: float, flops: float) -> tuple:
+    return (max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+            "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations")
+
+
+def _cache_kw(cache: list, table) -> dict:
+    out = dict(k_cache=cache[0], v_cache=cache[1])
+    if len(cache) == 4:
+        out.update(k_scale=cache[2], v_scale=cache[3])
+    if table is not None:
+        out["block_table"] = table
+    return out
+
+
+def _f32(d: dict) -> dict:
+    """Floating tensors (bf16 caches) in f32; int8 values and tables kept."""
+    return {k: (t.float() if t.is_floating_point() else t) for k, t in d.items()}
+
+
+def _logical_caches(torch, rnd, S, KV, max_len, hd, quant) -> list:
+    from gofr_tpu_torch.ops.kv_cache import quantize_kv
+
+    k, v = rnd(S, KV, max_len, hd), rnd(S, KV, max_len, hd)
+    if not quant:
+        return [k, v]
+    (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    return [k, v, ks, vs]
+
+
+def decode_variant_cases(torch, dev, gen, H: int, KV: int, hd: int, variants: list,
+                         prefix: str = "", lengths: list = DECODE_LENGTHS,
+                         max_len: int = 2048) -> list:
+    """flash_decode on each of ``variants`` ((label, int8, pool block)) at
+    S = len(lengths) slots of H query and KV kv heads: the split
+    convention (the main path) and the written one against the f32 plain
+    version, each paged case bit for bit the slot cache's kernel on the
+    same logical keys; kernel, plain and bound times and the device-time
+    extras. A "bf16 slot cache" variant also times SDPA (the written
+    convention, valid-prefix mask); no PyTorch call attends through a
+    table or int8, so the others' ``library_ms`` is null."""
+    from gofr_tpu_torch.ops.cuda import flash_decode as fd
+    from gofr_tpu_torch.ops.kv_cache import fake_quantize_kv
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def caches(quant):
-        k, v = rnd(S, KV, max_len, hd), rnd(S, KV, max_len, hd)
-        if not quant:
-            return [k, v]
-        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
-        return [k, v, ks, vs]
-
-    def kw(cache, table):
-        out = dict(k_cache=cache[0], v_cache=cache[1])
-        if len(cache) == 4:
-            out.update(k_scale=cache[2], v_scale=cache[3])
-        if table is not None:
-            out["block_table"] = table
-        return out
-
-    def f32(d):
-        return {k: (t.float() if t.dtype == torch.bfloat16 else t) for k, t in d.items()}
-
-    def bound(bytes_, flops):
-        return (max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
-                "bytes" if bytes_ / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations")
-
-    out = {"flash_decode": [], "flash_cache_attention": []}
-    # -- flash_decode, split convention (the main path) and written.
-    lengths = [0, 1, 100, 257, 1000, 1536, 700, 2047]
-    lens = torch.tensor(lengths, **i32)
+    S = len(lengths)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q, kn, vn = rnd(S, H, hd), rnd(S, KV, hd), rnd(S, KV, hd)
-    logical = {quant: caches(quant) for quant in (False, True)}
+    logical = {quant: _logical_caches(torch, rnd, S, KV, max_len, hd, quant)
+               for quant in sorted({v[1] for v in variants})}
+    out = []
     for label, quant, B in variants:
         knq, vnq = kn, vn
         if quant:  # the decode step attends its new token fake-quantized
@@ -694,19 +711,20 @@ def phase_kernel_variants(torch, dev) -> dict:
         cache, table = logical[quant], None
         if B:
             cache, table = make_pool(torch, gen, cache, lengths, B)
-        args = kw(cache, table)
-        name = f"flash_decode {label}"
+        args = _cache_kw(cache, table)
+        name = f"flash_decode {prefix}{label}"
         got = fd.flash_decode(q, lengths=lens, k_new=knq, v_new=vnq, **args)
         err, rel = check_close(torch, name + " (split)", got, fd.flash_decode_plain(
-            q.float(), lengths=lens, k_new=knq.float(), v_new=vnq.float(), **f32(args)))
+            q.float(), lengths=lens, k_new=knq.float(), v_new=vnq.float(), **_f32(args)))
         got_w = fd.flash_decode(q, lengths=lens, **args)
         err_w, rel_w = check_close(torch, name + " (written)", got_w, fd.flash_decode_plain(
-            q.float(), lengths=lens, **f32(args)))
+            q.float(), lengths=lens, **_f32(args)))
         if B:  # the slot cache's kernel on the same logical keys
             flat = fd.flash_decode(q, lengths=lens, k_new=knq, v_new=vnq,
-                                   **kw(logical[quant], None))
+                                   **_cache_kw(logical[quant], None))
             d = (got.float() - flat.float()).abs().max().item()
-            d_w = (got_w.float() - fd.flash_decode(q, lengths=lens, **kw(logical[quant], None))
+            d_w = (got_w.float() - fd.flash_decode(q, lengths=lens,
+                                                   **_cache_kw(logical[quant], None))
                    .float()).abs().max().item()
             log(f"{name}: max|paged - contiguous| {d} (split), {d_w} (written); "
                 f"limit {PAGED_VS_CONTIGUOUS_TOL}")
@@ -715,70 +733,197 @@ def phase_kernel_variants(torch, dev) -> dict:
         ms = time_ms(torch, lambda: fd.flash_decode(q, lengths=lens, k_new=knq, v_new=vnq, **args))
         plain_ms = time_ms(torch, lambda: fd.flash_decode_plain(
             q, lengths=lens, k_new=knq, v_new=vnq, **args))
+        library = lib_ms = None
+        if not (B or quant):
+            mask = (torch.arange(max_len, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+
+            def library(mask=mask):
+                return sdpa(q[:, :, None, :], cache[0], cache[1], attn_mask=mask,
+                            enable_gqa=True)
+
+            lib_ms = time_ms(torch, library)
         tok = sum(lengths)
         bytes_ = (2 * S * H * hd * 2 + kv_bytes(tok, KV, hd, quant) + 2 * S * KV * hd * 2
                   + S * 4 + (4 * sum(-(-n // B) for n in lengths) if B else 0))
-        bound_ms, bound_by = bound(bytes_, 4 * (tok + S) * H * hd)
+        bound_ms, bound_by = _bound(bytes_, 4 * (tok + S) * H * hd)
         extras = decode_extras(
             torch, fd, name + " (split)",
             lambda: fd.flash_decode(q, lengths=lens, k_new=knq, v_new=vnq, **args), q,
-            args["k_cache"], table, 0)
-        out["flash_decode"].append(dict(
-            case=label, max_abs_err=max(err, err_w), max_row_rel_err=max(rel, rel_w),
-            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            args["k_cache"], table, 0, library=library)
+        out.append(dict(
+            case=prefix + label, max_abs_err=max(err, err_w), max_row_rel_err=max(rel, rel_w),
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
             shape=f"S={S} H={H} KV={KV} hd={hd} max_len={max_len} lengths={lengths}"
                   + (f" block={B}" if B else "") + (" int8" if quant else ""), **extras,
         ))
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}, {bytes_} bytes)")
+        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            + ("" if lib_ms is None else f", sdpa {lib_ms:.4f} ms")
+            + f", bound {bound_ms:.4f} ms ({bound_by}, {bytes_} bytes)")
         del cache, table, args
-    del logical
+    return out
 
-    # -- flash_cache_attention: the rows of phase_kernels.
-    P, c = 8, 256
-    rows = [(0, 0, 256), (1, 256, 256), (2, 1024, 256), (3, 512, 100),
-            (4, 1536, 256), (5, 0, 37), (6, 1792, 200), (0, 0, 256)]
+
+def prefill_variant_cases(torch, dev, gen, H: int, KV: int, hd: int, variants: list,
+                          prefix: str = "", rows: list = PREFILL_ROWS, c: int = 256,
+                          S: int = 8, max_len: int = 2048) -> list:
+    """flash_cache_attention on each of ``variants`` at a [len(rows), c]
+    chunk of H query and KV kv heads: against the f32 plain version, each
+    paged case bit for bit the slot cache's kernel; kernel (events and
+    device time), plain and bound times. A "bf16 slot cache" variant also times SDPA on the
+    equivalent dense problem (each row's slot gathered beforehand, a
+    causal-at-global-position mask)."""
+    from gofr_tpu_torch.ops.cuda import flash_prefill as fp
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    P = len(rows)
     q = rnd(P, c, H, hd)
     q[P - 1] = q[0]
     slots = torch.tensor([r[0] for r in rows], **i32)
     starts = torch.tensor([r[1] for r in rows], **i32)
     lns = torch.tensor([r[2] for r in rows], **i32)
     keys = [max([s0 + n for sl, s0, n in rows if sl == r] or [0]) for r in range(S)]
-    logical = {quant: caches(quant) for quant in (False, True)}
+    logical = {quant: _logical_caches(torch, rnd, S, KV, max_len, hd, quant)
+               for quant in sorted({v[1] for v in variants})}
     uniq = sorted(set(rows))
     flops = sum(4 * H * hd * sum(s0 + tt + 1 for tt in range(n)) for _, s0, n in uniq)
+    out = []
     for label, quant, B in variants:
         cache, table = logical[quant], None
         if B:
             cache, table = make_pool(torch, gen, cache, keys, B)
-        args = kw(cache, table)
-        name = f"flash_cache_attention {label}"
+        args = _cache_kw(cache, table)
+        name = f"flash_cache_attention {prefix}{label}"
         got = fp.flash_cache_attention(q, slots=slots, starts=starts, lens=lns, **args)
         err, rel = check_close(torch, name, got, fp.flash_cache_attention_plain(
-            q.float(), slots=slots, starts=starts, lens=lns, **f32(args)))
+            q.float(), slots=slots, starts=starts, lens=lns, **_f32(args)))
         if B:
             flat = fp.flash_cache_attention(q, slots=slots, starts=starts, lens=lns,
-                                            **kw(logical[quant], None))
+                                            **_cache_kw(logical[quant], None))
             d = (got.float() - flat.float()).abs().max().item()
             log(f"{name}: max|paged - contiguous| {d}; limit {PAGED_VS_CONTIGUOUS_TOL}")
             if d > PAGED_VS_CONTIGUOUS_TOL:
                 fail(f"{name}: the pool's result differs from the slot cache's")
-        ms = time_ms(torch, lambda: fp.flash_cache_attention(
-            q, slots=slots, starts=starts, lens=lns, **args))
+
+        def kernel(args=args):
+            return fp.flash_cache_attention(q, slots=slots, starts=starts, lens=lns, **args)
+
+        ms, dev_ms = time_ms(torch, kernel), device_ms(torch, kernel)
         plain_ms = time_ms(torch, lambda: fp.flash_cache_attention_plain(
             q, slots=slots, starts=starts, lens=lns, **args), runs=20)
+        lib_ms = None
+        if not (B or quant):
+            ck, cv = cache[0][slots.long()], cache[1][slots.long()]
+            t = torch.arange(c, device=dev)
+            pos = starts.long()[:, None] + t[None, :]
+            dmask = (torch.arange(max_len, device=dev)[None, None, :] <= pos[:, :, None]) \
+                & (t[None, :] < lns.long()[:, None])[:, :, None]
+            qt = q.transpose(1, 2)
+            lib_ms = time_ms(torch, lambda: sdpa(qt, ck, cv, attn_mask=dmask[:, None],
+                                                 enable_gqa=True))
+            del ck, cv, dmask
         bytes_ = (2 * P * c * H * hd * 2 + sum(kv_bytes(s0 + n, KV, hd, quant) for _, s0, n in uniq)
                   + (4 * sum(-(-n // B) for n in keys) if B else 0))
-        bound_ms, bound_by = bound(bytes_, flops)
-        out["flash_cache_attention"].append(dict(
-            case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+        bound_ms, bound_by = _bound(bytes_, flops)
+        out.append(dict(
+            case=prefix + label, max_abs_err=err, max_row_rel_err=rel, ms=ms, device_ms=dev_ms,
+            device_ms_by=DEVICE_TIMER["by"], plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
             shape=f"P={P} c={c} H={H} KV={KV} hd={hd} max_len={max_len} rows={rows}"
                   + (f" block={B}" if B else "") + (" int8" if quant else ""),
         ))
-        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        log(f"{name}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
+            + ("" if lib_ms is None else f", sdpa {lib_ms:.4f} ms")
+            + f", bound {bound_ms:.4f} ms ({bound_by}, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
         del cache, table, args
+    return out
+
+
+def phase_kernel_variants(torch, dev) -> dict:
+    """The serving kernels' paged (B=32, B=128), int8 and paged+int8 (B=32)
+    variants at the llama-3-8b serving shapes of ``phase_kernels``: each
+    against its plain version run in f32, each paged case against the
+    contiguous kernel on the same logical keys (must be bit-equal);
+    kernel, plain and bound times. No single PyTorch call computes paged
+    or int8-scaled attention, so ``library_ms`` is null."""
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    H, KV, hd = 32, 8, 128
+    return {"flash_decode": decode_variant_cases(torch, dev, gen, H, KV, hd, KV_VARIANTS),
+            "flash_cache_attention": prefill_variant_cases(torch, dev, gen, H, KV, hd,
+                                                           KV_VARIANTS)}
+
+
+# The new families' head shapes (model, H, KV, hd): Qwen2-7B's 7 query
+# heads a KV head, Gemma's head dim 256 (7B: MHA; 2B: MQA, a group of 8).
+FAMILY_HEADS = [("qwen2-7b", 28, 4, 128), ("gemma-7b", 16, 16, 256), ("gemma-2b", 8, 1, 256)]
+
+
+# flash_attention at hd 256: label, b, s, H, KV, hd, lengths, window (all
+# causal).
+FAMILY_FA_CASES = [
+    ("gemma-7b transformer_prefill", 4, 2048, 16, 16, 256, [2048, 1500, 257, 0], 0),
+    ("gemma-2b transformer_prefill", 3, 2048, 8, 1, 256, [2048, 700, 1], 0),
+    ("gemma-7b window 1024", 1, 4096, 16, 16, 256, None, 1024),
+]
+
+
+def phase_family_kernels(torch, dev) -> dict:
+    """The three kernels at the other families' shapes (FAMILY_HEADS):
+    flash_decode (ratio 7, hd 256) and flash_cache_attention (7 chunk rows
+    a token; hd 256 on 64-key tiles) at the llama serving geometry (8
+    slots, max_len 2048, a chunk of 8 x 256) on the bf16 slot cache, pools
+    of 32 and 128, int8 and paged+int8; flash_attention at hd 256:
+    Gemma-7B's transformer_prefill shape (causal, lengths with an empty
+    row), Gemma-2B's (MQA, a head group of 8) and a causal window (which
+    the Pallas kernel takes at any head dim, though Gemma has none).
+    Each against its f32 plain version per row, with kernel, plain, SDPA
+    and bound times."""
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    variants = [("bf16 slot cache", False, 0), *KV_VARIANTS]
+    out = {"flash_decode": [], "flash_cache_attention": [], "flash_attention": []}
+    for model, H, KV, hd in FAMILY_HEADS:
+        out["flash_decode"] += decode_variant_cases(torch, dev, gen, H, KV, hd, variants,
+                                                    prefix=f"{model} ")
+        out["flash_cache_attention"] += prefill_variant_cases(torch, dev, gen, H, KV, hd,
+                                                              variants, prefix=f"{model} ")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for label, b, s, H, KV, hd, lengths, window in FAMILY_FA_CASES:
+        q, k, v = rnd(b, s, H, hd), rnd(b, s, KV, hd), rnd(b, s, KV, hd)
+        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        name = f"flash_attention ({label})"
+        err, rel = check_close(torch, name, fa.flash_attention(q, k, v, lens, window=window),
+                               plain_attention_rows(torch, fa, q, k, v, lens, window))
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, lens, window=window))
+        plain_ms = time_ms(torch, lambda: plain_attention_rows(torch, fa, q, k, v, lens, window),
+                           runs=5)
+        vis = fa.visible_keys(b, s, s, causal=True, lengths=lens, window=window, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        gqa = dict(enable_gqa=True) if KV != H else {}
+        mask = vis[:, None]
+        lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, **gqa))
+        pairs = int(vis.sum().item()) * (b // vis.shape[0])
+        keys = sum(lengths) if lengths else b * s
+        flops = 4 * H * hd * pairs
+        bytes_ = 2 * b * s * H * hd * 2 + 2 * keys * KV * hd * 2 + (4 * b if lengths else 0)
+        bound_ms, bound_by = _bound(bytes_, flops)
+        out["flash_attention"].append(dict(
+            case=label, max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+            library_tflops=flops / lib_ms / 1e9,
+            shape=f"b={b} s={s} H={H} KV={KV} hd={hd} causal lengths={lengths} window={window}"))
+        log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (mask) {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms (flops {flops}, {flops / ms / 1e9:.1f} TFLOP/s achieved, "
+            f"sdpa {flops / lib_ms / 1e9:.1f})")
+        del q, k, v, vis, mask
     return out
 
 
@@ -851,8 +996,8 @@ def phase_f32_kernels(torch, dev) -> dict:
     models run at): flash_decode's f32 instantiations (f32 and int8 caches,
     contiguous and paged, both conventions, with and without the window)
     and csrc/attn_f32.cu for flash_cache_attention (slot cache, pool,
-    int8, window) and flash_attention (causal GQA, lengths, window,
-    non-causal), each against its f32 plain version per row at
+    int8, window; and hd 256) and flash_attention (causal GQA, lengths,
+    window, non-causal; and hd 256), each against its f32 plain version per row at
     F32_ROW_REL_TOL, each launching its kernel once. Returns the largest
     max_abs_err per kernel."""
     from gofr_tpu_torch.ops.cuda import flash_attention as fa
@@ -988,6 +1133,32 @@ def phase_f32_kernels(torch, dev) -> dict:
         2 * (2 * q16.numel() + 2 * k16.numel()), 4 * H * 32 * pairs,
         library=sdpa_causal(q16, k16, v16), peak=BF16_FLOPS)
     times["flash_attention"]["hd32"]["max_abs_err"] = err32
+    # The f32 tiled kernels at hd 256 (Gemma's head dim; a block's tiles
+    # pass the 48 KB a launch gets without asking): the chunk on the slot
+    # cache and causal GQA full-sequence attention.
+    qc2 = rnd(len(rows), 40, 4, 256)
+    args2 = dict(slots=slots, starts=starts, lens=lns, k_cache=rnd(S, 2, max_len, 256),
+                 v_cache=rnd(S, 2, max_len, 256))
+    name = "flash_cache_attention f32 hd 256 (slot cache)"
+    errs["flash_cache_attention"] = max(errs["flash_cache_attention"], once(
+        fp, name, lambda: fp.flash_cache_attention(qc2, **args2),
+        fp.flash_cache_attention_plain(qc2, **args2)))
+    pairs2 = sum(s0 + t + 1 for _, s0, n in rows for t in range(n))
+    times["flash_cache_attention"]["hd256"] = timed(
+        name, lambda: fp.flash_cache_attention(qc2, **args2),
+        lambda: fp.flash_cache_attention_plain(qc2, **args2),
+        2 * qc2.numel() * 4 + 4 * 2 * 2 * 256 * sum(s0 + n for _, s0, n in rows),
+        4 * pairs2 * 4 * 256)
+    qa2, ka2, va2 = rnd(b, s_, 4, 256), rnd(b, s_, 2, 256), rnd(b, s_, 2, 256)
+    name = f"flash_attention f32 hd 256 (b={b}, s={s_}, H=4, KV=2, causal)"
+    errs["flash_attention"] = max(errs["flash_attention"], once(
+        fa, name, lambda: fa.flash_attention(qa2, ka2, va2),
+        fa.flash_attention_plain(qa2, ka2, va2)))
+    times["flash_attention"]["hd256"] = timed(
+        name, lambda: fa.flash_attention(qa2, ka2, va2),
+        lambda: fa.flash_attention_plain(qa2, ka2, va2),
+        4 * (2 * qa2.numel() + 2 * ka2.numel()), 4 * 4 * 256 * pairs,
+        library=sdpa_causal(qa2, ka2, va2))
     return errs, times
 
 
@@ -1433,13 +1604,15 @@ def compare_logits(label: str, got: list, want: list, tol: float,
     return worst
 
 
-def phase_forward(torch, dev, cfg, params) -> dict:
+def phase_forward(torch, dev, cfg, params, *, model: str = "", near_ties: bool = False) -> dict:
     """One prefill chunk and two decode steps, each run on its own cache:
     the bf16 slot cache through the kernels and through the plain path
     (dense_attn=True); pools of 32 and 128 (shuffled tables) through the
     kernels, against the slot cache's kernel run; int8 caches, slot and
     pool of 32, through the kernels against the int8 pool's plain path.
-    Returns the kernels' launch counts over each variant's run."""
+    ``near_ties`` lets a bf16 row's top-1 differ within the limit (as the
+    int8 check always does). Returns the kernels' launch counts over each
+    variant's run."""
     from gofr_tpu_torch.models.transformer import decode_step, prefill_chunk, rope_tables
     from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
@@ -1480,7 +1653,6 @@ def phase_forward(torch, dev, cfg, params) -> dict:
                 fail(f"forward {name} (quant={quant!r}, block={block}): non-finite logits")
         return logits
 
-    compare = compare_logits
     counts = {}
 
     def counted(key: str, *args) -> list:
@@ -1489,8 +1661,12 @@ def phase_forward(torch, dev, cfg, params) -> dict:
         counts[key] = launch_counts()
         return logits
 
+    def compare(label, *args, **kw):
+        return compare_logits(f"{model} {label}" if model else label, *args, **kw)
+
     flat = counted("contiguous", "", 0, False)
-    compare("kernels vs plain", flat, run("", 0, True), FORWARD_DLOGITS_TOL)
+    compare("kernels vs plain", flat, run("", 0, True), FORWARD_DLOGITS_TOL,
+            near_ties=near_ties)
     for B in (32, 128):
         compare(f"pool of {B} vs slot cache (kernels)", counted(f"paged B={B}", "", B, False),
                 flat, FORWARD_PAGED_TOL)
@@ -1503,11 +1679,130 @@ def phase_forward(torch, dev, cfg, params) -> dict:
     compare("int8 slot cache vs int8 pool of 32 (kernels)", counted("int8", "int8", 0, False),
             int8_paged, FORWARD_PAGED_TOL)
     for name, a, b in zip(("prefill", "decode1", "decode2"), int8_paged, flat):
-        log(f"forward {name}: int8 cache vs bf16 cache (kernels), the quantization's "
-            f"effect: max|dlogits| {(a - b).abs().max().item():.4g}, top-1 agreement "
+        log(f"forward {name}{' ' + model if model else ''}: int8 cache vs bf16 cache "
+            f"(kernels), the quantization's effect: max|dlogits| "
+            f"{(a - b).abs().max().item():.4g}, top-1 agreement "
             f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f} (no limit)")
-    log(f"forward: launch counts per run {json.dumps(counts)}")
+    log(f"forward{' ' + model if model else ''}: launch counts per run {json.dumps(counts)}")
     return counts
+
+
+def phase_full_sequence(torch, dev, model: str, cfg, params, lengths=(2048, 700, 1), *,
+                        plain: bool = True, seed: int = 29) -> dict:
+    """A model's two full-sequence entry points: transformer_prefill on a
+    right-padded batch of ``lengths`` (the longest first; flash_attention's
+    lengths variant, with the model's window if it has one) and the eval
+    forward transformer_forward on its row 0, held against the prefill's
+    row 0 at its last position; with ``plain``, the prefill also against
+    the plain path on its own cache. Finite logits, one flash_attention
+    launch a layer each, the same top-1 (or a near-tie within the limit).
+    Returns the launches."""
+    from gofr_tpu_torch.models.transformer import transformer_forward, transformer_prefill
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, s = len(lengths), lengths[0]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    out, logits = {}, []
+    for dense in (False, True) if plain else (False,):
+        cache = KVCache.create(cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim,
+                               dtype=cfg.dtype, device=dev)
+        before = fa.launches
+        t0 = time.perf_counter()
+        logits.append(transformer_prefill(params, tokens, lens, cache, slots, cfg,
+                                          dense_attn=dense))
+        torch.cuda.synchronize()
+        if not dense:
+            out["transformer_prefill"] = fa.launches - before
+            log(f"{model} transformer_prefill [{b}, {s}] (lengths {lens.tolist()}): "
+                f"{time.perf_counter() - t0:.3f} s, {out['transformer_prefill']} "
+                "flash_attention launches")
+        del cache
+    before = fa.launches
+    t0 = time.perf_counter()
+    full = transformer_forward(params, tokens[:1], cfg)[0, -1:]
+    torch.cuda.synchronize()
+    out["transformer_forward"] = fa.launches - before
+    log(f"{model} transformer_forward [1, {s}]: {time.perf_counter() - t0:.3f} s, "
+        f"{out['transformer_forward']} flash_attention launches")
+    if not all(torch.isfinite(t).all() for t in logits + [full]):
+        fail(f"{model} full-sequence entry points: non-finite logits")
+    for key, n in out.items():
+        if n != cfg.n_layers:
+            fail(f"{model} {key}: {n} flash_attention launches, not {cfg.n_layers}")
+    # The prefill's row 0 is the forward's row at its last position (the
+    # same kernel arithmetic; the GEMMs run at other batch shapes).
+    kern = logits[0]
+    checks = [("transformer_prefill kernels vs plain", kern, logits[-1])] if plain else []
+    checks.append((f"transformer_forward vs transformer_prefill at position {s - 1}", full,
+                   kern[:1]))
+    for label, a, want in checks:
+        d = (a - want).abs().max().item()
+        pick = a.argmax(-1)
+        gap = (want.max(-1).values - want.gather(-1, pick[:, None])[:, 0]).max().item()
+        log(f"{model} {label}: max|dlogits| {d:.4g} (limit {FORWARD_DLOGITS_TOL}; logit "
+            f"range {want.min().item():.3g}..{want.max().item():.3g}), top-1 gap {gap:.4g}")
+        if d > FORWARD_DLOGITS_TOL or gap > FORWARD_DLOGITS_TOL:
+            fail(f"{model} {label}: the kernel path disagrees")
+    del full, logits, kern
+    torch.cuda.empty_cache()
+    return out
+
+
+# The other dense families served on the card, one at a time (model,
+# serve an int8 pool too, run the full-sequence entry points, max_len):
+# Gemma-7B and Qwen2-7B as Llama-3-8B, the others one bf16 serve each.
+FAMILY_SERVES = [("gemma-7b", True, True, 2048), ("qwen2-7b", True, True, 2048),
+                 ("pythia-6.9b", False, False, 2048), ("gemma-2b", False, True, 2048),
+                 ("gpt2", False, False, 1024)]
+
+
+def phase_family(torch, dev, model: str, *, pool: bool, full_sequence: bool,
+                 max_len: int) -> dict:
+    """One of the other dense families at full width and depth, random
+    bf16 weights from seed 0: the forward check of ``phase_forward`` (with
+    near-ties: random logits over vocabularies of 50-256 k tokens put the
+    top two within the bf16 noise more often than Llama's did), then
+    phase_serve's 10 prompts on the bf16 slot cache and, with ``pool``, an
+    int8 pool of 161 x 32; with ``full_sequence``, ``phase_full_sequence``.
+    Frees the weights. Returns each run's launch counts and stats."""
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import init_params
+
+    cfg = get_model(model).config
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"params: {model} random bf16 weights on the card in "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"({sum(p.numel() for p in params.values()) / 1e9:.2f} B parameters, "
+            f"{sum(p.numel() * p.element_size() for p in params.values())} bytes); "
+            f"heads {cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}")
+        out = {"forward": phase_forward(torch, dev, cfg, params, model=model, near_ties=True)}
+    counts, _, stats = phase_serve(torch, dev, params, model=model, max_len=max_len)
+    out["serve"] = dict(stats, counts=counts)
+    if pool:
+        pool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=161)
+        pool_counts, _, pool_stats = phase_serve(torch, dev, params, model=model,
+                                                 max_len=max_len, **pool_kv)
+        out["pool"] = dict(pool_stats, counts=pool_counts, kv=pool_kv)
+    if full_sequence:
+        with torch.inference_mode():
+            out["full"] = phase_full_sequence(torch, dev, model, cfg, params)
+    bf16_tok, int8_tok = (cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, quant)
+                          for quant in (False, True))
+    log(f"serve {model}: KV cache bytes a token: {bf16_tok} bf16, {int8_tok} int8 with scales")
+    log(f"serve {model}: " + json.dumps({run: {k: st[k] for k in (
+        "tok_s", "ttft_p50_ms", "itl_p50_ms", "windows", "prefill_dispatches", "syncs")}
+        for run, st in out.items() if run in ("serve", "pool")}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def load_prefix(torch, cache, base) -> None:
@@ -1642,57 +1937,6 @@ def phase_mistral_forward(torch, dev, cfg, params) -> dict:
     torch.cuda.empty_cache()
     log(f"mistral forward: launch counts per run {json.dumps(counts)}")
     return counts
-
-
-def phase_mistral_full_sequence(torch, dev, cfg, params) -> dict:
-    """mistral-7b through the two full-sequence entry points with the
-    window: transformer_prefill on a right-padded [2, 8192] batch (lengths
-    8192 and 5000, the kernel's lengths variant) and the eval forward
-    transformer_forward on [1, 8192] (FlashAttentionFn); finite logits and
-    one flash_attention launch per layer each. Returns the launches."""
-    from gofr_tpu_torch.models.transformer import transformer_forward, transformer_prefill
-    from gofr_tpu_torch.ops.cuda import flash_attention as fa
-    from gofr_tpu_torch.ops.kv_cache import KVCache
-
-    gen = torch.Generator(device=dev).manual_seed(23)
-    s = 8192
-    tokens = torch.randint(0, cfg.vocab_size, (2, s), generator=gen, device=dev)
-    cache = KVCache.create(cfg.n_layers, 2, s, cfg.n_kv_heads, cfg.head_dim,
-                           dtype=cfg.dtype, device=dev)
-    out = {}
-    before = fa.launches
-    t0 = time.perf_counter()
-    logits = transformer_prefill(params, tokens, torch.tensor([s, 5000], dtype=torch.int32,
-                                                              device=dev),
-                                 cache, torch.arange(2, dtype=torch.int32, device=dev), cfg)
-    torch.cuda.synchronize()
-    out["transformer_prefill"] = fa.launches - before
-    log(f"mistral transformer_prefill [2, {s}] (lengths {s}, 5000): "
-        f"{time.perf_counter() - t0:.3f} s, {out['transformer_prefill']} flash_attention "
-        f"launches, logits {tuple(logits.shape)}")
-    del cache
-    before = fa.launches
-    t0 = time.perf_counter()
-    full = transformer_forward(params, tokens[:1], cfg)
-    torch.cuda.synchronize()
-    out["transformer_forward"] = fa.launches - before
-    log(f"mistral transformer_forward [1, {s}]: {time.perf_counter() - t0:.3f} s, "
-        f"{out['transformer_forward']} flash_attention launches")
-    if not (torch.isfinite(logits).all() and torch.isfinite(full).all()):
-        fail("mistral full-sequence entry points: non-finite logits")
-    # The prefill's row 0 is the forward's row at its last position (the
-    # same kernel arithmetic; the GEMMs run at other batch shapes).
-    d = (logits[0] - full[0, -1]).abs().max().item()
-    log(f"mistral: transformer_prefill vs transformer_forward at position {s - 1}: "
-        f"max|dlogits| {d:.4g} (limit {FORWARD_DLOGITS_TOL})")
-    if d > FORWARD_DLOGITS_TOL:
-        fail("mistral: the padded prefill and the forward disagree on the same tokens")
-    for key, n in out.items():
-        if n != cfg.n_layers:
-            fail(f"mistral {key}: {n} flash_attention launches, not {cfg.n_layers}")
-    del full, logits
-    torch.cuda.empty_cache()
-    return out
 
 
 def watch_steps(eng) -> dict:
@@ -3620,6 +3864,7 @@ def main() -> None:
         kstats["flash_attention"] = phase_flash_attention(torch, dev)
         window = phase_window_kernels(torch, dev)
         f32_errs, f32_times = phase_f32_kernels(torch, dev)
+        family_kernels = phase_family_kernels(torch, dev)
     tiny_counts = phase_tiny_models(torch, dev)
     phase_attention_grad(torch, dev)
     phase_window_grad(torch, dev)
@@ -3703,12 +3948,19 @@ def main() -> None:
         f"scales; bf16 slot cache (4 x 8192 tokens) {4 * 8192 * bf16_tok}, int8 pool (641 "
         f"blocks of 32) {641 * 32 * int8_tok}")
     with torch.inference_mode():
-        mfull = phase_mistral_full_sequence(torch, dev, mcfg, mparams)
+        # No plain pass at 8192: a layer's f32 scores, [2, 32, 8192, 8192],
+        # are 17 GB alone.
+        mfull = phase_full_sequence(torch, dev, "mistral-7b", mcfg, mparams, (8192, 5000),
+                                    plain=False, seed=23)
         phase_profile(torch, dev, mcfg, mparams, S=4, max_len=8192, context=6000,
                       model="mistral-7b")
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    families = {model: phase_family(torch, dev, model, pool=pool, full_sequence=full,
+                                    max_len=max_len)
+                for model, pool, full, max_len in FAMILY_SERVES}
 
     train = phase_train(torch, dev)
     counts["flash_attention"] = train["counts"]["flash_attention"]
@@ -3769,6 +4021,31 @@ def main() -> None:
                            ("transformer_forward", "transformer_prefill")):
         case.update(launches=mfull[entry], launches_from=f"mistral-7b {entry} [., 8192]")
         kstats["flash_attention"]["cases"].append(case)
+    # The other families' cases (FAMILY_HEADS): launches from that
+    # model's bf16 serve (bf16 slot cache), its int8-pool serve where it
+    # has one (paged+int8 B=32), else its forward runs; flash_attention's
+    # from the model's transformer_prefill [3, 2048] (the windowed case is
+    # on no family's path: Gemma has no window).
+    for k in ("flash_decode", "flash_cache_attention"):
+        for case in family_kernels[k]:
+            model, variant = case["case"].split(" ", 1)
+            fam = families[model]
+            if variant == "bf16 slot cache":
+                case.update(launches=fam["serve"]["counts"][k], launches_from=f"serve {model}")
+            elif variant == "paged+int8 B=32" and "pool" in fam:
+                case.update(launches=fam["pool"]["counts"][k],
+                            launches_from=f"serve {model} " + json.dumps(fam["pool"]["kv"]))
+            else:
+                case.update(launches=fam["forward"][variant][k],
+                            launches_from=f"{model} forward")
+            kstats[k]["cases"].append(case)
+    for case in family_kernels["flash_attention"]:
+        model = case["case"].split(" ", 1)[0]
+        full = families[model].get("full") if "window" not in case["case"] else None
+        case.update(launches=full["transformer_prefill"] if full else None,
+                    launches_from=f"{model} transformer_prefill [3, 2048]" if full
+                    else "not counted: on no served path (Gemma has no window)")
+        kstats["flash_attention"]["cases"].append(case)
     for k in replaces:
         checks = kstats[k]["cases"] + prefix["kernels"].get(k, [])
         kstats[k]["max_abs_err"] = max(c["max_abs_err"] for c in checks)
@@ -3806,6 +4083,18 @@ def main() -> None:
         # kernel held on tables that alias shared blocks.
         entry["launches_prefix"] = {run: st["counts"][k] for run, st in prefix["runs"].items()}
         entry["prefix_aliased"] = prefix["kernels"][k]
+    # Every kernel's launches over each family's runs.
+    for entry in kernels:
+        k = entry["name"]
+        entry["launches_families"] = {}
+        for model, fam in families.items():
+            runs = {"forward, bf16 slot cache": fam["forward"]["contiguous"][k],
+                    "serve bf16": fam["serve"]["counts"][k]}
+            if "pool" in fam:
+                runs["serve int8 pool"] = fam["pool"]["counts"][k]
+            if "full" in fam and k == "flash_attention":
+                runs.update(fam["full"])
+            entry["launches_families"][model] = runs
     log(f"chip_smoke: wall time {time.perf_counter() - t_start:.1f} s, the build included")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

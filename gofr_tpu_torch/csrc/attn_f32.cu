@@ -13,8 +13,9 @@
 // key lengths, the causal window and GQA, q/k/v read through their strides.
 //
 // What bounds it on the H100: operations, on CUDA cores (67 TFLOP/s f32),
-// at the sizes f32 models are run (test-size Llama configs): a plain tiled
-// kernel, not tuned.
+// at the sizes f32 models are run (test-size configs): a plain tiled
+// kernel, not tuned. hd 32 to 256; at 256 a block's tiles take ~73 KB of
+// shared memory, past the 48 KB a launch gets without asking.
 //
 // What the design does: one block of kRows warps takes kRows query rows of
 // one kv head (row r = token r / rep, head kvh * rep + r % rep, so the
@@ -223,6 +224,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   if (r < n_rows) write_row<HD>(out + (((size_t)bi * s_q + t) * n_heads + h) * HD, acc, l);
 }
 
+// Lets `Kernel` take the Smem<HD> it launches with (past the 48 KB default
+// at hd 256), once per process.
+template <auto Kernel, int HD>
+inline cudaError_t allow_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(sizeof(Smem<HD>) + 1024));
+  return err;
+}
+
 template <typename TC, int HD>
 cudaError_t launch_prefill(const void* q, const void* k_cache, const void* v_cache,
                            const void* slots, const void* starts, const void* lens,
@@ -232,6 +242,8 @@ cudaError_t launch_prefill(const void* q, const void* k_cache, const void* v_cac
   const int rep = n_heads / n_kv;
   const dim3 grid((c * rep + kRows - 1) / kRows, n_kv, n_rows_p);
   auto* const kernel = flash_cache_attention_f32_kernel<TC, HD>;
+  const cudaError_t attr = allow_smem<flash_cache_attention_f32_kernel<TC, HD>, HD>();
+  if (attr != cudaSuccess) return attr;
   kernel<<<grid, kThreads, sizeof(Smem<HD>) + 1024, stream>>>(
       static_cast<const float*>(q), static_cast<const TC*>(k_cache),
       static_cast<const TC*>(v_cache), static_cast<const int*>(slots),
@@ -250,6 +262,8 @@ cudaError_t launch_attention(const void* q, const void* k, const void* v, const 
   const int rep = n_heads / n_kv;
   const dim3 grid((s_q * rep + kRows - 1) / kRows, n_kv, b);
   auto* const kernel = flash_attention_f32_kernel<HD>;
+  const cudaError_t attr = allow_smem<flash_attention_f32_kernel<HD>, HD>();
+  if (attr != cudaSuccess) return attr;
   kernel<<<grid, kThreads, sizeof(Smem<HD>) + 1024, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(lengths), static_cast<float*>(out), s_q, s_kv, n_heads, n_kv,
@@ -271,6 +285,7 @@ cudaError_t prefill_hd(int head_dim, const void* q, const void* k_cache, const v
     case 32: return launch_prefill<TC, 32>(GOFR_PREFILL_F32_ARGS);
     case 64: return launch_prefill<TC, 64>(GOFR_PREFILL_F32_ARGS);
     case 128: return launch_prefill<TC, 128>(GOFR_PREFILL_F32_ARGS);
+    case 256: return launch_prefill<TC, 256>(GOFR_PREFILL_F32_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -320,6 +335,9 @@ extern "C" int gofr_flash_attention_f32(const void* q, const void* k, const void
                                   causal, window, scale, sm);
     case 128:
       return launch_attention<128>(q, k, v, lengths, out, strides, b, s_q, s_kv, n_heads, n_kv,
+                                   causal, window, scale, sm);
+    case 256:
+      return launch_attention<256>(q, k, v, lengths, out, strides, b, s_q, s_kv, n_heads, n_kv,
                                    causal, window, scale, sm);
     default: return cudaErrorInvalidValue;
   }

@@ -8,9 +8,10 @@
 // both K-major), the online softmax, and O += P.V (wgmma, P from registers,
 // V from shared memory in MN-major mode, so V is never transposed).
 // Warpgroup 2 produces: it fills a ring of STAGES shared-memory stages, each
-// a K tile and a V tile of kBK = 128 keys, with asynchronous copies (TMA in
-// flash_attention.cu, cp.async in flash_prefill.cu), so the copies of the
-// next tiles overlap the consumers' products. Each stage has a "full"
+// a K tile and a V tile of BK keys (block_keys: 128, or 64 at hd 256), with
+// asynchronous copies (TMA in flash_attention.cu, cp.async in
+// flash_prefill.cu), so the copies of the next tiles overlap the consumers'
+// products. Each stage has a "full"
 // mbarrier (the producer's copies have landed) and an "empty" one (all 256
 // consumer threads have retired their wgmma reads of it); Q has its own
 // "full" barrier. setmaxnreg gives the consumers the producer's registers.
@@ -28,7 +29,6 @@
 namespace attn {
 
 constexpr int kBQ = 128;               // query rows per block: 64 per consumer warpgroup
-constexpr int kBK = 128;               // keys per tile
 constexpr int kConsumerThreads = 256;  // warpgroups 0 and 1
 constexpr int kThreads = 384;          // + the producer warpgroup
 constexpr int kProducerRegs = 40;
@@ -41,10 +41,28 @@ __host__ __device__ constexpr int padded() {
   return HD < 64 ? 64 : HD;
 }
 
+// Keys of a K or V tile: 128, or 64 at hd 256, where Q (64 KB) and two
+// stages of 128 keys (128 KB each) would not fit in the 227 KB of shared
+// memory. Also the S tile's width: at 64 keys S takes 32 registers a
+// thread beside O's 128.
+template <int HD>
+__host__ __device__ constexpr int block_keys() {
+  return padded<HD>() > 128 ? 64 : 128;
+}
+
+// Raw int8 tiles the staging area holds: K and V together, or at hd 256
+// one at a time (K, then V), so that the int8 path fits beside Q, the
+// ring and a block table of thousands of entries.
+template <int HD>
+__host__ __device__ constexpr int staging_tiles() {
+  return HD > 128 ? 1 : 2;
+}
+
 // Byte offsets of the block's shared memory (from a 1024-byte boundary):
-// Q [kBQ rows], STAGES x (K tile, V tile) [kBK rows each], an int8 staging
-// tile for K and V, STAGES x (K scales, V scales) [kBK f32 each], the block
-// table's entries, then the mbarriers: Q full, STAGES full, STAGES empty.
+// Q [kBQ rows], STAGES x (K tile, V tile) [BK rows each], an int8 staging
+// area of staging_tiles raw tiles, STAGES x (K scales, V scales) [BK f32
+// each], the block table's entries, then the mbarriers: Q full, STAGES
+// full, STAGES empty.
 struct Layout {
   uint32_t q, stages, staging, scales, table, bars, total;
 };
@@ -52,12 +70,13 @@ struct Layout {
 template <int HD, int STAGES>
 __host__ __device__ inline Layout layout(bool quant, int n_tab) {
   constexpr int HDP = padded<HD>();
+  constexpr int BK = block_keys<HD>();
   Layout l{};
   l.q = 0;
   l.stages = kBQ * HDP * 2;
-  l.staging = l.stages + STAGES * 2 * kBK * HDP * 2;
-  l.scales = l.staging + (quant ? 2 * kBK * HD : 0);
-  l.table = l.scales + (quant ? STAGES * 2 * kBK * 4 : 0);
+  l.staging = l.stages + STAGES * 2 * BK * HDP * 2;
+  l.scales = l.staging + (quant ? staging_tiles<HD>() * BK * HD : 0);
+  l.table = l.scales + (quant ? STAGES * 2 * BK * 4 : 0);
   l.bars = (l.table + 4 * (uint32_t)n_tab + 7u) & ~7u;
   l.total = l.bars + (1 + 2 * STAGES) * 8;
   return l;
@@ -69,12 +88,15 @@ inline size_t smem_request(bool quant, int n_tab) {
   return layout<HD, STAGES>(quant, n_tab).total + 1024;
 }
 
-// Lets `Kernel` take up to the H100's 227 KB of dynamic shared memory, once
-// per process (a host call that would otherwise cost every launch).
+// The H100's 227 KB of dynamic shared memory a block may ask for.
+constexpr size_t kMaxSmem = 232448;
+
+// Lets `Kernel` take up to kMaxSmem of dynamic shared memory, once per
+// process (a host call that would otherwise cost every launch).
 template <auto Kernel>
 inline cudaError_t allow_smem() {
   static const cudaError_t err =
-      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   return err;
 }
 
@@ -116,20 +138,20 @@ __device__ __forceinline__ bool visible(int col, int lim, int lo, bool window) {
   return col <= lim && (!window || col >= lo);
 }
 
-// Scale (and the int8 K scale), mask, online softmax of one 64 x kBK score
+// Scale (and the int8 K scale), mask, online softmax of one 64 x BK score
 // tile in the accumulator layout: s[4j + e] is row a (e < 2) or b, column
 // kc0 + 8j + 2q + e % 2. Scores are kept in the log2 domain (scale2 =
 // scale * log2(e), so exp(x * scale - m) is one exp2 of an FFMA's result).
 // Leaves the probabilities in s (times the int8 V scale, after the
 // denominator took them) and returns the corrections of O.
-template <bool MASK, bool WINDOW, bool QUANT>
-__device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], int kc0, int q, const Rows& R,
+template <int BK, bool MASK, bool WINDOW, bool QUANT>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int kc0, int q, const Rows& R,
                                              const float* ks, const float* vs, float scale2,
                                              float& m_a, float& m_b, float& l_a, float& l_b,
                                              float& corr_a, float& corr_b) {
   float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const int j = 8 * (i / 4) + 2 * q + (i & 1);  // column in the tile
     float x = s[i] * scale2;
     if (QUANT) x *= ks[j];
@@ -153,7 +175,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], int kc0, int q
   m_b = mn_b;
   float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < BK / 2; ++i) {
     const int j = 8 * (i / 4) + 2 * q + (i & 1);
     if (i & 2) {
       s[i] = (!MASK || visible(kc0 + j, R.lim_b, R.lo_b, WINDOW)) ? sm90::exp2_approx(s[i] - mn_b)
@@ -173,23 +195,26 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kBK / 2], int kc0, int q
   l_b = l_b * corr_b + rs_b;
   if (QUANT) {
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) s[i] *= vs[8 * (i / 4) + 2 * q + (i & 1)];
+    for (int i = 0; i < BK / 2; ++i) s[i] *= vs[8 * (i / 4) + 2 * q + (i & 1)];
   }
 }
 
-// A consumer warpgroup's mainloop over n_kt key tiles from kbase: returns
-// O (unnormalised, the accumulator layout over HDP columns) and the two
-// rows' denominators. `smem` is the aligned base of the Layout L. Each tile
+// A consumer warpgroup's mainloop over n_kt key tiles of BK keys from
+// kbase: returns O (unnormalised, the accumulator layout over HDP columns)
+// and the two rows' denominators. `smem` is the aligned base of the Layout L. Each tile
 // runs S = Q K^T, the softmax and O += P V in turn; the other consumer
 // warpgroup's products fill the tensor cores during this one's softmax.
 // (Issuing tile i + 1's scores before tile i's P V, with or without the
 // two warpgroups taking turns, measured slower with 2 stages and at most
 // 10% faster with 3 on an H100: the simple loop stays.)
-template <int HDP, int STAGES, bool WINDOW, bool QUANT>
+template <int HDP, int BK, int STAGES, bool WINDOW, bool QUANT>
 __device__ __forceinline__ void consume(unsigned char* smem, const Layout& L, int wg,
                                         const Rows& R, int kbase, int n_kt, float scale,
                                         float (&o)[HDP / 2], float& l_a, float& l_b) {
-  constexpr uint32_t kTile = kBK * HDP * 2;
+  constexpr uint32_t kTile = BK * HDP * 2;
+  // P V's product width: one wgmma of HDP columns, or at hd 256 two of 128
+  // (o's halves are the accumulators of columns 0-127 and 128-255).
+  constexpr int PN = HDP > 128 ? 128 : HDP;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + STAGES;
@@ -211,20 +236,20 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Layout& L, in
   const unsigned char* sQ = smem + L.q + wg * 64 * 128;
   sm90::mbar_wait(&bars[0], 0);
   for (int it = 0; it < n_kt; ++it) {
-    const int kc0 = kbase + it * kBK;
+    const int kc0 = kbase + it * BK;
     sm90::mbar_wait(&full[ring.stage], ring.phase);
     const unsigned char* sK = smem + L.stages + ring.stage * 2 * kTile;
     const unsigned char* sV = sK + kTile;
 
     // S = Q K^T: k-steps of 16 along the head dim, 4 per 64-column panel.
-    float s[kBK / 2];
+    float s[BK / 2];
     sm90::wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < HDP / 16; ++ks) {
       const uint32_t col = (ks & 3) * 32;
-      sm90::wgmma_ss<kBK, 0>(s, sm90::desc_sw128(sQ + (ks >> 2) * kBQ * 128 + col, 0, 1024),
-                             sm90::desc_sw128(sK + (ks >> 2) * kBK * 128 + col, 0, 1024),
-                             ks > 0);
+      sm90::wgmma_ss<BK, 0>(s, sm90::desc_sw128(sQ + (ks >> 2) * kBQ * 128 + col, 0, 1024),
+                            sm90::desc_sw128(sK + (ks >> 2) * BK * 128 + col, 0, 1024),
+                            ks > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -233,27 +258,28 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Layout& L, in
     const float* ks = nullptr;
     const float* vs = nullptr;
     if (QUANT) {
-      ks = reinterpret_cast<const float*>(smem + L.scales) + ring.stage * 2 * kBK;
-      vs = ks + kBK;
+      ks = reinterpret_cast<const float*>(smem + L.scales) + ring.stage * 2 * BK;
+      vs = ks + BK;
     }
     // Only a tile that straddles a bound of the warpgroup's rows is masked.
     float corr_a, corr_b;
-    if (kc0 + kBK - 1 > R.wlim || (WINDOW && kc0 < R.wlo))
-      softmax_tile<true, WINDOW, QUANT>(s, kc0, q, R, ks, vs, scale2, m_a, m_b, l_a, l_b,
-                                        corr_a, corr_b);
+    if (kc0 + BK - 1 > R.wlim || (WINDOW && kc0 < R.wlo))
+      softmax_tile<BK, true, WINDOW, QUANT>(s, kc0, q, R, ks, vs, scale2, m_a, m_b, l_a, l_b,
+                                            corr_a, corr_b);
     else
-      softmax_tile<false, WINDOW, QUANT>(s, kc0, q, R, ks, vs, scale2, m_a, m_b, l_a, l_b,
-                                         corr_a, corr_b);
+      softmax_tile<BK, false, WINDOW, QUANT>(s, kc0, q, R, ks, vs, scale2, m_a, m_b, l_a, l_b,
+                                             corr_a, corr_b);
 
     // O = O * corr + P V: the score accumulators of column blocks 2j, 2j+1,
     // rounded to bf16, are the A registers of k-step j; V is read MN-major
-    // (16 keys of 128 bytes a k-step).
+    // (16 keys of 128 bytes a k-step; its 64-column panels BK * 128 bytes
+    // apart, PN / 64 of them a product).
     sm90::fence_operand(o);
 #pragma unroll
     for (int i = 0; i < HDP / 2; ++i) o[i] *= (i & 2) ? corr_b : corr_a;
-    uint32_t p[kBK / 16][4];
+    uint32_t p[BK / 16][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       p[j][0] = sm90::pack_bf16x2(s[8 * j], s[8 * j + 1]);
       p[j][1] = sm90::pack_bf16x2(s[8 * j + 2], s[8 * j + 3]);
       p[j][2] = sm90::pack_bf16x2(s[8 * j + 4], s[8 * j + 5]);
@@ -262,8 +288,14 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Layout& L, in
     sm90::fence_operand(o);
     sm90::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j)
-      sm90::wgmma_rs<HDP, 1>(o, p[j], sm90::desc_sw128(sV + j * 16 * 128, kBK * 128, 1024), 1);
+    for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+      for (int n = 0; n < HDP / PN; ++n)
+        sm90::wgmma_rs<PN, 1>(*reinterpret_cast<float(*)[PN / 2]>(o + n * PN / 2), p[j],
+                              sm90::desc_sw128(sV + n * (PN / 64) * BK * 128 + j * 16 * 128,
+                                               BK * 128, 1024),
+                              1);
+    }
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_operand(o);

@@ -30,8 +30,9 @@
 // the producer copies with TMA: the C entry encodes one tensor map each
 // for q, k and v over [b, s, heads, hd] with the given strides (no copies
 // of strided views; TMA zero-fills the ragged end of a box), and one
-// thread keeps a ring of 2 K/V stages of 128 keys in flight ahead of the
-// consumers. The key-tile loop stops at the last key any row of the block sees (the
+// thread keeps a ring of 2 K/V stages of 128 keys (64 at hd 256, whose Q
+// tile and stages would not fit in shared memory otherwise; the Q box stays
+// 128 rows) in flight ahead of the consumers. The key-tile loop stops at the last key any row of the block sees (the
 // causal bound of its last row, clamped by lengths), so the cost follows
 // the visible pairs; causal blocks launch longest first to shorten the
 // tail. Scores and the online softmax state are f32 in registers with the
@@ -43,7 +44,9 @@
 // window = 0 compiles to the unwindowed loop. hd 32 runs on a 64-column
 // panel: the tensor maps describe the 32 real columns and TMA zero-fills
 // the box's other 32, so both products see zeros there and the epilogue
-// writes the 32 real columns only.
+// writes the 32 real columns only. hd 256 runs the same loop on four
+// panels, with key tiles of 64 (S is then 32 registers a thread beside O's
+// 128) and P.V as two products of 128 columns.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -55,7 +58,6 @@
 
 namespace {
 
-using attn::kBK;
 using attn::kBQ;
 constexpr int kStages = 2;
 
@@ -65,7 +67,7 @@ constexpr int kStages = 2;
 // n_heads / n_kv). Block row r is query token t0 + r / G of head h0 + r % G,
 // so the G heads share each K/V stage. The tensor maps read q as [b, s,
 // heads, HD] in boxes of (64 columns, G heads, 128 / G tokens, 1 batch
-// row), which land as those rows, and k, v in boxes of (64, 1, 128, 1).
+// row), which land as those rows, and k, v in boxes of (64, 1, BK, 1).
 // Grid (ceil(s_q / (BQ / G)), n_heads / G, b).
 template <int HD, bool WINDOW>
 __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
@@ -74,6 +76,7 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
     __nv_bfloat16* __restrict__ out, int s_q, int s_kv, int n_heads, int n_kv, int group,
     int causal, int window, float scale) {
   constexpr int HDP = attn::padded<HD>();  // columns of a tile row: whole 64-column panels
+  constexpr int BK = attn::block_keys<HD>();
   const int tile = gridDim.x - 1 - blockIdx.x;  // longest causal tiles first
   const int h0 = blockIdx.y * group;
   const int bi = blockIdx.z;
@@ -110,7 +113,7 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
   }
   // Key tiles start at the first token's window edge, rounded down to 64 keys.
   const int kbase = WINDOW ? max(0, first_key(t0)) & ~63 : 0;
-  const int n_kt = max(0, (ctx - kbase + kBK - 1) / kBK);
+  const int n_kt = max(0, (ctx - kbase + BK - 1) / BK);
 
   const attn::Layout L = attn::layout<HD, kStages>(false, 0);
   unsigned char* smem = sm90::dyn_smem();
@@ -126,17 +129,17 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
         sm90::tma_load_4d(smem + L.q + p * kBQ * 128, &tq, &bars[0], 64 * p, h0, t0, bi);
       attn::Ring<kStages> ring;
       for (int it = 0; it < n_kt; ++it) {
-        const int kc0 = kbase + it * kBK;
+        const int kc0 = kbase + it * BK;
         sm90::mbar_wait(&bars[1 + kStages + ring.stage], ring.phase ^ 1u);
-        unsigned char* sK = smem + L.stages + ring.stage * 2 * kBK * HDP * 2;
-        unsigned char* sV = sK + kBK * HDP * 2;
+        unsigned char* sK = smem + L.stages + ring.stage * 2 * BK * HDP * 2;
+        unsigned char* sV = sK + BK * HDP * 2;
         uint64_t* full = &bars[1 + ring.stage];
         // TMA counts the whole box, zero-filled rows past s_kv (and columns
         // past hd) included.
-        sm90::mbar_arrive_expect_tx(full, 2 * kBK * HDP * 2);
+        sm90::mbar_arrive_expect_tx(full, 2 * BK * HDP * 2);
         for (int p = 0; p < HDP / 64; ++p) {
-          sm90::tma_load_4d(sK + p * kBK * 128, &tk, full, 64 * p, kvh, kc0, bi);
-          sm90::tma_load_4d(sV + p * kBK * 128, &tv, full, 64 * p, kvh, kc0, bi);
+          sm90::tma_load_4d(sK + p * BK * 128, &tk, full, 64 * p, kvh, kc0, bi);
+          sm90::tma_load_4d(sV + p * BK * 128, &tv, full, 64 * p, kvh, kc0, bi);
         }
         ring.next();
       }
@@ -162,7 +165,8 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
   R.wlim = R.active ? last_key(w0) : -1;
   R.wlo = WINDOW ? first_key(w1) : 0;
   float o[HDP / 2], l_a, l_b;
-  attn::consume<HDP, kStages, WINDOW, false>(smem, L, wg, R, kbase, n_kt, scale, o, l_a, l_b);
+  attn::consume<HDP, BK, kStages, WINDOW, false>(smem, L, wg, R, kbase, n_kt, scale, o, l_a,
+                                                 l_b);
 
   // Rows that saw no key have l == 0 and o == 0: they write exact zeros.
   const int q4 = t & 3;
@@ -183,13 +187,13 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_attention_kernel(
 // A tensor map over a [b, s, heads, HD] bf16 view with element strides
 // (batch, sequence, head) and unit stride along HD, in boxes of 64 columns
 // (for HD 32, 32 of them past the tensor's edge: zeros), `heads_box` heads
-// and kBQ / heads_box rows.
+// and `rows_box` rows.
 template <int HD>
 int tensor_map(CUtensorMap* map, const void* base, int b, int s, int heads, long long sb,
-               long long ss, long long sh, int heads_box) {
+               long long ss, long long sh, int heads_box, int rows_box) {
   const uint64_t dims[4] = {(uint64_t)HD, (uint64_t)heads, (uint64_t)max(s, 1), (uint64_t)b};
   const uint64_t strides[3] = {(uint64_t)sh * 2, (uint64_t)ss * 2, (uint64_t)sb * 2};
-  const uint32_t box[4] = {64, (uint32_t)heads_box, (uint32_t)(kBQ / heads_box), 1};
+  const uint32_t box[4] = {64, (uint32_t)heads_box, (uint32_t)rows_box, 1};
   return sm90::make_tensor_map_bf16(map, base, dims, strides, box);
 }
 
@@ -197,18 +201,21 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
                    const long long* st, int b, int s_q, int s_kv, int n_heads, int n_kv,
                    int causal, int window, float scale, cudaStream_t stream) {
-  static_assert(kBQ == kBK, "k and v boxes are one block's rows");
   // The query heads a block takes together: the largest power of two that
   // divides the GQA group (capped so a block keeps at least 16 tokens).
   const int rep = n_heads / n_kv;
   int group = 1;
   while (group < 8 && rep % (2 * group) == 0) group *= 2;
   CUtensorMap tq, tk, tv;
-  int err = tensor_map<HD>(&tq, q, b, s_q, n_heads, st[0], st[1], st[2], group);
-  if (err == cudaSuccess) err = tensor_map<HD>(&tk, k, b, s_kv, n_kv, st[3], st[4], st[5], 1);
-  if (err == cudaSuccess) err = tensor_map<HD>(&tv, v, b, s_kv, n_kv, st[6], st[7], st[8], 1);
+  constexpr int BK = attn::block_keys<HD>();
+  int err = tensor_map<HD>(&tq, q, b, s_q, n_heads, st[0], st[1], st[2], group, kBQ / group);
+  if (err == cudaSuccess)
+    err = tensor_map<HD>(&tk, k, b, s_kv, n_kv, st[3], st[4], st[5], 1, BK);
+  if (err == cudaSuccess)
+    err = tensor_map<HD>(&tv, v, b, s_kv, n_kv, st[6], st[7], st[8], 1, BK);
   if (err != cudaSuccess) return static_cast<cudaError_t>(err);
   const size_t smem = attn::smem_request<HD, kStages>(false, 0);
+  if (smem > attn::kMaxSmem) return cudaErrorInvalidValue;
   const int tpb = kBQ / group;
   const dim3 grid((s_q + tpb - 1) / tpb, n_heads / group, b);
   auto kernel = window > 0 ? flash_attention_kernel<HD, true> : flash_attention_kernel<HD, false>;
@@ -251,6 +258,9 @@ extern "C" int gofr_flash_attention(const void* q, const void* k, const void* v,
                         window, scale, sm);
     case 128:
       return launch<128>(q, k, v, lengths, out, strides, b, s_q, s_kv, n_heads, n_kv, causal,
+                         window, scale, sm);
+    case 256:
+      return launch<256>(q, k, v, lengths, out, strides, b, s_q, s_kv, n_heads, n_kv, causal,
                          window, scale, sm);
     default: return cudaErrorInvalidValue;
   }

@@ -79,8 +79,10 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 // Consumer warps of a block: 12 (3 a scheduler, to hide each other's
-// latency; one block fills an SM's registers), 4 at REP 8, whose larger
-// state leaves room for fewer. Threads: those and the producer warp.
+// latency; one block fills an SM's registers), 4 at REP 7 (Qwen2's 28
+// query heads over 4 KV heads) and 8, whose larger state leaves room for
+// fewer. Nothing assumes a power-of-two REP: the per-head loops run to REP
+// and the ranks' output slices are ceil(REP * HD / C) elements. Threads: those and the producer warp.
 template <int REP>
 __host__ __device__ constexpr int consumer_warps() {
   return REP <= 4 ? 12 : 4;
@@ -564,6 +566,7 @@ int dispatch_rep(int rep, const F& f, int bad) {
     case 1: return f.template run<TQ, TC, HD, 1>();
     case 2: return f.template run<TQ, TC, HD, 2>();
     case 4: return f.template run<TQ, TC, HD, 4>();
+    case 7: return f.template run<TQ, TC, HD, 7>();
     case 8: return f.template run<TQ, TC, HD, 8>();
     default: return bad;
   }

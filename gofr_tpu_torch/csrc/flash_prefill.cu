@@ -23,8 +23,10 @@
 // stage and the causal bound of a row is starts[p] + row / rep. Key rows
 // come through a slot index, optionally a block table, optionally int8, so
 // the producer copies them with cp.async (16 bytes a thread, written into
-// the swizzled layout by hand) into a ring of 2 stages of 128 keys that
-// runs ahead of the consumers; the same code path serves every cache kind.
+// the swizzled layout by hand) into a ring of 2 stages of 128 keys (64 at
+// hd 256, where Q and two stages of 128 keys would not fit in shared
+// memory) that runs ahead of the consumers; the same code path serves
+// every cache kind.
 // The key-tile loop stops at the last key any row of the block can see, so
 // the cost follows the true context. Scores and the online softmax state
 // (running max, denominator) are f32 in registers, and the probabilities
@@ -51,7 +53,10 @@
 // Int8: the raw rows land by cp.async in a staging tile, and the producer
 // widens them exactly to bf16 into the stage's wgmma tiles, so the
 // consumers stay on the tensor cores and both products are unchanged; the
-// tile's K and V scales (one f32 per key) are staged beside them. As in
+// tile's K and V scales (one f32 per key) are staged beside them. At hd 256
+// the staging area holds one raw tile, K's and then V's: with room for both
+// (32 KB) the int8 layout would pass the 227 KB of shared memory by 40
+// bytes at a table of 256 entries (Mistral-length rows in blocks of 32). As in
 // the TPU kernel, scores are (q.k) * scale * k_scale[j], the denominator
 // takes the probabilities before the V scale, and only P is multiplied by
 // v_scale[j] before it is rounded to bf16.
@@ -66,7 +71,6 @@
 
 namespace {
 
-using attn::kBK;
 using attn::kBQ;
 constexpr int kStages = 2;
 constexpr int kProducers = attn::kThreads - attn::kConsumerThreads;
@@ -104,6 +108,8 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_cache_attention_kerne
   constexpr bool kQuant = sizeof(T) == 1;
   constexpr int HDP = attn::padded<HD>();
   constexpr int CH = HDP / 8;  // 16-byte bf16 chunks of a tile row
+  constexpr int BK = attn::block_keys<HD>();
+  constexpr int kRaw = attn::staging_tiles<HD>();  // raw int8 tiles staged at once
 
   const int tile = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -143,7 +149,7 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_cache_attention_kerne
   const int ctx = min(start + t_hi + 1, paged ? n_tab * B : B);
   // Key tiles start at the first row's window edge, rounded down to 64 keys.
   const int kbase = WINDOW ? max(0, first_key(start + t_lo)) & ~63 : 0;
-  const int n_kt = max(0, (ctx - kbase + kBK - 1) / kBK);
+  const int n_kt = max(0, (ctx - kbase + BK - 1) / BK);
 
   const attn::Layout L = attn::layout<HD, kStages>(kQuant, n_tab);
   unsigned char* smem = sm90::dyn_smem();
@@ -182,55 +188,68 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_cache_attention_kerne
 
     attn::Ring<kStages> ring;
     for (int it = 0; it < n_kt; ++it) {
-      const int kc0 = kbase + it * kBK;
+      const int kc0 = kbase + it * BK;
       sm90::mbar_wait(&bars[1 + kStages + ring.stage], ring.phase ^ 1u);
-      unsigned char* sK = smem + L.stages + ring.stage * 2 * kBK * HDP * 2;
-      unsigned char* sV = sK + kBK * HDP * 2;
+      unsigned char* sK = smem + L.stages + ring.stage * 2 * BK * HDP * 2;
+      unsigned char* sV = sK + BK * HDP * 2;
       if constexpr (!kQuant) {
         // Keys at or past ctx are zeros, never read.
-        for (int ch = pt; ch < kBK * CH; ch += kProducers) {
+        for (int ch = pt; ch < BK * CH; ch += kProducers) {
           const int kk = ch / CH, cc = ch % CH, kc = kc0 + kk;
           const bool ok = kc < ctx && cc < HD / 8;
           const size_t off = (ok ? row_of(kc) : 0) * HD + (ok ? cc * 8 : 0);
-          const uint32_t dst = sm90::tile_chunk(kk, cc, kBK);
+          const uint32_t dst = sm90::tile_chunk(kk, cc, BK);
           sm90::cp_async16(sK + dst, k_cache + off, ok);
           sm90::cp_async16(sV + dst, v_cache + off, ok);
         }
         sm90::cp_async_commit();
         sm90::cp_async_wait<0>();
       } else {
-        // Raw int8 rows into the staging tile, the scales beside the stage.
-        unsigned char* rK = smem + L.staging;
-        unsigned char* rV = rK + kBK * HD;
-        for (int ch = pt; ch < kBK * (HD / 16); ch += kProducers) {
-          const int kk = ch / (HD / 16), cc = ch % (HD / 16), kc = kc0 + kk;
-          const bool ok = kc < ctx;
-          const size_t off = (ok ? row_of(kc) * HD + cc * 16 : 0);
-          sm90::cp_async16(rK + kk * HD + cc * 16, k_cache + off, ok);
-          sm90::cp_async16(rV + kk * HD + cc * 16, v_cache + off, ok);
-        }
-        sm90::cp_async_commit();
-        float* sc = reinterpret_cast<float*>(smem + L.scales) + ring.stage * 2 * kBK;
-        for (int j = pt; j < kBK; j += kProducers) {
-          const int kc = kc0 + j;
-          const size_t row = kc < ctx ? row_of(kc) : 0;
-          sc[j] = kc < ctx ? k_scale[row] : 0.f;
-          sc[kBK + j] = kc < ctx ? v_scale[row] : 0.f;
-        }
-        sm90::cp_async_wait<0>();
-        sm90::named_bar_sync(1, kProducers);  // the whole staging tile landed
-        for (int ch = pt; ch < kBK * CH; ch += kProducers) {
-          const int kk = ch / CH, cc = ch % CH;
-          uint4 wk = make_uint4(0u, 0u, 0u, 0u), wv = wk;
-          if (cc < HD / 8) {
-            wk = widen8(*reinterpret_cast<const uint2*>(rK + kk * HD + cc * 8));
-            wv = widen8(*reinterpret_cast<const uint2*>(rV + kk * HD + cc * 8));
+        // The raw int8 rows of K and V through the staging area, kRaw
+        // tiles at a time; the scales beside the stage load while the first
+        // copies fly.
+        const T* const src[2] = {k_cache, v_cache};
+        unsigned char* const dst_tile[2] = {sK, sV};
+        unsigned char* raw = smem + L.staging;
+#pragma unroll
+        for (int t0 = 0; t0 < 2; t0 += kRaw) {
+          for (int ch = pt; ch < BK * (HD / 16); ch += kProducers) {
+            const int kk = ch / (HD / 16), cc = ch % (HD / 16), kc = kc0 + kk;
+            const bool ok = kc < ctx;
+            const size_t off = (ok ? row_of(kc) * HD + cc * 16 : 0);
+#pragma unroll
+            for (int i = 0; i < kRaw; ++i)
+              sm90::cp_async16(raw + i * BK * HD + kk * HD + cc * 16, src[t0 + i] + off, ok);
           }
-          const uint32_t dst = sm90::tile_chunk(kk, cc, kBK);
-          *reinterpret_cast<uint4*>(sK + dst) = wk;
-          *reinterpret_cast<uint4*>(sV + dst) = wv;
+          sm90::cp_async_commit();
+          if (t0 == 0) {
+            float* sc = reinterpret_cast<float*>(smem + L.scales) + ring.stage * 2 * BK;
+            for (int j = pt; j < BK; j += kProducers) {
+              const int kc = kc0 + j;
+              const size_t row = kc < ctx ? row_of(kc) : 0;
+              sc[j] = kc < ctx ? k_scale[row] : 0.f;
+              sc[BK + j] = kc < ctx ? v_scale[row] : 0.f;
+            }
+          }
+          sm90::cp_async_wait<0>();
+          sm90::named_bar_sync(1, kProducers);  // the staged tiles landed
+          for (int ch = pt; ch < BK * CH; ch += kProducers) {
+            const int kk = ch / CH, cc = ch % CH;
+            // Every staged tile's chunk is read before any is stored: the
+            // stores could alias the staging area for all the compiler knows.
+            uint4 w[kRaw];
+#pragma unroll
+            for (int i = 0; i < kRaw; ++i) {
+              w[i] = make_uint4(0u, 0u, 0u, 0u);
+              if (cc < HD / 8)
+                w[i] = widen8(*reinterpret_cast<const uint2*>(raw + i * BK * HD + kk * HD + cc * 8));
+            }
+            const uint32_t dst = sm90::tile_chunk(kk, cc, BK);
+#pragma unroll
+            for (int i = 0; i < kRaw; ++i) *reinterpret_cast<uint4*>(dst_tile[t0 + i] + dst) = w[i];
+          }
+          sm90::named_bar_sync(1, kProducers);  // the staging area is free again
         }
-        sm90::named_bar_sync(1, kProducers);  // the staging tile is free again
       }
       sm90::fence_async_shared();
       sm90::mbar_arrive(&bars[1 + ring.stage]);
@@ -256,7 +275,8 @@ __global__ void __launch_bounds__(attn::kThreads, 1) flash_cache_attention_kerne
   // The warpgroup's last row that is not padding sets the loosest edge.
   R.wlo = WINDOW ? first_key(start + min(min(w0 + 63, n_rows - 1) / rep, len - 1)) : 0;
   float o[HDP / 2], l_a, l_b;
-  attn::consume<HDP, kStages, WINDOW, kQuant>(smem, L, wg, R, kbase, n_kt, scale, o, l_a, l_b);
+  attn::consume<HDP, BK, kStages, WINDOW, kQuant>(smem, L, wg, R, kbase, n_kt, scale, o, l_a,
+                                                  l_b);
 
   // Padding rows (t >= lens[p]) write exact zeros (their scores may have
   // run unmasked on an interior tile).
@@ -286,6 +306,7 @@ cudaError_t launch(const void* q, const void* k_cache, const void* v_cache,
                    void* out, int n_rows_p, int c, int n_heads, int n_kv, int B, int n_tab,
                    int window, float scale, cudaStream_t stream) {
   const size_t smem = attn::smem_request<HD, kStages>(sizeof(T) == 1, n_tab);
+  if (smem > attn::kMaxSmem) return cudaErrorInvalidValue;  // a table too wide
   const int rep = n_heads / n_kv;
   const dim3 grid((c * rep + kBQ - 1) / kBQ, n_kv, n_rows_p);
   auto kernel = window > 0 ? flash_cache_attention_kernel<T, HD, true>
@@ -317,6 +338,7 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k_cache, const vo
     case 32: return launch<T, 32>(GOFR_PREFILL_ARGS);
     case 64: return launch<T, 64>(GOFR_PREFILL_ARGS);
     case 128: return launch<T, 128>(GOFR_PREFILL_ARGS);
+    case 256: return launch<T, 256>(GOFR_PREFILL_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }

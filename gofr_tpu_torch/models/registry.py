@@ -2,9 +2,8 @@
 (``_register_llms``), same names and dims.
 
 Every entry is registered so names resolve as in the reference; the
-engine serves only the configs ``transformer.check_supported`` accepts
-(the Llama path on this slice) and raises ``NotImplementedError`` for
-the others.
+engine serves the configs ``transformer.check_supported`` accepts (every
+dense family) and raises ``NotImplementedError`` for the others (MoE).
 """
 
 from __future__ import annotations

@@ -1,25 +1,28 @@
-"""Llama-family decoder-only transformer — the port of
+"""The decoder-only transformer families of the reference — the port of
 ``gofr_tpu/models/transformer.py``: the training/eval forward, the
 padded-batch serving prefill, chunked prefill and the split-softmax
 decode step.
 
 Parameters are a plain dict of tensors with the layer leaves stacked on
 a leading ``[L, ...]`` axis, as in the reference pytree, except that the
-Q/K/V projections are stored concatenated (``wqkv``) and so are gate/up
-(``w_gate_up``): one matmul each instead of three and two, the same
-columns (``weights.params_from_jax`` builds them from the reference).
-The large projections and ``lm_head`` are ``torch.matmul``; attention is
-``ops/attention.py`` (the CUDA kernels on a card). The KV cache — a slot
-cache or a paged pool, bf16 or int8 (``ops/kv_cache.py``) — is updated
-in place. Everything but the attention kernels is plain
-differentiable torch; ``transformer_forward`` is what training
-differentiates (``parallel/sharding.py``).
+Q/K/V projections are stored concatenated (``wqkv``, and their biases
+``wqkv_b``) and so are gate/up (``w_gate_up``): one matmul each instead
+of three and two, the same columns (``weights.params_from_jax`` builds
+them from the reference). The large projections and ``lm_head`` are
+``torch.matmul``; attention is ``ops/attention.py`` (the CUDA kernels on a
+card). The KV cache — a slot cache or a paged pool, bf16 or int8
+(``ops/kv_cache.py``) — is updated in place. Everything but the attention
+kernels is plain differentiable torch; ``transformer_forward`` is what
+training differentiates (``parallel/sharding.py``).
 
-This slice runs the Llama path only: RMSNorm, RoPE, GQA, SwiGLU, no
-biases, no MoE, with or without Mistral's sliding window (every attention
-call takes ``cfg.sliding_window``; the cache keeps every position, the
-window is a mask). ``check_supported`` raises ``NotImplementedError`` for
-a config that needs anything else.
+The reference's dense families all run through the same four forwards,
+switched by the config as in the reference: Llama/Mistral (RMSNorm, RoPE,
+GQA, SwiGLU, optional sliding window), Qwen2 (QKV bias), Gemma (explicit
+head dim, GeGLU, ``(1 + w)`` RMSNorm, ``sqrt(d_model)``-scaled
+embeddings), GPT-NeoX/Pythia (LayerNorm with bias, parallel residual,
+partial rotary, a non-gated MLP, biases on every projection) and GPT-2
+(learned positions instead of RoPE). ``check_supported`` raises
+``NotImplementedError`` for MoE and for a config the kernels refuse.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from gofr_tpu_torch.ops.attention import (
     attention,
     cache_chunk_attention,
     decode_attention,
+    kernel_refusal,
 )
 from gofr_tpu_torch.ops.kv_cache import (
     KVCache,
@@ -43,7 +47,7 @@ from gofr_tpu_torch.ops.kv_cache import (
     fake_quantize_kv,
     quantize_kv,
 )
-from gofr_tpu_torch.ops.norms import rms_norm
+from gofr_tpu_torch.ops.norms import layer_norm, rms_norm
 from gofr_tpu_torch.ops.rotary import rope_at, rope_frequencies, rotate
 
 Rope = tuple[torch.Tensor, torch.Tensor]
@@ -93,32 +97,26 @@ class TransformerConfig:
         return self.n_experts > 0
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is on the Llama path
-    this slice ports."""
-    unported = {
-        "n_experts (MoE)": cfg.n_experts != 0,
-        "attn_bias": cfg.attn_bias,
-        "head_dim_override": cfg.head_dim_override != 0,
-        f"act={cfg.act!r}": cfg.act != "silu",
-        "norm_offset": cfg.norm_offset,
-        "embed_scale": cfg.embed_scale,
-        f"norm={cfg.norm!r}": cfg.norm != "rms",
-        "parallel_residual": cfg.parallel_residual,
-        f"rotary_pct={cfg.rotary_pct}": cfg.rotary_pct != 1.0,
-        f"ffn={cfg.ffn!r}": cfg.ffn != "swiglu",
-        "proj_bias": cfg.proj_bias,
-        f"pos_emb={cfg.pos_emb!r}": cfg.pos_emb != "rope",
-    }
-    missing = [name for name, hit in unported.items() if hit]
-    if missing:
+def check_supported(cfg: TransformerConfig,
+                    device: torch.device | str | None = None) -> None:
+    """Raise ``NotImplementedError`` for a config this port does not serve:
+    MoE, a dtype other than bf16/f32, or, unless ``device`` is the CPU
+    (whose plain versions take any shape), an attention shape that one of
+    the three kernels refuses (``ops.attention.kernel_refusal``), so that
+    no config passes here and then raises at its first launch on a card.
+    ``device`` None is the port's default, the card."""
+    if cfg.is_moe:
         raise NotImplementedError(
-            "the torch port serves the Llama path only (RMSNorm, RoPE, GQA, "
-            "SwiGLU, optional sliding window); this config needs "
-            f"{', '.join(missing)} (ROADMAP: other families)"
+            "MoE (n_experts > 0) is not ported: Mixtral-8x7B needs int8 "
+            "weights to fit one card (ROADMAP Queue 1 item 6)"
         )
     if cfg.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"dtype {cfg.dtype} (bf16 or f32 only)")
+    if device is not None and torch.device(device).type == "cpu":
+        return
+    refusal = kernel_refusal(cfg.head_dim, cfg.n_heads, cfg.n_kv_heads)
+    if refusal:
+        raise NotImplementedError(refusal)
 
 
 def init_params(
@@ -126,10 +124,12 @@ def init_params(
 ) -> dict[str, torch.Tensor]:
     """Random parameters made on ``device`` (CUDA unless ``"cpu"``; without
     CUDA that raises) from ``seed`` with a ``torch.Generator`` on that
-    device (an 8B model is never built on the host): normal with std
-    fan_in**-0.5 for the projections, ones for the norm weights, as the
-    reference's ``init_transformer``."""
-    check_supported(cfg)
+    device (an 8B model is never built on the host): every leaf the
+    reference's ``init_transformer`` makes for ``cfg``, normal with std
+    fan_in**-0.5 for the projections and the learned positions, the norm
+    weights at identity (ones, or zeros where the norm applies ``1 + w``),
+    zeros for every bias."""
+    check_supported(cfg, device)
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
@@ -142,17 +142,35 @@ def init_params(
         w = torch.empty(shape, dtype=cfg.dtype, device=device)
         return w.normal_(0.0, fan_in**-0.5, generator=gen)
 
-    return {
+    def const(shape: tuple, value: float) -> torch.Tensor:
+        return torch.full(shape, value, dtype=cfg.dtype, device=device)
+
+    norm_w = 0.0 if cfg.norm_offset else 1.0
+    params = {
         "embed": dense((cfg.vocab_size, D), D),
-        "attn_norm": torch.ones((L, D), dtype=cfg.dtype, device=device),
+        "attn_norm": const((L, D), norm_w),
         "wqkv": dense((L, D, (H + 2 * KV) * hd), D),
         "wo": dense((L, H * hd, D), H * hd),
-        "mlp_norm": torch.ones((L, D), dtype=cfg.dtype, device=device),
-        "w_gate_up": dense((L, D, 2 * Fd), D),
-        "w_down": dense((L, Fd, D), Fd),
-        "final_norm": torch.ones((D,), dtype=cfg.dtype, device=device),
-        "lm_head": dense((D, cfg.vocab_size), D),
+        "mlp_norm": const((L, D), norm_w),
     }
+    if cfg.ffn == "mlp":
+        params["w_up"] = dense((L, D, Fd), D)
+    else:
+        params["w_gate_up"] = dense((L, D, 2 * Fd), D)
+    params["w_down"] = dense((L, Fd, D), Fd)
+    params["final_norm"] = const((D,), norm_w)
+    params["lm_head"] = dense((D, cfg.vocab_size), D)
+    if cfg.norm == "ln":
+        params.update(attn_norm_b=const((L, D), 0.0), mlp_norm_b=const((L, D), 0.0),
+                      final_norm_b=const((D,), 0.0))
+    if cfg.proj_bias:
+        params.update(wo_b=const((L, D), 0.0), w_up_b=const((L, Fd), 0.0),
+                      w_down_b=const((L, D), 0.0))
+    if cfg.attn_bias:
+        params["wqkv_b"] = const((L, (H + 2 * KV) * hd), 0.0)
+    if cfg.pos_emb == "learned":
+        params["pos_embed"] = dense((cfg.max_len, D), D)
+    return params
 
 
 def rope_tables(
@@ -162,30 +180,122 @@ def rope_tables(
     return rope_frequencies(cfg.rope_dims, max_len, cfg.rope_theta, device)
 
 
+def _rope_at(cfg: TransformerConfig, rope: Optional[Rope], table_len: int,
+             positions: torch.Tensor) -> Optional[Rope]:
+    """The RoPE tables (``rope``, or built for ``table_len`` positions)
+    gathered at ``positions`` [b, s] -> [b, s, 1, nd/2] each; None for a
+    config without RoPE (learned positions)."""
+    if cfg.pos_emb != "rope":
+        return None
+    cos, sin = rope if rope is not None else rope_tables(cfg, table_len, positions.device)
+    return rope_at(cos, sin, positions)
+
+
+def _leaf(params: dict, name: str, layer: Optional[int] = None):
+    """``params[name]`` (its ``layer`` row), or None for a leaf the config
+    does not have (the biases, the learned positions)."""
+    t = params.get(name)
+    return t if t is None or layer is None else t[layer]
+
+
+def _norm(x: torch.Tensor, params: dict, name: str, layer: Optional[int],
+          cfg: TransformerConfig) -> torch.Tensor:
+    """The config's norm with weight ``name`` (and bias ``name_b``):
+    LayerNorm, or RMSNorm with Gemma's ``1 + w``."""
+    w = _leaf(params, name, layer)
+    if cfg.norm == "ln":
+        return layer_norm(x, w, _leaf(params, name + "_b", layer), cfg.norm_eps)
+    return rms_norm(x, w, cfg.norm_eps, 1.0 if cfg.norm_offset else 0.0)
+
+
+def _act(x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The FFN activation: tanh-approximate gelu (``"gelu"``, Gemma and
+    GPT-2), erf gelu (``"gelu_exact"``, GPT-NeoX), else silu."""
+    if cfg.act == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if cfg.act == "gelu_exact":
+        return F.gelu(x)
+    return F.silu(x)
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+           positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; Gemma's times ``sqrt(d_model)`` rounded to the
+    activation dtype first (55.5 in bf16, as the reference), GPT-2's plus
+    the learned position rows at ``positions`` (clipped to the table)."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(cfg.d_model**0.5, dtype=x.dtype))
+    if cfg.pos_emb == "learned":
+        table = params["pos_embed"]
+        x = x + table[positions.clamp(0, table.shape[0] - 1)]
+    return x
+
+
 def _qkv(
     h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
-    cs: tuple[torch.Tensor, torch.Tensor],
+    cs: Optional[Rope],
 ):
-    """Project and rotate: h [P, s, D] → q [P, s, H, hd], k and v
-    [P, s, KV, hd], contiguous. Q and K heads rotate in one call with the
-    tables ``cs`` already gathered at the step's positions."""
+    """Project (plus Qwen2's QKV bias, before RoPE) and rotate: h [P, s, D]
+    → q [P, s, H, hd], k and v [P, s, KV, hd], contiguous. Q and K heads
+    rotate in one call with the tables ``cs`` already gathered at the
+    step's positions (None: no rotation)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qkv = h @ params["wqkv"][layer]
-    qk, v = qkv.split([(H + KV) * hd, KV * hd], dim=-1)
-    lead = h.shape[:-1]
-    qk = rotate(qk.reshape(*lead, H + KV, hd), *cs)
+    bias = _leaf(params, "wqkv_b", layer)
+    if bias is not None:
+        qkv = qkv + bias
+    qk, v = qkv.reshape(*h.shape[:-1], H + 2 * KV, hd).split([H + KV, KV], dim=-2)
+    if cs is not None:
+        qk = rotate(qk, *cs)
     q, k = qk.split([H, KV], dim=-2)
-    return q.contiguous(), k.contiguous(), v.reshape(*lead, KV, hd).contiguous()
+    return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _ffn(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
-    h = rms_norm(x, params["mlp_norm"][layer], cfg.norm_eps)
+def _ffn(h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
+    """The FFN on the normed ``h``: gated ``act(h W_gate) * (h W_up)``
+    (SwiGLU, GeGLU), or GPT-NeoX/GPT-2's ``act(h W_up + b) W_down + b``."""
+    if cfg.ffn == "mlp":
+        u = h @ params["w_up"][layer]
+        bias = _leaf(params, "w_up_b", layer)
+        if bias is not None:
+            u = u + bias
+        out = _act(u, cfg) @ params["w_down"][layer]
+        bias = _leaf(params, "w_down_b", layer)
+        return out if bias is None else out + bias
     gate, up = (h @ params["w_gate_up"][layer]).chunk(2, dim=-1)
-    return (F.silu(gate) * up) @ params["w_down"][layer]
+    return (_act(gate, cfg) * up) @ params["w_down"][layer]
 
 
-# Leaves stacked on a leading [L, ...] layer axis.
-_LAYER_LEAVES = ("attn_norm", "wqkv", "wo", "mlp_norm", "w_gate_up", "w_down")
+def _layer(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
+           cs: Optional[Rope], attend):
+    """One decoder layer around ``attend(q, k, v) -> (attn [..., H, hd],
+    k, v)``, which may write or transform k and v and returns the pair the
+    caller keeps. The MLP reads ``x + attn_out`` (sequential) or ``x``
+    itself (GPT-NeoX's parallel residual). Returns (x, (k, v))."""
+    h = _norm(x, params, "attn_norm", layer, cfg)
+    q, k, v = _qkv(h, params, layer, cfg, cs)
+    attn, k, v = attend(q, k, v)
+    attn_out = attn.reshape(*x.shape[:-1], -1) @ params["wo"][layer]
+    bias = _leaf(params, "wo_b", layer)
+    if bias is not None:
+        attn_out = attn_out + bias
+    mlp_in = x if cfg.parallel_residual else x + attn_out
+    ffn = _ffn(_norm(mlp_in, params, "mlp_norm", layer, cfg), params, layer, cfg)
+    x = x + attn_out + ffn if cfg.parallel_residual else mlp_in + ffn
+    return x, (k, v)
+
+
+def _logits(x: torch.Tensor, params: dict, cfg: TransformerConfig) -> torch.Tensor:
+    """Final norm and ``lm_head``: f32 logits."""
+    return (_norm(x, params, "final_norm", None, cfg) @ params["lm_head"]).float()
+
+
+# Leaves stacked on a leading [L, ...] layer axis (those of the config).
+_LAYER_LEAVES = (
+    "attn_norm", "attn_norm_b", "wqkv", "wqkv_b", "wo", "wo_b", "mlp_norm",
+    "mlp_norm_b", "w_gate_up", "w_up", "w_up_b", "w_down", "w_down_b",
+)
 
 
 def _per_layer(params: dict) -> dict:
@@ -198,27 +308,18 @@ def _per_layer(params: dict) -> dict:
 
 def _layer_prefill(
     x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
-    cs: tuple[torch.Tensor, torch.Tensor], *,
+    cs: Optional[Rope], *,
     lengths: Optional[torch.Tensor] = None, dense_attn: bool = False,
 ):
     """One decoder layer over a full sequence, the counterpart of
     ``_layer_prefill``: x [b, s, D] → (x, (k, v)) with k, v [b, s, KV, hd].
     ``lengths`` (right-padded serving prefill) keeps the kernel path."""
-    b, s, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
-    h = rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-    q, k, v = _qkv(h, params, layer, cfg, cs)
-    attn = attention(q, k, v, causal=True, lengths=lengths,
-                     kernel=not dense_attn, window=cfg.sliding_window)
-    x = x + attn.reshape(b, s, H * hd) @ params["wo"][layer]
-    return x + _ffn(x, params, layer, cfg), (k, v)
 
+    def attend(q, k, v):
+        return attention(q, k, v, causal=True, lengths=lengths,
+                         kernel=not dense_attn, window=cfg.sliding_window), k, v
 
-def _positions_rope(cfg: TransformerConfig, s: int, table_len: int,
-                    dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """RoPE tables of ``table_len`` positions gathered at 0..s-1."""
-    cos, sin = rope_tables(cfg, table_len, dev)
-    return rope_at(cos, sin, torch.arange(s, device=dev)[None, :])  # [1, s, 1, nd/2]
+    return _layer(x, params, layer, cfg, cs, attend)
 
 
 def transformer_forward(
@@ -235,20 +336,20 @@ def transformer_forward(
     dense formula). ``remat`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer)."""
     b, s = tokens.shape
-    cs = _positions_rope(cfg, s, s, tokens.device)
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    cs = _rope_at(cfg, None, s, positions)
     lp = _per_layer(params)
 
     def body(x: torch.Tensor, layer: int) -> torch.Tensor:
         return _layer_prefill(x, lp, layer, cfg, cs, dense_attn=dense_attn)[0]
 
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, cfg, positions)
     for layer in range(cfg.n_layers):
         if remat:
             x = checkpoint(body, x, layer, use_reentrant=False)
         else:
             x = body(x, layer)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return _logits(x, params, cfg)
 
 
 @torch.no_grad()
@@ -277,9 +378,10 @@ def transformer_prefill(
     b, s = tokens.shape
     dev = tokens.device
     lengths = lengths.to(torch.int32)
-    cs = _positions_rope(cfg, s, cache.max_len, dev)
+    positions = torch.arange(s, device=dev)[None, :]
+    cs = _rope_at(cfg, None, cache.max_len, positions)
     sl = slots.long()
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, cfg, positions)
     for layer in range(cfg.n_layers):
         x, (k, v) = _layer_prefill(x, params, layer, cfg, cs, lengths=lengths,
                                    dense_attn=dense_attn)
@@ -292,10 +394,8 @@ def transformer_prefill(
             buf[layer, sl, :, :s] = new.to(buf.dtype)
             buf[layer, sl, :, s:] = 0
     cache.lengths[sl] = lengths
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last = (lengths.long() - 1).clamp(min=0)
-    x_last = x[torch.arange(b, device=dev), last]  # [b, D]
-    return (x_last @ params["lm_head"]).float()
+    return _logits(x[torch.arange(b, device=dev), last], params, cfg)  # [b, vocab]
 
 
 def prefill_chunk(
@@ -324,10 +424,9 @@ def prefill_chunk(
     engine sets it when a prompt's last chunk lands).
     """
     P, c = tokens.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    KV = cfg.n_kv_heads
     max_len = cache.max_len
     dev = tokens.device
-    cos, sin = rope if rope is not None else rope_tables(cfg, max_len, dev)
     t = torch.arange(c, device=dev)
     positions = starts.long()[:, None] + t[None, :]  # [P, c] global
     valid = t[None, :] < lens.long()[:, None]
@@ -349,33 +448,32 @@ def prefill_chunk(
             torch.arange(KV, device=dev)[None, :, None],
             torch.where(valid, positions, max_len - 1)[:, None, :],
         )
-    cs = rope_at(cos, sin, rope_pos)
-    x = params["embed"][tokens]  # [P, c, D]
+    cs = _rope_at(cfg, rope, max_len, rope_pos)
+    x = _embed(params, tokens, cfg, positions)  # [P, c, D]
     for layer in range(cfg.n_layers):
-        h = rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-        q, k, v = _qkv(h, params, layer, cfg, cs)
         ck, cv = cache.k[layer], cache.v[layer]  # [rows, KV, len, hd] views
         cks = cvs = None
-        k, v = k.transpose(1, 2), v.transpose(1, 2)  # [P, KV, c, hd]
         if cache.quantized:
             cks, cvs = cache.k_s[layer], cache.v_s[layer]
-            k, k_sc = quantize_kv(k)
-            v, v_sc = quantize_kv(v)
-            cks.index_put_(idx, k_sc)
-            cvs.index_put_(idx, v_sc)
-        ck.index_put_(idx, k)
-        cv.index_put_(idx, v)
-        attn = cache_chunk_attention(
-            q, ck, cv, slots, starts, lens, k_scale=cks, v_scale=cvs,
-            block_table=table, kernel=not dense_attn,
-            window=cfg.sliding_window,
-        )
-        x = x + attn.reshape(P, c, H * hd) @ params["wo"][layer]
-        x = x + _ffn(x, params, layer, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+        def attend(q, k, v):
+            k, v = k.transpose(1, 2), v.transpose(1, 2)  # [P, KV, c, hd]
+            if cache.quantized:
+                k, k_sc = quantize_kv(k)
+                v, v_sc = quantize_kv(v)
+                cks.index_put_(idx, k_sc)
+                cvs.index_put_(idx, v_sc)
+            ck.index_put_(idx, k)
+            cv.index_put_(idx, v)
+            return cache_chunk_attention(
+                q, ck, cv, slots, starts, lens, k_scale=cks, v_scale=cvs,
+                block_table=table, kernel=not dense_attn,
+                window=cfg.sliding_window,
+            ), k, v
+
+        x = _layer(x, params, layer, cfg, cs, attend)[0]
     last = (lens.long() - 1).clamp(min=0)
-    x_last = x[torch.arange(P, device=dev), last]  # [P, D]
-    return (x_last @ params["lm_head"]).float()
+    return _logits(x[torch.arange(P, device=dev), last], params, cfg)  # [P, vocab]
 
 
 def decode_step(
@@ -407,32 +505,34 @@ def decode_step(
     ``max_len``.
     """
     S = cache.n_slots
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    KV = cfg.n_kv_heads
     max_len = cache.max_len
     dev = tokens.device
-    cos, sin = rope if rope is not None else rope_tables(cfg, max_len, dev)
     lengths = cache.lengths
     positions = lengths.long().clamp(max=max_len - 1)  # [S]
-    cs = rope_at(cos, sin, positions[:, None])
+    cs = _rope_at(cfg, rope, max_len, positions[:, None])
     paged = isinstance(cache, PagedKVCache)
     table = cache.block_table if paged else None
-    x = params["embed"][tokens][:, None]  # [S, 1, D]: one token per slot
+    # One token per slot: [S, 1, D]; learned positions at the unclamped
+    # lengths, as the reference (clipped to the table).
+    x = _embed(params, tokens, cfg, lengths.long())[:, None]
     new_k, new_v = [], []
     for layer in range(cfg.n_layers):
-        h = rms_norm(x, params["attn_norm"][layer], cfg.norm_eps)
-        q, k, v = _qkv(h, params, layer, cfg, cs)
-        q, k, v = q[:, 0], k[:, 0], v[:, 0]
         scales = {}
         if cache.quantized:
-            k, v = fake_quantize_kv(k), fake_quantize_kv(v)
             scales = dict(k_scale=cache.k_s[layer], v_scale=cache.v_s[layer])
-        attn = decode_attention(
-            q, cache.k[layer], cache.v[layer], lengths, k_new=k, v_new=v,
-            block_table=table, kernel=not dense_attn,
-            window=cfg.sliding_window, **scales,
-        )
-        x = x + attn.reshape(S, 1, H * hd) @ params["wo"][layer]
-        x = x + _ffn(x, params, layer, cfg)
+
+        def attend(q, k, v):
+            q, k, v = q[:, 0], k[:, 0], v[:, 0]
+            if cache.quantized:
+                k, v = fake_quantize_kv(k), fake_quantize_kv(v)
+            return decode_attention(
+                q, cache.k[layer], cache.v[layer], lengths, k_new=k, v_new=v,
+                block_table=table, kernel=not dense_attn,
+                window=cfg.sliding_window, **scales,
+            ), k, v
+
+        x, (k, v) = _layer(x, params, layer, cfg, cs, attend)
         new_k.append(k)
         new_v.append(v)
     # Commit every layer's token in one scatter: [L, S, KV, hd] values at
@@ -461,8 +561,7 @@ def decode_step(
     cache.k.index_put_(idx, k_all)
     cache.v.index_put_(idx, v_all)
     cache.lengths += write.to(torch.int32)
-    x = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float()
+    return _logits(x[:, 0], params, cfg)
 
 
 def ngram_draft(

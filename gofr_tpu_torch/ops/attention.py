@@ -21,6 +21,9 @@ from typing import Optional
 
 import torch
 
+from gofr_tpu_torch.ops.cuda import flash_attention as _fa
+from gofr_tpu_torch.ops.cuda import flash_decode as _fd
+from gofr_tpu_torch.ops.cuda import flash_prefill as _fp
 from gofr_tpu_torch.ops.cuda.flash_attention import (
     dense_attention,
     flash_attention,
@@ -31,6 +34,23 @@ from gofr_tpu_torch.ops.cuda.flash_prefill import (
     flash_cache_attention,
     flash_cache_attention_plain,
 )
+
+
+def kernel_refusal(head_dim: int, n_heads: int, n_kv: int) -> Optional[str]:
+    """Why one of the three kernels (bf16 or f32) would refuse a model's
+    attention of this head dim and head counts on a card (each wrapper's
+    accepted set), or None when all three take it."""
+    if n_heads % n_kv:
+        return f"n_heads {n_heads} is not a multiple of n_kv_heads {n_kv}"
+    for name, mod in (("flash_attention", _fa), ("flash_cache_attention", _fp),
+                      ("flash_decode", _fd)):
+        if head_dim not in mod._HEAD_DIMS:
+            return (f"{name} has no kernel at head_dim {head_dim} "
+                    f"(takes {mod._HEAD_DIMS}; ROADMAP Queue 2 A)")
+    if n_heads // n_kv not in _fd._REPS:
+        return (f"flash_decode has no kernel at n_heads / n_kv_heads = "
+                f"{n_heads // n_kv} (takes {_fd._REPS}; ROADMAP Queue 2 A)")
+    return None
 
 
 def _effective_window(window: int, k_cache: torch.Tensor,

@@ -31,7 +31,7 @@ NEG_INF = -1e30
 launches = 0
 _fns: dict = {}
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)  # both the bf16 (wgmma) and f32 kernels
 
 
 def visible_keys(
@@ -150,7 +150,7 @@ def flash_attention(
     [b, s_q, n_heads, hd], contiguous.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (bf16 or f32, hd in {32, 64, 128}, n_heads divisible by n_kv; q/k/v
+    (bf16 or f32, hd in {32, 64, 128, 256}, n_heads divisible by n_kv; q/k/v
     are read in place through their strides, which TMA must be able to
     describe in bf16) or raise."""
     if window < 0 or (window and not causal):
@@ -162,10 +162,12 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     b, s_q, n_heads, hd = q.shape
     s_kv, n_kv = k.shape[1], k.shape[2]
+    dtype = check_query_dtype("q", q)
     if hd not in _HEAD_DIMS or n_heads % n_kv:
         raise ValueError(
-            f"flash_attention kernel takes hd in {_HEAD_DIMS} and n_heads "
-            f"divisible by n_kv, got hd={hd}, n_heads={n_heads}, n_kv={n_kv}"
+            f"flash_attention kernel takes hd in {_HEAD_DIMS} for {dtype} "
+            f"and n_heads divisible by n_kv, got hd={hd}, n_heads={n_heads}, "
+            f"n_kv={n_kv}"
         )
     if tuple(k.shape) != (b, s_kv, n_kv, hd) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(
@@ -173,7 +175,6 @@ def flash_attention(
             f"and {tuple(v.shape)}"
         )
     dev = q.device
-    dtype = check_query_dtype("q", q)
     q, k, v = (_tma_view(name, t, dev, dtype) for name, t in (("q", q), ("k", k), ("v", v)))
     if lengths is not None:
         _check("lengths", lengths, (b,), torch.int32, dev)

@@ -43,7 +43,7 @@ launches = 0
 _fn = None
 
 _HEAD_DIMS = (32, 64, 128, 256)
-_REPS = (1, 2, 4, 8)
+_REPS = (1, 2, 4, 7, 8)  # GQA ratios n_heads / n_kv
 _DTYPES = (torch.bfloat16, torch.float32)
 _TILE_BYTES = 12288  # kTileBytes in the .cu
 _CLUSTERS = (1, 2, 4, 8)  # the portable cluster sizes
@@ -259,7 +259,7 @@ def flash_decode(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 or f32 q, new token of q's dtype, caches of q's dtype or int8,
-    contiguous, hd in {32, 64, 128, 256}, n_heads/n_kv in {1, 2, 4, 8},
+    contiguous, hd in {32, 64, 128, 256}, n_heads/n_kv in {1, 2, 4, 7, 8},
     pool blocks a multiple of 16) or raise."""
     if (k_new is None) != (v_new is None):
         raise ValueError("pass k_new and v_new together")
@@ -275,13 +275,13 @@ def flash_decode(
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     b, n_heads, hd = q.shape
     n_kv = k_cache.shape[1]
+    dtype = check_query_dtype("q", q)
     if hd not in _HEAD_DIMS or n_heads % n_kv or n_heads // n_kv not in _REPS:
         raise ValueError(
             f"flash_decode kernel takes hd in {_HEAD_DIMS} and n_heads/n_kv "
             f"in {_REPS}, got hd={hd}, n_heads={n_heads}, n_kv={n_kv}"
         )
     dev = q.device
-    dtype = check_query_dtype("q", q)
     _check("q", q, (b, n_heads, hd), dtype, dev)
     if block_table is None and k_cache.shape[0] != b:
         raise ValueError(f"k_cache has {k_cache.shape[0]} slots, q has {b}")

@@ -32,7 +32,7 @@ NEG_INF = -1e30
 launches = 0
 _fns: dict = {}
 
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)  # both the bf16 (wgmma) and f32 kernels
 
 
 def flash_cache_attention_plain(
@@ -131,7 +131,7 @@ def flash_cache_attention(
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (bf16 or f32 q, caches of q's dtype or int8, contiguous, hd in {32, 64,
-    128}, pool blocks a multiple of 16) or raise."""
+    128, 256}, pool blocks a multiple of 16) or raise."""
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if q.device.type == "cpu":
@@ -146,14 +146,14 @@ def flash_cache_attention(
         )
     P, c, n_heads, hd = q.shape
     n_kv = k_cache.shape[1]
+    dtype = check_query_dtype("q", q)
     if hd not in _HEAD_DIMS or n_heads % n_kv:
         raise ValueError(
-            f"flash_cache_attention kernel takes hd in {_HEAD_DIMS} and "
-            f"n_heads divisible by n_kv, got hd={hd}, n_heads={n_heads}, "
-            f"n_kv={n_kv}"
+            f"flash_cache_attention kernel takes hd in {_HEAD_DIMS} for "
+            f"{dtype} and n_heads divisible by n_kv, got hd={hd}, "
+            f"n_heads={n_heads}, n_kv={n_kv}"
         )
     dev = q.device
-    dtype = check_query_dtype("q", q)
     _check("q", q, (P, c, n_heads, hd), dtype, dev)
     n_slots = k_cache.shape[0] if block_table is None else block_table.shape[0]
     blk, width = check_cache(k_cache, v_cache, k_scale, v_scale, block_table,

@@ -19,3 +19,17 @@ def rms_norm(
     out = xf * torch.reciprocal(torch.sqrt(var + eps))
     w = weight.float() + offset if offset else weight.float()
     return (out * w).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-12
+) -> torch.Tensor:
+    """LayerNorm (GPT-NeoX, GPT-2): mean and biased variance in f32, then
+    ``(x - mean) / sqrt(var + eps) * w + b``. ``weight``, ``bias``:
+    [d_model]."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    centred = xf - mean
+    var = torch.mean(centred * centred, dim=-1, keepdim=True)
+    out = centred * torch.reciprocal(torch.sqrt(var + eps))
+    return (out * weight.float() + bias.float()).to(x.dtype)

@@ -533,7 +533,7 @@ class InferenceEngine:
         self.model_name = model_name
         self.spec = get_model(model_name)
         self.cfg = self.spec.config
-        check_supported(self.cfg)
+        check_supported(self.cfg, self.device)
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.window_k = int(window_k)

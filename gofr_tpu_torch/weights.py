@@ -21,6 +21,12 @@ __all__ = ["init_params", "kv_cache_from_jax", "params_from_jax",
            "params_to_reference"]
 
 
+# Leaves that cross over unchanged where the config has them: per layer,
+# and at the top level.
+_LAYER_EXTRAS = ("attn_norm_b", "mlp_norm_b", "wo_b", "w_up_b", "w_down_b")
+_TOP_EXTRAS = ("final_norm_b", "pos_embed")
+
+
 def params_from_jax(
     np_params: dict, cfg: TransformerConfig,
     device: torch.device | str | None = None,
@@ -28,11 +34,13 @@ def params_from_jax(
 ) -> dict[str, torch.Tensor]:
     """The reference's ``init_transformer`` pytree (leaves as numpy arrays,
     layer leaves stacked ``[L, ...]``) → the port's parameter dict, with
-    Q/K/V and gate/up concatenated along their output axis, in ``dtype``
-    (default ``cfg.dtype``; ``torch.float32`` brings f32 master params over
-    unrounded). The tensors go to CUDA unless ``device="cpu"``; without
-    CUDA that raises."""
-    check_supported(cfg)
+    Q/K/V (and Qwen2's Q/K/V biases) and gate/up concatenated along their
+    output axis (a non-gated MLP keeps ``w_up`` alone), the norm and
+    projection biases and GPT-2's position table as they are, in
+    ``dtype`` (default ``cfg.dtype``; ``torch.float32`` brings f32 master
+    params over unrounded). The tensors go to CUDA unless
+    ``device="cpu"``; without CUDA that raises."""
+    check_supported(cfg, device)
     device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
     lp = np_params["layers"]
@@ -43,43 +51,63 @@ def params_from_jax(
             device=device, dtype=dtype
         )
 
-    return {
+    params = {
         "embed": t(np_params["embed"]),
         "attn_norm": t(lp["attn_norm"]),
         "wqkv": torch.cat([t(lp["wq"]), t(lp["wk"]), t(lp["wv"])], dim=-1),
         "wo": t(lp["wo"]),
         "mlp_norm": t(lp["mlp_norm"]),
-        "w_gate_up": torch.cat([t(lp["w_gate"]), t(lp["w_up"])], dim=-1),
-        "w_down": t(lp["w_down"]),
-        "final_norm": t(np_params["final_norm"]),
-        "lm_head": t(np_params["lm_head"]),
     }
+    if cfg.ffn == "mlp":
+        params["w_up"] = t(lp["w_up"])
+    else:
+        params["w_gate_up"] = torch.cat([t(lp["w_gate"]), t(lp["w_up"])], dim=-1)
+    params.update(
+        w_down=t(lp["w_down"]), final_norm=t(np_params["final_norm"]),
+        lm_head=t(np_params["lm_head"]),
+    )
+    if "wq_b" in lp:
+        params["wqkv_b"] = torch.cat([t(lp["wq_b"]), t(lp["wk_b"]), t(lp["wv_b"])], dim=-1)
+    params.update({k: t(lp[k]) for k in _LAYER_EXTRAS if k in lp})
+    params.update({k: t(np_params[k]) for k in _TOP_EXTRAS if k in np_params})
+    return params
 
 
 def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     """The inverse of ``params_from_jax``: a port parameter dict (or a dict
     of its gradients) → the reference pytree layout, ``wqkv`` split into
-    ``wq/wk/wv`` and ``w_gate_up`` into ``w_gate/w_up``, leaves as f32
-    numpy arrays on the host."""
+    ``wq/wk/wv`` (``wqkv_b`` into ``wq_b/wk_b/wv_b``) and ``w_gate_up``
+    into ``w_gate/w_up``, leaves as f32 numpy arrays on the host."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qkv = [H * hd, KV * hd, KV * hd]
 
     def n(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy()
 
-    wq, wk, wv = params["wqkv"].split([H * hd, KV * hd, KV * hd], dim=-1)
-    w_gate, w_up = params["w_gate_up"].chunk(2, dim=-1)
-    return {
+    wq, wk, wv = params["wqkv"].split(qkv, dim=-1)
+    layers = {
+        "wq": n(wq), "wk": n(wk), "wv": n(wv), "wo": n(params["wo"]),
+        "attn_norm": n(params["attn_norm"]),
+        "mlp_norm": n(params["mlp_norm"]),
+        "w_down": n(params["w_down"]),
+    }
+    if "w_gate_up" in params:
+        w_gate, w_up = params["w_gate_up"].chunk(2, dim=-1)
+        layers.update(w_gate=n(w_gate), w_up=n(w_up))
+    else:
+        layers["w_up"] = n(params["w_up"])
+    if "wqkv_b" in params:
+        bq, bk, bv = params["wqkv_b"].split(qkv, dim=-1)
+        layers.update(wq_b=n(bq), wk_b=n(bk), wv_b=n(bv))
+    layers.update({k: n(params[k]) for k in _LAYER_EXTRAS if k in params})
+    out = {
         "embed": n(params["embed"]),
-        "layers": {
-            "wq": n(wq), "wk": n(wk), "wv": n(wv), "wo": n(params["wo"]),
-            "attn_norm": n(params["attn_norm"]),
-            "mlp_norm": n(params["mlp_norm"]),
-            "w_gate": n(w_gate), "w_up": n(w_up),
-            "w_down": n(params["w_down"]),
-        },
+        "layers": layers,
         "final_norm": n(params["final_norm"]),
         "lm_head": n(params["lm_head"]),
     }
+    out.update({k: n(params[k]) for k in _TOP_EXTRAS if k in params})
+    return out
 
 
 def _from_numpy(a: Any, device: torch.device) -> torch.Tensor:

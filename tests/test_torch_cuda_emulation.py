@@ -140,6 +140,7 @@ def _ptr(t):
         (64, 4, 4, [3, 0, 64]),     # MHA (rep 1)
         (256, 8, 1, [0, 99, 17]),   # MQA (rep 8), one row per warp load
         (128, 4, 2, [100, 50, 1]),  # rep 2
+        (128, 14, 2, [0, 33, 99]),  # rep 7 (Qwen2-7B's 28 over 4)
     ],
 )
 def test_emulated_flash_decode_matches_plain(emu_lib, hd, H, KV, lengths, split):
@@ -168,6 +169,10 @@ def test_emulated_flash_decode_matches_plain(emu_lib, hd, H, KV, lengths, split)
         (128, 8, 2, 40, [2, 0, 3, 2], [0, 64, 10, 0], [40, 17, 40, 40]),
         # MHA with a tile that is padding only (lens 0) and one at 0.
         (64, 4, 4, 20, [1, 3, 0], [0, 3, 0], [0, 20, 0]),
+        # hd 256 (64-key tiles): MQA at rep 8 (Gemma-2B), one query tile;
+        # rep 1 (Gemma-7B) over three key tiles, with a short row.
+        (256, 8, 1, 16, [2, 0, 3, 2], [0, 64, 10, 0], [16, 9, 16, 16]),
+        (256, 2, 2, 24, [1, 3, 0], [0, 120, 40], [24, 24, 5]),
     ],
 )
 def test_emulated_flash_cache_attention_matches_plain(
@@ -192,10 +197,12 @@ def test_emulated_flash_cache_attention_matches_plain(
 def test_emulated_entries_refuse_unsupported_shapes(emu_lib):
     z = torch.zeros(8, dtype=torch.bfloat16)
     p = z.data_ptr()
-    # head_dim 48, n_heads not a multiple of n_kv, a pool block that is not
-    # a multiple of 16 and one scale without the other are refused, not run.
+    # head_dim 48, n_heads not a multiple of n_kv, a GQA ratio without a
+    # kernel (3), a pool block that is not a multiple of 16 and one scale
+    # without the other are refused, not run.
     n = None
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 48, 0, 0, 1, 1.0, n) != 0
+    assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 6, 2, 8, 0, 32, 0, 0, 1, 1.0, n) != 0
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 3, 2, 8, 0, 32, 0, 0, 1, 1.0, n) != 0
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, p, p, 1, 4, 2, 8, 2, 32, 0, 0, 1, 1.0, n) != 0
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, p, n, n, p, 1, 4, 2, 8, 0, 32, 0, 0, 1, 1.0, n) != 0
@@ -203,16 +210,19 @@ def test_emulated_entries_refuse_unsupported_shapes(emu_lib):
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 32, 0, 0, 3, 1.0, n) != 0
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 32, 0, 0, 16, 1.0, n) != 0
     assert emu_lib.gofr_flash_decode(p, p, p, p, n, n, n, n, n, p, 1, 4, 2, 8, 0, 32, 0, 2, 1, 1.0, n) != 0
-    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 256, 0, 1.0, n) != 0
+    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 48, 0, 1.0, n) != 0
     assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, n, n, p, p, 1, 1, 4, 2, 24, 2, 32, 0, 1.0, n) != 0
+    # An int8 pool at hd 256 whose table would not fit in shared memory.
+    assert emu_lib.gofr_flash_cache_attention(p, p, p, p, p, p, p, p, p, p, 1, 1, 4, 2, 16, 8192,
+                                              256, 0, 1.0, n) != 0
     st = (ctypes.c_longlong * 9)()
-    # flash_attention takes hd 32, 64 and 128 only (48 is refused), and GQA
-    # groups; so do the f32 kernels.
+    # flash_attention takes hd 32, 64, 128 and 256 only (48 is refused),
+    # and GQA groups; so do the f32 kernels.
     for fa in (emu_lib.gofr_flash_attention, emu_lib.gofr_flash_attention_f32):
         assert fa(p, p, p, None, p, 1, 1, 1, 4, 2, 48, 1, 0, st, 1.0, None) != 0
         assert fa(p, p, p, None, p, 1, 1, 1, 3, 2, 64, 1, 0, st, 1.0, None) != 0
     assert emu_lib.gofr_flash_cache_attention_f32(
-        p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 256, 0, 1.0, n) != 0
+        p, p, p, p, p, p, n, n, n, p, 1, 1, 4, 2, 8, 0, 48, 0, 1.0, n) != 0
 
 
 # -- int8 / paged / paged+int8 variants of the two serving kernels --------
@@ -281,6 +291,7 @@ DECODE_VARIANT_SHAPES = [
     # hd, H, KV, lengths (max_len 112 = 7 blocks of 16)
     (128, 8, 2, [0, 1, 50, 112]),  # llama GQA (rep 4); an empty row, a full one
     (32, 4, 4, [17, 0, 3, 96]),    # MHA, 8 rows per warp load
+    (128, 7, 1, [3, 0, 64, 112]),  # rep 7 (Qwen2-7B)
 ]
 
 
@@ -323,6 +334,9 @@ PREFILL_VARIANT_SHAPES = [
     # rows, a short row mid-cache, a padding row duplicating row 0.
     (128, 8, 2, 16, [2, 0, 3, 2], [0, 64, 10, 0], [16, 9, 16, 16]),
     (32, 4, 2, 8, [1, 3, 0], [0, 150, 5], [0, 8, 3]),
+    # hd 256 (64-key tiles; int8 staged K then V): rep 8 and rep 1.
+    (256, 8, 1, 16, [2, 0, 3, 2], [0, 64, 130, 0], [16, 9, 16, 16]),
+    (256, 2, 2, 20, [1, 3, 0], [0, 100, 5], [20, 20, 3]),
 ]
 
 
@@ -420,6 +434,7 @@ FA_CASES = [
     (3, 66, 66, 2, 2, 64, True, [66, 0, 9]),    # lengths: full, empty, short
     (2, 20, 80, 2, 1, 128, False, [80, 33]),    # non-causal with lengths
     (1, 70, 30, 2, 2, 64, False, None),         # non-causal, s_q > s_kv
+    (2, 90, 90, 2, 1, 256, True, [90, 0]),      # hd 256 (64-key tiles): lengths, GQA
 ]
 
 
@@ -594,6 +609,7 @@ FA_WINDOW_CASES = [
     (3, 130, 130, 2, 2, 64, [130, 0, 40], 50),  # lengths: rows past 88 of row 2 see nothing
     (1, 40, 200, 2, 1, 64, None, 64),           # offset 160: key tile 0 lies below
     (1, 66, 66, 2, 2, 64, None, 1),             # each query sees itself only
+    (1, 150, 150, 2, 2, 256, None, 40),         # hd 256: tiles of 64 below the edge
 ]
 
 
@@ -832,6 +848,7 @@ F32_PREFILL_CASES = [
     ("paged", 0, 64, 4, 4, 20, [1, 3, 0], [0, 3, 130], [0, 20, 9]),
     ("int8", 30, 64, 8, 1, 16, [0, 2], [120, 40], [16, 7]),
     ("paged+int8", 40, 128, 4, 2, 16, [2, 0, 3, 2], [0, 64, 130, 0], [16, 9, 16, 16]),
+    ("paged+int8", 0, 256, 4, 1, 8, [2, 0], [40, 100], [8, 5]),
 ]
 
 
@@ -881,6 +898,7 @@ F32_FA_CASES = [
     (3, 33, 33, 2, 2, 128, True, [33, 0, 9], 0),  # lengths: full, empty, short
     (2, 10, 40, 2, 1, 64, False, [40, 17], 0),    # non-causal with lengths
     (2, 50, 50, 8, 2, 32, True, [50, 30], 12),    # causal window with lengths
+    (2, 24, 24, 2, 1, 256, True, [24, 10], 0),    # hd 256
 ]
 
 

@@ -76,7 +76,7 @@ def _decode_case(lib, hd, rep, kind, cluster, window, split, *, paged=False, see
 
 
 @pytest.mark.parametrize("kind", list(DECODE_KINDS))
-@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("rep", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_emulated_flash_decode_templates_match_plain(emu_lib, hd, rep, kind):
     """Every instantiation (head dim x GQA ratio x query type x cache type),
@@ -85,7 +85,7 @@ def test_emulated_flash_decode_templates_match_plain(emu_lib, hd, rep, kind):
     inside the first tile of the longest rows) on the slot cache, on a B=16
     pool under a shuffled table (bit for bit the slot cache's) and with NaN
     in every row below the window (no bit may change)."""
-    i = [32, 64, 128, 256].index(hd) + [1, 2, 4, 8].index(rep) + list(DECODE_KINDS).index(kind)
+    i = [32, 64, 128, 256].index(hd) + [1, 2, 4, 7, 8].index(rep) + list(DECODE_KINDS).index(kind)
     cluster = (1, 2, 4, 8)[i % 4]
     dtype = DECODE_KINDS[kind][0]
     out, want, _ = _decode_case(emu_lib, hd, rep, kind, cluster, 0, False)

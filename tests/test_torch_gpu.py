@@ -750,6 +750,123 @@ def test_flash_attention_hd32_on_gpu(cuda_device, b, s_q, s_kv, H, KV, causal, l
     assert torch.all(got[zero] == 0)
 
 
+# The other families' head shapes (H, KV, hd): Qwen2-7B's ratio of 7,
+# Gemma-7B's hd 256 at ratio 1 and Gemma-2B's at ratio 8 (MQA).
+FAMILY_SHAPES = {"ratio7": (14, 2, 128), "hd256": (4, 4, 256), "hd256_mqa": (8, 1, 256)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [False, True], ids=["written", "split"])
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+@pytest.mark.parametrize("shape", list(FAMILY_SHAPES))
+def test_family_shapes_flash_decode_on_gpu(cuda_device, shape, variant, split):
+    """flash_decode at the families' shapes on every cache kind, in both
+    conventions: the plain version's answer, one launch, the pool bit for
+    bit the slot cache."""
+    gen = torch.Generator(device=cuda_device).manual_seed(71)
+    H, KV, hd = FAMILY_SHAPES[shape]
+    S, max_len = 6, 512
+    lengths = [0, 1, 100, 257, 511, 64]
+    kw, flat = _variant(gen, cuda_device, variant, S, KV, max_len, hd, lengths)
+    q = torch.randn((S, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    new = {}
+    if split:
+        new = {k: torch.randn((S, KV, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+               for k in ("k_new", "v_new")}
+        if "int8" in variant:
+            new = {k: fake_quantize_kv(t) for k, t in new.items()}
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fd.launches
+    got = fd.flash_decode(q, lengths=lens, **new, **kw)
+    torch.cuda.synchronize()
+    assert fd.launches == before + 1
+    want = fd.flash_decode_plain(q, lengths=lens, **new, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    if flat is not None:
+        assert torch.equal(got, fd.flash_decode(q, lengths=lens, **new, **flat))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(WINDOW_VARIANTS))
+@pytest.mark.parametrize("shape", list(FAMILY_SHAPES))
+def test_family_shapes_flash_cache_attention_on_gpu(cuda_device, shape, variant):
+    """flash_cache_attention at the families' shapes (7 chunk rows a token;
+    hd 256 on 64-key tiles, int8 staged K then V) on every cache kind:
+    the plain version's answer, padding rows 0, the pool bit for bit the
+    slot cache."""
+    gen = torch.Generator(device=cuda_device).manual_seed(72)
+    H, KV, hd = FAMILY_SHAPES[shape]
+    P, c, S, max_len = 4, 64, 4, 512
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    rows = [(2, 0, 64), (0, 64, 17), (3, 300, 64), (2, 0, 64)]
+    keys = [max([s0 + n for sl, s0, n in rows if sl == r] or [0]) for r in range(S)]
+    kw, flat = _variant(gen, cuda_device, variant, S, KV, max_len, hd, keys)
+    q = torch.randn((P, c, H, hd), generator=gen, device=cuda_device).to(torch.bfloat16)
+    q[3] = q[0]
+    slots, starts, lens = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    before = fp.launches
+    got = fp.flash_cache_attention(q, slots=slots, starts=starts, lens=lens, **kw)
+    torch.cuda.synchronize()
+    assert fp.launches == before + 1
+    want = fp.flash_cache_attention_plain(q, slots=slots, starts=starts, lens=lens, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    assert torch.all(got[1, 17:] == 0)
+    if flat is not None:
+        assert torch.equal(got, fp.flash_cache_attention(q, slots=slots, starts=starts,
+                                                         lens=lens, **flat))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,s,H,KV,lengths,window,dtype",
+    [
+        (2, 300, 4, 2, [300, 0], 0, torch.bfloat16),  # lengths with an empty row, GQA
+        (2, 200, 8, 1, None, 0, torch.bfloat16),      # MQA: a head group of 8
+        (1, 400, 4, 4, None, 96, torch.bfloat16),     # causal window
+        (2, 150, 4, 2, [150, 70], 40, torch.float32),  # the f32 CUDA-core kernel
+    ],
+)
+def test_flash_attention_hd256_on_gpu(cuda_device, b, s, H, KV, lengths, window, dtype):
+    """flash_attention at hd 256 (Gemma): causal, with lengths, a window,
+    and f32; rows that see no key exactly 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(73)
+    q, k, v = (torch.randn((b, s, n, 256), generator=gen, device=cuda_device).to(dtype)
+               for n in (H, KV, KV))
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32,
+                                                     device=cuda_device)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, lens, window=window)
+    if dtype == torch.float32:
+        _rows_close(got, want, F32_ROW_TOL)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL)
+    zero = want.float().abs().amax(dim=(-1, -2)) == 0
+    assert torch.all(got[zero] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["bf16", "paged+int8"], ids=["f32", "f32_int8_pool"])
+def test_f32_flash_cache_attention_hd256_on_gpu(cuda_device, variant):
+    """The f32 CUDA-core chunk kernel at hd 256 (its tiles past 48 KB of
+    shared memory) on an f32 slot cache and an int8 pool, at 1e-4 per row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(74)
+    H, KV, hd, P, c, S, max_len = 4, 2, 256, 3, 40, 4, 256
+    rows = [(2, 0, 40), (0, 100, 17), (3, 200, 40)]
+    keys = [max([s0 + n for sl, s0, n in rows if sl == r] or [0]) for r in range(S)]
+    kw, _ = _variant(gen, cuda_device, variant, S, KV, max_len, hd, keys)
+    kw = {k: (t.float() if t.dtype == torch.bfloat16 else t) for k, t in kw.items()}
+    q = torch.randn((P, c, H, hd), generator=gen, device=cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    slots, starts, lens = (torch.tensor([r[i] for r in rows], **i32) for i in range(3))
+    got = fp.flash_cache_attention(q, slots=slots, starts=starts, lens=lens, **kw)
+    torch.cuda.synchronize()
+    _rows_close(got, fp.flash_cache_attention_plain(q, slots=slots, starts=starts, lens=lens,
+                                                    **kw), F32_ROW_TOL)
+
+
 def _decode_state(dev, cfg, S, L, flags, history_len=1):
     from gofr_tpu_torch.ops.kv_cache import KVCache
     from gofr_tpu_torch.serving.programs import SlotPlanes

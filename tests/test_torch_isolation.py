@@ -40,7 +40,7 @@ for fn in (chip_smoke.phase_kernels, chip_smoke.phase_kernel_variants,
            chip_smoke.phase_attention_grad, chip_smoke.phase_train,
            chip_smoke.phase_prefill_padded, chip_smoke.phase_window_kernels,
            chip_smoke.phase_window_grad, chip_smoke.phase_mistral_forward,
-           chip_smoke.phase_mistral_full_sequence, chip_smoke.phase_serve_options,
+           chip_smoke.phase_full_sequence, chip_smoke.phase_serve_options,
            chip_smoke.phase_http):
     assert callable(fn)
 leaked = sorted(m for m in sys.modules if banned(m))

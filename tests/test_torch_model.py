@@ -107,19 +107,34 @@ def emulated_serving_kernels(tmp_path_factory):
     return dict(flash_decode=flash_decode, flash_cache_attention=flash_cache_attention)
 
 
-@pytest.mark.parametrize("name", ["llama-tiny-f32", "llama-tiny"])
+@pytest.mark.parametrize(
+    "name", ["llama-tiny-f32", "llama-tiny", "qwen2-tiny", "gemma-hd256-tiny"])
 def test_emulated_kernels_prefill_then_decode_match_reference(
     name, emulated_serving_kernels, monkeypatch
 ):
     """The same prefill chunk and three split decode steps with the serving
     kernels' CUDA code run under the emulator (f32: flash_decode's f32
     instantiation and the CUDA-core chunk kernel; bf16: hd 32), against the
-    reference at the same limits."""
+    reference at the same limits; and the families' new kernel shapes in
+    bf16 (tests/test_torch_families.py's tinies, bias leaves seeded noise):
+    the Qwen2-shaped tiny's 7 query heads a KV head (flash_decode at ratio
+    7, 7 chunk rows a token) and Gemma's head dim 256 (64-key tiles)."""
     import gofr_tpu_torch.ops.attention as port_attention
 
     for fn, impl in emulated_serving_kernels.items():
         monkeypatch.setattr(port_attention, fn, impl)
-    _prefill_then_decode_matches_reference(name)
+    if name in ("llama-tiny-f32", "llama-tiny"):
+        _prefill_then_decode_matches_reference(name)
+        return
+    from tests.test_torch_families import (
+        chunk_then_decode_matches_reference,
+        family_configs,
+        family_weights,
+    )
+
+    ref_cfg, cfg = family_configs(name)
+    chunk_then_decode_matches_reference(ref_cfg, cfg, *family_weights(ref_cfg, cfg), "slot",
+                                        TOL["llama-tiny"])
 
 
 def _prefill_then_decode_matches_reference(name):
@@ -378,9 +393,10 @@ def test_registry_mirrors_reference_llm_entries():
 
 def test_every_supported_config_has_cuda_kernels():
     """Each registered model that ``check_supported`` accepts (bf16 and
-    f32, head dims 32 and 128 among them) has a kernel of its dtype and
-    head dim in all three wrappers, so none passes the model check and then
-    raises at its first launch on a card."""
+    f32, head dims 32, 128 and 256 among them) has a kernel of its dtype
+    and head dim in all three wrappers (whose accepted head dims hold for
+    both dtypes) and of its GQA ratio in flash_decode, so none passes the
+    model check and then raises at its first launch on a card."""
     from gofr_tpu_torch.ops.cuda import flash_attention as fa
     from gofr_tpu_torch.ops.cuda import flash_decode as fd
     from gofr_tpu_torch.ops.cuda import flash_prefill as fp
@@ -397,14 +413,13 @@ def test_every_supported_config_has_cuda_kernels():
         for mod in (fd, fp, fa):
             assert cfg.head_dim in mod._HEAD_DIMS, (name, mod.__name__)
         assert cfg.n_heads // cfg.n_kv_heads in fd._REPS, name
-    assert {(torch.float32, 32), (torch.bfloat16, 32), (torch.bfloat16, 128)} <= seen
+    assert {(torch.float32, 32), (torch.bfloat16, 32), (torch.bfloat16, 128),
+            (torch.bfloat16, 256)} <= seen
 
 
-@pytest.mark.parametrize(
-    "name", ["mixtral-8x7b", "gemma-7b", "qwen2-7b", "gemma-tiny", "gpt2-tiny"]
-)
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "moe-tiny"])
 def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         check_supported(get_model(name).config)
 
 
