@@ -97,6 +97,19 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    tokens as the traffic implies, 0 stream syncs, the block invariant
    after idle; tok/s, TTFT p50, ITL p50, prefill dispatches and rows, peak
    and cached blocks and evictions, off and on;
+4f. quantizes Llama-3-8B's bf16 weights on the card to int8 and int4
+   (ops/quant.py): one layer of every quantized leaf bit for bit against
+   the CPU's quantization of the same bf16 slice; transformer_forward of
+   each quantized model through the kernels against its plain attention
+   path; phase_serve's traffic on each, beside the bf16 serve;
+4g. TPU_CHECKPOINT: writes those bf16 weights as an HF directory (its own
+   safetensors writer, shards of at most 5 GB, under a temporary directory
+   outside the repo; fails with less than twice the bytes free on its
+   disk) and serves it through InferenceEngine.from_config, every leaf bit
+   for bit, then with TPU_QUANT=int8 (every leaf equal to the on-card
+   quantization, greedy streams equal the in-memory int8 engine's); a
+   save_checkpoint / restore_checkpoint round trip of the int8 tree bit for
+   bit; the write, load and restore rates;
 5. profiles one 8-step decode window (eager, then as a CUDA graph replay)
    and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
@@ -116,6 +129,16 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    [2, 8192] batch and transformer_forward on [1, 8192], the windowed
    flash_attention's two entry points; then profiles one decode window
    over 4 slots and one [4, 256] prefill chunk at 6,000 tokens of context;
+5b. serves Mixtral-8x7B (32 layers, 8 experts, top 2, after Mistral-7B
+   is freed) with int8 weights made on the card a layer at a time from a
+   seed (46.9 GB; peak memory over the init printed): phase_forward and
+   the full-sequence entry points through the kernels against the plain
+   path (where a router near-tie sends a token to other experts on the two
+   sides, the plain side takes the kernel side's experts: RoutePin, which
+   also bounds the router logits' difference on the other tokens), the
+   router at full width against a stable-sort reference (and with two
+   experts tied on every token), and phase_serve's traffic on the bf16 slot
+   cache and an int8 pool of 161 x 32;
 6. trains llama-1b (22 layers, full width, f32 master weights and AdamW,
    bf16 compute, random weights from a seed) through make_train_step on a
    fixed [4, 2048] batch: step-1 loss and gradients through the kernel
@@ -1578,6 +1601,94 @@ def phase_window_grad(torch, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# The two sides of a Mixtral kernels-vs-plain check compute the router's
+# logits from hidden states that differ by the attention paths' bf16
+# rounding. ROUTER_LOGIT_TOL holds that difference on the tokens routed
+# alike: on an NVIDIA H100 80GB HBM3 at 700 W it read up to 0.086 (four
+# checks, 0.0625-0.086). Where a token's own gap between its k-th and
+# (k+1)-th router logit is under ROUTER_NEAR_TIE, the two sides may route
+# it to different experts (an expert swap is a step in the function, not
+# a small difference); the flipped tokens' gaps read up to 0.076 there
+# (829 to 2,282 flipped tokens a check). Each limit is about twice its
+# reading.
+ROUTER_LOGIT_TOL = 0.15
+ROUTER_NEAR_TIE = 0.15
+
+
+class RoutePin:
+    """Makes a checked run take the experts a recorded run took, where the
+    two differ only at a router near-tie. ``record()``: each MoE routing
+    call (``transformer.route``) keeps its router logits and experts.
+    ``replay(label, rows)``: each call routes as the port does, then takes
+    the recorded call's experts (``rows`` of it) for every token whose own
+    top-k differs; such a flip fails the run unless the token's own gap
+    between its k-th and (k+1)-th router logit is under ROUTER_NEAR_TIE,
+    and so does a token routed alike whose router logits differ from the
+    recorded ones by more than ROUTER_LOGIT_TOL. The routing weights
+    stay the run's own probabilities over the taken experts. ``off()``
+    ends either mode; ``close()`` restores ``route``."""
+
+    def __init__(self, torch):
+        from gofr_tpu_torch.models import transformer
+
+        self.torch, self.mod, self.route = torch, transformer, transformer.route
+        self.mode, self.calls, self.pos = "", [], 0
+        transformer.route = self._route
+
+    def record(self) -> None:
+        self.mode, self.calls = "record", []
+
+    def replay(self, label: str, rows=None) -> None:
+        self.mode, self.pos, self.rows, self.label = "replay", 0, rows, label
+        self.flips, self.worst_gap, self.noise = 0, 0.0, 0.0
+
+    def off(self) -> None:
+        if self.mode == "replay":
+            log(f"router pin ({self.label}): {self.pos} routing calls, {self.flips} tokens "
+                f"routed to other experts than the recorded run, at own k-th gaps up to "
+                f"{self.worst_gap:.4g} (limit {ROUTER_NEAR_TIE}); router logits of the "
+                f"tokens routed alike differ by up to {self.noise:.4g} (limit "
+                f"{ROUTER_LOGIT_TOL})")
+        self.mode = ""
+
+    def close(self) -> None:
+        self.off()
+        self.mod.route = self.route
+
+    def _route(self, x, router, k):
+        torch = self.torch
+        weights, idx = self.route(x, router, k)
+        if not self.mode:
+            return weights, idx
+        logits = (x @ router).float()
+        if self.mode == "record":
+            self.calls.append((logits, idx))
+            return weights, idx
+        want_logits, want = self.calls[self.pos]
+        self.pos += 1
+        if self.rows is not None:
+            want_logits, want = want_logits[self.rows], want[self.rows]
+        same = (idx.sort(-1).values == want.sort(-1).values).all(-1)
+        if bool(same.any()):
+            noise = (logits - want_logits)[same].abs().max().item()
+            self.noise = max(self.noise, noise)
+            if noise > ROUTER_LOGIT_TOL:
+                fail(f"router pin ({self.label}): router logits of tokens routed alike "
+                     f"differ by {noise:.4g} > {ROUTER_LOGIT_TOL} from the recorded run")
+        if bool(same.all()):
+            return weights, idx
+        top = logits.sort(-1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k])[~same]
+        self.flips += int((~same).sum())
+        self.worst_gap = max(self.worst_gap, gap.max().item())
+        if gap.max().item() >= ROUTER_NEAR_TIE:
+            fail(f"router pin ({self.label}): a token took other experts than the recorded "
+                 f"run at a k-th gap of {gap.max().item():.4g} >= {ROUTER_NEAR_TIE}")
+        idx = torch.where(same[:, None], idx, want)
+        p = torch.softmax(logits, dim=-1).gather(-1, idx)
+        return torch.zeros_like(weights).scatter_(-1, idx, p / p.sum(-1, keepdim=True)), idx
+
+
 def compare_logits(label: str, got: list, want: list, tol: float,
                    near_ties: bool = False) -> float:
     """Logits of a prefill chunk and two decode steps (7 live rows each):
@@ -1664,18 +1775,38 @@ def phase_forward(torch, dev, cfg, params, *, model: str = "", near_ties: bool =
     def compare(label, *args, **kw):
         return compare_logits(f"{model} {label}" if model else label, *args, **kw)
 
-    flat = counted("contiguous", "", 0, False)
-    compare("kernels vs plain", flat, run("", 0, True), FORWARD_DLOGITS_TOL,
-            near_ties=near_ties)
-    for B in (32, 128):
-        compare(f"pool of {B} vs slot cache (kernels)", counted(f"paged B={B}", "", B, False),
-                flat, FORWARD_PAGED_TOL)
-    int8_paged = counted("paged+int8 B=32", "int8", 32, False)
-    # int8 values make more near-ties between the top two logits than the
-    # bf16 check above has met so far; one flipped on an H100 at a gap of
-    # under 0.1.
-    compare("int8 pool of 32, kernels vs plain", int8_paged, run("int8", 32, True),
-            FORWARD_DLOGITS_TOL, near_ties=True)
+    # MoE: the plain runs take the kernel runs' experts where the two
+    # differ only at a router near-tie (RoutePin).
+    pin = RoutePin(torch) if cfg.is_moe else None
+
+    def pinned(label: str, kernel_run, *plain_args) -> tuple:
+        if pin is None:
+            return kernel_run(), run(*plain_args)
+        pin.record()
+        got = kernel_run()
+        pin.replay(f"{model} {label}")
+        want = run(*plain_args)
+        pin.off()
+        return got, want
+
+    try:
+        flat, plain = pinned("kernels vs plain",
+                             lambda: counted("contiguous", "", 0, False), "", 0, True)
+        compare("kernels vs plain", flat, plain, FORWARD_DLOGITS_TOL, near_ties=near_ties)
+        for B in (32, 128):
+            compare(f"pool of {B} vs slot cache (kernels)",
+                    counted(f"paged B={B}", "", B, False), flat, FORWARD_PAGED_TOL)
+        # int8 values make more near-ties between the top two logits than
+        # the bf16 check above has met so far; one flipped on an H100 at a
+        # gap of under 0.1.
+        int8_paged, plain = pinned("int8 pool of 32, kernels vs plain",
+                                   lambda: counted("paged+int8 B=32", "int8", 32, False),
+                                   "int8", 32, True)
+        compare("int8 pool of 32, kernels vs plain", int8_paged, plain,
+                FORWARD_DLOGITS_TOL, near_ties=True)
+    finally:
+        if pin is not None:
+            pin.close()
     compare("int8 slot cache vs int8 pool of 32 (kernels)", counted("int8", "int8", 0, False),
             int8_paged, FORWARD_PAGED_TOL)
     for name, a, b in zip(("prefill", "decode1", "decode2"), int8_paged, flat):
@@ -1687,27 +1818,21 @@ def phase_forward(torch, dev, cfg, params, *, model: str = "", near_ties: bool =
     return counts
 
 
-def phase_full_sequence(torch, dev, model: str, cfg, params, lengths=(2048, 700, 1), *,
-                        plain: bool = True, seed: int = 29) -> dict:
-    """A model's two full-sequence entry points: transformer_prefill on a
-    right-padded batch of ``lengths`` (the longest first; flash_attention's
-    lengths variant, with the model's window if it has one) and the eval
-    forward transformer_forward on its row 0, held against the prefill's
-    row 0 at its last position; with ``plain``, the prefill also against
-    the plain path on its own cache. Finite logits, one flash_attention
-    launch a layer each, the same top-1 (or a near-tie within the limit).
-    Returns the launches."""
+def _full_sequence_runs(torch, dev, model: str, cfg, params, tokens, lens, slots,
+                        plain: bool, out: dict, logits: list, pin):
+    """phase_full_sequence's runs: transformer_prefill through the kernel
+    (recorded by ``pin``), with ``plain`` through the plain path (replayed),
+    then transformer_forward on row 0 (replayed on row 0's tokens). Fills
+    ``out`` with the launches and ``logits`` with the prefills'; returns
+    the forward's logits at the last position."""
     from gofr_tpu_torch.models.transformer import transformer_forward, transformer_prefill
     from gofr_tpu_torch.ops.cuda import flash_attention as fa
     from gofr_tpu_torch.ops.kv_cache import KVCache
 
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    b, s = len(lengths), lengths[0]
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
-    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    slots = torch.arange(b, dtype=torch.int32, device=dev)
-    out, logits = {}, []
+    b, s = tokens.shape
     for dense in (False, True) if plain else (False,):
+        if pin is not None:
+            pin.record() if not dense else pin.replay(f"{model} transformer_prefill plain")
         cache = KVCache.create(cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim,
                                dtype=cfg.dtype, device=dev)
         before = fa.launches
@@ -1720,7 +1845,11 @@ def phase_full_sequence(torch, dev, model: str, cfg, params, lengths=(2048, 700,
             log(f"{model} transformer_prefill [{b}, {s}] (lengths {lens.tolist()}): "
                 f"{time.perf_counter() - t0:.3f} s, {out['transformer_prefill']} "
                 "flash_attention launches")
+        if pin is not None:
+            pin.off()
         del cache
+    if pin is not None:
+        pin.replay(f"{model} transformer_forward", rows=slice(0, s))
     before = fa.launches
     t0 = time.perf_counter()
     full = transformer_forward(params, tokens[:1], cfg)[0, -1:]
@@ -1728,6 +1857,39 @@ def phase_full_sequence(torch, dev, model: str, cfg, params, lengths=(2048, 700,
     out["transformer_forward"] = fa.launches - before
     log(f"{model} transformer_forward [1, {s}]: {time.perf_counter() - t0:.3f} s, "
         f"{out['transformer_forward']} flash_attention launches")
+    if pin is not None:
+        pin.off()
+    return full
+
+
+def phase_full_sequence(torch, dev, model: str, cfg, params, lengths=(2048, 700, 1), *,
+                        plain: bool = True, seed: int = 29) -> dict:
+    """A model's two full-sequence entry points: transformer_prefill on a
+    right-padded batch of ``lengths`` (the longest first; flash_attention's
+    lengths variant, with the model's window if it has one) and the eval
+    forward transformer_forward on its row 0, held against the prefill's
+    row 0 at its last position; with ``plain``, the prefill also against
+    the plain path on its own cache. Finite logits, one flash_attention
+    launch a layer each, the same top-1 (or a near-tie within the limit).
+    Returns the launches. An MoE model's plain prefill and forward take
+    the kernel prefill's experts where they differ at a router near-tie
+    (``RoutePin``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, s = len(lengths), lengths[0]
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    slots = torch.arange(b, dtype=torch.int32, device=dev)
+    out, logits = {}, []
+    # MoE: the plain prefill and the forward take the kernel prefill's
+    # experts where they differ only at a router near-tie (the forward's
+    # GEMMs run at another batch shape).
+    pin = RoutePin(torch) if cfg.is_moe else None
+    try:
+        full = _full_sequence_runs(torch, dev, model, cfg, params, tokens, lens, slots,
+                                   plain, out, logits, pin)
+    finally:
+        if pin is not None:
+            pin.close()
     if not all(torch.isfinite(t).all() for t in logits + [full]):
         fail(f"{model} full-sequence entry points: non-finite logits")
     for key, n in out.items():
@@ -2030,9 +2192,21 @@ def _install_sync_hook() -> None:
     warnings.filterwarnings("always", message=".*called a synchronizing")
 
 
+def serve_prompts(vocab: int, lengths: tuple = LLAMA_PROMPTS, sampled: bool = True) -> list:
+    """phase_serve's prompts: token ids from numpy's generator at seed 0,
+    the last one (with ``sampled``) a copy of the one before it."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, m).tolist() for m in lengths]
+    if sampled:
+        prompts[-1] = prompts[-2]
+    return prompts
+
+
 def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int = 8,
                 max_len: int = 2048, lengths: tuple = LLAMA_PROMPTS, sampled: bool = True,
-                solo: int = 4, **kv) -> dict:
+                solo: int = 4, tag: str = "", eng=None, **kv) -> dict:
     """Concurrent requests (more than the slots) through the port's engine,
     32 new tokens each, on the slot cache or on the cache ``kv`` asks for
     (``kv_block``, ``kv_pool_blocks``, ``kv_quant``; and the decode loop's
@@ -2042,25 +2216,26 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
     run may make no stream synchronization. Returns the
     kernels' launch counts over the concurrent run (graph replays counted),
     each request's token ids and the run's tok/s, TTFT p50, ITL p50,
-    decode windows, mega dispatches, prefill dispatches and stream syncs."""
+    decode windows, mega dispatches, prefill dispatches and stream syncs.
+    ``eng``: serve on this engine (built by the caller, e.g. from config)
+    instead of one made here; ``tag`` names the weights in the log."""
     import numpy as np
 
     from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from gofr_tpu_torch.serving.engine import InferenceEngine
 
-    eng = InferenceEngine(
-        model, n_slots=n_slots, max_len=max_len, window_k=8, prefill_chunk=256,
-        prefill_batch=8, params=params, seed=0, device=dev, **kv,
-    )
-    label = f"serve {model} {json.dumps(kv) if kv else '(bf16 slot cache)'}"
+    if eng is None:
+        eng = InferenceEngine(
+            model, n_slots=n_slots, max_len=max_len, window_k=8, prefill_chunk=256,
+            prefill_batch=8, params=params, seed=0, device=dev, **kv,
+        )
+    label = (f"serve {model}{' ' + tag if tag else ''} "
+             f"{json.dumps(kv) if kv else '(bf16 slot cache)'}")
     n = len(lengths)
     try:
-        rng = np.random.default_rng(0)
-        vocab = eng.cfg.vocab_size
-        prompts = [rng.integers(0, vocab, m).tolist() for m in lengths]
+        prompts = serve_prompts(eng.cfg.vocab_size, lengths, sampled)
         kws = [dict(max_new_tokens=32)] * n
         if sampled:  # the seeded sampled request, submitted twice
-            prompts[n - 1] = prompts[n - 2]
             kws[n - 2:] = [dict(max_new_tokens=32, temperature=0.8, seed=4242)] * 2
         # Warm-up: cuBLAS handles and the first launches, off the record.
         eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
@@ -2121,7 +2296,9 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
             f"{eng.prefill_steps} prefill dispatches, {eng.decode_windows} decode windows "
             "(warm-up included)")
         log(f"{label}: first tokens {[r.token_ids[:4] for r in results]}")
-        log(f"{label}: KV cache {eng.cache.hbm_bytes()} bytes on the card")
+        log(f"{label}: KV cache {eng.cache.hbm_bytes()} bytes on the card; weights "
+            f"{eng.quant or str(eng.cfg.dtype).split('.')[-1]}, param_bytes() "
+            f"{eng.param_bytes()}")
         if kv.get("kv_block"):
             total, used, _ = eng.kv_pool_counts()
             log(f"{label}: pool of {total} allocatable blocks: peak {eng.kv_blocks_peak} in "
@@ -3820,6 +3997,379 @@ def phase_prefill_padded(torch, dev, cfg, params) -> None:
         fail("prefill: kernel path and plain path disagree")
 
 
+# Shards of the HF checkpoint phase_loader writes (HF's own default).
+SHARD_BYTES = 5 * 10**9
+_SAFETENSORS_DTYPES = {"bfloat16": "BF16", "float16": "F16", "float32": "F32",
+                       "float64": "F64", "int64": "I64", "int32": "I32", "int16": "I16",
+                       "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """Write ``tensors`` (name → torch tensor, on any device) as one
+    .safetensors file: an 8-byte little-endian header length, the JSON
+    header (dtype, shape, data_offsets per tensor; padded with spaces to a
+    multiple of 8 bytes), then each tensor's bytes in order. Returns the
+    bytes written."""
+    import struct
+
+    import torch
+
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_DTYPES[str(t.dtype).split(".")[-1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    text = json.dumps(header, separators=(",", ":")).encode()
+    text += b" " * (-len(text) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(text)))
+        f.write(text)
+        for t in tensors.values():
+            if t.numel():
+                f.write(memoryview(t.detach().contiguous().cpu().reshape(-1)
+                                   .view(torch.uint8).numpy()))
+    return 8 + len(text) + offset
+
+
+def hf_llama_tensors(params: dict, cfg):
+    """The port's plain Llama-layout params as HF's LlamaForCausalLM names
+    them, ``[out, in]``: (name, tensor) pairs, one layer at a time."""
+    H, KV, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    yield "model.embed_tokens.weight", params["embed"]
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        q, k, v = params["wqkv"][i].split([H * hd, KV * hd, KV * hd], dim=-1)
+        gate, up = params["w_gate_up"][i].split([F, F], dim=-1)
+        yield pre + "input_layernorm.weight", params["attn_norm"][i]
+        for name, w in (("self_attn.q_proj", q), ("self_attn.k_proj", k),
+                        ("self_attn.v_proj", v), ("self_attn.o_proj", params["wo"][i]),
+                        ("mlp.gate_proj", gate), ("mlp.up_proj", up),
+                        ("mlp.down_proj", params["w_down"][i])):
+            yield pre + name + ".weight", w.t()
+        yield pre + "post_attention_layernorm.weight", params["mlp_norm"][i]
+    yield "model.norm.weight", params["final_norm"]
+    yield "lm_head.weight", params["lm_head"].t()
+
+
+def write_hf_checkpoint(path: str, params: dict, cfg, shard_bytes: int = SHARD_BYTES) -> int:
+    """An HF Llama checkpoint directory of ``params``: config.json,
+    safetensors shards of at most ``shard_bytes`` (a tensor larger than
+    that gets a shard of its own) written with ``write_safetensors``, and
+    their index. Returns the bytes of the shards."""
+    import os
+
+    cfg_json = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+                "vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+                "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+                "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+                "max_position_embeddings": cfg.max_len, "rope_theta": cfg.rope_theta,
+                "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": False,
+                "torch_dtype": str(cfg.dtype).split(".")[-1]}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg_json, f, indent=1)
+    shards, cur, size = [], {}, 0
+    for name, t in hf_llama_tensors(params, cfg):
+        n = t.numel() * t.element_size()
+        if cur and size + n > shard_bytes:
+            shards.append(cur)
+            cur, size = {}, 0
+        cur[name] = t
+        size += n
+    shards.append(cur)
+    total, weight_map = 0, {}
+    for j, shard in enumerate(shards):
+        fname = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+        total += write_safetensors(os.path.join(path, fname), shard)
+        weight_map.update({name: fname for name in shard})
+    # HF's index of a sharded checkpoint (transformers reads it; the
+    # port's loader reads every *.safetensors).
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": sum(
+            t.numel() * t.element_size() for shard in shards for t in shard.values())},
+            "weight_map": weight_map}, f, indent=1)
+    return total
+
+
+def same_params(torch, got: dict, want: dict, label: str) -> None:
+    """Every leaf of ``got`` equal to ``want``'s bit for bit (a Q8/Q4 in
+    its ``q`` and ``s``), and the same leaves."""
+    from gofr_tpu_torch.ops.quant import is_quantized
+
+    if got.keys() != want.keys():
+        fail(f"{label}: leaves {sorted(got)} against {sorted(want)}")
+    for k, w in want.items():
+        g = got[k]
+        pairs = ((g.q, w.q), (g.s, w.s)) if is_quantized(w) else ((g, w),)
+        if type(g) is not type(w) or not all(
+                a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+                for a, b in pairs):
+            fail(f"{label}: leaf {k} differs")
+
+
+def phase_quant(torch, dev, cfg, params, base_stats: dict) -> dict:
+    """Llama-3-8B's bf16 weights (live) quantized on the card to int8 and
+    int4 by ``quantize_params``: one layer's slices of every quantized leaf
+    (and 8,192 columns of lm_head) equal the CPU's ``quantize_array`` /
+    ``quantize_array4`` of the same bf16 slices bit for bit;
+    transformer_forward [1, 1024] of the quantized model through the
+    kernels against its plain attention path (FORWARD_DLOGITS_TOL; a top-1
+    may differ only at a near-tie), and the quantization's effect against
+    the bf16 model (no limit); then phase_serve's traffic on the bf16 slot
+    cache, flash_decode and flash_cache_attention launched, tok/s, TTFT p50
+    and ITL p50 beside the bf16 serve's; the int8 model's decode window
+    and prefill chunk profiled. Returns each mode's serve stats (counts,
+    streams) and the int8 tree."""
+    from gofr_tpu_torch.models.transformer import transformer_forward
+    from gofr_tpu_torch.ops.quant import (
+        QUANT_KEYS, quantize_array, quantize_array4, quantize_params, quantized_bytes)
+
+    layer, cols = min(7, cfg.n_layers - 1), 8192
+    gen = torch.Generator(device=dev).manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen, device=dev)
+    out = {}
+    with torch.inference_mode():
+        bf16_logits = transformer_forward(params, tokens, cfg)
+        for mode, cpu_quant in (("int8", quantize_array), ("int4", quantize_array4)):
+            t0 = time.perf_counter()
+            q = quantize_params(params, mode)
+            torch.cuda.synchronize()
+            log(f"quant {mode}: llama-3-8b quantized on the card in "
+                f"{time.perf_counter() - t0:.2f} s: {quantized_bytes(q)} bytes against "
+                f"{quantized_bytes(params)} in bf16")
+            for key in QUANT_KEYS:
+                if key not in params:
+                    continue
+                w = params[key][layer] if key != "lm_head" else params[key][:, :cols]
+                got = q[key][layer] if key != "lm_head" else q[key]
+                want = cpu_quant(w.cpu())
+                gq, gs = (got.q, got.s) if key != "lm_head" else (got.q[..., :cols],
+                                                                  got.s[..., :cols])
+                if not (torch.equal(gq.cpu(), want.q) and torch.equal(gs.cpu(), want.s)):
+                    bad = (gs.cpu() != want.s).sum().item()
+                    fail(f"quant {mode} {key}: the card's quantization differs from the "
+                         f"CPU's on the same bf16 slice ({bad} scales differ)")
+            log(f"quant {mode}: layer {layer} of {', '.join(k for k in QUANT_KEYS if k in q)} "
+                f"(lm_head: its first {cols} columns) equal to the CPU's quantization bit "
+                "for bit")
+            logits = [transformer_forward(q, tokens, cfg, dense_attn=dense)
+                      for dense in (False, True)]
+            torch.cuda.synchronize()
+            kern, plain = logits
+            if not all(torch.isfinite(t).all() for t in logits):
+                fail(f"quant {mode}: transformer_forward gives non-finite logits")
+            d = (kern - plain).abs().max().item()
+            pick = kern.argmax(-1)
+            gap = (plain.max(-1).values - plain.gather(-1, pick[..., None])[..., 0]).max().item()
+            log(f"quant {mode}: transformer_forward [1, 1024] kernels vs plain: max|dlogits| "
+                f"{d:.4g} (limit {FORWARD_DLOGITS_TOL}), largest top-1 gap {gap:.4g}; "
+                f"against the bf16 model (no limit): max|dlogits| "
+                f"{(kern - bf16_logits).abs().max().item():.4g}, top-1 agreement "
+                f"{(pick == bf16_logits.argmax(-1)).float().mean().item():.3f}")
+            if d > FORWARD_DLOGITS_TOL or gap > FORWARD_DLOGITS_TOL:
+                fail(f"quant {mode}: the kernel path disagrees with the plain path")
+            del logits, kern, plain
+            counts, streams, stats = phase_serve(torch, dev, q, tag=f"{mode} weights")
+            out[mode] = dict(stats, counts=counts, streams=streams)
+            if mode == "int8":
+                out["int8_params"] = q
+                phase_profile(torch, dev, cfg, q, model="llama-3-8b-int8", graph=True)
+            del q
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("serve llama-3-8b bf16 / int8 / int4 weights (bf16 slot cache): " + json.dumps(
+        {m: {x: st[x] for x in ("tok_s", "ttft_p50_ms", "itl_p50_ms")}
+         for m, st in (("bf16", base_stats), ("int8", out["int8"]), ("int4", out["int4"]))}))
+    return out
+
+
+def phase_loader(torch, dev, cfg, params, q8: dict, q8_streams: list) -> dict:
+    """TPU_CHECKPOINT on Llama-3-8B: its bf16 params written as an HF
+    directory (config.json, safetensors shards of at most 5 GB, HF names,
+    [out, in]) into a new temporary directory outside the repo (failing if
+    the disk has less than twice the bytes free), then served through
+    InferenceEngine.from_config: every leaf loaded equals the params bit for
+    bit; with TPU_QUANT=int8 every leaf equals ``quantize_params`` of them
+    (``q8``) and phase_serve's greedy streams equal the in-memory int8
+    engine's (``q8_streams``; a difference only at a near-tie). Then the
+    shards go and save_checkpoint / restore_checkpoint round-trips the int8
+    tree bit for bit. Prints the bytes, write and load seconds and GB/s;
+    the directory is removed. Returns the int8 serve's counts and timings."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.config import MockConfig
+    from gofr_tpu_torch.serving.checkpoint import restore_checkpoint, save_checkpoint
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    nbytes = sum(t.numel() * t.element_size() for _, t in hf_llama_tensors(params, cfg))
+    d = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    try:
+        free = shutil.disk_usage(d).free
+        log(f"loader: {nbytes} bytes of llama-3-8b bf16 tensors to write under {d}; "
+            f"{free} bytes free on its disk")
+        if free < 2 * nbytes:
+            fail(f"loader: {free} bytes free under {d}, fewer than twice the {nbytes} bytes "
+                 "the HF checkpoint takes")
+        t0 = time.perf_counter()
+        written = write_hf_checkpoint(d, params, cfg)
+        t_write = time.perf_counter() - t0
+        shards = sorted(glob.glob(os.path.join(d, "*.safetensors")))
+        log(f"loader: wrote {written} bytes in {len(shards)} shards in {t_write:.1f} s "
+            f"({written / t_write / 1e9:.2f} GB/s)")
+        geometry = {"TPU_MODEL": "llama-3-8b", "TPU_DEVICE": str(dev), "TPU_KV_SLOTS": "8",
+                    "TPU_MAX_LEN": "2048", "TPU_DECODE_WINDOW": "8",
+                    "TPU_PREFILL_CHUNK": "256", "TPU_PREFILL_BATCH": "8",
+                    "TPU_CHECKPOINT": d}
+        out = {"bytes": written, "write_s": t_write}
+        for quant, want in (("", params), ("int8", q8)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = InferenceEngine.from_config(MockConfig(dict(geometry, TPU_QUANT=quant)))
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            label = f"loader from_config(TPU_CHECKPOINT{', TPU_QUANT=' + quant if quant else ''})"
+            log(f"{label}: engine built in {t_load:.1f} s ({written / t_load / 1e9:.2f} GB/s "
+                f"of checkpoint; page cache warm: the files were just written), weights "
+                f"{eng.quant or 'bf16'}, param_bytes() {eng.param_bytes()}")
+            same_params(torch, eng.params, want, label)
+            log(f"{label}: every leaf equal to the {'quantize_params of the ' if quant else ''}"
+                "in-memory params bit for bit")
+            out[quant or "bf16"] = {"load_s": t_load, "gb_s": written / t_load / 1e9}
+            if not quant:
+                eng.close()
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            counts, streams, stats = phase_serve(torch, dev, None, eng=eng,
+                                                 tag="int8 from TPU_CHECKPOINT")
+            check_streams(torch, cfg, q8, "loader int8 serve vs in-memory int8",
+                          serve_prompts(cfg.vocab_size), q8_streams, streams,
+                          [True] * (len(LLAMA_PROMPTS) - 2) + [False] * 2)
+            out["int8"].update(stats, counts=counts)
+            eng_params = eng.params
+            del eng
+        for f in shards:
+            os.remove(f)
+        path = os.path.join(d, "params-int8.pt")
+        t0 = time.perf_counter()
+        save_checkpoint(path, eng_params)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(path, like=eng_params)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same_params(torch, restored, eng_params, "checkpoint int8 round trip")
+        log(f"checkpoint: the int8 tree ({size} bytes) saved in {t_save:.1f} s and restored "
+            f"onto the card in {t_restore:.1f} s ({size / t_restore / 1e9:.2f} GB/s, page "
+            "cache warm), every leaf bit for bit")
+        out["checkpoint"] = {"bytes": size, "save_s": t_save, "restore_s": t_restore}
+        del restored, eng_params
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_router(torch, dev, cfg, params) -> None:
+    """Mixtral's routing at full width: 4,096 bf16 hidden states through
+    layer 0's router, by ``transformer.route``, against a stable-sort
+    reference on the host over the same probabilities (the experts must be
+    equal, the weights within 1e-6); and again with expert 3's router
+    column a copy of expert 1's, so that the two tie on every token: the
+    lower index must win wherever they compete."""
+    import numpy as np
+
+    from gofr_tpu_torch.models.transformer import route
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+    x = torch.randn((4096, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    k = cfg.n_experts_active
+    for label, router in (("layer 0", params["router"][0]),
+                          ("experts 1 and 3 tied", params["router"][0].clone())):
+        if "tied" in label:
+            router[:, 3] = router[:, 1]
+        weights, idx = route(x, router, k)
+        probs = torch.softmax((x @ router).float(), dim=-1).cpu().numpy()
+        want = np.argsort(-probs, axis=-1, kind="stable")[:, :k]
+        top = np.take_along_axis(probs, want, -1)
+        want_w = np.zeros_like(probs)
+        np.put_along_axis(want_w, want, top / top.sum(-1, keepdims=True), -1)
+        ties = int((np.sort(probs, -1)[:, ::-1][:, k - 1] == np.sort(probs, -1)[:, ::-1][:, k])
+                   .sum())
+        if not np.array_equal(idx.cpu().numpy(), want):
+            fail(f"router ({label}): the chosen experts differ from the stable-sort "
+                 "reference")
+        err = float(np.abs(weights.cpu().numpy() - want_w).max())
+        log(f"router ({label}): 4096 tokens, top-{k} of {cfg.n_experts} equal to the "
+            f"stable-sort reference; weights max|d| {err:.3g}; {ties} tokens with a tie at "
+            f"the k-th place")
+        if err > 1e-6:
+            fail(f"router ({label}): routing weights differ by {err}")
+        if "tied" in label and ties == 0:
+            fail("router: the tied case made no tie at the k-th place")
+
+
+def phase_moe(torch, dev) -> dict:
+    """Mixtral-8x7B at full width and depth (32 layers, 8 experts, top 2)
+    with int8 weights made on the card a layer at a time from seed 0:
+    peak memory after init and the bytes stored; phase_forward (near-ties
+    allowed), phase_full_sequence (transformer_prefill [3, 2048] kernels vs
+    plain, transformer_forward against it), the router at full width
+    (phase_router), a profile of one decode window (eager and replayed) and
+    one prefill chunk; phase_serve's traffic on the bf16 slot cache and on
+    an int8 pool of 161 x 32, whose free count returns to full. Frees the
+    weights; returns the launch counts and stats."""
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import init_params
+    from gofr_tpu_torch.ops.quant import quantized_bytes
+
+    model = "mixtral-8x7b"
+    cfg = get_model(model).config
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev, quant="int8")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        stored = quantized_bytes(params)
+        peak = torch.cuda.max_memory_allocated() - before
+        log(f"params: {model} random int8 weights made on the card a layer at a time in "
+            f"{t_init:.1f} s: {stored} bytes stored; peak memory over the init {peak} "
+            f"bytes ({(peak - stored) / 1e9:.3f} GB over the stored tree); heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.head_dim}, {cfg.n_experts} experts, "
+            f"top {cfg.n_experts_active}")
+        out = {"init_s": t_init, "param_bytes": stored, "peak_bytes": peak,
+               "forward": phase_forward(torch, dev, cfg, params, model=model,
+                                        near_ties=True),
+               "full": phase_full_sequence(torch, dev, model, cfg, params)}
+        phase_router(torch, dev, cfg, params)
+        phase_profile(torch, dev, cfg, params, model="mixtral-8x7b-int8", graph=True)
+    counts, _, stats = phase_serve(torch, dev, params, model=model, tag="int8 weights")
+    out["serve"] = dict(stats, counts=counts)
+    pool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=161)
+    pool_counts, _, pool_stats = phase_serve(torch, dev, params, model=model,
+                                             tag="int8 weights", **pool_kv)
+    out["pool"] = dict(pool_stats, counts=pool_counts, kv=pool_kv)
+    bf16_tok = cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, False)
+    log(f"serve {model}: KV cache bytes a token: {bf16_tok} bf16; " + json.dumps(
+        {run: {k: st[k] for k in ("tok_s", "ttft_p50_ms", "itl_p50_ms", "windows",
+                                   "prefill_dispatches", "syncs", "counts")}
+         for run, st in out.items() if run in ("serve", "pool")}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3898,6 +4448,10 @@ def main() -> None:
     prefix = phase_prefix(torch, dev, cfg, params)
     with torch.inference_mode():
         phase_profile(torch, dev, cfg, params, sampler=True, graph=True)
+    # int8/int4 weights and TPU_CHECKPOINT, on these bf16 weights.
+    quant = phase_quant(torch, dev, cfg, params, base_stats)
+    loader = phase_loader(torch, dev, cfg, params, quant.pop("int8_params"),
+                          quant["int8"]["streams"])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3957,6 +4511,8 @@ def main() -> None:
     del mparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    moe = phase_moe(torch, dev)
 
     families = {model: phase_family(torch, dev, model, pool=pool, full_sequence=full,
                                     max_len=max_len)
@@ -4083,6 +4639,22 @@ def main() -> None:
         # kernel held on tables that alias shared blocks.
         entry["launches_prefix"] = {run: st["counts"][k] for run, st in prefix["runs"].items()}
         entry["prefix_aliased"] = prefix["kernels"][k]
+    # The quantized weights' serves (phase_quant, phase_loader) and
+    # Mixtral-8x7B's (phase_moe): its serves and forward check for the
+    # serving kernels, its full-sequence entry points for flash_attention.
+    for entry in kernels:
+        k = entry["name"]
+        if k == "flash_attention":
+            entry["launches_moe"] = {f"mixtral-8x7b {e}": n for e, n in moe["full"].items()}
+            continue
+        entry["launches_quant"] = {
+            "serve llama-3-8b int8 weights": quant["int8"]["counts"][k],
+            "serve llama-3-8b int4 weights": quant["int4"]["counts"][k],
+            "serve llama-3-8b int8 from TPU_CHECKPOINT": loader["int8"]["counts"][k]}
+        entry["launches_moe"] = {
+            "serve mixtral-8x7b int8 weights, bf16 slot cache": moe["serve"]["counts"][k],
+            "serve mixtral-8x7b int8 weights, int8 pool": moe["pool"]["counts"][k],
+            "mixtral-8x7b forward, bf16 slot cache": moe["forward"]["contiguous"][k]}
     # Every kernel's launches over each family's runs.
     for entry in kernels:
         k = entry["name"]

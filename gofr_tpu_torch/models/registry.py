@@ -2,8 +2,8 @@
 (``_register_llms``), same names and dims.
 
 Every entry is registered so names resolve as in the reference; the
-engine serves the configs ``transformer.check_supported`` accepts (every
-dense family) and raises ``NotImplementedError`` for the others (MoE).
+engine serves every config ``transformer.check_supported`` accepts (every
+dense family, and Mixtral's MoE, which fits one card with int8 weights).
 """
 
 from __future__ import annotations

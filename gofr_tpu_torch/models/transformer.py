@@ -21,8 +21,11 @@ GQA, SwiGLU, optional sliding window), Qwen2 (QKV bias), Gemma (explicit
 head dim, GeGLU, ``(1 + w)`` RMSNorm, ``sqrt(d_model)``-scaled
 embeddings), GPT-NeoX/Pythia (LayerNorm with bias, parallel residual,
 partial rotary, a non-gated MLP, biases on every projection) and GPT-2
-(learned positions instead of RoPE). ``check_supported`` raises
-``NotImplementedError`` for MoE and for a config the kernels refuse.
+(learned positions instead of RoPE). Mixtral's MoE FFN (``_ffn_moe``)
+replaces the dense FFN where ``n_experts > 0``. Every weight product goes
+through ``_wein``, so a weight may be a plain tensor or an int8/int4
+``ops/quant.py`` Q8/Q4. ``check_supported`` raises
+``NotImplementedError`` for a config the kernels refuse.
 """
 
 from __future__ import annotations
@@ -48,6 +51,15 @@ from gofr_tpu_torch.ops.kv_cache import (
     quantize_kv,
 )
 from gofr_tpu_torch.ops.norms import layer_norm, rms_norm
+from gofr_tpu_torch.ops.quant import (
+    QUANT_KEYS,
+    Q4,
+    Q8,
+    dequantize,
+    empty_quantized,
+    quant_fn,
+    quantize_into,
+)
 from gofr_tpu_torch.ops.rotary import rope_at, rope_frequencies, rotate
 
 Rope = tuple[torch.Tensor, torch.Tensor]
@@ -100,16 +112,11 @@ class TransformerConfig:
 def check_supported(cfg: TransformerConfig,
                     device: torch.device | str | None = None) -> None:
     """Raise ``NotImplementedError`` for a config this port does not serve:
-    MoE, a dtype other than bf16/f32, or, unless ``device`` is the CPU
-    (whose plain versions take any shape), an attention shape that one of
-    the three kernels refuses (``ops.attention.kernel_refusal``), so that
-    no config passes here and then raises at its first launch on a card.
+    a dtype other than bf16/f32, or, unless ``device`` is the CPU (whose
+    plain versions take any shape), an attention shape that one of the
+    three kernels refuses (``ops.attention.kernel_refusal``), so that no
+    config passes here and then raises at its first launch on a card.
     ``device`` None is the port's default, the card."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE (n_experts > 0) is not ported: Mixtral-8x7B needs int8 "
-            "weights to fit one card (ROADMAP Queue 1 item 6)"
-        )
     if cfg.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"dtype {cfg.dtype} (bf16 or f32 only)")
     if device is not None and torch.device(device).type == "cpu":
@@ -120,46 +127,73 @@ def check_supported(cfg: TransformerConfig,
 
 
 def init_params(
-    cfg: TransformerConfig, seed: int, device: torch.device | str | None = None
-) -> dict[str, torch.Tensor]:
+    cfg: TransformerConfig, seed: int, device: torch.device | str | None = None,
+    quant: str = "",
+) -> dict:
     """Random parameters made on ``device`` (CUDA unless ``"cpu"``; without
     CUDA that raises) from ``seed`` with a ``torch.Generator`` on that
     device (an 8B model is never built on the host): every leaf the
     reference's ``init_transformer`` makes for ``cfg``, normal with std
-    fan_in**-0.5 for the projections and the learned positions, the norm
-    weights at identity (ones, or zeros where the norm applies ``1 + w``),
-    zeros for every bias."""
+    fan_in**-0.5 for the projections, the MoE router and experts and the
+    learned positions, the norm weights at identity (ones, or zeros where
+    the norm applies ``1 + w``), zeros for every bias.
+
+    With ``quant`` (``"int8"``/``"int4"``, the reference's
+    ``_init_llm_quantized``) every ``QUANT_KEYS`` leaf is made one layer at
+    a time in ``cfg.dtype`` and quantized into its preallocated stacked
+    Q8/Q4, so the peak is the quantized tree plus one layer's slice of one
+    leaf: Mixtral-8x7B would be 93 GB in bf16, its fused gate|up leaf
+    alone 60 GB. A layer-at-a-time quantize is exact (the scales reduce only the
+    contraction axis); the random draws are not those of the plain init."""
     check_supported(cfg, device)
+    if quant:
+        quant_fn(quant)  # the reference's ValueError for any other mode
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    D, H, KV, hd, Fd, L = (
+    D, H, KV, hd, Fd, L, E = (
         cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff,
-        cfg.n_layers,
+        cfg.n_layers, cfg.n_experts,
     )
 
-    def dense(shape: tuple, fan_in: int) -> torch.Tensor:
+    def normal(shape: tuple, fan_in: int) -> torch.Tensor:
         w = torch.empty(shape, dtype=cfg.dtype, device=device)
         return w.normal_(0.0, fan_in**-0.5, generator=gen)
+
+    def dense(name: str, shape: tuple, fan_in: int):
+        if not quant or name not in QUANT_KEYS:
+            return normal(shape, fan_in)
+        out = empty_quantized(quant, shape, device)
+        if len(shape) == 2:  # lm_head: no layer axis
+            quantize_into(out, (), normal(shape, fan_in))
+        else:
+            for layer in range(shape[0]):
+                quantize_into(out, layer, normal(shape[1:], fan_in))
+        return out
 
     def const(shape: tuple, value: float) -> torch.Tensor:
         return torch.full(shape, value, dtype=cfg.dtype, device=device)
 
     norm_w = 0.0 if cfg.norm_offset else 1.0
     params = {
-        "embed": dense((cfg.vocab_size, D), D),
+        "embed": dense("embed", (cfg.vocab_size, D), D),
         "attn_norm": const((L, D), norm_w),
-        "wqkv": dense((L, D, (H + 2 * KV) * hd), D),
-        "wo": dense((L, H * hd, D), H * hd),
+        "wqkv": dense("wqkv", (L, D, (H + 2 * KV) * hd), D),
+        "wo": dense("wo", (L, H * hd, D), H * hd),
         "mlp_norm": const((L, D), norm_w),
     }
-    if cfg.ffn == "mlp":
-        params["w_up"] = dense((L, D, Fd), D)
+    if cfg.is_moe:
+        params["router"] = dense("router", (L, D, E), D)
+        params["w_gate_up"] = dense("w_gate_up", (L, E, D, 2 * Fd), D)
+        params["w_down"] = dense("w_down", (L, E, Fd, D), Fd)
     else:
-        params["w_gate_up"] = dense((L, D, 2 * Fd), D)
-    params["w_down"] = dense((L, Fd, D), Fd)
+        if cfg.ffn == "mlp":
+            params["w_up"] = dense("w_up", (L, D, Fd), D)
+        else:
+            params["w_gate_up"] = dense("w_gate_up", (L, D, 2 * Fd), D)
+        params["w_down"] = dense("w_down", (L, Fd, D), Fd)
     params["final_norm"] = const((D,), norm_w)
-    params["lm_head"] = dense((D, cfg.vocab_size), D)
+    params["lm_head"] = dense("lm_head", (D, cfg.vocab_size), D)
     if cfg.norm == "ln":
         params.update(attn_norm_b=const((L, D), 0.0), mlp_norm_b=const((L, D), 0.0),
                       final_norm_b=const((D,), 0.0))
@@ -169,7 +203,7 @@ def init_params(
     if cfg.attn_bias:
         params["wqkv_b"] = const((L, (H + 2 * KV) * hd), 0.0)
     if cfg.pos_emb == "learned":
-        params["pos_embed"] = dense((cfg.max_len, D), D)
+        params["pos_embed"] = dense("pos_embed", (cfg.max_len, D), D)
     return params
 
 
@@ -232,6 +266,22 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     return x
 
 
+def _wein(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` where the weight may be quantized, the reference's
+    ``_wein``: a Q8 multiplies by its int8 values cast to ``x``'s dtype
+    (exact: |q| <= 127) and applies the f32 column scales to the product
+    (they commute with the contraction), rounding back to ``x``'s dtype; a
+    Q4's group scales do not commute, so it multiplies by the dequantized
+    weight. ``w`` contracts its second-to-last axis and broadcasts as
+    ``torch.matmul`` does (an [E, D, F] expert stack gives [E, N, F]). A
+    plain matrix product (the reference leaves these to XLA)."""
+    if isinstance(w, Q8):
+        return ((x @ w.q.to(x.dtype)) * w.s).to(x.dtype)
+    if isinstance(w, Q4):
+        return x @ dequantize(w, x.dtype)
+    return x @ w
+
+
 def _qkv(
     h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
     cs: Optional[Rope],
@@ -241,7 +291,7 @@ def _qkv(
     rotate in one call with the tables ``cs`` already gathered at the
     step's positions (None: no rotation)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qkv = h @ params["wqkv"][layer]
+    qkv = _wein(h, params["wqkv"][layer])
     bias = _leaf(params, "wqkv_b", layer)
     if bias is not None:
         qkv = qkv + bias
@@ -254,17 +304,48 @@ def _qkv(
 
 def _ffn(h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
     """The FFN on the normed ``h``: gated ``act(h W_gate) * (h W_up)``
-    (SwiGLU, GeGLU), or GPT-NeoX/GPT-2's ``act(h W_up + b) W_down + b``."""
+    (SwiGLU, GeGLU), GPT-NeoX/GPT-2's ``act(h W_up + b) W_down + b``, or
+    the MoE FFN (``_ffn_moe``)."""
+    if cfg.is_moe:
+        return _ffn_moe(h, params, layer, cfg)
     if cfg.ffn == "mlp":
-        u = h @ params["w_up"][layer]
+        u = _wein(h, params["w_up"][layer])
         bias = _leaf(params, "w_up_b", layer)
         if bias is not None:
             u = u + bias
-        out = _act(u, cfg) @ params["w_down"][layer]
+        out = _wein(_act(u, cfg), params["w_down"][layer])
         bias = _leaf(params, "w_down_b", layer)
         return out if bias is None else out + bias
-    gate, up = (h @ params["w_gate_up"][layer]).chunk(2, dim=-1)
-    return (_act(gate, cfg) * up) @ params["w_down"][layer]
+    gate, up = _wein(h, params["w_gate_up"][layer]).chunk(2, dim=-1)
+    return _wein(_act(gate, cfg) * up, params["w_down"][layer])
+
+
+def route(x: torch.Tensor, router, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE router, the reference's: logits ``x @ router`` in the model
+    dtype, then f32; softmax; the top ``k`` renormalised to sum to 1. Ties
+    break as ``jax.lax.top_k`` breaks them, lowest expert first (a stable
+    descending sort; ``torch.topk`` may pick another of equal
+    probabilities, and bf16 logits tie often). x [N, D] → (weights [N, E]
+    f32, zero but at the chosen experts; the chosen experts [N, k])."""
+    probs = torch.softmax(_wein(x, router).float(), dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :k], top_i[:, :k]
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return torch.zeros_like(probs).scatter_(-1, top_i, top_p), top_i
+
+
+def _ffn_moe(h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
+    """Top-k MoE FFN, the reference's dense formulation: every expert
+    computes every token (gate|up fused per expert: [E, N, 2F]),
+    ``act(gate) * up`` then ``w_down`` ([E, N, D]), summed over the experts
+    with the routing weights cast to the activation dtype as one
+    contraction (the products are not rounded one by one). Routing each
+    token to its own experts only is a speed change (ROADMAP Queue 2)."""
+    x = h.reshape(-1, h.shape[-1])
+    weights, _ = route(x, params["router"][layer], cfg.n_experts_active)
+    gate, up = _wein(x, params["w_gate_up"][layer]).chunk(2, dim=-1)
+    out = _wein(_act(gate, cfg) * up, params["w_down"][layer])  # [E, N, D]
+    return torch.einsum("end,ne->nd", out, weights.to(x.dtype)).reshape(h.shape)
 
 
 def _layer(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
@@ -276,7 +357,7 @@ def _layer(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
     h = _norm(x, params, "attn_norm", layer, cfg)
     q, k, v = _qkv(h, params, layer, cfg, cs)
     attn, k, v = attend(q, k, v)
-    attn_out = attn.reshape(*x.shape[:-1], -1) @ params["wo"][layer]
+    attn_out = _wein(attn.reshape(*x.shape[:-1], -1), params["wo"][layer])
     bias = _leaf(params, "wo_b", layer)
     if bias is not None:
         attn_out = attn_out + bias
@@ -288,13 +369,13 @@ def _layer(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
 
 def _logits(x: torch.Tensor, params: dict, cfg: TransformerConfig) -> torch.Tensor:
     """Final norm and ``lm_head``: f32 logits."""
-    return (_norm(x, params, "final_norm", None, cfg) @ params["lm_head"]).float()
+    return _wein(_norm(x, params, "final_norm", None, cfg), params["lm_head"]).float()
 
 
 # Leaves stacked on a leading [L, ...] layer axis (those of the config).
 _LAYER_LEAVES = (
     "attn_norm", "attn_norm_b", "wqkv", "wqkv_b", "wo", "wo_b", "mlp_norm",
-    "mlp_norm_b", "w_gate_up", "w_up", "w_up_b", "w_down", "w_down_b",
+    "mlp_norm_b", "w_gate_up", "w_up", "w_up_b", "w_down", "w_down_b", "router",
 )
 
 
@@ -303,7 +384,8 @@ def _per_layer(params: dict) -> dict:
     views (``p[name][layer]`` reads the same): one ``unbind`` per leaf, so
     autograd stacks a leaf's layer gradients once instead of scattering
     each into a full-size zero tensor."""
-    return {k: v.unbind(0) if k in _LAYER_LEAVES else v for k, v in params.items()}
+    return {k: v.unbind(0) if k in _LAYER_LEAVES and isinstance(v, torch.Tensor) else v
+            for k, v in params.items()}
 
 
 def _layer_prefill(

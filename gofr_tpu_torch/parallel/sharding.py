@@ -27,6 +27,7 @@ from gofr_tpu_torch.models.transformer import (
     init_params,
     transformer_forward,
 )
+from gofr_tpu_torch.ops.quant import is_quantized
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -87,6 +88,7 @@ def loss_and_grads(
     """The step's loss (next-token cross entropy over the full sequence,
     shifted at the loss) and its gradients with respect to ``params``,
     shaped and typed like ``params``."""
+    check_plain_params(params)
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     with torch.enable_grad():
         compute = {k: p.to(cfg.dtype) for k, p in leaves.items()}
@@ -97,13 +99,25 @@ def loss_and_grads(
     return loss.detach(), dict(zip(leaves, grads))
 
 
+def check_plain_params(params: dict) -> None:
+    """Raise ``NotImplementedError`` for a quantized (Q8/Q4) leaf: the
+    quantized weights serve only, as in the reference."""
+    quantized = sorted(k for k, p in params.items() if is_quantized(p))
+    if quantized:
+        raise NotImplementedError(
+            f"training takes plain weights; {', '.join(quantized)} are quantized "
+            "(int8/int4 weights serve only, as in the reference; adapters over a "
+            "quantized base are LoRA, ROADMAP Queue 1 item 6)"
+        )
+
+
 def check_trainable(cfg: TransformerConfig,
                     device: torch.device | str | None = None) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is on the Llama path
     whose training (gradients, steps) is held against the reference:
     RMSNorm, RoPE, GQA, SwiGLU, no biases, optionally Mistral's window.
     The other dense families serve, but their training waits for ROADMAP
-    Queue 1 item 5's training remainder."""
+    Queue 1 item 5's training remainder, and so does MoE."""
     check_supported(cfg, device)
     off = {
         "attn_bias": cfg.attn_bias,
@@ -117,6 +131,7 @@ def check_trainable(cfg: TransformerConfig,
         f"ffn={cfg.ffn!r}": cfg.ffn != "swiglu",
         "proj_bias": cfg.proj_bias,
         f"pos_emb={cfg.pos_emb!r}": cfg.pos_emb != "rope",
+        "MoE (n_experts > 0)": cfg.is_moe,
     }
     missing = [name for name, hit in off.items() if hit]
     if missing:

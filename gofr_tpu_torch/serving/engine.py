@@ -33,7 +33,12 @@ arrays go up through pinned staging buffers without a wait, and each
 window's block comes down into pinned memory behind an event: the only
 host wait of a steady-state window is that event.
 
-Served: bf16 (or f32) weights, the slot cache or the paged block pool
+Served: bf16 (or f32) weights, or int8/int4 weights (``quant``,
+``TPU_QUANT``: ``ops/quant.py``, made quantized a layer at a time, or
+quantized by ``apply_quantization``), random from ``seed`` or loaded from
+``TPU_CHECKPOINT`` (an HF safetensors directory through
+``serving/hf_loader.py``, else a ``serving/checkpoint.py`` file); dense
+and MoE decoders; the slot cache or the paged block pool
 (``kv_block``, ``kv_pool_blocks``), bf16 or int8 K/V (``kv_quant``),
 tp=1; the reference's sampler (temperature, engine-wide ``top_k``,
 per-request ``top_p``, frequency/presence penalties, ``logit_bias``,
@@ -112,6 +117,14 @@ from gofr_tpu_torch.ops.kv_cache import (
     PagedKVCache,
     paged_copy_block,
 )
+from gofr_tpu_torch.ops.quant import (
+    params_quant_mode,
+    quant_fn,
+    quantize_params,
+    quantized_bytes,
+)
+from gofr_tpu_torch.serving.checkpoint import maybe_restore_params
+from gofr_tpu_torch.serving.hf_loader import is_hf_checkpoint, load_hf_llama
 from gofr_tpu_torch.serving.lifecycle import (
     AggregateThroughput,
     CancelToken,
@@ -154,7 +167,6 @@ _LOADERS = "ROADMAP Queue 1 item 6: loaders and device services"
 _ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
 _MULTI = "ROADMAP Queue 1 item 8: multi-device"
 _UNPORTED_KEYS = (
-    ("TPU_CHECKPOINT", "", _LOADERS), ("TPU_QUANT", "", _LOADERS),
     ("TPU_TOKENIZER", "", _LOADERS), ("TPU_HBM_BYTES", "0", _LOADERS),
     ("TPU_ADMIT_MIN_HEADROOM", "0", _LOADERS),
     ("TPU_COMPILE_CACHE_DIR", "", _LOADERS),
@@ -386,8 +398,11 @@ class InferenceEngine:
 
     ``device`` defaults to CUDA (raises without it); pass ``"cpu"`` to run
     the plain versions of the kernels on the host. ``params`` is a port
-    parameter dict (``weights.params_from_jax`` / ``init_params``) on that
-    device; without it weights are made from ``seed`` on the device.
+    parameter dict (``weights.params_from_jax`` / ``init_params``, plain or
+    quantized, read by ``params_quant_mode``) on that device; without it
+    weights are made from ``seed`` on the device. ``quant`` (``"int8"`` /
+    ``"int4"``) makes them quantized a layer at a time, or quantizes the
+    plain ``params`` given, before the scheduler starts (``self.quant``).
 
     The decode loop, as the reference's: ``pipeline_depth`` windows in
     flight (at least 1), ``mega_windows`` k-step windows a dispatch (0 or
@@ -455,6 +470,7 @@ class InferenceEngine:
         expected_tps: float = 0.0,
         tokenizer: Any = None,
         params: Optional[dict] = None,
+        quant: str = "",
         seed: int = 0,
         device: Any = None,
         logger: Any = None,
@@ -560,7 +576,18 @@ class InferenceEngine:
         self._base_seed = self._seed + 2
         self._seed_rng = random.Random(os.urandom(16))
 
-        if params is None:
+        quant = (quant or "").lower()
+        if quant:
+            quant_fn(quant)  # the reference's ValueError, before any weight is made
+        self.quant = ""
+        if params is not None:
+            self.quant = params_quant_mode(params)
+        elif quant:
+            # Made quantized a layer at a time: the bf16 tree of a large
+            # model (Mixtral-8x7B's 93 GB) never exists.
+            params = init_params(self.cfg, self._seed, self.device, quant=quant)
+            self.quant = quant
+        else:
             params = init_params(self.cfg, self._seed, self.device)
         for name, t in params.items():
             if t.device != self.device:
@@ -569,6 +596,8 @@ class InferenceEngine:
                     f"{self.device}"
                 )
         self.params = params
+        if quant and not self.quant:
+            self.apply_quantization(quant)
         cfg = self.cfg
         if self.kv_block:
             self.cache = PagedKVCache.create(
@@ -1068,6 +1097,36 @@ class InferenceEngine:
     def infer_sync(self, inputs: Any, model: str = "", **kw: Any) -> dict:
         return self._infer_dict(self.generate_sync(inputs, **kw))
 
+    # -- weights ----------------------------------------------------------
+
+    def apply_quantization(self, mode: str) -> None:
+        """Quantize the weights in place, the reference's: int8 or int4, only
+        while the scheduler does not run (the constructor calls it before it
+        starts the scheduler; later, after ``stop_sync``). A no-op for ""
+        and for the mode the weights already have. The decode programs
+        captured from the old weights are dropped and captured again at the
+        next start."""
+        mode = (mode or "").lower()
+        if not mode:
+            return
+        if self.quant:
+            if self.quant == mode:
+                return
+            raise RuntimeError(
+                f"params already quantized as {self.quant!r}; cannot "
+                f"re-quantize as {mode!r}"
+            )
+        quant_fn(mode)  # the reference's ValueError for any other mode
+        if getattr(self, "_running", False):  # the constructor calls this first
+            raise RuntimeError("quantize before starting the engine")
+        self.params = quantize_params(self.params, mode)
+        self.quant = mode
+        self._graphs = None
+
+    def param_bytes(self) -> int:
+        """Parameter bytes as stored (``ops.quant.quantized_bytes``)."""
+        return quantized_bytes(self.params)
+
     # -- lifecycle (the reference's start/stop and drain semantics) --------
 
     async def start(self) -> None:
@@ -1200,7 +1259,11 @@ class InferenceEngine:
         ``TPU_DEVICE`` (``cuda``, ``cuda:N`` or ``cpu``; unset = ``cuda``)
         is the port's own key. A key of a feature the port does not serve
         yet raises ``NotImplementedError`` unless it holds the reference's
-        default (``check_unported_keys``). ``TPU_SPEC_TOKENS`` is resolved
+        default (``check_unported_keys``). ``TPU_CHECKPOINT`` and
+        ``TPU_QUANT`` in the reference's order: an HF directory loads
+        through ``load_hf_llama`` with the quant mode; anything else is
+        restored by ``maybe_restore_params`` over the seed-0 weights, then
+        quantized. ``TPU_SPEC_TOKENS`` is resolved
         by ``resolve_spec_tokens`` before the constructor, with the
         device's type as the backend (so ``auto`` is 0 here); its note
         goes to ``logger``."""
@@ -1218,9 +1281,25 @@ class InferenceEngine:
         )
         if spec_note and logger is not None:
             logger.infof("%s", spec_note)
+        model_name = config.get_or_default("TPU_MODEL", "llama-tiny")
+        quant = config.get_or_default("TPU_QUANT", "")
+        params = None
+        ckpt = config.get_or_default("TPU_CHECKPOINT", "")
+        if ckpt:
+            cfg = get_model(model_name).config
+            if is_hf_checkpoint(ckpt):
+                # Real weights, quantized on the device a layer at a time
+                # as they land: the bf16 tree never exists whole.
+                params = load_hf_llama(ckpt, cfg, quant=quant, logger=logger,
+                                       device=device)
+            else:
+                # A checkpoint file over the seed-0 weights (kept if the
+                # restore fails, as the reference); TPU_QUANT then
+                # quantizes it in the constructor.
+                params = maybe_restore_params(config, init_params(cfg, 0, device), logger)
 
         return cls(
-            config.get_or_default("TPU_MODEL", "llama-tiny"),
+            model_name,
             n_slots=num("TPU_KV_SLOTS", "8"),
             max_len=num("TPU_MAX_LEN", "1024"),
             window_k=num("TPU_DECODE_WINDOW", "8"),
@@ -1251,6 +1330,8 @@ class InferenceEngine:
             tenant_queue_max=num("TPU_TENANT_QUEUE_MAX", "0"),
             tenant_slo_class=config.get_or_default("TPU_TENANT_SLO_CLASS", ""),
             expected_tps=num("TPU_EXPECTED_TPS", "0", float),
+            params=params,
+            quant=quant,
             device=device,
             logger=logger,
             metrics=metrics,

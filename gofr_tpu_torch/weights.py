@@ -16,6 +16,7 @@ from gofr_tpu_torch.models.transformer import (
     init_params,
 )
 from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
+from gofr_tpu_torch.ops.quant import Q4, Q8, is_quantized
 
 __all__ = ["init_params", "kv_cache_from_jax", "params_from_jax",
            "params_to_reference"]
@@ -35,17 +36,24 @@ def params_from_jax(
     """The reference's ``init_transformer`` pytree (leaves as numpy arrays,
     layer leaves stacked ``[L, ...]``) → the port's parameter dict, with
     Q/K/V (and Qwen2's Q/K/V biases) and gate/up concatenated along their
-    output axis (a non-gated MLP keeps ``w_up`` alone), the norm and
+    output axis (a non-gated MLP keeps ``w_up`` alone; MoE fuses gate/up
+    per expert, ``[L, E, D, 2F]``, and keeps its ``router``), the norm and
     projection biases and GPT-2's position table as they are, in
     ``dtype`` (default ``cfg.dtype``; ``torch.float32`` brings f32 master
-    params over unrounded). The tensors go to CUDA unless
-    ``device="cpu"``; without CUDA that raises."""
+    params over unrounded). The reference's quantized leaves (Q8/Q4 with
+    numpy ``q`` and ``s``) become the port's, fused the same way along the
+    output axis of both ``q`` and ``s``, bit for bit. The tensors go to
+    CUDA unless ``device="cpu"``; without CUDA that raises."""
     check_supported(cfg, device)
     device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
     lp = np_params["layers"]
 
-    def t(a: Any) -> torch.Tensor:
+    def t(a: Any):
+        if hasattr(a, "q") and hasattr(a, "s"):  # the reference's Q8 / Q4
+            q = torch.from_numpy(np.array(a.q)).to(device)
+            s = torch.from_numpy(np.array(a.s, dtype=np.float32)).to(device)
+            return (Q4 if q.dtype == torch.uint8 else Q8)(q, s)
         # Through f32: exact for bf16 and f32 leaves, and numpy has no bf16.
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=device, dtype=dtype
@@ -54,14 +62,16 @@ def params_from_jax(
     params = {
         "embed": t(np_params["embed"]),
         "attn_norm": t(lp["attn_norm"]),
-        "wqkv": torch.cat([t(lp["wq"]), t(lp["wk"]), t(lp["wv"])], dim=-1),
+        "wqkv": _cat([t(lp["wq"]), t(lp["wk"]), t(lp["wv"])]),
         "wo": t(lp["wo"]),
         "mlp_norm": t(lp["mlp_norm"]),
     }
-    if cfg.ffn == "mlp":
+    if cfg.is_moe:
+        params["router"] = t(lp["router"])
+    if cfg.ffn == "mlp" and not cfg.is_moe:
         params["w_up"] = t(lp["w_up"])
     else:
-        params["w_gate_up"] = torch.cat([t(lp["w_gate"]), t(lp["w_up"])], dim=-1)
+        params["w_gate_up"] = _cat([t(lp["w_gate"]), t(lp["w_up"])])
     params.update(
         w_down=t(lp["w_down"]), final_norm=t(np_params["final_norm"]),
         lm_head=t(np_params["lm_head"]),
@@ -77,14 +87,18 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     """The inverse of ``params_from_jax``: a port parameter dict (or a dict
     of its gradients) → the reference pytree layout, ``wqkv`` split into
     ``wq/wk/wv`` (``wqkv_b`` into ``wq_b/wk_b/wv_b``) and ``w_gate_up``
-    into ``w_gate/w_up``, leaves as f32 numpy arrays on the host."""
+    into ``w_gate/w_up``, leaves as f32 numpy arrays on the host; a
+    quantized leaf stays a Q8/Q4 of numpy ``q`` (int8/uint8) and ``s``
+    (f32), split the same way."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qkv = [H * hd, KV * hd, KV * hd]
 
-    def n(t: torch.Tensor) -> np.ndarray:
+    def n(t):
+        if is_quantized(t):
+            return type(t)(t.q.cpu().numpy(), t.s.cpu().numpy())
         return t.detach().float().cpu().numpy()
 
-    wq, wk, wv = params["wqkv"].split(qkv, dim=-1)
+    wq, wk, wv = _split(params["wqkv"], qkv)
     layers = {
         "wq": n(wq), "wk": n(wk), "wv": n(wv), "wo": n(params["wo"]),
         "attn_norm": n(params["attn_norm"]),
@@ -92,10 +106,13 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
         "w_down": n(params["w_down"]),
     }
     if "w_gate_up" in params:
-        w_gate, w_up = params["w_gate_up"].chunk(2, dim=-1)
+        half = params["w_gate_up"].shape[-1] // 2
+        w_gate, w_up = _split(params["w_gate_up"], [half, half])
         layers.update(w_gate=n(w_gate), w_up=n(w_up))
     else:
         layers["w_up"] = n(params["w_up"])
+    if "router" in params:
+        layers["router"] = n(params["router"])
     if "wqkv_b" in params:
         bq, bk, bv = params["wqkv_b"].split(qkv, dim=-1)
         layers.update(wq_b=n(bq), wk_b=n(bk), wv_b=n(bv))
@@ -108,6 +125,23 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     }
     out.update({k: n(params[k]) for k in _TOP_EXTRAS if k in params})
     return out
+
+
+def _cat(leaves: list):
+    """Plain or quantized leaves concatenated along the output axis (a
+    quantized leaf's ``q`` and ``s`` both end in it)."""
+    if is_quantized(leaves[0]):
+        return type(leaves[0])(torch.cat([w.q for w in leaves], dim=-1),
+                               torch.cat([w.s for w in leaves], dim=-1))
+    return torch.cat(leaves, dim=-1)
+
+
+def _split(w, sizes: list) -> list:
+    """The inverse of ``_cat``: ``w`` split along the output axis."""
+    if is_quantized(w):
+        return [type(w)(q, s) for q, s in zip(w.q.split(sizes, dim=-1),
+                                              w.s.split(sizes, dim=-1))]
+    return list(w.split(sizes, dim=-1))
 
 
 def _from_numpy(a: Any, device: torch.device) -> torch.Tensor:

@@ -288,8 +288,10 @@ def test_unported_options_raise(engine, jax_params):
         InferenceEngine(MODEL, device="cpu", auto_prefix=True)
     assert str(got.value) == str(want.value)
     assert "TPU_KV_BLOCK" in str(got.value)
-    with pytest.raises(NotImplementedError):  # MoE: refused before any weights are made
-        InferenceEngine("mixtral-8x7b", device="cpu")
+    # An unknown quant mode is the reference's ValueError, raised before any
+    # weight is made (here Mixtral-8x7B's 46.7 B).
+    with pytest.raises(ValueError, match="unsupported quant mode 'int3'"):
+        InferenceEngine("mixtral-8x7b", device="cpu", quant="int3")
 
 
 def _non_neutral(name, default):

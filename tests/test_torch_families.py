@@ -154,14 +154,17 @@ def test_embeddings_match_reference_exactly(name, dtype):
 def test_kernel_shapes_are_refused_for_a_card_only(fields, why):
     """A shape no kernel takes passes on the CPU (the plain versions take
     any) and is refused for a card, naming the kernel, so it never reaches
-    a launch; MoE is refused everywhere."""
+    a launch; MoE at the same shape is refused alike, and at a shape the
+    kernels take it passes everywhere."""
     cfg = dataclasses.replace(get_model("llama-tiny").config, **fields)
+    moe = dataclasses.replace(get_model("moe-tiny").config, **fields)
     check_supported(cfg, "cpu")
+    check_supported(moe, "cpu")
     for device in (None, "cuda"):
-        with pytest.raises(NotImplementedError, match=why.split()[-1]):
-            check_supported(cfg, device)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        check_supported(get_model("moe-tiny").config, "cpu")
+        for c in (cfg, moe):
+            with pytest.raises(NotImplementedError, match=why.split()[-1]):
+                check_supported(c, device)
+        check_supported(get_model("moe-tiny").config, device)
 
 
 @pytest.mark.parametrize("name,dtype", CASES)

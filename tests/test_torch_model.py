@@ -419,8 +419,13 @@ def test_every_supported_config_has_cuda_kernels():
 
 @pytest.mark.parametrize("name", ["mixtral-8x7b", "moe-tiny"])
 def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        check_supported(get_model(name).config)
+    """MoE serves (check_supported takes it) and its training is not
+    ported: make_train_step refuses it naming its ROADMAP item."""
+    from gofr_tpu_torch.parallel.sharding import make_train_step
+
+    check_supported(get_model(name).config)
+    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP Queue 1 item 5"):
+        make_train_step(get_model(name).config, device="cpu")
 
 
 def test_mistral_7b_is_supported_and_params_cross_over():
