@@ -2282,6 +2282,8 @@ def phase_serve(torch, dev, params, *, model: str = "llama-3-8b", n_slots: int =
         stats = serve_stats(reqs, wall)
         stats.update(windows=windows, mega_dispatches=megas, prefill_dispatches=prefills,
                      syncs=syncs, counts=counts)
+        if eng._graphs is not None:
+            stats["capture_s"] = sum(eng._graphs.capture_s.values())
         if eng.spec_tokens:
             tokens, steps = seen["spec"]
             stats["tokens_per_step"] = tokens / max(steps, 1)
@@ -2520,20 +2522,24 @@ def phase_serve_options(torch, dev, params, base: list, base_stats: dict, **kv) 
         eng.close()
 
 
-def first_difference(torch, cfg, params, prompt: list, want: list, got: list) -> dict | None:
+def first_difference(torch, cfg, params, prompt: list, want: list, got: list,
+                     aid: int = 0) -> dict | None:
     """Where a greedy stream ``got`` leaves ``want`` (None if it does not):
     the step, the two tokens and the top-2 logit margin there, from the
     plain forward over the prompt and the common prefix (a near-tie below
     NEAR_TIE is accepted as reduction order, anything else is a state
-    hazard)."""
+    hazard); ``aid``: the forward runs under that LoRA adapter slot of
+    ``params``."""
     from gofr_tpu_torch.models.transformer import transformer_forward
 
     step = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
     if step is None:
         return None if len(want) == len(got) else {"step": min(len(want), len(got)),
                                                    "margin": float("inf")}
-    ids = torch.tensor([prompt + want[:step]], device=params["embed"].device)
-    logits = transformer_forward(params, ids, cfg)[0, -1].float()
+    dev = params["embed"].device
+    ids = torch.tensor([prompt + want[:step]], device=dev)
+    aids = torch.tensor([aid], device=dev) if aid else None
+    logits = transformer_forward(params, ids, cfg, aids=aids)[0, -1].float()
     top = torch.topk(logits, 2).values
     return {"step": step, "want": want[step], "got": got[step],
             "margin": float(top[0] - top[1])}
@@ -2773,17 +2779,19 @@ SPEC_PROMPTS = tuple([ord(ch) for ch in ("abcdefgh"[i % 4:] + "abcdefgh" * 12)[:
 
 
 def check_streams(torch, cfg, params, label: str, prompts: list, want: list, got: list,
-                  greedy: list) -> None:
+                  greedy: list, aids: list | None = None) -> None:
     """``got`` must equal ``want`` stream for stream: a greedy stream may
     leave it only at a top-2 logit margin below NEAR_TIE (reduction order,
-    from the plain forward), a sampled one not at all. Logs how many
-    streams were equal bit for bit."""
+    from the plain forward, under request i's LoRA adapter slot
+    ``aids[i]``), a sampled one not at all. Logs how many streams were
+    equal bit for bit."""
     for i, (a, b) in enumerate(zip(want, got)):
         if a == b:
             continue
         if not greedy[i]:
             fail(f"{label}: sampled request {i} differs from the baseline stream")
-        diff = first_difference(torch, cfg, params, prompts[i], a, b)
+        diff = first_difference(torch, cfg, params, prompts[i], a, b,
+                                aid=aids[i] if aids else 0)
         log(f"{label}: request {i} leaves the baseline stream: {diff}")
         if diff["margin"] >= NEAR_TIE:
             fail(f"{label}: request {i} differs from the baseline stream at a top-2 margin "
@@ -4276,6 +4284,527 @@ def phase_loader(torch, dev, cfg, params, q8: dict, q8_streams: list) -> dict:
     return out
 
 
+# Multi-LoRA: Llama-3-8B with 3 adapter slots of rank 16 on all
+# seven targets; each delta about LORA_SCALE of its base product.
+LORA_SLOTS, LORA_RANK, LORA_SCALE = 3, 16, 0.2
+# The PEFT adapter: r 8, lora_alpha 16, this layer left out.
+LORA_PEFT_R, LORA_PEFT_ALPHA, LORA_PEFT_SKIP = 8, 16.0, 5
+# Adapter of request i: round robin over the base and the three adapters.
+LORA_NAMES = ("", "peft", "r2", "r3")
+
+
+def lora_factors(torch, cfg, seed: int, dev, rank: int = LORA_RANK,
+                 scale: float = LORA_SCALE) -> dict:
+    """``load_lora``'s raw dict over all seven targets, f32 on ``dev``: a ~
+    N(0, 1/d_in) and b ~ N(0, scale^2/r), so for a unit-rms input ``x a``
+    has unit entries and the delta ``(x a) b`` entries of about ``scale``
+    (a base product's are about 1)."""
+    from gofr_tpu_torch.models.transformer import LORA_TARGETS, lora_dims
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for t in LORA_TARGETS:
+        d_in, d_out = lora_dims(cfg, t)
+        out[t] = (torch.randn((cfg.n_layers, d_in, rank), generator=gen, device=dev)
+                  * d_in**-0.5,
+                  torch.randn((cfg.n_layers, rank, d_out), generator=gen, device=dev)
+                  * (scale / rank**0.5))
+    return out
+
+
+def write_peft_adapter(torch, path: str, cfg, seed: int, dev) -> int:
+    """An HF PEFT adapter directory: adapter_config.json (r LORA_PEFT_R,
+    lora_alpha LORA_PEFT_ALPHA, the seven modules) and one safetensors
+    file (``write_safetensors``) of f32 ``lora_A`` [r, d_in] and ``lora_B``
+    [d_out, r] under PEFT's names for every layer but LORA_PEFT_SKIP, sized
+    as ``lora_factors``' once alpha / r is folded in. Returns its bytes."""
+    import os
+
+    from gofr_tpu_torch.serving.lora import _HF_MODULE, PEFT_TARGET_MAP
+
+    r = LORA_PEFT_R
+    fac = lora_factors(torch, cfg, seed, dev, rank=r,
+                       scale=LORA_SCALE * r / LORA_PEFT_ALPHA)
+    tensors = {}
+    for t, (a, b) in fac.items():
+        for i in range(cfg.n_layers):
+            if i == LORA_PEFT_SKIP:
+                continue
+            pre = f"base_model.model.model.layers.{i}.{_HF_MODULE[t]}"
+            tensors[pre + ".lora_A.weight"] = a[i].t().contiguous()
+            tensors[pre + ".lora_B.weight"] = b[i].t().contiguous()
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": r, "lora_alpha": LORA_PEFT_ALPHA,
+                   "target_modules": sorted(PEFT_TARGET_MAP)}, f)
+    return write_safetensors(os.path.join(path, "adapter_model.safetensors"), tensors)
+
+
+def serve_adapters(torch, eng, label: str, prompts: list, kws: list, names: list) -> dict:
+    """Every request at once (request i on adapter ``names[i]``, "" the
+    base) through a started engine, counted as phase_serve counts: the
+    kernels' launches (reset just before), stream syncs (none allowed),
+    each request finished (its budget or EOS) with finite logprobs, both
+    serving kernels launched. Returns the streams, stats and counts."""
+    import numpy as np
+
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    seen = watch_steps(eng)
+    count_syncs(torch, True)
+    t0 = time.perf_counter()
+    reqs = [eng.submit_generate(p, adapter=nm, **kw) for p, kw, nm in zip(prompts, kws, names)]
+    results = [r.future.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    syncs = count_syncs(torch, False)
+    unwatch_steps(eng)
+    counts = launch_counts()
+    if syncs:
+        fail(f"{label}: {syncs} stream synchronizations in the run; the first at\n"
+             + "\n".join(SYNCS["first"]))
+    eos = eng.tokenizer.eos_id
+    for i, (kw, res) in enumerate(zip(kws, results)):
+        m = len(res.token_ids)
+        if not (m == kw["max_new_tokens"] or res.token_ids[-1] == eos):
+            fail(f"{label}: request {i} ended with {m} tokens ({res.finish_reason})")
+        if not np.all(np.isfinite(res.token_logprobs)):
+            fail(f"{label}: request {i} has non-finite logprobs")
+    for name in ("flash_decode", "flash_cache_attention"):
+        if counts[name] <= 0:
+            fail(f"{label}: kernel {name} was not launched on the main path")
+    stats = serve_stats(reqs, wall)
+    stats.update(counts=counts, syncs=syncs)
+    log(f"{label}: {len(reqs)} requests on adapters {list(names)} in {wall:.3f} s: "
+        f"{stats['tok_s']:.1f} tok/s, TTFT p50 {stats['ttft_p50_ms']:.1f} ms, ITL p50 "
+        f"{stats['itl_p50_ms']:.2f} ms, {syncs} stream syncs; {steps_line(seen)}; "
+        f"launch counts {counts}")
+    return {"streams": [r.token_ids for r in results], "stats": stats, "counts": counts}
+
+
+def lora_kernels_vs_plain(torch, dev, cfg, params, aids_l: list) -> dict:
+    """The three kernels with the adapter plane present, against the plain
+    path on the same adapters: transformer_forward [4, 512] (rows on
+    adapters ``aids_l``), then phase_forward's chunk (8 x 256, 7 live
+    rows) and two decode steps on a bf16 slot cache with each slot on
+    adapter ``aids_l[slot % 4]``, kernels vs dense_attn; FORWARD_DLOGITS_TOL
+    with the near-tie rule. Returns each run's launch counts."""
+    from gofr_tpu_torch.models.transformer import (
+        decode_step, prefill_chunk, rope_tables, transformer_forward)
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.ops.kv_cache import KVCache
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    counts = {}
+    aids = torch.tensor(aids_l, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen, device=dev)
+    reset_launch_counts()
+    kern = transformer_forward(params, tokens, cfg, aids=aids)
+    torch.cuda.synchronize()
+    counts["transformer_forward [4, 512]"] = launch_counts()
+    plain = transformer_forward(params, tokens, cfg, aids=aids, dense_attn=True)
+    d = (kern - plain).abs().max().item()
+    pick = kern.argmax(-1)
+    gap = (plain.max(-1).values - plain.gather(-1, pick[..., None])[..., 0]).max().item()
+    log(f"lora: transformer_forward [4, 512] on adapter slots {aids_l}, kernels vs plain: "
+        f"max|dlogits| {d:.4g} (limit {FORWARD_DLOGITS_TOL}), largest top-1 gap {gap:.4g}")
+    if not (torch.isfinite(kern).all() and d <= FORWARD_DLOGITS_TOL
+            and gap <= FORWARD_DLOGITS_TOL):
+        fail("lora: transformer_forward with adapters: kernels and plain path disagree")
+    del kern, plain
+
+    S, max_len, P, c = 8, 2048, 8, 256
+    rope = rope_tables(cfg, max_len, dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (P, c), generator=gen, device=dev)
+    chunk[P - 1] = chunk[0]
+    slots = torch.tensor([0, 1, 2, 3, 4, 5, 6, 0], **i32)
+    starts = torch.zeros((P,), **i32)
+    lens = torch.tensor([256, 256, 100, 1, 200, 256, 50, 256], **i32)
+    active = torch.tensor([True] * 7 + [False], device=dev)
+    plane = torch.tensor([aids_l[i % len(aids_l)] for i in range(S)], device=dev)
+    steps = [torch.randint(0, cfg.vocab_size, (S,), generator=gen, device=dev)
+             for _ in range(2)]
+
+    def run(dense: bool) -> list:
+        cache = KVCache.create(cfg.n_layers, S, max_len, cfg.n_kv_heads, cfg.head_dim,
+                               dtype=cfg.dtype, device=dev)
+        out = [prefill_chunk(params, chunk, cache, slots, starts, lens, cfg, rope=rope,
+                             dense_attn=dense, aids=plane[slots.long()])[:7]]
+        cache.lengths[:7] = lens[:7]
+        for st in steps:
+            out.append(decode_step(params, st, cache, active, cfg, rope=rope,
+                                   dense_attn=dense, aids=plane)[:7])
+        torch.cuda.synchronize()
+        return out
+
+    reset_launch_counts()
+    got = run(False)
+    counts["chunk and two decode steps"] = launch_counts()
+    compare_logits("lora adapters, kernels vs plain", got, run(True), FORWARD_DLOGITS_TOL,
+                   near_ties=True)
+    for run_name, cnt in counts.items():
+        want = ("flash_attention",) if run_name.startswith("transformer") else (
+            "flash_cache_attention", "flash_decode")
+        if any(cnt[k] <= 0 for k in want):
+            fail(f"lora: {run_name} did not launch {want}: {cnt}")
+    return counts
+
+
+def phase_lora(torch, dev, cfg, params, base: list) -> dict:
+    """Multi-LoRA on Llama-3-8B's bf16 ``params`` at phase_serve's geometry
+    (8 slots, max_len 2048, chunk 8 x 256, k 8, depth 2, CUDA graphs),
+    LORA_SLOTS slots of rank LORA_RANK on all seven targets. The engine is
+    built by ``from_config`` (its seed-0 weights equal ``params`` bit for
+    bit), with TPU_LORA_ADAPTERS loading a PEFT directory written here
+    (r 8, alpha 16, layer LORA_PEFT_SKIP left out; its leaves must equal
+    ``load_peft_adapter``'s in bf16, that layer zero) after the decode
+    graphs were captured; two raw adapters follow (``lora_factors``).
+    Checks, each failing the run:
+    1. phase_serve's 10 requests on the base through the LoRA engine equal
+       ``base`` (phase_serve's streams) bit for bit, or leave them only at
+       a near-tie; slot 0's leaves are exactly 0.
+    2. The 10 requests spread over base and the three adapters in one
+       batch: each stream equals the request served alone on its adapter
+       (near-tie rule); each adapter's greedy stream leaves the base's.
+    3. The kernels with the adapter plane against the plain path
+       (``lora_kernels_vs_plain``).
+    4. An adapter loaded after the capture changes the replayed windows'
+       tokens: each token within FORWARD_DLOGITS_TOL (kernels vs plain) of
+       the top logit of the plain forward under the adapter, and some
+       replayed token beyond it under the base; with the slot zeroed
+       they are the base's again.
+    5. A reload while requests on that adapter decode fails them with the
+       reference's message and leaves the other streams as they were
+       alone; on a bf16 pool with auto_prefix, a prompt cached under an
+       adapter is dropped on unload (cached blocks before and after) and
+       a fresh adapter in that slot does not hit it.
+    6. The A/B: lora_slots = 0 (phase_serve, this call) against the LoRA
+       engine on the base traffic and on the mixed batch: tok/s, TTFT
+       p50, ITL p50, launches, capture time, the leaves' bytes.
+    Returns the launch counts of each run."""
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.config import MockConfig
+    from gofr_tpu_torch.models.transformer import LORA_TARGETS, transformer_forward
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+    from gofr_tpu_torch.serving.lora import load_peft_adapter
+
+    prompts = serve_prompts(cfg.vocab_size)
+    n = len(prompts)
+    kws = [dict(max_new_tokens=32)] * n
+    kws[n - 2:] = [dict(max_new_tokens=32, temperature=0.8, seed=4242)] * 2
+    greedy = [True] * (n - 2) + [False] * 2
+    targets = ",".join(LORA_TARGETS)
+    counts = {}
+
+    # 6, side A: the same traffic with no adapter slots, in this call.
+    off_counts, off_streams, off_stats = phase_serve(torch, dev, params,
+                                                     tag="lora_slots=0 (the A/B's A)")
+    counts["serve lora_slots=0"] = off_counts
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_peft_")
+    try:
+        nbytes = write_peft_adapter(torch, d, cfg, 1, dev)
+        t0 = time.perf_counter()
+        eng = InferenceEngine.from_config(MockConfig({
+            "TPU_MODEL": "llama-3-8b", "TPU_DEVICE": str(dev), "TPU_KV_SLOTS": "8",
+            "TPU_MAX_LEN": "2048", "TPU_DECODE_WINDOW": "8", "TPU_PREFILL_CHUNK": "256",
+            "TPU_PREFILL_BATCH": "8", "TPU_LORA_SLOTS": str(LORA_SLOTS),
+            "TPU_LORA_RANK": str(LORA_RANK), "TPU_LORA_TARGETS": targets,
+            "TPU_LORA_ADAPTERS": f"peft={d}"}))
+        torch.cuda.synchronize()
+        t_boot = time.perf_counter() - t0
+        peft = load_peft_adapter(d, cfg, LORA_RANK, LORA_TARGETS)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    label = "lora engine"
+    try:
+        if eng.lora_names() != ["peft"] or eng._graphs is None:
+            fail(f"{label}: from_config loaded {eng.lora_names()}, graphs "
+                 f"{'captured' if eng._graphs is not None else 'absent'}")
+        same_params(torch, {k: v for k, v in eng.params.items() if "_lora_" not in k},
+                    params, f"{label}: from_config's seed-0 weights")
+        for t, (a, b) in peft.items():
+            for got, want in ((eng.params[t + "_lora_a"][:, 1], a),
+                              (eng.params[t + "_lora_b"][:, 1], b)):
+                if not torch.equal(got, want.to(device=dev, dtype=cfg.dtype)):
+                    fail(f"{label}: the PEFT adapter's {t} leaf differs from "
+                         "load_peft_adapter's in bf16")
+            if eng.params[t + "_lora_a"][LORA_PEFT_SKIP, 1].any():
+                fail(f"{label}: layer {LORA_PEFT_SKIP}, left out by the adapter, is not zero")
+        raws = {name: lora_factors(torch, cfg, seed, dev) for name, seed in (("r2", 2),
+                                                                            ("r3", 3))}
+        for name, lv in raws.items():
+            eng.load_lora(name, lv)
+        aid = {name: eng._lora_names[name] if name else 0 for name in LORA_NAMES}
+        leaves = {k: v for k, v in eng.params.items() if "_lora_" in k}
+        leaf_bytes = sum(v.numel() * v.element_size() for v in leaves.values())
+        ptrs = {k: v.data_ptr() for k, v in leaves.items()}
+        if any(v[:, 0].any() for v in leaves.values()):
+            fail(f"{label}: adapter slot 0 (the base) is not exactly zero")
+        capture_s = sum(eng._graphs.capture_s.values())
+        log(f"{label}: from_config with TPU_LORA_ADAPTERS in {t_boot:.1f} s (seed-0 weights, "
+            f"graph capture {capture_s:.2f} s, the PEFT directory's {nbytes} bytes), adapter "
+            f"slots {aid}; the PEFT leaves equal load_peft_adapter's in bf16, layer "
+            f"{LORA_PEFT_SKIP} zero; {len(leaves)} leaves of [L, {1 + LORA_SLOTS}, ., "
+            f"{LORA_RANK}]: {leaf_bytes} bytes ({leaf_bytes / (1 + LORA_SLOTS) / 1e6:.1f} MB "
+            "an adapter)")
+        eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)  # warm-up
+
+        # 1. Base rows unchanged.
+        on_base = serve_adapters(torch, eng, f"{label} (1) all base", prompts, kws, [""] * n)
+        check_streams(torch, cfg, params, f"{label} (1) base rows vs phase_serve", prompts,
+                      base, on_base["streams"], greedy)
+        counts["serve base on the LoRA engine"] = on_base["counts"]
+
+        # 2. Batch isolation.
+        names = [LORA_NAMES[i % len(LORA_NAMES)] for i in range(n)]
+        mixed = serve_adapters(torch, eng, f"{label} (2) mixed", prompts, kws, names)
+        counts["serve mixed"] = mixed["counts"]
+        solo = [eng.generate_sync(p, adapter=nm, timeout=600, **kw).token_ids
+                for p, kw, nm in zip(prompts, kws, names)]
+        check_streams(torch, cfg, eng.params, f"{label} (2) mixed batch vs alone", prompts,
+                      solo, mixed["streams"], greedy, [aid[nm] for nm in names])
+        for i, nm in enumerate(names):
+            if nm and greedy[i] and solo[i] == base[i]:
+                fail(f"{label} (2): request {i} on adapter {nm} equals the base stream")
+        log(f"{label} (2): every adapter's greedy stream leaves the base's, at steps "
+            + json.dumps({i: next((j for j, (x, y) in enumerate(zip(solo[i], base[i]))
+                                   if x != y), None)
+                          for i, nm in enumerate(names) if nm and greedy[i]}))
+
+        # 3. Kernels against plain with the adapter plane.
+        with torch.inference_mode():
+            counts.update(lora_kernels_vs_plain(torch, dev, cfg, eng.params,
+                                                [aid[nm] for nm in LORA_NAMES]))
+
+        # 4. Load after capture, then the slot zeroed.
+        prompt, late = prompts[3], lora_factors(torch, cfg, 4, dev)
+        eng.unload_lora("r3")
+        slot = eng.load_lora("late", late)
+        got = eng.generate_sync(prompt, adapter="late", max_new_tokens=32, timeout=600).token_ids
+        if got == base[3]:
+            fail(f"{label} (4): an adapter loaded after the capture left the replayed "
+                 "windows' tokens as the base's")
+        with torch.inference_mode():
+            ids = torch.tensor([prompt + got[:-1]], device=dev)
+            picked = torch.tensor(got, device=dev)[:, None]
+            short = {}
+            for who, a in (("adapter", slot), ("base", 0)):
+                pos = transformer_forward(eng.params, ids, cfg, dense_attn=True,
+                                          aids=torch.tensor([a], device=dev))[0, len(prompt) - 1:]
+                short[who] = (pos.max(-1).values - pos.gather(-1, picked)[:, 0]).float()
+        log(f"{label} (4): an adapter loaded into slot {slot} after the capture: the stream "
+            f"leaves the base's at step "
+            f"{next((j for j, (x, y) in enumerate(zip(got, base[3])) if x != y), None)}; each "
+            "token's shortfall from the plain forward's top logit at its position (the first "
+            "from the eager prefill, the rest from replayed windows): under the adapter "
+            f"{int((short['adapter'] > 0).sum())} of {len(got)} tokens below the top, the "
+            f"largest by {short['adapter'].max().item():.4g} (limit {FORWARD_DLOGITS_TOL}, "
+            "kernels vs plain); under the base, the replayed tokens' largest "
+            f"{short['base'][1:].max().item():.4g}")
+        if short["adapter"].max().item() > FORWARD_DLOGITS_TOL:
+            fail(f"{label} (4): a replayed token is not the adapter's greedy pick within the "
+                 "kernels-vs-plain limit")
+        if short["base"][1:].max().item() <= FORWARD_DLOGITS_TOL:
+            fail(f"{label} (4): every replayed token is also the base's pick: the windows may "
+                 "not read the adapter written after the capture")
+        eng.unload_lora("late")
+        zero = {t: (torch.zeros_like(a), torch.zeros_like(b)) for t, (a, b) in late.items()}
+        eng.load_lora("late", zero)
+        again = eng.generate_sync(prompt, adapter="late", max_new_tokens=32,
+                                  timeout=600).token_ids
+        check_streams(torch, cfg, params, f"{label} (4) the zeroed slot vs the base", [prompt],
+                      [base[3]], [again], [True])
+        eng.unload_lora("late")
+        eng.load_lora("r3", raws["r3"])
+
+        # 5. Reload while serving.
+        long_kws = [dict(kw, max_new_tokens=400) if nm == "r2" else kw
+                    for kw, nm in zip(kws, names)]
+        reqs = [eng.submit_generate(p, adapter=nm, **kw)
+                for p, kw, nm in zip(prompts, long_kws, names)]
+        victims = [r for r, nm in zip(reqs, names) if nm == "r2"]
+        deadline = time.monotonic() + 300
+        while not all(len(r.token_ids) >= 2 for r in victims) and time.monotonic() < deadline:
+            time.sleep(0.002)
+        at = [len(r.token_ids) for r in victims]
+        idx = eng.load_lora("r2", lora_factors(torch, cfg, 5, dev))
+        want_msg = (f"LoRA adapter slot {idx} is being overwritten by a load of 'r2' while "
+                    "this request was generating; resubmit")
+        for i, (r, nm) in enumerate(zip(reqs, names)):
+            if nm != "r2":
+                continue
+            try:
+                r.future.result(timeout=600)
+                fail(f"{label} (5): request {i} on the reloaded adapter finished")
+            except RuntimeError as exc:
+                if str(exc) != want_msg:
+                    fail(f"{label} (5): request {i} failed with {exc!r}, not the reference's "
+                         "message")
+        others = [i for i, nm in enumerate(names) if nm != "r2"]
+        check_streams(torch, cfg, eng.params, f"{label} (5) the other streams across a reload",
+                      [prompts[i] for i in others], [solo[i] for i in others],
+                      [reqs[i].future.result(timeout=600).token_ids for i in others],
+                      [greedy[i] for i in others], [aid[names[i]] for i in others])
+        deadline = time.monotonic() + 60
+        while any(s is not None for s in eng._slots) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if any(s is not None for s in eng._slots):
+            fail(f"{label} (5): slots still held after the reload's failed requests")
+        log(f"{label} (5): reloading r2 (slot {idx}) while its {len(victims)} requests "
+            f"decoded (at {at} tokens) failed them with the reference's message; the other "
+            f"{len(others)} streams as alone; every slot free after")
+        if {k: v.data_ptr() for k, v in leaves.items()} != ptrs:
+            fail(f"{label}: an adapter leaf moved (the captured graphs read the old one)")
+        out = {"off": off_stats, "base": on_base["stats"], "mixed": mixed["stats"],
+               "capture_s": capture_s, "leaf_bytes": leaf_bytes}
+    finally:
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # 5b. The automatic prefix cache under an adapter, on a bf16 pool.
+    system, _, _, _, _ = prefix_traffic(cfg.vocab_size)
+    shared = system + system[:64]
+    peng = InferenceEngine("llama-3-8b", n_slots=8, max_len=2048, window_k=8,
+                           prefill_chunk=256, prefill_batch=8, params=params, seed=0,
+                           device=dev, kv_block=32, kv_pool_blocks=161, auto_prefix=True,
+                           lora_slots=LORA_SLOTS, lora_rank=LORA_RANK, lora_targets=targets)
+    plabel = "lora prefix cache (bf16 pool 161 x 32, auto_prefix)"
+    try:
+        peng.load_lora("x", lora_factors(torch, cfg, 2, dev))
+
+        def run(name: str) -> tuple:
+            hits = peng._prefix_hit_tokens
+            peng.generate_sync(shared, adapter=name, max_new_tokens=8, timeout=600)
+            deadline = time.monotonic() + 30
+            while any(s is not None for s in peng._slots) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            return peng._prefix_hit_tokens - hits, peng.kv_pool_counts()[2]
+
+        first, second = run("x"), run("x")
+        peng.unload_lora("x")
+        after = peng.kv_pool_counts()[2]
+        if peng.load_lora("y", lora_factors(torch, cfg, 3, dev)) != 1:
+            fail(f"{plabel}: the fresh adapter did not take the freed slot 1")
+        fresh = run("y")
+        log(f"{plabel}: a {len(shared)}-token prompt under adapter x: cached blocks "
+            f"{first[1]}, a repeat hits {second[0]} tokens; unload x: cached blocks "
+            f"{second[1]} -> {after}; a fresh adapter y in slot 1 hits {fresh[0]} tokens "
+            f"(cached after {fresh[1]})")
+        if first[1] != len(shared) // 32 or second[0] <= 0 or after != 0 or fresh[0] != 0:
+            fail(f"{plabel}: the adapter's cached prefix was not dropped on unload or was hit "
+                 "by a fresh adapter in its slot")
+        pool_invariant(peng, plabel)
+    finally:
+        peng.close()
+        del peng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    keys = ("tok_s", "ttft_p50_ms", "itl_p50_ms")
+    log("lora A/B (same call; llama-3-8b bf16 slot cache, phase_serve's 10 requests): "
+        + json.dumps({
+            "lora_slots=0": {**{k: out["off"][k] for k in keys},
+                             "capture_s": out["off"].get("capture_s"),
+                             "launches": out["off"]["counts"]},
+            f"lora_slots={LORA_SLOTS}, all base": {**{k: out["base"][k] for k in keys},
+                                                   "launches": out["base"]["counts"]},
+            f"lora_slots={LORA_SLOTS}, mixed": {**{k: out["mixed"][k] for k in keys},
+                                                "launches": out["mixed"]["counts"]},
+            "lora capture_s": out["capture_s"], "lora leaf bytes": out["leaf_bytes"]}))
+    out["counts"] = counts
+    return out
+
+
+def phase_lora_train(torch, dev) -> dict:
+    """make_lora_train_step on llama-1b (22 layers, full width) on one
+    fixed [4, 2048] batch, rank LORA_RANK on all seven targets, 6 steps
+    each on the bf16 base and on that base quantized to int8: losses
+    finite and falling, exactly 22 flash_attention launches a step (the
+    backward is the dense recompute), step time (median of steps 2-6),
+    tokens/s and peak memory; then the bf16 run's factors load into a
+    llama-1b engine (CUDA graphs) and serve one request on the adapter.
+    Returns the launch counts of each run."""
+    import numpy as np
+
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import LORA_TARGETS, init_params
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.ops.quant import quantize_params
+    from gofr_tpu_torch.parallel.sharding import make_lora_train_step
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    cfg = get_model("llama-1b").config
+    L, b, s = cfg.n_layers, 4, 2048
+    with torch.no_grad():  # not inference mode: the base takes part in autograd
+        base = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    out, trained = {}, None
+    for mode in ("bf16", "int8"):
+        frozen = base if mode == "bf16" else quantize_params(base, "int8")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        init_state, step = make_lora_train_step(cfg, frozen, LORA_RANK, LORA_TARGETS,
+                                                device=dev)
+        lora, opt = init_state(0)
+        reset_launch_counts()
+        losses, secs = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, lora, opt = step(lora, opt, tokens)
+            losses.append(loss.item())
+            secs.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        label = f"lora train llama-1b [{b}, {s}] {mode} base"
+        if fa.launches != 6 * L:
+            fail(f"{label}: {fa.launches} flash_attention launches over 6 steps, not {6 * L}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"{label}: losses {losses} are not finite and falling")
+        step_s = statistics.median(secs[1:])
+        peak = torch.cuda.max_memory_allocated()
+        n_train = sum(x.numel() for ab in lora.values() for x in ab)
+        log(f"{label}: rank {LORA_RANK} on {len(LORA_TARGETS)} targets ({n_train} trained "
+            f"parameters); losses {[round(x, 5) for x in losses]}; step time median of steps "
+            f"2-6 {step_s * 1e3:.1f} ms (all {[round(x * 1e3, 1) for x in secs]}), "
+            f"{b * s / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB; launch "
+            f"counts {counts}")
+        out[mode] = {"step_ms": step_s * 1e3, "tok_s": b * s / step_s,
+                     "peak_gib": peak / 2**30, "losses": losses, "counts": counts}
+        if mode == "bf16":
+            trained = lora
+        del frozen, init_state, step, lora, opt
+    eng = InferenceEngine("llama-1b", n_slots=2, max_len=1024, window_k=8, prefill_chunk=256,
+                          prefill_batch=2, params=base, seed=0, device=dev, lora_slots=1,
+                          lora_rank=LORA_RANK, lora_targets=",".join(LORA_TARGETS))
+    try:
+        eng.load_lora("trained", trained)
+        prompt = tokens[0, :64].tolist()
+        res = eng.generate_sync(prompt, adapter="trained", max_new_tokens=16,
+                                stop_on_eos=False, timeout=600)
+        plain = eng.generate_sync(prompt, max_new_tokens=16, stop_on_eos=False, timeout=600)
+        if len(res.token_ids) != 16 or not np.all(np.isfinite(res.token_logprobs)):
+            fail("lora train: the trained adapter's request did not serve 16 finite tokens")
+        log(f"lora train: the trained factors served on a llama-1b engine: {res.token_ids} "
+            f"(the base: {plain.token_ids}); against the batch's next tokens "
+            f"{tokens[0, 64:80].tolist()}")
+    finally:
+        eng.close()
+    del base, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_router(torch, dev, cfg, params) -> None:
     """Mixtral's routing at full width: 4,096 bf16 hidden states through
     layer 0's router, by ``transformer.route``, against a stable-sort
@@ -4452,6 +4981,9 @@ def main() -> None:
     quant = phase_quant(torch, dev, cfg, params, base_stats)
     loader = phase_loader(torch, dev, cfg, params, quant.pop("int8_params"),
                           quant["int8"]["streams"])
+    # Multi-LoRA on these bf16 weights (its training part runs on
+    # llama-1b after phase_train).
+    lora = phase_lora(torch, dev, cfg, params, base)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4522,6 +5054,10 @@ def main() -> None:
     counts["flash_attention"] = train["counts"]["flash_attention"]
     compute = {k: p.to(train["cfg"].dtype) for k, p in train.pop("params").items()}
     phase_prefill_padded(torch, dev, train["cfg"], compute)
+    del compute
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_train = phase_lora_train(torch, dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4655,6 +5191,16 @@ def main() -> None:
             "serve mixtral-8x7b int8 weights, bf16 slot cache": moe["serve"]["counts"][k],
             "serve mixtral-8x7b int8 weights, int8 pool": moe["pool"]["counts"][k],
             "mixtral-8x7b forward, bf16 slot cache": moe["forward"]["contiguous"][k]}
+    # Multi-LoRA's runs: the serves and forward checks of phase_lora (the
+    # serving kernels and flash_attention's forward with the adapter
+    # plane), make_lora_train_step's steps (flash_attention).
+    for entry in kernels:
+        k = entry["name"]
+        entry["launches_lora"] = {run: c[k] for run, c in lora["counts"].items() if c[k]}
+        if k == "flash_attention":
+            entry["launches_lora"].update({
+                f"make_lora_train_step llama-1b [4, 2048], 6 steps, {mode} base":
+                    lora_train[mode]["counts"][k] for mode in ("bf16", "int8")})
     # Every kernel's launches over each family's runs.
     for entry in kernels:
         k = entry["name"]

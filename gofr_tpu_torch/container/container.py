@@ -112,6 +112,7 @@ class Container:
         # them), with the reference's names, descriptions and buckets.
         m.new_gauge("app_tpu_queue_depth", "dynamic batcher queue depth")
         m.new_gauge("app_tpu_kv_slots_in_use", "KV-cache slots occupied")
+        m.new_gauge("app_tpu_lora_adapters", "loaded LoRA adapters")
         m.new_histogram(
             "app_tpu_infer_latency", "device execute latency in s",
             (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2, 5),

@@ -26,6 +26,14 @@ replaces the dense FFN where ``n_experts > 0``. Every weight product goes
 through ``_wein``, so a weight may be a plain tensor or an int8/int4
 ``ops/quant.py`` Q8/Q4. ``check_supported`` raises
 ``NotImplementedError`` for a config the kernels refuse.
+
+Multi-LoRA, as in the reference: with ``{t}_lora_a`` [L, N, d_in, r] and
+``{t}_lora_b`` [L, N, r, d_out] leaves in ``params`` (``init_lora``) and a
+per-row adapter index ``aids`` (0 = base), every forward adds each
+target projection's rank-r delta ``(x A[aid]) B[aid]`` to the product
+before its bias (``_lora``). A fused projection (``wqkv``, ``w_gate_up``)
+takes each target's delta on its slice of the output. MoE experts take
+none.
 """
 
 from __future__ import annotations
@@ -282,16 +290,88 @@ def _wein(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+# Projections LoRA can target (MoE expert weights excluded: per-token
+# routing x per-slot adapters would need a double gather; out of scope).
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def lora_dims(cfg: TransformerConfig, target: str) -> tuple[int, int]:
+    """(d_in, d_out) of a LoRA-targetable projection."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": (D, H * hd),
+        "wk": (D, KV * hd),
+        "wv": (D, KV * hd),
+        "wo": (H * hd, D),
+        "w_gate": (D, Fd),
+        "w_up": (D, Fd),
+        "w_down": (Fd, D),
+    }[target]
+
+
+def init_lora(
+    cfg: TransformerConfig,
+    n_adapters: int,
+    rank: int,
+    targets: tuple[str, ...] = ("wq", "wk", "wv", "wo"),
+    device: torch.device | str | None = None,
+) -> dict:
+    """Zero LoRA leaves to merge into ``params``, the reference's layout:
+    ``{t}_lora_a`` [L, N, d_in, r] and ``{t}_lora_b`` [L, N, r, d_out] in
+    ``cfg.dtype`` on ``device`` (CUDA unless ``"cpu"``), layer-major like
+    every stacked leaf and adapter slot second, so a per-row gather
+    ``a[layer][aids]`` batches every live adapter into one product. All
+    zero: every slot, and slot 0 (requests without an adapter) in
+    particular, is an exact no-op on the base model."""
+    if cfg.is_moe:
+        raise ValueError("LoRA serving does not support MoE models")
+    device = resolve_device(device)
+    leaves = {}
+    for t in targets:
+        if t not in LORA_TARGETS:
+            raise ValueError(f"unknown LoRA target {t!r} (of {LORA_TARGETS})")
+        d_in, d_out = lora_dims(cfg, t)
+        leaves[t + "_lora_a"] = torch.zeros(
+            (cfg.n_layers, n_adapters, d_in, rank), dtype=cfg.dtype, device=device
+        )
+        leaves[t + "_lora_b"] = torch.zeros(
+            (cfg.n_layers, n_adapters, rank, d_out), dtype=cfg.dtype, device=device
+        )
+    return leaves
+
+
+def _lora(x: torch.Tensor, params: dict, name: str, layer: int,
+          aids: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The per-row LoRA delta of projection ``name`` on x [b, t, d_in]
+    (row i under adapter ``aids[i]``): ``(x A) B`` as two batched
+    products in x's dtype, the reference's two einsums; None where the
+    params hold no leaf for ``name`` or there is no adapter plane."""
+    a = params.get(name + "_lora_a")
+    if aids is None or a is None:
+        return None
+    return torch.bmm(torch.bmm(x, a[layer][aids]), params[name + "_lora_b"][layer][aids])
+
+
+def _plus(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
+    return y if delta is None else y + delta
+
+
 def _qkv(
     h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
-    cs: Optional[Rope],
+    cs: Optional[Rope], aids: Optional[torch.Tensor] = None,
 ):
-    """Project (plus Qwen2's QKV bias, before RoPE) and rotate: h [P, s, D]
-    → q [P, s, H, hd], k and v [P, s, KV, hd], contiguous. Q and K heads
-    rotate in one call with the tables ``cs`` already gathered at the
-    step's positions (None: no rotation)."""
+    """Project (plus each target's LoRA delta on its slice, then Qwen2's
+    QKV bias, before RoPE) and rotate: h [P, s, D] → q [P, s, H, hd], k
+    and v [P, s, KV, hd], contiguous. Q and K heads rotate in one call
+    with the tables ``cs`` already gathered at the step's positions (None:
+    no rotation)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qkv = _wein(h, params["wqkv"][layer])
+    deltas = [_lora(h, params, t, layer, aids) for t in ("wq", "wk", "wv")]
+    if any(d is not None for d in deltas):
+        parts = qkv.split([H * hd, KV * hd, KV * hd], dim=-1)
+        qkv = torch.cat([_plus(p, d) for p, d in zip(parts, deltas)], dim=-1)
     bias = _leaf(params, "wqkv_b", layer)
     if bias is not None:
         qkv = qkv + bias
@@ -302,22 +382,28 @@ def _qkv(
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _ffn(h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
+def _ffn(h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
+         aids: Optional[torch.Tensor] = None):
     """The FFN on the normed ``h``: gated ``act(h W_gate) * (h W_up)``
     (SwiGLU, GeGLU), GPT-NeoX/GPT-2's ``act(h W_up + b) W_down + b``, or
-    the MoE FFN (``_ffn_moe``)."""
+    the MoE FFN (``_ffn_moe``, which takes no adapter). Each product takes
+    its LoRA delta before its bias."""
     if cfg.is_moe:
         return _ffn_moe(h, params, layer, cfg)
     if cfg.ffn == "mlp":
-        u = _wein(h, params["w_up"][layer])
+        u = _plus(_wein(h, params["w_up"][layer]), _lora(h, params, "w_up", layer, aids))
         bias = _leaf(params, "w_up_b", layer)
         if bias is not None:
             u = u + bias
-        out = _wein(_act(u, cfg), params["w_down"][layer])
+        u = _act(u, cfg)
+        out = _plus(_wein(u, params["w_down"][layer]), _lora(u, params, "w_down", layer, aids))
         bias = _leaf(params, "w_down_b", layer)
         return out if bias is None else out + bias
     gate, up = _wein(h, params["w_gate_up"][layer]).chunk(2, dim=-1)
-    return _wein(_act(gate, cfg) * up, params["w_down"][layer])
+    gate = _plus(gate, _lora(h, params, "w_gate", layer, aids))
+    up = _plus(up, _lora(h, params, "w_up", layer, aids))
+    g = _act(gate, cfg) * up
+    return _plus(_wein(g, params["w_down"][layer]), _lora(g, params, "w_down", layer, aids))
 
 
 def route(x: torch.Tensor, router, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -349,20 +435,22 @@ def _ffn_moe(h: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig):
 
 
 def _layer(x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
-           cs: Optional[Rope], attend):
+           cs: Optional[Rope], attend, aids: Optional[torch.Tensor] = None):
     """One decoder layer around ``attend(q, k, v) -> (attn [..., H, hd],
     k, v)``, which may write or transform k and v and returns the pair the
     caller keeps. The MLP reads ``x + attn_out`` (sequential) or ``x``
-    itself (GPT-NeoX's parallel residual). Returns (x, (k, v))."""
+    itself (GPT-NeoX's parallel residual). ``aids`` [b] selects each row's
+    LoRA adapter. Returns (x, (k, v))."""
     h = _norm(x, params, "attn_norm", layer, cfg)
-    q, k, v = _qkv(h, params, layer, cfg, cs)
+    q, k, v = _qkv(h, params, layer, cfg, cs, aids)
     attn, k, v = attend(q, k, v)
-    attn_out = _wein(attn.reshape(*x.shape[:-1], -1), params["wo"][layer])
+    ao = attn.reshape(*x.shape[:-1], -1)
+    attn_out = _plus(_wein(ao, params["wo"][layer]), _lora(ao, params, "wo", layer, aids))
     bias = _leaf(params, "wo_b", layer)
     if bias is not None:
         attn_out = attn_out + bias
     mlp_in = x if cfg.parallel_residual else x + attn_out
-    ffn = _ffn(_norm(mlp_in, params, "mlp_norm", layer, cfg), params, layer, cfg)
+    ffn = _ffn(_norm(mlp_in, params, "mlp_norm", layer, cfg), params, layer, cfg, aids)
     x = x + attn_out + ffn if cfg.parallel_residual else mlp_in + ffn
     return x, (k, v)
 
@@ -377,6 +465,8 @@ _LAYER_LEAVES = (
     "attn_norm", "attn_norm_b", "wqkv", "wqkv_b", "wo", "wo_b", "mlp_norm",
     "mlp_norm_b", "w_gate_up", "w_up", "w_up_b", "w_down", "w_down_b", "router",
 )
+# The LoRA leaves' name endings (also stacked [L, ...]).
+_LORA_SUFFIXES = ("_lora_a", "_lora_b")
 
 
 def _per_layer(params: dict) -> dict:
@@ -384,7 +474,8 @@ def _per_layer(params: dict) -> dict:
     views (``p[name][layer]`` reads the same): one ``unbind`` per leaf, so
     autograd stacks a leaf's layer gradients once instead of scattering
     each into a full-size zero tensor."""
-    return {k: v.unbind(0) if k in _LAYER_LEAVES and isinstance(v, torch.Tensor) else v
+    return {k: v.unbind(0) if (k in _LAYER_LEAVES or k.endswith(_LORA_SUFFIXES))
+            and isinstance(v, torch.Tensor) else v
             for k, v in params.items()}
 
 
@@ -392,6 +483,7 @@ def _layer_prefill(
     x: torch.Tensor, params: dict, layer: int, cfg: TransformerConfig,
     cs: Optional[Rope], *,
     lengths: Optional[torch.Tensor] = None, dense_attn: bool = False,
+    aids: Optional[torch.Tensor] = None,
 ):
     """One decoder layer over a full sequence, the counterpart of
     ``_layer_prefill``: x [b, s, D] → (x, (k, v)) with k, v [b, s, KV, hd].
@@ -401,7 +493,7 @@ def _layer_prefill(
         return attention(q, k, v, causal=True, lengths=lengths,
                          kernel=not dense_attn, window=cfg.sliding_window), k, v
 
-    return _layer(x, params, layer, cfg, cs, attend)
+    return _layer(x, params, layer, cfg, cs, attend, aids)
 
 
 def transformer_forward(
@@ -411,19 +503,21 @@ def transformer_forward(
     remat: bool = False,
     *,
     dense_attn: bool = False,
+    aids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Training/eval forward: tokens [b, s] → logits [b, s, vocab] (f32),
     the counterpart of ``transformer_forward``. Attention runs the
     flash_attention kernel under ``FlashAttentionFn`` (``dense_attn``: the
     dense formula). ``remat`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer)."""
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` per layer).
+    ``aids`` [b]: each row's LoRA adapter slot."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     cs = _rope_at(cfg, None, s, positions)
     lp = _per_layer(params)
 
     def body(x: torch.Tensor, layer: int) -> torch.Tensor:
-        return _layer_prefill(x, lp, layer, cfg, cs, dense_attn=dense_attn)[0]
+        return _layer_prefill(x, lp, layer, cfg, cs, dense_attn=dense_attn, aids=aids)[0]
 
     x = _embed(params, tokens, cfg, positions)
     for layer in range(cfg.n_layers):
@@ -444,6 +538,7 @@ def transformer_prefill(
     cfg: TransformerConfig,
     *,
     dense_attn: bool = False,
+    aids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Serving prefill of a right-padded prompt batch, the counterpart of
     ``transformer_prefill``: tokens [b, s_pad]; lengths [b] true lengths;
@@ -454,7 +549,8 @@ def transformer_prefill(
     becomes ``lengths``. An int8 cache takes the quantized K/V and their
     scales (the zeroed rest of the row gets scale 1, as the reference's
     quantized zero padding). Returns [b, vocab] f32 logits at each row's
-    last valid token. Slot cache only, as in the reference."""
+    last valid token. ``aids`` [b]: each row's LoRA adapter slot. Slot
+    cache only, as in the reference."""
     if not isinstance(cache, KVCache):
         raise TypeError("transformer_prefill writes a slot cache (KVCache)")
     b, s = tokens.shape
@@ -466,7 +562,7 @@ def transformer_prefill(
     x = _embed(params, tokens, cfg, positions)
     for layer in range(cfg.n_layers):
         x, (k, v) = _layer_prefill(x, params, layer, cfg, cs, lengths=lengths,
-                                   dense_attn=dense_attn)
+                                   dense_attn=dense_attn, aids=aids)
         for buf, sc, new in ((cache.k, cache.k_s, k), (cache.v, cache.v_s, v)):
             new = new.transpose(1, 2)  # [b, KV, s, hd]
             if sc is not None:
@@ -491,6 +587,7 @@ def prefill_chunk(
     *,
     rope: Optional[Rope] = None,
     dense_attn: bool = False,
+    aids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Chunked serving prefill: one fixed-shape [P, c] chunk step, the
     counterpart of ``transformer_prefill_chunk``.
@@ -503,7 +600,8 @@ def prefill_chunk(
     ``max_len - 1`` of their slot (a pool: block 0, offset ``block - 1``),
     a position no live query reads. Returns [P, vocab] f32 logits at each
     row's last valid token. ``cache.lengths`` is not updated here (the
-    engine sets it when a prompt's last chunk lands).
+    engine sets it when a prompt's last chunk lands). ``aids`` [P]: each
+    row's LoRA adapter slot.
     """
     P, c = tokens.shape
     KV = cfg.n_kv_heads
@@ -553,7 +651,7 @@ def prefill_chunk(
                 window=cfg.sliding_window,
             ), k, v
 
-        x = _layer(x, params, layer, cfg, cs, attend)[0]
+        x = _layer(x, params, layer, cfg, cs, attend, aids)[0]
     last = (lens.long() - 1).clamp(min=0)
     return _logits(x[torch.arange(P, device=dev), last], params, cfg)  # [P, vocab]
 
@@ -567,6 +665,7 @@ def decode_step(
     *,
     rope: Optional[Rope] = None,
     dense_attn: bool = False,
+    aids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step over all cache slots, the counterpart of
     ``transformer_decode_step``.
@@ -584,7 +683,7 @@ def decode_step(
     stepping a slot whose budget ran out while others continue, where the
     reference's scatter drops the out-of-range update). Returns [S, vocab]
     f32 logits; ``cache.lengths`` grows by one on active slots below
-    ``max_len``.
+    ``max_len``. ``aids`` [S]: each slot's LoRA adapter slot.
     """
     S = cache.n_slots
     KV = cfg.n_kv_heads
@@ -614,7 +713,7 @@ def decode_step(
                 window=cfg.sliding_window, **scales,
             ), k, v
 
-        x, (k, v) = _layer(x, params, layer, cfg, cs, attend)
+        x, (k, v) = _layer(x, params, layer, cfg, cs, attend, aids)
         new_k.append(k)
         new_v.append(v)
     # Commit every layer's token in one scatter: [L, S, KV, hd] values at

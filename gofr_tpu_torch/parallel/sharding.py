@@ -1,5 +1,6 @@
-"""The training step — the port of ``gofr_tpu/parallel/sharding.py``
-(``cross_entropy_loss``, ``make_train_step``) for one device.
+"""The training steps — the port of ``gofr_tpu/parallel/sharding.py``
+(``cross_entropy_loss``, ``make_train_step``, ``make_lora_train_step``)
+for one device.
 
 Mixed precision as in the reference: the master parameters and the AdamW
 moments are f32; each step casts the masters to ``cfg.dtype`` for the
@@ -8,7 +9,8 @@ there), and the gradients land in f32 on the masters. Attention runs the
 flash_attention kernel with its dense-recompute backward
 (``ops/attention.py::FlashAttentionFn``). The optimizer updates the
 parameters and its state in place, where the reference donates them.
-Meshes (dp/tp/pp/cp > 1) are not ported.
+The LoRA step trains only f32 adapter factors over a frozen base, which
+may be int8/int4 (QLoRA). Meshes (dp/tp/pp/cp > 1) are not ported.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ import torch.nn.functional as F
 
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.models.transformer import (
+    LORA_TARGETS,
     TransformerConfig,
     check_supported,
     init_params,
+    lora_dims,
     transformer_forward,
 )
 from gofr_tpu_torch.ops.quant import is_quantized
@@ -106,18 +110,20 @@ def check_plain_params(params: dict) -> None:
     if quantized:
         raise NotImplementedError(
             f"training takes plain weights; {', '.join(quantized)} are quantized "
-            "(int8/int4 weights serve only, as in the reference; adapters over a "
-            "quantized base are LoRA, ROADMAP Queue 1 item 6)"
+            "(int8/int4 weights serve only, as in the reference; to train "
+            "adapters over a quantized base, use make_lora_train_step)"
         )
 
 
 def check_trainable(cfg: TransformerConfig,
-                    device: torch.device | str | None = None) -> None:
+                    device: torch.device | str | None = None,
+                    entry: str = "make_train_step") -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is on the Llama path
     whose training (gradients, steps) is held against the reference:
     RMSNorm, RoPE, GQA, SwiGLU, no biases, optionally Mistral's window.
     The other dense families serve, but their training waits for ROADMAP
-    Queue 1 item 5's training remainder, and so does MoE."""
+    Queue 1 item 5's training remainder, and so does MoE. ``entry`` is the
+    function the message names."""
     check_supported(cfg, device)
     off = {
         "attn_bias": cfg.attn_bias,
@@ -136,7 +142,7 @@ def check_trainable(cfg: TransformerConfig,
     missing = [name for name, hit in off.items() if hit]
     if missing:
         raise NotImplementedError(
-            "make_train_step trains the Llama path only (RMSNorm, RoPE, GQA, "
+            f"{entry} trains the Llama path only (RMSNorm, RoPE, GQA, "
             f"SwiGLU, optional sliding window); this config needs "
             f"{', '.join(missing)} (ROADMAP Queue 1 item 5: training the other "
             "families)"
@@ -183,3 +189,84 @@ def make_train_step(
         return loss, params, opt_state
 
     return init_state, train_step, optimizer
+
+
+def make_lora_train_step(
+    cfg: TransformerConfig,
+    base_params: dict,
+    rank: int,
+    targets: tuple[str, ...] = ("wq", "wk", "wv", "wo"),
+    mesh: Optional[object] = None,
+    learning_rate: float = 1e-3,
+    device: torch.device | str | None = None,
+) -> tuple[Callable, Callable]:
+    """Adapter fine-tuning on a frozen base, the reference's: the
+    train-then-serve loop of multi-LoRA (train here, then
+    ``engine.load_lora(name, lora)``).
+
+    Only the LoRA factors train, in f32, with optax-default AdamW (its
+    state is rank-sized); the base (``base_params``, a port parameter dict
+    in ``cfg.dtype``) is used as it is and gets no gradient, so it may be
+    int8/int4 (QLoRA: the base products dequantize on the fly and the
+    deltas add after them). Each step splices the factors, cast to
+    ``cfg.dtype``, into the base with a 1-adapter axis and runs
+    ``transformer_forward`` with every row's adapter 0; attention's
+    gradient flows through ``FlashAttentionFn``. The factors are the raw
+    dict ``load_lora`` takes: ``{target: (a [L, d_in, r], b [L, r,
+    d_out])}`` f32; the usual init (a ~ N(0, 1)/r, b = 0) makes step 0
+    exactly the base model.
+
+    Returns ``(init_lora_state, lora_train_step)``:
+    ``init_lora_state(seed) -> (lora, opt_state)`` (a ``torch.Generator``
+    on the device seeded with ``seed``); ``lora_train_step(lora, opt_state,
+    tokens) -> (loss, lora, opt_state)``, the factors and the state
+    updated in place. ``mesh`` must be None (multi-device is not ported).
+    """
+    # init_lora's guards: on a MoE base the FFN has no adapter path, so
+    # FFN factors would train as silent no-ops and could not serve.
+    if cfg.is_moe:
+        raise ValueError("LoRA training does not support MoE models")
+    for t in targets:
+        if t not in LORA_TARGETS:
+            raise ValueError(
+                f"unknown LoRA target {t!r} (of {LORA_TARGETS})"
+            )
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_lora_train_step: meshes (dp/tp) are not ported yet "
+            "(ROADMAP Queue 1 item 8: multi-device); pass mesh=None"
+        )
+    check_trainable(cfg, device, entry="make_lora_train_step")
+    device = resolve_device(device)
+    optimizer = AdamW(learning_rate)
+
+    def flat(lora: dict) -> dict[str, torch.Tensor]:
+        """The factors by leaf name, the same tensors (AdamW updates them
+        in place)."""
+        return {t + s: x for t, ab in lora.items()
+                for s, x in zip(("_lora_a", "_lora_b"), ab)}
+
+    def init_state(seed: int) -> tuple[dict, AdamWState]:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        lora = {}
+        for t in targets:
+            d_in, d_out = lora_dims(cfg, t)
+            a = torch.randn((cfg.n_layers, d_in, rank), generator=gen, device=device) / rank
+            lora[t] = (a, torch.zeros((cfg.n_layers, rank, d_out), device=device))
+        return lora, optimizer.init(flat(lora))
+
+    def train_step(lora: dict, opt_state: AdamWState, tokens: torch.Tensor):
+        tokens = tokens.to(device=device, dtype=torch.long)
+        leaves = {k: x.detach().requires_grad_(True) for k, x in flat(lora).items()}
+        aids = torch.zeros((tokens.shape[0],), dtype=torch.long, device=device)
+        with torch.enable_grad():
+            merged = dict(base_params)
+            merged.update({k: x.to(cfg.dtype)[:, None] for k, x in leaves.items()})
+            logits = transformer_forward(merged, tokens, cfg, aids=aids)
+            loss = cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        optimizer.step(flat(lora), dict(zip(leaves, grads)), opt_state)
+        return loss.detach(), lora, opt_state
+
+    return init_state, train_step

@@ -109,7 +109,12 @@ from gofr_tpu_torch.errors import (
     ErrorTooManyRequests,
 )
 from gofr_tpu_torch.models.registry import get_model
-from gofr_tpu_torch.models.transformer import check_supported, init_params, rope_tables
+from gofr_tpu_torch.models.transformer import (
+    check_supported,
+    init_lora,
+    init_params,
+    rope_tables,
+)
 from gofr_tpu_torch.ops.cuda import replayed
 from gofr_tpu_torch.ops.kv_cache import (
     BlockAllocator,
@@ -125,6 +130,7 @@ from gofr_tpu_torch.ops.quant import (
 )
 from gofr_tpu_torch.serving.checkpoint import maybe_restore_params
 from gofr_tpu_torch.serving.hf_loader import is_hf_checkpoint, load_hf_llama
+from gofr_tpu_torch.serving.lora_runtime import LoRARuntimeMixin
 from gofr_tpu_torch.serving.lifecycle import (
     AggregateThroughput,
     CancelToken,
@@ -156,7 +162,6 @@ from gofr_tpu_torch.serving.types import LOGIT_BIAS_K, GenerationResult, GenRequ
 # with the ROADMAP item that ports it.
 _OPS_PLANE = "ROADMAP Queue 1 item 7: the operations plane"
 _NEUTRAL_SUBMIT_OPTIONS = {
-    "adapter": ("", "ROADMAP Queue 1 item 6: LoRA adapters"),
     "pin_replica": (False, _OPS_PLANE + " (the replica pool)"),
 }
 
@@ -170,9 +175,6 @@ _UNPORTED_KEYS = (
     ("TPU_TOKENIZER", "", _LOADERS), ("TPU_HBM_BYTES", "0", _LOADERS),
     ("TPU_ADMIT_MIN_HEADROOM", "0", _LOADERS),
     ("TPU_COMPILE_CACHE_DIR", "", _LOADERS),
-    ("TPU_LORA_SLOTS", "0", _LOADERS), ("TPU_LORA_RANK", "16", _LOADERS),
-    ("TPU_LORA_TARGETS", "wq,wk,wv,wo", _LOADERS),
-    ("TPU_LORA_ADAPTERS", "", _LOADERS),
     ("TPU_TP", "1", _MULTI), ("TPU_MESH_TP", "1", _MULTI),
     ("TPU_MESH_CP", "1", _MULTI),
     # The HBM ledger that derives this watermark (device_telemetry).
@@ -393,7 +395,7 @@ class _Prefill:
     done: int = 0  # prompt tokens already written to the cache
 
 
-class InferenceEngine:
+class InferenceEngine(LoRARuntimeMixin):
     """One loaded model and its serving loop.
 
     ``device`` defaults to CUDA (raises without it); pass ``"cpu"`` to run
@@ -432,6 +434,13 @@ class InferenceEngine:
     evicting, 0 = off), ``queue_prefix_aware`` (a request with a hit pops
     first within its class); ``prefix_slots`` (rows of the explicit prefix
     pool, slot cache only; see ``register_prefix``).
+
+    Multi-LoRA, as the reference's: ``lora_slots`` adapter slots (0 = no
+    adapter leaves at all) of rank ``lora_rank`` over the comma-separated
+    ``lora_targets``; ``load_lora`` / ``unload_lora``
+    (``serving/lora_runtime.py``) fill and clear them while serving, and a
+    request picks one by name (``adapter=``). Every slot's requests batch
+    in the same windows, each row under its own adapter.
     """
 
     family = "llm"
@@ -462,6 +471,9 @@ class InferenceEngine:
         prefix_evict_watermark: int = 0,
         prefix_slots: int = 0,
         queue_prefix_aware: bool = False,
+        lora_slots: int = 0,
+        lora_rank: int = 16,
+        lora_targets: str = "wq,wk,wv,wo",
         queue_max: int = 1024,
         queue_max_tokens: int = 0,
         class_promote_s: float = 5.0,
@@ -598,6 +610,25 @@ class InferenceEngine:
         self.params = params
         if quant and not self.quant:
             self.apply_quantization(quant)
+        # Multi-LoRA: zero stacked adapter leaves merged in after the
+        # quantization (they stay cfg.dtype on an int8/int4 base); slot 0
+        # is the base, load_lora fills 1..lora_slots in place. An engine
+        # without slots has no adapter leaf and computes no delta.
+        self.lora_slots = max(0, int(lora_slots))
+        self.lora_rank = max(1, int(lora_rank))
+        self._lora_targets = tuple(
+            t.strip() for t in lora_targets.split(",") if t.strip()
+        )
+        self._lora_names: dict[str, int] = {}
+        # Per adapter slot, its load generation: bumped by every load and
+        # unload, so a request or prefix stamped under older weights is
+        # caught.
+        self._lora_gen = [0] * (self.lora_slots + 1)
+        if self.lora_slots:
+            self.params = {**self.params, **init_lora(
+                self.cfg, 1 + self.lora_slots, self.lora_rank, self._lora_targets,
+                self.device,
+            )}
         cfg = self.cfg
         if self.kv_block:
             self.cache = PagedKVCache.create(
@@ -667,6 +698,7 @@ class InferenceEngine:
         self._slots: list[Optional[GenRequest]] = [None] * self.n_slots
         self._prefilling: dict[int, _Prefill] = {}
         self._seeds_host = np.zeros((self.n_slots,), dtype=np.int64)
+        self._aids_host = np.zeros((self.n_slots,), dtype=np.int64)
         self._bidx_host = np.full((self.n_slots, LOGIT_BIAS_K), -1, dtype=np.int64)
         self._bval_host = np.zeros((self.n_slots, LOGIT_BIAS_K), dtype=np.float32)
         self._seeds_dirty = False
@@ -724,6 +756,13 @@ class InferenceEngine:
         # the scheduler. The scheduler sets _idle_evt once a drain finds
         # no work left.
         self._lock = threading.Lock()
+        # Held by the scheduler thread for each pass and the graph capture,
+        # and by load_lora/unload_lora for their slot writes
+        # (_device_turn): an adapter write lands between two passes, in
+        # stream order. The scheduler stands aside between passes while a
+        # writer waits (_device_waiters, under self._lock).
+        self._device_lock = threading.RLock()
+        self._device_waiters = 0
         self._running = False
         self._draining = False
         self._error: Optional[BaseException] = None
@@ -767,6 +806,7 @@ class InferenceEngine:
         seed: Optional[int] = None,
         logit_bias: Optional[dict] = None,
         top_logprobs: int = 0,
+        adapter: str = "",
         deadline: Optional[Deadline] = None,
         deadline_s: Optional[float] = None,
         cancel: Optional[CancelToken] = None,
@@ -781,16 +821,24 @@ class InferenceEngine:
         order, error types and messages are the reference's.
         ``traceparent`` (the caller's W3C trace context) is kept on the
         request, as the reference keeps it with its request-observability
-        layer off. ``adapter`` and ``pin_replica`` are accepted at their
-        neutral value and raise ``NotImplementedError`` naming their
-        ROADMAP item otherwise; a name the reference does not take raises
-        ``TypeError``."""
+        layer off. ``adapter`` names a loaded LoRA adapter ("" = the base
+        model). ``pin_replica`` is accepted at its neutral value and raises
+        ``NotImplementedError`` naming its ROADMAP item otherwise; a name
+        the reference does not take raises ``TypeError``."""
         for key, val in options.items():
             if key not in _NEUTRAL_SUBMIT_OPTIONS:
                 raise TypeError(f"submit_generate() got an unexpected option {key!r}")
             neutral, item = _NEUTRAL_SUBMIT_OPTIONS[key]
             if val is not None and val != neutral:
                 raise NotImplementedError(f"{key}={val!r} is not ported yet ({item})")
+        aid = 0
+        if adapter:
+            if adapter not in self._lora_names:
+                raise ErrorInvalidParam([
+                    f"unknown LoRA adapter {adapter!r}; loaded: "
+                    f"{sorted(self._lora_names)}"
+                ])
+            aid = self._lora_names[adapter]
         if not 0.0 < top_p <= 1.0:
             raise ErrorInvalidParam(["top_p must be in (0, 1]"])
         if top_p < 1.0 and not self.enable_top_p:
@@ -863,6 +911,11 @@ class InferenceEngine:
             ),
             logit_bias=bias,
             top_logprobs=int(top_logprobs or 0),
+            aid=aid,
+            adapter=adapter,
+            # The adapter slot's generation: a reload or unload while the
+            # request is queued fails it at admission.
+            lora_gen=self._lora_gen[aid] if aid else 0,
             deadline=coalesce_deadline(deadline, deadline_s),
             tenant=str(tenant or ""),
             slo_class=cls,
@@ -1021,13 +1074,13 @@ class InferenceEngine:
         into its slot at admission and prefills only the rest. The
         request's future resolves with the pool row. Needs ``prefix_slots
         > 0`` (``TPU_PREFIX_SLOTS``); the checks and messages are the
-        reference's. ``adapter`` raises ``NotImplementedError`` (LoRA is
-        not ported)."""
+        reference's. With ``adapter``, the prefix prefills under that LoRA
+        adapter and only same-adapter requests reuse it."""
+        aid = 0
         if adapter:
-            raise NotImplementedError(
-                f"adapter={adapter!r} is not ported yet "
-                f"({_NEUTRAL_SUBMIT_OPTIONS['adapter'][1]})"
-            )
+            if adapter not in self._lora_names:
+                raise KeyError(f"no loaded LoRA adapter {adapter!r}")
+            aid = self._lora_names[adapter]
         if self._prefix_pool is None:
             raise RuntimeError(
                 "prefix pool disabled — construct the engine with "
@@ -1047,7 +1100,8 @@ class InferenceEngine:
             ])
         req = GenRequest(
             prompt_ids=ids, max_new_tokens=1, temperature=0.0,
-            stop_on_eos=False, seed=0, prefix_store=True,
+            stop_on_eos=False, seed=0, prefix_store=True, aid=aid,
+            lora_gen=self._lora_gen[aid] if aid else 0,
         )
         self._enqueue(req)
         return req
@@ -1209,11 +1263,6 @@ class InferenceEngine:
                 "model", self.model_name,
             )
 
-    def lora_names(self) -> list[str]:
-        """Loaded LoRA adapters: none until LoRA is ported (ROADMAP Queue
-        1 item 6)."""
-        return []
-
     def health_check(self) -> dict:
         """The reference's health payload for the state the port has."""
         if self.device.type == "cuda":
@@ -1233,6 +1282,9 @@ class InferenceEngine:
             "max_len": self.max_len,
             "pending": self._pending.qsize(),
             "prefilling": len(self._prefilling),
+            # The loaded adapters (a replica pool routes LoRA requests by
+            # them).
+            "lora_adapters": self.lora_names(),
         }
         if self.kv_block:
             details["kv_blocks"] = {
@@ -1266,7 +1318,10 @@ class InferenceEngine:
         quantized. ``TPU_SPEC_TOKENS`` is resolved
         by ``resolve_spec_tokens`` before the constructor, with the
         device's type as the backend (so ``auto`` is 0 here); its note
-        goes to ``logger``."""
+        goes to ``logger``. ``TPU_LORA_SLOTS`` / ``TPU_LORA_RANK`` /
+        ``TPU_LORA_TARGETS`` shape the adapter slots, and
+        ``TPU_LORA_ADAPTERS`` (``name=path,name2=path2``, HF PEFT
+        directories) loads adapters at boot."""
         check_unported_keys(config)
 
         def num(key: str, default: str, kind: type = int) -> Any:
@@ -1298,7 +1353,7 @@ class InferenceEngine:
                 # quantizes it in the constructor.
                 params = maybe_restore_params(config, init_params(cfg, 0, device), logger)
 
-        return cls(
+        engine = cls(
             model_name,
             n_slots=num("TPU_KV_SLOTS", "8"),
             max_len=num("TPU_MAX_LEN", "1024"),
@@ -1316,6 +1371,9 @@ class InferenceEngine:
             prefix_cache_blocks=num("TPU_PREFIX_CACHE_BLOCKS", "0"),
             prefix_evict_watermark=num("TPU_PREFIX_EVICT_WM", "0"),
             prefix_slots=num("TPU_PREFIX_SLOTS", "0"),
+            lora_slots=num("TPU_LORA_SLOTS", "0"),
+            lora_rank=num("TPU_LORA_RANK", "16"),
+            lora_targets=config.get_or_default("TPU_LORA_TARGETS", "wq,wk,wv,wo"),
             # The reference's reading: anything but an off spelling is on.
             queue_prefix_aware=config.get_or_default(
                 "TPU_QUEUE_PREFIX_AWARE", "0").lower() not in _FALSY,
@@ -1336,6 +1394,26 @@ class InferenceEngine:
             logger=logger,
             metrics=metrics,
         )
+        # Boot-time LoRA adapters: TPU_LORA_ADAPTERS="name=path,name2=p2"
+        # (HF PEFT checkpoint dirs); more load at run time by load_lora.
+        adapters_cfg = config.get_or_default("TPU_LORA_ADAPTERS", "")
+        if adapters_cfg:
+            try:
+                for entry in adapters_cfg.replace(";", ",").split(","):
+                    entry = entry.strip()
+                    if not entry:
+                        continue
+                    if "=" not in entry:
+                        raise ValueError(
+                            f"TPU_LORA_ADAPTERS entry {entry!r} is not "
+                            f"name=path"
+                        )
+                    name, path = entry.split("=", 1)
+                    engine.load_lora(name.strip(), path.strip())
+            except BaseException:
+                engine.close()  # its scheduler thread runs already
+                raise
+        return engine
 
     # ------------------------------------------------------------------
     # scheduler loop (its own thread; the only code that touches the
@@ -1348,9 +1426,14 @@ class InferenceEngine:
                 torch.cuda.set_device(self.device)
             with torch.inference_mode():
                 if self.device.type == "cuda" and self._graphs is None:
-                    self._capture_graphs()
+                    with self._device_lock:
+                        self._capture_graphs()
                 while self._running:
-                    self._pass()
+                    if self._device_waiters:
+                        time.sleep(0.0005)  # a writer takes the lock first
+                        continue
+                    with self._device_lock:
+                        self._pass()
         except Exception as exc:  # the loop's boundary: report, fail callers
             traceback.print_exc()
             with self._lock:
@@ -1570,6 +1653,12 @@ class InferenceEngine:
             # slot.
             if self._reap_request(req):
                 continue
+            if req.aid and req.lora_gen != self._lora_gen[req.aid]:
+                # The adapter slot was reloaded or unloaded while the
+                # request was queued: admitting it would run weights the
+                # caller never asked for.
+                self._reject_stale(req, "queued")
+                continue
             # Clamp the budget so the windows in flight past the last
             # token still land inside the cache (below the parking row).
             ids = req.prompt_ids
@@ -1605,6 +1694,7 @@ class InferenceEngine:
                 self._dispatched_tokens[free[0]] = 0
             slot = free.pop(0)
             self._seeds_host[slot] = req.seed
+            self._aids_host[slot] = req.aid
             self._bidx_host[slot, :] = -1
             self._bval_host[slot, :] = 0.0
             for j, (tok, val) in enumerate(req.logit_bias.items()):
@@ -1626,6 +1716,18 @@ class InferenceEngine:
                         self._metrics.increment_counter(
                             "app_tpu_prefix_hits", "model", self.model_name
                         )
+            if req.aid and req.lora_gen != self._lora_gen[req.aid]:
+                # A load or unload raced this admission (its generation
+                # bump after the check above, its failure snapshot before
+                # the request showed in _prefilling): surrender the slot
+                # and any aliased blocks holding the old weights' K/V, and
+                # fail the request as at the queue.
+                del self._prefilling[slot]
+                if self.kv_block:
+                    self._release_blocks(slot)
+                free.insert(0, slot)
+                self._reject_stale(req, "being admitted")
+                continue
             if cached_done:
                 # Counted once admission is certain: a dry-pool deferral
                 # walks the index again when the request is readmitted.
@@ -1635,6 +1737,18 @@ class InferenceEngine:
                         "app_tpu_prefix_hit_tokens_total", cached_done,
                         "model", self.model_name,
                     )
+
+    def _reject_stale(self, req: GenRequest, when: str) -> None:
+        """Retire a request whose adapter slot was reloaded or unloaded
+        since it was stamped: a prefix registration resolves -1 (its
+        stale-store outcome), a generate request fails."""
+        if req.prefix_store:
+            self._resolve(req, result=-1)
+            return
+        self._resolve(req, exc=RuntimeError(
+            f"LoRA adapter slot {req.aid} was reloaded or unloaded while "
+            f"this request was {when}; resubmit against the current adapter set"
+        ))
 
     def _publish_prefix_gauge(self) -> None:
         """``app_tpu_prefix_cached_blocks``, after any path that grows or
@@ -1707,11 +1821,23 @@ class InferenceEngine:
         the index adopted."""
         if req.prefix_store or req.effective_prompt_len <= 0:
             return set()
+        if req.aid and req.lora_gen != self._lora_gen[req.aid]:
+            # The adapter slot was reloaded since admission: these blocks
+            # hold K/V of superseded weights.
+            return set()
         row = self._slot_blocks[slot]
         n_full = min(len(req.prompt_ids) // self.kv_block, len(row))
         if n_full <= 0:
             return set()
         flags = self._radix.insert(req.prompt_ids, row[:n_full], req.aid)
+        if req.aid and req.lora_gen != self._lora_gen[req.aid]:
+            # A load or unload raced this insert (its bump after the check
+            # above, its purge maybe before the insert). The bump always
+            # precedes the purge, so this re-check catches every
+            # interleaving: purge the slot again. The purge consumes the
+            # index's reference for adopted blocks (the caller still skips
+            # them) and the incumbent's for duplicates.
+            self._radix.purge_aid(req.aid)
         return {row[j] for j, f in enumerate(flags) if f}
 
     def _alias_prefix_blocks(self, slot: int, req: GenRequest) -> int:
@@ -1843,8 +1969,10 @@ class InferenceEngine:
             return False
         self._push_table()
         if self._seeds_dirty:
-            # Seeds and logit-bias rows change only at admission.
+            # Seeds, adapter slots and logit-bias rows change only at
+            # admission (before both prefill paths read them).
             self.planes.seeds.copy_(self._up(self._seeds_host))
+            self.planes.aids.copy_(self._up(self._aids_host))
             self.planes.bidx.copy_(self._up(self._bidx_host))
             self.planes.bval.copy_(self._up(self._bval_host))
             self._seeds_dirty = False
@@ -1901,13 +2029,26 @@ class InferenceEngine:
             if finalize[i]:
                 st.request.effective_prompt_len = st.done
                 del self._prefilling[slot]
+                stale = (st.request.aid
+                         and st.request.lora_gen != self._lora_gen[st.request.aid])
                 if st.request.prefix_store:
                     # Park the rows in the prefix pool (a copy queued after
                     # this chunk); the slot goes straight back to the free
-                    # list and the future gets the pool row.
-                    idx = self._prefix_pool.store(
+                    # list and the future gets the pool row. A prefix whose
+                    # adapter was reloaded or unloaded while it prefilled
+                    # ran the wrong weights: dropped, -1.
+                    idx = -1 if stale else self._prefix_pool.store(
                         st.request.prompt_ids, self.cache, slot, st.request.aid)
                     self._resolve(st.request, result=idx)
+                elif stale:
+                    # A generate request whose adapter slot was reloaded
+                    # after admission must not start decoding.
+                    self._resolve(st.request, exc=RuntimeError(
+                        f"LoRA adapter slot {st.request.aid} was "
+                        "reloaded while this request was prefilling; "
+                        "resubmit against the current adapter set"
+                    ))
+                    self._release_slot(slot)
                 else:
                     done_rows.append((i, slot, st.request))
         if done_rows:
@@ -1960,7 +2101,8 @@ class InferenceEngine:
         t0 = time.time()
         prefill_multi_chunk(self.params, self.cache, self.cfg, self.rope,
                             self._up(tokens3), self._up(slots), self._up(starts),
-                            self.planes.history if self.spec_tokens else None)
+                            self.planes.history if self.spec_tokens else None,
+                            self.planes.aids)
         for _, st, _ in deep:
             st.done += d * c
         if self._metrics is not None:
@@ -2192,11 +2334,12 @@ class InferenceEngine:
             if req is None:
                 continue
             if req.future.done():
-                # Retired by an earlier window (its tokens here overshoot)
-                # or cancelled by the caller mid-flight: free the slot if
-                # it still holds the request.
-                if self._slots[i] is req:
-                    self._reap_request(req, slot=i)
+                # Retired by an earlier window (its tokens here overshoot),
+                # cancelled by the caller mid-flight or failed by an
+                # adapter reload: free the slot if it still holds the
+                # request.
+                if self._slots[i] is req and not self._reap_request(req, slot=i):
+                    self._release_slot(i)
                 continue
             if G:
                 # Each step's first counts tokens, in order, up to the

@@ -17,8 +17,9 @@ wait.
 
 The registry, ``(adapter slot, token tuple) → pool row``, is LRU over
 registered prefixes and guarded by a lock (the reference's contract: a
-purge may come from another thread). The port serves no adapter yet, so
-every entry lives under ``aid`` 0.
+purge may come from another thread). A request reuses only a prefix
+registered under its own LoRA adapter, and a load or unload of that
+adapter purges its entries (``purge_aid``).
 """
 
 from __future__ import annotations

@@ -176,9 +176,11 @@ class SlotPlanes:
     the slot's sample counter, and the sampling contract of the request it
     holds ([n_slots] each), the generated-token counts ([n_slots, vocab]
     int32 with penalties, else [n_slots, 1]), the sparse logit bias
-    ([n_slots, LOGIT_BIAS_K], ids padded with -1) and the token history
+    ([n_slots, LOGIT_BIAS_K], ids padded with -1), the token history
     the drafts are looked up in ([n_slots, max_len] with speculation,
-    else [n_slots, 1]: prompt and generated tokens by position)."""
+    else [n_slots, 1]: prompt and generated tokens by position) and the
+    LoRA adapter slot of each slot's request (``aids``, 0 = base; every
+    prefill and decode program reads it, so a replayed graph does too)."""
 
     tokens: torch.Tensor  # int64
     nsteps: torch.Tensor  # int64
@@ -193,6 +195,7 @@ class SlotPlanes:
     bidx: torch.Tensor  # int64
     bval: torch.Tensor  # f32
     history: torch.Tensor  # int64
+    aids: torch.Tensor  # int64
 
     @classmethod
     def create(
@@ -218,6 +221,7 @@ class SlotPlanes:
                             device=device),
             bval=z(torch.float32, LOGIT_BIAS_K),
             history=z(torch.long, history_len),
+            aids=z(torch.long),
         )
 
 
@@ -264,15 +268,17 @@ def prefill_chunk_step(
     set the slot's cache length and its counter to 1, and (penalties)
     reset the slot's counts to the first token. With ``history``
     (speculation on) the chunk's tokens are also recorded in
-    ``planes.history``. Padding rows duplicate row 0 (identical writes;
-    ``row_valid`` keeps them out of the merge). Returns the rows' (first
-    token, logprob, top ids, top logprobs)."""
+    ``planes.history``. Each row runs under its slot's LoRA adapter
+    (``planes.aids[slots]``). Padding rows duplicate row 0 (identical
+    writes; ``row_valid`` keeps them out of the merge). Returns the rows'
+    (first token, logprob, top ids, top logprobs)."""
+    sl = slots.long()
     logits = prefill_chunk(
-        params, tokens, cache, slots, starts, lens, cfg, rope=rope
+        params, tokens, cache, slots, starts, lens, cfg, rope=rope,
+        aids=planes.aids[sl],
     )
     if history:
         record_history(planes.history, slots, starts, tokens)
-    sl = slots.long()
     first, first_lp, top_i, top_l = sample(
         logits, planes.seeds[sl], torch.zeros_like(sl), temps, greedy, topps,
         base_seed, flags, sampling=sampling,
@@ -317,7 +323,7 @@ def decode_window(
     logprob, rows 2 .. 2+T the top-logprob ids and 2+T .. 2+2T their
     logprobs (T = ``flags.top_logprobs``). Active slots advance their
     counter once per step and, with penalties, count the token they
-    produced."""
+    produced. Each slot runs under its LoRA adapter (``planes.aids``)."""
     S = planes.tokens.shape[0]
     T = flags.top_logprobs
     emitted = torch.empty((2 + 2 * T, k, S), dtype=torch.float32,
@@ -328,7 +334,8 @@ def decode_window(
     pen = (planes.pcounts, planes.fpen, planes.ppen) if flags.penalties else None
     for step in range(k):
         logits = decode_step(
-            params, planes.tokens, cache, planes.active, cfg, rope=rope
+            params, planes.tokens, cache, planes.active, cfg, rope=rope,
+            aids=planes.aids,
         )
         nxt, nlp, top_i, top_l = sample(
             logits, planes.seeds, planes.nsteps, planes.temps, planes.greedy,
@@ -396,7 +403,8 @@ def spec_step(
     counter = planes.nsteps.clone()
     chosen, chosen_lp = [], []
     for j in range(G + 1):
-        logits = decode_step(params, inputs[:, j], cache, active, cfg, rope=rope)
+        logits = decode_step(params, inputs[:, j], cache, active, cfg, rope=rope,
+                             aids=planes.aids)
         nxt, nlp, _, _ = sample(
             logits, planes.seeds, counter, planes.temps, planes.greedy,
             planes.topps, base_seed, flags, sampling=sampling, bias=bias,
@@ -471,6 +479,7 @@ def prefill_multi_chunk(
     slots: torch.Tensor,
     starts0: torch.Tensor,
     history: Optional[torch.Tensor] = None,
+    aids: Optional[torch.Tensor] = None,
 ) -> None:
     """``d`` full, non-finalizing [P, c] chunks in one host call
     (``tokens3`` [d, P, c]; chunk i of row r starts at ``starts0[r] + i *
@@ -479,12 +488,15 @@ def prefill_multi_chunk(
     tokens are recorded there): the chunks are enqueued back to back with
     no fetch between them. No sampling and no length update: both belong
     to the finalize chunk, which always goes through
-    ``prefill_chunk_step``. Padding rows duplicate row 0."""
+    ``prefill_chunk_step``. ``aids`` (the [n_slots] adapter plane): each
+    row runs under its slot's LoRA adapter. Padding rows duplicate row 0."""
     d, P, c = tokens3.shape
     lens = torch.full((P,), c, dtype=torch.int32, device=tokens3.device)
+    row_aids = None if aids is None else aids[slots.long()]
     for i in range(d):
         starts = starts0 + i * c
-        prefill_chunk(params, tokens3[i], cache, slots, starts, lens, cfg, rope=rope)
+        prefill_chunk(params, tokens3[i], cache, slots, starts, lens, cfg, rope=rope,
+                      aids=row_aids)
         if history is not None:
             record_history(history, slots, starts, tokens3[i])
 

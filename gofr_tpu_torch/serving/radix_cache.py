@@ -12,8 +12,8 @@ half of that:
 * LRU eviction of *unreferenced* cached blocks (refcount 1: held only by
   the index) when the allocator runs dry or the optional cap is exceeded,
   leaf-first so the chain structure stays reachable;
-* purge by adapter slot (``purge_aid``), the reference's API; the port
-  serves no adapter yet, so every entry lives under ``aid`` 0.
+* purge by adapter slot (``purge_aid``): a LoRA load or unload drops
+  the entries prefilled under that slot's previous weights.
 
 Reference discipline: the index owns exactly ONE allocator reference per
 node (``ops/kv_cache.py::BlockAllocator``). ``lookup`` increfs every

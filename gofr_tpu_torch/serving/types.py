@@ -97,8 +97,13 @@ class GenRequest:
     # A register_prefix request: its prefill parks the rows in the prefix
     # pool and resolves the future with the pool row; it never decodes.
     prefix_store: bool = False
-    # Adapter slot (0 = base model; the port serves no adapter yet).
+    # Multi-LoRA: the adapter slot (0 = base model), the slot's load
+    # generation at submit (a request whose adapter was reloaded or
+    # unloaded since must not run under the new weights) and the
+    # adapter's name.
     aid: int = 0
+    lora_gen: int = 0
+    adapter: str = ""
 
     def cancel_request(self) -> None:
         """Transport-side cancel (client disconnect, abandoned stream):

@@ -26,6 +26,9 @@ __all__ = ["init_params", "kv_cache_from_jax", "params_from_jax",
 # and at the top level.
 _LAYER_EXTRAS = ("attn_norm_b", "mlp_norm_b", "wo_b", "w_up_b", "w_down_b")
 _TOP_EXTRAS = ("final_norm_b", "pos_embed")
+# LoRA leaves ({t}_lora_a [L, N, d_in, r], {t}_lora_b [L, N, r, d_out]):
+# the same layout in both packages, carried across unfused.
+_LORA_SUFFIXES = ("_lora_a", "_lora_b")
 
 
 def params_from_jax(
@@ -38,7 +41,8 @@ def params_from_jax(
     Q/K/V (and Qwen2's Q/K/V biases) and gate/up concatenated along their
     output axis (a non-gated MLP keeps ``w_up`` alone; MoE fuses gate/up
     per expert, ``[L, E, D, 2F]``, and keeps its ``router``), the norm and
-    projection biases and GPT-2's position table as they are, in
+    projection biases, GPT-2's position table and the LoRA leaves
+    (``{t}_lora_a`` / ``{t}_lora_b``) as they are, in
     ``dtype`` (default ``cfg.dtype``; ``torch.float32`` brings f32 master
     params over unrounded). The reference's quantized leaves (Q8/Q4 with
     numpy ``q`` and ``s``) become the port's, fused the same way along the
@@ -80,6 +84,7 @@ def params_from_jax(
         params["wqkv_b"] = torch.cat([t(lp["wq_b"]), t(lp["wk_b"]), t(lp["wv_b"])], dim=-1)
     params.update({k: t(lp[k]) for k in _LAYER_EXTRAS if k in lp})
     params.update({k: t(np_params[k]) for k in _TOP_EXTRAS if k in np_params})
+    params.update({k: t(a) for k, a in lp.items() if k.endswith(_LORA_SUFFIXES)})
     return params
 
 
@@ -87,7 +92,8 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     """The inverse of ``params_from_jax``: a port parameter dict (or a dict
     of its gradients) → the reference pytree layout, ``wqkv`` split into
     ``wq/wk/wv`` (``wqkv_b`` into ``wq_b/wk_b/wv_b``) and ``w_gate_up``
-    into ``w_gate/w_up``, leaves as f32 numpy arrays on the host; a
+    into ``w_gate/w_up``, the LoRA leaves as they are, leaves as f32
+    numpy arrays on the host; a
     quantized leaf stays a Q8/Q4 of numpy ``q`` (int8/uint8) and ``s``
     (f32), split the same way."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -117,6 +123,7 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
         bq, bk, bv = params["wqkv_b"].split(qkv, dim=-1)
         layers.update(wq_b=n(bq), wk_b=n(bk), wv_b=n(bv))
     layers.update({k: n(params[k]) for k in _LAYER_EXTRAS if k in params})
+    layers.update({k: n(p) for k, p in params.items() if k.endswith(_LORA_SUFFIXES)})
     out = {
         "embed": n(params["embed"]),
         "layers": layers,

@@ -313,13 +313,13 @@ def test_reference_submit_options_are_accepted_at_neutral_or_not_ported(engine):
     own = set(inspect.signature(InferenceEngine.submit_generate).parameters)
     ref = inspect.signature(RefEngine.submit_generate).parameters
     options = {n: p.default for n, p in ref.items() if n not in own}
-    # The sampler and lifecycle options and the trace context are the
-    # port's own parameters now; what is left waits for LoRA and the
-    # replica pool.
-    assert set(options) == {"adapter", "pin_replica"}
+    # The sampler and lifecycle options, the trace context and the LoRA
+    # adapter are the port's own parameters now; what is left waits for
+    # the replica pool.
+    assert set(options) == {"pin_replica"}
     assert {"deadline", "deadline_s", "cancel", "tenant", "slo_class", "top_p", "stop",
             "frequency_penalty", "presence_penalty", "logit_bias", "top_logprobs",
-            "traceparent"} <= own
+            "traceparent", "adapter"} <= own
     res = engine.submit_generate([1, 2, 3], max_new_tokens=2, **options).future.result(
         timeout=120)
     assert len(res.token_ids) >= 1

@@ -41,8 +41,10 @@ for fn in (chip_smoke.phase_kernels, chip_smoke.phase_kernel_variants,
            chip_smoke.phase_prefill_padded, chip_smoke.phase_window_kernels,
            chip_smoke.phase_window_grad, chip_smoke.phase_mistral_forward,
            chip_smoke.phase_full_sequence, chip_smoke.phase_serve_options,
-           chip_smoke.phase_http):
+           chip_smoke.phase_http, chip_smoke.phase_lora, chip_smoke.phase_lora_train):
     assert callable(fn)
+for name in ("gofr_tpu_torch.serving.lora", "gofr_tpu_torch.serving.lora_runtime"):
+    assert name in names, name
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked
 print("imported", len(names))

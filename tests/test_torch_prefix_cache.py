@@ -218,7 +218,7 @@ def test_lru_reuse_disabled_error_and_longest_match(port_params):
         assert eng._prefix_pool.lookup(enc("abcdx")) == (short, len(enc("abcd")))
         with pytest.raises(ValueError, match="at least one token"):
             eng.register_prefix([])
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(KeyError, match="no loaded LoRA adapter 'a'"):
             eng.register_prefix("x", adapter="a")
     finally:
         eng.close()
