@@ -110,6 +110,19 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    quantization, greedy streams equal the in-memory int8 engine's); a
    save_checkpoint / restore_checkpoint round trip of the int8 tree bit for
    bit; the write, load and restore rates;
+4h. device services on Llama-3-8B (after multi-LoRA): the native BPE core
+   built; 4,000 byte-level merges learned over the repo's Markdown and
+   written as the core's hex files and a Llama-3-shaped tokenizer.json;
+   native against Python encode (ids equal, MB/s on the card's host); a
+   mixed wave of 16 text prompts from 4 threads through an engine built
+   by from_config with TPU_TOKENIZER, a bf16 pool with auto_prefix and
+   TPU_PREFIX_EVICT_HBM_FRAC, twice (the second past mark_steady_state:
+   no recompile, greedy streams equal); the HBM ledger beside
+   torch.cuda.memory_allocated(), the headroom, the derived watermark and
+   the free blocks kept; the captures per program; a 429 hbm_headroom; a
+   200 ms profiler_capture's kernels beside eager forwards; a
+   TPU_LOCKCHECK=1 child (4 layers,
+   0 violations) and a child reusing TPU_COMPILE_CACHE_DIR's BPE core;
 5. profiles one 8-step decode window (eager, then as a CUDA graph replay)
    and one [8, 256] prefill chunk with
    torch.profiler: host wall time, device busy time, idle share, GPU
@@ -4899,6 +4912,652 @@ def phase_moe(torch, dev) -> dict:
     return out
 
 
+# -- device services: tokenizers, HBM ledger, compile tracker, lockcheck,
+# profiler capture, TPU_COMPILE_CACHE_DIR (phase_device_services) --------
+
+DS_MERGES = 4000
+DS_SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>")
+# Llama-3's pre-tokenizer pattern (its tokenizer.json's Split).
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+DS_WATERMARK = 80  # the free-block watermark the HBM fraction is set to derive
+DS_POOL_BLOCKS = 161
+DS_RATE_BYTES = 48_000  # the text the Python cores' encode rate is timed on
+
+
+def repo_markdown() -> str:
+    """The repo's own Markdown (its root and docs/), in path order."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    paths = sorted(root.glob("*.md")) + sorted((root / "docs").rglob("*.md"))
+    return "\n".join(p.read_text(encoding="utf-8", errors="replace") for p in paths)
+
+
+def learn_merges(text: str, n: int) -> list:
+    """``n`` byte-level BPE merges by greedy pair count over ``text`` split
+    as Llama-3 splits it: the most frequent adjacent pair (ties: the
+    smallest pair) is merged in every word, counts updated incrementally."""
+    import heapq
+    import re as _re
+
+    from gofr_tpu_torch.serving.hf_tokenizer import translate_pattern
+
+    freq = collections.Counter(_re.findall(translate_pattern(LLAMA3_SPLIT), text))
+    words = [[bytes([b]) for b in w.encode("utf-8")] for w in freq]
+    counts = list(freq.values())
+    pairs: collections.Counter = collections.Counter()
+    where: dict = collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for p in zip(w, w[1:]):
+            pairs[p] += counts[i]
+            where[p].add(i)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap and len(merges) < n:
+        c, p = heapq.heappop(heap)
+        if pairs.get(p, 0) != -c or c == 0:
+            continue  # stale entry
+        merges.append(p)
+        new = p[0] + p[1]
+        changed = set()
+        for i in where.pop(p, ()):
+            w, f = words[i], counts[i]
+            for q in zip(w, w[1:]):
+                pairs[q] -= f
+                changed.add(q)
+            out, j = [], 0
+            while j < len(w):
+                if j + 1 < len(w) and (w[j], w[j + 1]) == p:
+                    out.append(new)
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            words[i] = out
+            for q in zip(out, out[1:]):
+                pairs[q] += f
+                where[q].add(i)
+                changed.add(q)
+        pairs.pop(p, None)
+        for q in changed:
+            if pairs.get(q, 0) > 0:
+                heapq.heappush(heap, (-pairs[q], q))
+    return merges
+
+
+def write_llama3_tokenizer(directory: str, merges: list) -> tuple:
+    """A Llama-3-shaped tokenizer.json (Split + ByteLevel, ignore_merges, a
+    BOS template, the specials as added tokens after the vocabulary) and a
+    tokenizer_config.json over ``merges``, plus the same vocabulary and
+    merges as the native core's hex files. Returns (the vocabulary's byte
+    strings, the hex files' paths)."""
+    import os
+
+    from gofr_tpu_torch.serving.hf_tokenizer import bytes_to_unicode
+    from gofr_tpu_torch.serving.native_tokenizer import write_bpe_files
+
+    table = bytes_to_unicode()
+
+    def s(b: bytes) -> str:
+        return "".join(table[x] for x in b)
+
+    vocab = [bytes([i]) for i in range(256)]
+    seen = set(vocab)
+    for a, b in merges:
+        if a + b not in seen:
+            seen.add(a + b)
+            vocab.append(a + b)
+    n = len(vocab)
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": n + i, "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, t in enumerate(DS_SPECIALS)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": DS_SPECIALS[0], "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}}],
+                           "pair": [],
+                           "special_tokens": {DS_SPECIALS[0]: {"id": DS_SPECIALS[0],
+                                                               "ids": [n],
+                                                               "tokens": [DS_SPECIALS[0]]}}},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": {s(v): i for i, v in enumerate(vocab)},
+                  "merges": [f"{s(a)} {s(b)}" for a, b in merges]},
+    }
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "tokenizer.json"), "w", encoding="utf-8") as fp:
+        json.dump(spec, fp, ensure_ascii=False)
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as fp:
+        json.dump({"tokenizer_class": "PreTrainedTokenizerFast", "bos_token": DS_SPECIALS[0],
+                   "eos_token": DS_SPECIALS[1], "pad_token": DS_SPECIALS[2]}, fp)
+    hex_vocab = vocab + [t.encode() for t in DS_SPECIALS]
+    return vocab, write_bpe_files(hex_vocab, merges, os.path.join(directory, "hex"))
+
+
+def encode_rate(tok, lines: list) -> tuple:
+    """(MB/s, ids) of encoding ``lines`` one by one with ``tok``."""
+    t0 = time.perf_counter()
+    ids = [tok.encode(line) for line in lines]
+    dt = time.perf_counter() - t0
+    return sum(len(x.encode()) for x in lines) / dt / 1e6, ids
+
+
+DS_CHILD = r'''
+import dataclasses, json, sys, threading, time
+mode, tokdir, cache_dir, text_path, device, base = sys.argv[1:7]
+from gofr_tpu_torch import build_cache
+from gofr_tpu_torch.serving import native_tokenizer
+from gofr_tpu_torch.serving.tokenizer import tokenizer_from_config
+from gofr_tpu_torch.config import MockConfig
+out = {"mode": mode}
+if mode == "reuse":
+    out["cache"] = build_cache.use_dir(cache_dir)
+    t0 = time.perf_counter()
+    tok = tokenizer_from_config(MockConfig({"TPU_TOKENIZER": tokdir}))
+    out["tokenizer_s"] = time.perf_counter() - t0
+    out["is_native"] = bool(getattr(tok, "is_native", False))
+    out["bpe_build"] = dict(native_tokenizer.last_build)
+    from gofr_tpu_torch.ops.cuda import _build
+    t0 = time.perf_counter()
+    out["kernel_library"] = str(_build.build())
+    out["kernel_library_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+    sys.exit(0)
+import numpy as np
+import torch
+from gofr_tpu_torch.analysis import lockcheck
+from gofr_tpu_torch.models import registry
+from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+from gofr_tpu_torch.serving.engine import InferenceEngine
+assert lockcheck.enabled()
+spec = registry.get_model(base)
+registry.register_model(dataclasses.replace(
+    spec, name="llama-3-8b-4l", config=dataclasses.replace(spec.config, n_layers=4)))
+syncs = {}
+note = lockcheck.note_device_sync
+def counted(what):
+    syncs[what] = syncs.get(what, 0) + 1
+    note(what)
+lockcheck.note_device_sync = counted
+eng = InferenceEngine.from_config(MockConfig({
+    "TPU_MODEL": "llama-3-8b-4l", "TPU_DEVICE": device, "TPU_KV_SLOTS": "8",
+    "TPU_MAX_LEN": "2048", "TPU_DECODE_WINDOW": "8", "TPU_PREFILL_CHUNK": "256",
+    "TPU_PREFILL_BATCH": "8", "TPU_KV_BLOCK": "32", "TPU_KV_POOL_BLOCKS": "257",
+    "TPU_AUTO_PREFIX": "true", "TPU_TOKENIZER": tokdir, "TPU_COMPILE_CACHE_DIR": cache_dir}))
+try:
+    out["bpe_build"] = dict(native_tokenizer.last_build)
+    out["is_native"] = bool(eng.tokenizer.is_native)
+    locks = {"InferenceEngine._submit_lock": eng._submit_lock,
+             "ClassPriorityQueue._lock": eng._pending._lock,
+             "AggregateThroughput._lock": eng._tput._lock,
+             "RadixPrefixIndex._lock": eng._radix._lock,
+             "CompileTracker._lock": eng._compiles._lock}
+    out["instrumented"] = {k: isinstance(v, lockcheck.InstrumentedLock) for k, v in locks.items()}
+    text = open(text_path, encoding="utf-8").read()
+    system = text[:1600]
+    prompts = [system + text[2000 + 500 * i: 2000 + 500 * i + 150 * (i % 4 + 1)] for i in range(16)]
+    eng.generate_sync("warm-up", max_new_tokens=2, timeout=600)
+    reset_launch_counts()
+    errors, results = [], {}
+    def client(c):
+        try:
+            reqs = [(i, eng.submit_generate(prompts[i], max_new_tokens=16, stop_on_eos=False,
+                                            temperature=0.7 if i % 4 == 3 else 0.0, seed=i))
+                    for i in range(c, 16, 4)]
+            for i, r in reqs:
+                results[i] = r.future.result(timeout=600).token_ids
+        except BaseException as exc:
+            errors.append(repr(exc))
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for t in threads: t.start()
+    for t in threads: t.join(timeout=600)
+    out["errors"] = errors
+    out["requests"] = len(results)
+    out["counts"] = launch_counts()
+    eng.health_check()
+    v = lockcheck.violations()
+    out["violations"] = len(v)
+    out["violation_kinds"] = sorted({x.kind for x in v})
+    out["violation_messages"] = [x.message for x in v[:3]]
+    out["edges"] = lockcheck.order_graph()["edges"]
+    out["syncs"] = syncs
+    out["compile_stats"] = eng.compile_stats()
+finally:
+    eng.close()
+print(json.dumps(out))
+'''
+
+
+def run_ds_child(mode: str, tokdir: str, cache_dir: str, text_path: str, lockcheck: bool,
+                 device: str = "cuda:0", base: str = "llama-3-8b") -> dict:
+    """The device-services child process (``DS_CHILD``), from the repo root;
+    its last line of output is its JSON result."""
+    import os
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["TPU_LOCKCHECK"] = "1" if lockcheck else "0"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", DS_CHILD, mode, tokdir, cache_dir, text_path,
+                           device, base],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"device services: the {mode} child failed ({proc.returncode}):\n"
+             + proc.stderr[-4000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ds_wave(eng, prompts: list, kws: list, clients: int = 4) -> tuple:
+    """``prompts`` from ``clients`` threads, each submitting its share at
+    once and then waiting; returns (the requests, their results) in
+    prompt order."""
+    reqs: list = [None] * len(prompts)
+    results: list = [None] * len(prompts)
+    errors: list = []
+
+    def client(c: int) -> None:
+        try:
+            mine = [(i, eng.submit_generate(prompts[i], **kws[i]))
+                    for i in range(c, len(prompts), clients)]
+            for i, r in mine:
+                reqs[i] = r
+                results[i] = r.future.result(timeout=600)
+        except BaseException as exc:  # surfaced below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(r is None for r in results):
+        fail(f"device services: a client failed: {errors[:2]}")
+    return reqs, results
+
+
+def phase_device_services(torch, dev, cfg, params) -> dict:
+    """The device services on Llama-3-8B at full width (the seed-0 bf16
+    weights, equal to ``params`` bit for bit), every check failing the run:
+    1. builds the native BPE core; learns DS_MERGES byte-level merges by
+       greedy pair count over the repo's Markdown; writes them as the
+       core's hex files and as a Llama-3-shaped tokenizer.json; on the
+       card's host: the hex tokenizer and the tokenizer.json reader native
+       against Python (ids equal, encode MB/s), decode(encode) the text;
+    2. serves a mixed wave (16 text prompts sharing a 1,600-character
+       system prefix; greedy and seeded sampled; 32 new tokens) from 4
+       client threads through an engine built by from_config with
+       TPU_TOKENIZER, a bf16 pool of DS_POOL_BLOCKS x 32 with auto_prefix,
+       and TPU_PREFIX_EVICT_HBM_FRAC set to derive a DS_WATERMARK-block
+       watermark from the card's own budget; no stream sync; the kernels'
+       launch counters over the wave;
+    3. prints the HBM ledger (components, budget and source) beside
+       torch.cuda.memory_allocated() and explains the gap (rope tables,
+       the CUDA graphs' pool); the headroom; the derived watermark and the
+       free blocks the sweep keeps; the captures per program and their
+       seconds; then mark_steady_state and a second wave (prefix hits):
+       steady_state_recompiles 0, greedy streams equal the first wave's
+       (near-tie rule);
+    4. raises admit_min_headroom above the measured headroom: a submit
+       sheds 429 with reason hbm_headroom;
+    5. one profiler_capture of ~200 ms beside eager forwards (the engine
+       closed): the trace's kernels;
+    6. a child with TPU_LOCKCHECK=1 (the same widths, 4 layers, the same
+       traffic from 4 threads): 0 violations, the locks instrumented; a
+       second child on the same TPU_COMPILE_CACHE_DIR reuses the BPE core
+       (and the kernel library) built there without compiling.
+    Returns the launch counts and the numbers printed."""
+    import os
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.config import MockConfig
+    from gofr_tpu_torch.container import Container
+    from gofr_tpu_torch.ops.cuda import _build, launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving import native_tokenizer as nt
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+    from gofr_tpu_torch.serving.hf_tokenizer import HFTokenizer
+    from gofr_tpu_torch.serving.profiler_capture import get_capture
+    from gofr_tpu_torch.serving.tokenizer import tokenizer_from_config
+
+    label = "device services"
+    out: dict = {"counts": {}}
+    t_phase = time.perf_counter()
+    so = nt.build_native()
+    if so is None:
+        fail(f"{label}: the native BPE core did not build (g++)")
+    log(f"{label}: native BPE core {os.path.basename(so)} "
+        f"({'compiled' if nt.last_build['compiled'] else 'reused'} in "
+        f"{nt.last_build['seconds']:.2f} s)")
+    text = repo_markdown()
+    t0 = time.perf_counter()
+    merges = learn_merges(text, DS_MERGES)
+    log(f"{label}: learned {len(merges)} merges over {len(text.encode())} bytes of the "
+        f"repo's Markdown in {time.perf_counter() - t0:.1f} s")
+    if len(merges) != DS_MERGES:
+        fail(f"{label}: only {len(merges)} merges learned")
+    work = tempfile.mkdtemp(prefix="chip_smoke_tok_")
+    try:
+        tokdir = os.path.join(work, "llama3_shape")
+        vocab, hex_files = write_llama3_tokenizer(tokdir, merges)
+        text_path = os.path.join(work, "markdown.txt")
+        with open(text_path, "w", encoding="utf-8") as fp:
+            fp.write(text)
+        hf = tokenizer_from_config(MockConfig({"TPU_TOKENIZER": tokdir}))
+        if not isinstance(hf, HFTokenizer) or not hf.is_native:
+            fail(f"{label}: TPU_TOKENIZER did not load natively ({type(hf).__name__})")
+        hf_py = HFTokenizer(tokdir, prefer_native=False)
+        hx, hx_py = nt.load_bpe(*hex_files), nt.load_bpe(*hex_files, prefer_native=False)
+        if not hx.is_native:
+            fail(f"{label}: the hex-file tokenizer is not native")
+        lines, size = [], 0
+        for line in text.split("\n"):
+            if line and size < DS_RATE_BYTES:
+                lines.append(line)
+                size += len(line.encode())
+        rates = {}
+        for name, a, b in (("tokenizer.json", hf, hf_py), ("hex files", hx, hx_py)):
+            ra, ia = encode_rate(a, lines)
+            rb, ib = encode_rate(b, lines)
+            if ia != ib:
+                fail(f"{label}: {name}: native and Python ids differ")
+            rates[name] = {"native_MB_s": ra, "python_MB_s": rb, "speedup": ra / rb}
+        bad = [ln for ln in lines if hf.decode(hf.encode(ln)) != ln]
+        if bad:
+            fail(f"{label}: decode(encode(text)) differs on {len(bad)} lines: {bad[0]!r}")
+        n_ids = sum(len(hf.encode(ln)) - 1 for ln in lines)
+        log(f"{label}: encode over {size} bytes ({len(lines)} lines, "
+            f"{size / max(n_ids, 1):.2f} bytes a token) on the card's host: "
+            + json.dumps(rates))
+        out["rates"] = rates
+
+        # The watermark: TPU_PREFIX_EVICT_HBM_FRAC set so the ledger derives
+        # DS_WATERMARK blocks from the card's own budget.
+        # The engine's workspace is its cache lengths, block table and slot
+        # planes, made here alike to size the ledger before the engine.
+        from gofr_tpu_torch.serving.device_telemetry import tree_device_bytes
+        from gofr_tpu_torch.serving.programs import SamplerFlags, SlotPlanes
+
+        budget = torch.cuda.mem_get_info(dev)[1]
+        bb = cfg.n_layers * kv_bytes(32, cfg.n_kv_heads, cfg.head_dim, False)
+        workspace = tree_device_bytes([
+            SlotPlanes.create(8, dev, cfg.vocab_size, SamplerFlags()),
+            torch.zeros((8, 2048 // 32), dtype=torch.int32),
+            torch.zeros((8,), dtype=torch.int32)])
+        est = (sum(p.numel() * p.element_size() for p in params.values())
+               + DS_POOL_BLOCKS * bb + workspace)
+        frac = (budget - est + (DS_WATERMARK + 0.5) * bb) / budget
+        metrics = Container.create(MockConfig({"APP_NAME": "chip-smoke"})).metrics
+        captured = {}
+        real_capture = InferenceEngine._capture_graphs
+
+        def capture_graphs(self):  # the graphs' memory, measured around the captures
+            m0 = torch.cuda.memory_allocated(dev)
+            real_capture(self)
+            captured["bytes"] = torch.cuda.memory_allocated(dev) - m0
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        m_before = torch.cuda.memory_allocated(dev)
+        InferenceEngine._capture_graphs = capture_graphs
+        try:
+            eng = InferenceEngine.from_config(MockConfig({
+                "TPU_MODEL": "llama-3-8b", "TPU_DEVICE": str(dev), "TPU_KV_SLOTS": "8",
+                "TPU_MAX_LEN": "2048", "TPU_DECODE_WINDOW": "8", "TPU_PREFILL_CHUNK": "256",
+                "TPU_PREFILL_BATCH": "8", "TPU_KV_BLOCK": "32",
+                "TPU_KV_POOL_BLOCKS": str(DS_POOL_BLOCKS), "TPU_AUTO_PREFIX": "true",
+                "TPU_TOKENIZER": tokdir, "TPU_PREFIX_EVICT_HBM_FRAC": repr(frac),
+            }), metrics=metrics)
+            eng.generate_sync("warm-up", max_new_tokens=2, timeout=600)
+        finally:
+            InferenceEngine._capture_graphs = real_capture
+        try:
+            torch.cuda.synchronize()
+            m_engine = torch.cuda.memory_allocated(dev) - m_before
+            if not isinstance(eng.tokenizer, HFTokenizer) or not eng.tokenizer.is_native:
+                fail(f"{label}: the engine does not serve the native tokenizer.json reader")
+            ledger = eng.hbm_ledger()
+            comps = ledger["components"]
+            rope = sum(t.numel() * t.element_size() for t in eng.rope)
+            log(f"{label}: HBM ledger {json.dumps(ledger)}")
+            gap = m_engine - ledger["per_device_bytes"]
+            log(f"{label}: ledger per_device_bytes {ledger['per_device_bytes']} beside "
+                f"torch.cuda.memory_allocated() {torch.cuda.memory_allocated(dev)} (this "
+                f"engine's share {m_engine}; the rest is the script's own llama-3-8b "
+                f"weights and earlier phases' tensors): gap {gap} bytes = the rope tables "
+                f"{rope} + the CUDA graphs' pool {captured.get('bytes')} + "
+                f"{gap - rope - captured.get('bytes', 0)} other (the graphs' static "
+                "outputs and the warm-up's live blocks)")
+            if comps["kv_pool"] != eng.cache.hbm_bytes() or comps["kv_pool"] != DS_POOL_BLOCKS * bb:
+                fail(f"{label}: kv_pool {comps['kv_pool']} is not the pool's bytes")
+            if comps["params"] != sum(p.numel() * p.element_size() for p in params.values()):
+                fail(f"{label}: the ledger's params {comps['params']} are not the weights' bytes")
+            if ledger["budget_source"] != "memory_stats" or ledger["budget_bytes"] != budget:
+                fail(f"{label}: budget {ledger['budget_bytes']} ({ledger['budget_source']}), "
+                     f"not the card's {budget}")
+            wm = eng.effective_evict_watermark
+            if wm != eng._ledger.derive_block_watermark(frac) or not (
+                    DS_WATERMARK <= wm <= DS_WATERMARK + 1):
+                fail(f"{label}: derived watermark {wm}, want {DS_WATERMARK} from frac {frac}")
+            gauges = {i.name: i.collect() for i in metrics.instruments()}
+            published = {dict(k)["component"]: v for k, v in gauges["app_tpu_hbm_bytes"].items()}
+            if published != {k: float(v) for k, v in comps.items()}:
+                fail(f"{label}: app_tpu_hbm_bytes {published} differs from the ledger")
+            log(f"{label}: headroom {eng.hbm_headroom_ratio():.6f} over a "
+                f"{ledger['budget_bytes']}-byte budget; TPU_PREFIX_EVICT_HBM_FRAC {frac:.6f} "
+                f"derives a watermark of {wm} free blocks of {bb} bytes")
+            stats = eng.compile_stats()
+            log(f"{label}: captures per program (compiles, seconds): " + json.dumps(
+                {p: [e["compiles"], e["seconds_total"]] for p, e in stats["programs"].items()}))
+            if stats["total"] < 4:
+                fail(f"{label}: {stats['total']} compiles counted, want the 4 window graphs")
+
+            # The mixed wave, twice: cold, then (past the fence) warm.
+            system = text[:1600]
+            suffixes = [text[2000 + 700 * i: 2000 + 700 * i + 100 + 60 * (i % 8)]
+                        for i in range(16)]
+            prompts = [system + sfx if i % 4 != 1 else sfx for i, sfx in enumerate(suffixes)]
+            kws = [dict(max_new_tokens=32, stop_on_eos=False,
+                        temperature=0.8 if i % 4 == 3 else 0.0, seed=100 + i)
+                   for i in range(16)]
+            ids = [eng.tokenizer.encode(p) for p in prompts]
+            greedy = [kw["temperature"] == 0.0 for kw in kws]
+            waves = {}
+            for wave in ("cold", "warm"):
+                if wave == "warm":
+                    eng.mark_steady_state()
+                reset_launch_counts()
+                lookups0, hits0 = eng._prefix_lookups, eng._prefix_hit_tokens
+                count_syncs(torch, True)
+                t0 = time.perf_counter()
+                reqs, results = ds_wave(eng, prompts, kws)
+                wall = time.perf_counter() - t0
+                syncs = count_syncs(torch, False)
+                counts = launch_counts()
+                if syncs:
+                    fail(f"{label}: {syncs} stream syncs in the {wave} wave; the first at\n"
+                         + "\n".join(SYNCS["first"]))
+                for name in ("flash_decode", "flash_cache_attention"):
+                    if counts[name] <= 0:
+                        fail(f"{label}: kernel {name} was not launched in the {wave} wave")
+                for i, r in enumerate(results):
+                    if len(r.token_ids) != 32 or not all(math.isfinite(x) for x in r.token_logprobs):
+                        fail(f"{label}: {wave} request {i}: {len(r.token_ids)} tokens or "
+                             "non-finite logprobs")
+                    if r.prompt_tokens != len(ids[i]):
+                        fail(f"{label}: {wave} request {i} prompt {r.prompt_tokens} tokens, "
+                             f"the tokenizer gives {len(ids[i])}")
+                time.sleep(0.2)  # idle passes run the watermark sweep
+                pool_invariant(eng, f"{label} {wave} wave")
+                total, used, cached = eng.kv_pool_counts()
+                free = eng._allocator.n_free
+                if free < min(wm, total):
+                    fail(f"{label}: {free} free blocks after the {wave} wave, below the "
+                         f"watermark {wm}")
+                waves[wave] = {"results": results, "counts": counts, "wall_s": wall,
+                               "free": free, "cached": cached, "evicted": eng._radix.evicted,
+                               "hit_tokens": eng._prefix_hit_tokens - hits0,
+                               "lookups": eng._prefix_lookups - lookups0,
+                               "peak_blocks": eng.kv_blocks_peak, **serve_stats(reqs, wall)}
+                log(f"{label}: {wave} wave of 16 requests from 4 threads in {wall:.3f} s "
+                    f"({waves[wave]['tok_s']:.1f} tok/s, TTFT p50 "
+                    f"{waves[wave]['ttft_p50_ms']:.1f} ms, ITL p50 "
+                    f"{waves[wave]['itl_p50_ms']:.2f} ms): launches "
+                    f"{counts}, prefix lookups {waves[wave]['lookups']} with "
+                    f"{waves[wave]['hit_tokens']} hit tokens, {free} free blocks kept after "
+                    f"the sweep (watermark {wm}), {cached} cached, {eng._radix.evicted} "
+                    f"evicted so far, peak {eng.kv_blocks_peak} in use")
+                out["counts"][f"serve llama-3-8b TPU_TOKENIZER {wave} wave"] = counts
+            stats = eng.compile_stats()
+            log(f"{label}: after mark_steady_state and the warm wave: "
+                f"{stats['steady_state_recompiles']} steady-state recompiles, "
+                f"{stats['total']} compiles in all")
+            if stats["steady_state_recompiles"] != 0:
+                fail(f"{label}: {stats['steady_state_recompiles']} steady-state recompiles")
+            gi = [i for i in range(16) if greedy[i]]
+            check_streams(torch, cfg, params, f"{label} greedy, warm vs cold",
+                          [ids[i] for i in gi],
+                          [waves["cold"]["results"][i].token_ids for i in gi],
+                          [waves["warm"]["results"][i].token_ids for i in gi], [True] * len(gi))
+            same = sum(waves["cold"]["results"][i].token_ids
+                       == waves["warm"]["results"][i].token_ids
+                       for i in range(16) if not greedy[i])
+            log(f"{label}: seeded sampled, warm vs cold: {same} of {16 - len(gi)} streams "
+                "equal (a prefix hit changes the chunking, so not required)")
+            texts = [r.text for r in waves["cold"]["results"]]
+            log(f"{label}: decoded texts' lengths {[len(t) for t in texts]} (ids past the "
+                f"tokenizer's {hf.vocab_size} decode to nothing)")
+
+            # Admission below the headroom floor.
+            headroom = eng.hbm_headroom_ratio()
+            eng.admit_min_headroom = headroom + 0.01
+            from gofr_tpu_torch.errors import ErrorTooManyRequests
+
+            try:
+                eng.submit_generate("shed me", max_new_tokens=4)
+                fail(f"{label}: a submit below the headroom floor was admitted")
+            except ErrorTooManyRequests as exc:
+                log(f"{label}: admit_min_headroom {eng.admit_min_headroom:.6f} above the "
+                    f"headroom {headroom:.6f}: {exc.status_code} {exc} (Retry-After "
+                    f"{exc.headers['Retry-After']}), shed counts {dict(eng.shed_counts)}")
+                if exc.status_code != 429 or eng.shed_counts["hbm_headroom"] != 1:
+                    fail(f"{label}: the shed is not a 429 hbm_headroom")
+            eng.admit_min_headroom = 0.0
+
+            # profiler_capture refuses while this engine's scheduler thread
+            # replays CUDA graphs (the open fault, ROADMAP Queue 3).
+            guard = get_capture(cooldown_s=0)
+            if guard.trigger(200, reason="chip_smoke under graphs"):
+                fail(f"{label}: profiler_capture started under a serving engine's graphs")
+            log(f"{label}: profiler_capture under the serving engine refused: "
+                f"{guard.snapshot()['last_error']}")
+
+            out["ledger"] = ledger
+            out["compiles"] = stats
+        finally:
+            eng.close()
+
+        # One profiler capture (its own thread, 200 ms) while this thread runs
+        # eager forwards through the kernels, after the engine closed: a
+        # capture begun while the scheduler thread replays CUDA graphs took
+        # 7.6-11.8 s and traced no kernel on an H100, and once hung the
+        # process (PERF.md, open questions). The trace must hold the
+        # forwards' flash_attention launches; a trace with no kernel (the
+        # profiler once traced none on an H100, PR 10) is taken once more.
+        from gofr_tpu_torch.models.transformer import transformer_forward
+
+        cap = get_capture(cooldown_s=0)
+        ids = torch.tensor([hf.encode(text[:2400])[:512]], device=dev)
+        for attempt in (1, 2):
+            with torch.inference_mode():
+                transformer_forward(params, ids, cfg)  # warm
+                torch.cuda.synchronize()
+                if not cap.trigger(200, reason="chip_smoke"):
+                    fail(f"{label}: the profiler capture did not start: {cap.snapshot()}")
+                forwards, deadline = 0, time.perf_counter() + 60
+                while cap.busy and time.perf_counter() < deadline:
+                    transformer_forward(params, ids, cfg)
+                    torch.cuda.synchronize()
+                    forwards += 1
+            snap = cap.snapshot()
+            if cap.busy or snap["last_error"] or not os.path.exists(cap.trace_file):
+                fail(f"{label}: no profiler trace written within 60 s: {snap}")
+            with open(cap.trace_file) as fp:
+                events = json.load(fp).get("traceEvents", [])
+            kernels = collections.Counter(e.get("name", "")[:60] for e in events
+                                          if e.get("cat") == "kernel")
+            flash = {k: v for k, v in kernels.items() if "flash" in k}
+            if kernels or attempt == 2:
+                break
+            log(f"{label}: profiler capture {attempt} traced no kernel "
+                f"({len(events)} events); taking it once more")
+        if not any("flash_attention" in k for k in flash):
+            fail(f"{label}: the profiler trace holds no flash_attention launch beside "
+                 f"{forwards} eager forwards: {sum(kernels.values())} kernels, "
+                 + json.dumps(kernels.most_common(8)))
+        log(f"{label}: profiler_capture of 200 ms beside {forwards} eager forwards "
+            f"[1, {ids.shape[1]}] wrote {cap.trace_file} "
+            f"({os.path.getsize(cap.trace_file)} bytes, {len(events)} events, "
+            f"{sum(kernels.values())} kernel launches): top kernels "
+            + json.dumps(kernels.most_common(8)) + "; the port's kernels " + json.dumps(flash))
+        out["trace_kernels"] = dict(kernels.most_common(8))
+        out["trace_flash_kernels"] = flash
+
+        # The children: lockcheck at 4 layers, then the build directory's
+        # reuse across processes.
+        cache_dir = os.path.join(work, "compile_cache")
+        os.makedirs(cache_dir)
+        lib = _build.build()
+        shutil.copy(lib, os.path.join(cache_dir, os.path.basename(lib)))
+        child = run_ds_child("lockcheck", tokdir, cache_dir, text_path, lockcheck=True,
+                             device=str(dev))
+        log(f"{label}: TPU_LOCKCHECK=1 child (llama-3-8b widths, 4 layers, 16 requests "
+            f"from 4 threads, {child['wall_s']:.1f} s): {child['violations']} violations "
+            f"{child['violation_kinds']}, locks instrumented {child['instrumented']}, "
+            f"order edges {child['edges']}, device-sync seams {child['syncs']}, launches "
+            f"{child['counts']}, BPE core {child['bpe_build']}, compiles "
+            + json.dumps(child["compile_stats"]))
+        if child["violations"] or child["errors"] or child["requests"] != 16:
+            fail(f"{label}: the lockcheck child: {child}")
+        if not all(child["instrumented"].values()) or "decode_window_fetch" not in child["syncs"]:
+            fail(f"{label}: the lockcheck child did not watch the engine: {child}")
+        for name in ("flash_decode", "flash_cache_attention"):
+            if child["counts"][name] <= 0:
+                fail(f"{label}: kernel {name} was not launched in the lockcheck child")
+        reuse = run_ds_child("reuse", tokdir, cache_dir, text_path, lockcheck=False,
+                             device=str(dev))
+        log(f"{label}: TPU_COMPILE_CACHE_DIR child ({reuse['wall_s']:.1f} s): cache "
+            f"{reuse['cache']}, BPE core {reuse['bpe_build']} (the lockcheck child "
+            f"compiled it: {child['bpe_build']['compiled']}), kernel library "
+            f"{os.path.basename(reuse['kernel_library'])} in {reuse['kernel_library_s']:.3f} s")
+        real = os.path.realpath(cache_dir)
+        if not (child["bpe_build"]["compiled"] and not reuse["bpe_build"]["compiled"]
+                and reuse["bpe_build"]["path"].startswith(real)
+                and reuse["kernel_library"].startswith(real) and reuse["is_native"]):
+            fail(f"{label}: the build directory was not reused: {child['bpe_build']}, {reuse}")
+        out["counts"]["lockcheck child llama-3-8b 4 layers"] = child["counts"]
+        out["children"] = {"lockcheck": child, "reuse": reuse}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase_device_services done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4984,6 +5643,8 @@ def main() -> None:
     # Multi-LoRA on these bf16 weights (its training part runs on
     # llama-1b after phase_train).
     lora = phase_lora(torch, dev, cfg, params, base)
+    # Tokenizers and device services on the same seed-0 weights.
+    device_services = phase_device_services(torch, dev, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5201,6 +5862,13 @@ def main() -> None:
             entry["launches_lora"].update({
                 f"make_lora_train_step llama-1b [4, 2048], 6 steps, {mode} base":
                     lora_train[mode]["counts"][k] for mode in ("bf16", "int8")})
+    # The device-services phase: its two waves through TPU_TOKENIZER and
+    # the lockcheck child's (4 layers) wave.
+    for entry in kernels:
+        k = entry["name"]
+        if k != "flash_attention":
+            entry["launches_device_services"] = {
+                run: c[k] for run, c in device_services["counts"].items()}
     # Every kernel's launches over each family's runs.
     for entry in kernels:
         k = entry["name"]

@@ -175,6 +175,35 @@ class Container:
             "app_tpu_kv_pool_occupancy_ratio",
             "paged KV pool: used blocks / total blocks",
         )
+        # Device-resource observability (serving/device_telemetry.py):
+        # the HBM ledger's per-component bytes and derived headroom, and
+        # the compile accounting (CUDA graph captures, the kernel
+        # library's load) with the steady-state recompile counter.
+        m.new_gauge(
+            "app_tpu_hbm_bytes",
+            "HBM ledger bytes by component "
+            "(params/lora/kv_pool/prefix_pool/workspace)",
+        )
+        m.new_gauge(
+            "app_tpu_hbm_headroom_ratio",
+            "free fraction of the per-device HBM budget "
+            "(budget slack + free paged-KV blocks)",
+        )
+        m.new_counter(
+            "app_tpu_compiles_total",
+            "program compiles by serving program (CUDA graph captures, "
+            "the kernel library's load)",
+        )
+        m.new_histogram(
+            "app_tpu_compile_seconds",
+            "wall clock of a compiling call (capture or build — the "
+            "latency a request actually pays)",
+            (0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120),
+        )
+        m.new_counter(
+            "app_tpu_steady_state_recompiles_total",
+            "compiles AFTER the warm-up fence (mark_steady_state)",
+        )
 
     def push_system_metrics(self) -> None:
         """Per-scrape system gauges (reference ``metrics/handler.go:21-35``)."""

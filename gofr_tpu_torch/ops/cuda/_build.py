@@ -3,7 +3,8 @@
 Every ``*.cu`` under ``gofr_tpu_torch/csrc/`` is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a``, then linked into
 one shared library with a plain C interface, at first use. The library
-lands in ``gofr_tpu_torch/_build/`` (listed in ``.gitignore``) under a
+lands in ``gofr_tpu_torch/_build/`` (listed in ``.gitignore``), or in
+``TPU_COMPILE_CACHE_DIR`` (``gofr_tpu_torch/build_cache.py``), under a
 name that hashes the sources and flags, so an unchanged tree reuses it.
 Nothing is compiled when this module is imported.
 """
@@ -20,9 +21,10 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+from gofr_tpu_torch import build_cache
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -62,12 +64,13 @@ def build(verbose: bool = False) -> Path:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     headers = sorted(CSRC.glob("*.cuh"))
-    lib_path = BUILD_DIR / f"libgofr_kernels_{_digest(sources + headers)}.so"
+    build_dir = build_cache.build_dir()
+    lib_path = build_dir / f"libgofr_kernels_{_digest(sources + headers)}.so"
     if lib_path.exists():
         return lib_path
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         extra = ["-Xptxas", "-v"] if verbose else []
         objs, procs = [], []
         for src in sources:
@@ -106,3 +109,8 @@ def lib(verbose: bool = False) -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(str(build(verbose=verbose)))
         return _lib
+
+
+def loaded() -> bool:
+    """Whether :func:`lib` has loaded the library in this process."""
+    return _lib is not None

@@ -10,6 +10,12 @@ built — for example with no CUDA and no ``TPU_DEVICE=cpu`` — raises at
 construction instead of answering every request "no TPU engine
 configured". The replica pool (``TPU_REPLICAS > 1``,
 ``TPU_REPLICA_ADDRS``) is not ported yet and raises.
+
+The engine's tokenizer (``TPU_TOKENIZER``) comes through
+``InferenceEngine.from_config``, which calls ``tokenizer_from_config`` as
+the reference's does. The reference's other call, for the encoder engine's
+``TPU_EMBED_TOKENIZER`` (``new_tpu_embed_from_config``), waits for the
+encoder families (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

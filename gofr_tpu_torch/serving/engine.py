@@ -86,6 +86,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import math
 import os
 import queue
 import random
@@ -99,6 +100,8 @@ from typing import Any, AsyncIterator, Optional
 import numpy as np
 import torch
 
+from gofr_tpu_torch import build_cache
+from gofr_tpu_torch.analysis import lockcheck
 from gofr_tpu_torch.device import resolve_device
 from gofr_tpu_torch.errors import (
     ErrorDeadlineExceeded,
@@ -115,7 +118,7 @@ from gofr_tpu_torch.models.transformer import (
     init_params,
     rope_tables,
 )
-from gofr_tpu_torch.ops.cuda import replayed
+from gofr_tpu_torch.ops.cuda import _build, replayed
 from gofr_tpu_torch.ops.kv_cache import (
     BlockAllocator,
     KVCache,
@@ -129,6 +132,12 @@ from gofr_tpu_torch.ops.quant import (
     quantized_bytes,
 )
 from gofr_tpu_torch.serving.checkpoint import maybe_restore_params
+from gofr_tpu_torch.serving.device_telemetry import (
+    CompileTracker,
+    CountingCall,
+    HBMLedger,
+    tree_device_bytes,
+)
 from gofr_tpu_torch.serving.hf_loader import is_hf_checkpoint, load_hf_llama
 from gofr_tpu_torch.serving.lora_runtime import LoRARuntimeMixin
 from gofr_tpu_torch.serving.lifecycle import (
@@ -141,6 +150,7 @@ from gofr_tpu_torch.serving.lifecycle import (
     parse_tenant_class_map,
 )
 from gofr_tpu_torch.serving.programs import (
+    Captured,
     DecodeGraphs,
     MegaState,
     SamplerFlags,
@@ -153,9 +163,10 @@ from gofr_tpu_torch.serving.programs import (
     prefill_multi_chunk,
     spec_window,
 )
+from gofr_tpu_torch.serving import profiler_capture
 from gofr_tpu_torch.serving.prefix_cache import PrefixPool
 from gofr_tpu_torch.serving.radix_cache import RadixPrefixIndex
-from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
+from gofr_tpu_torch.serving.tokenizer import ByteTokenizer, tokenizer_from_config
 from gofr_tpu_torch.serving.types import LOGIT_BIAS_K, GenerationResult, GenRequest
 
 # Reference options this slice accepts only at their neutral value, each
@@ -168,17 +179,11 @@ _NEUTRAL_SUBMIT_OPTIONS = {
 # TPU_* keys the reference's from_config and backend read and the port
 # does not serve yet: (key, the reference's default, ROADMAP item). Set to
 # anything else, each raises NotImplementedError naming its item.
-_LOADERS = "ROADMAP Queue 1 item 6: loaders and device services"
 _ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
 _MULTI = "ROADMAP Queue 1 item 8: multi-device"
 _UNPORTED_KEYS = (
-    ("TPU_TOKENIZER", "", _LOADERS), ("TPU_HBM_BYTES", "0", _LOADERS),
-    ("TPU_ADMIT_MIN_HEADROOM", "0", _LOADERS),
-    ("TPU_COMPILE_CACHE_DIR", "", _LOADERS),
     ("TPU_TP", "1", _MULTI), ("TPU_MESH_TP", "1", _MULTI),
     ("TPU_MESH_CP", "1", _MULTI),
-    # The HBM ledger that derives this watermark (device_telemetry).
-    ("TPU_PREFIX_EVICT_HBM_FRAC", "0", _LOADERS),
     ("TPU_EMBED_CHECKPOINT", "", _ENCODERS), ("TPU_EMBED_TOKENIZER", "", _ENCODERS),
     ("TPU_MAX_BATCH", "8", _OPS_PLANE), ("TPU_BATCH_WAIT_MS", "5", _OPS_PLANE),
     ("TPU_WATCHDOG_S", "0", _OPS_PLANE), ("TPU_RESTART_MAX", "0", _OPS_PLANE),
@@ -441,6 +446,20 @@ class InferenceEngine(LoRARuntimeMixin):
     (``serving/lora_runtime.py``) fill and clear them while serving, and a
     request picks one by name (``adapter=``). Every slot's requests batch
     in the same windows, each row under its own adapter.
+
+    Device services, as the reference's (``serving/device_telemetry.py``):
+    an HBM ledger over the engine's device tensors (``hbm_ledger``,
+    ``hbm_headroom_ratio``) against ``hbm_budget_bytes`` (0 = the card's
+    own memory, or on the CPU the ledger's total); ``admit_min_headroom``
+    sheds a submit with 429 ``hbm_headroom`` below that headroom (0 =
+    off); ``prefix_evict_hbm_frac`` derives the radix eviction watermark
+    from the ledger (an explicit ``prefix_evict_watermark`` wins). A
+    compile tracker counts the CUDA graph captures and the kernel
+    library's load (``compile_stats``, ``mark_steady_state``).
+    ``compile_cache_dir`` points the native builds (the kernel library,
+    the BPE core) at a directory a later process reuses; it takes effect
+    only before the first build of the process (``build_cache``). It may
+    also be the record ``build_cache.use_dir`` already returned for it.
     """
 
     family = "llm"
@@ -471,6 +490,10 @@ class InferenceEngine(LoRARuntimeMixin):
         prefix_evict_watermark: int = 0,
         prefix_slots: int = 0,
         queue_prefix_aware: bool = False,
+        prefix_evict_hbm_frac: float = 0.0,
+        admit_min_headroom: float = 0.0,
+        hbm_budget_bytes: int = 0,
+        compile_cache_dir: str | dict[str, Any] = "",
         lora_slots: int = 0,
         lora_rank: int = 16,
         lora_targets: str = "wq,wk,wv,wo",
@@ -489,12 +512,6 @@ class InferenceEngine(LoRARuntimeMixin):
         metrics: Any = None,
         **unsupported: Any,
     ) -> None:
-        if unsupported.get("prefix_evict_hbm_frac"):
-            raise NotImplementedError(
-                "prefix_evict_hbm_frac (the eviction watermark derived from "
-                f"the HBM ledger) is not ported yet ({_LOADERS})"
-            )
-        unsupported.pop("prefix_evict_hbm_frac", None)
         if unsupported:
             raise NotImplementedError(
                 "engine options outside this slice of the torch port: "
@@ -553,6 +570,14 @@ class InferenceEngine(LoRARuntimeMixin):
                 "exclusive (the pool copies slot rows; use "
                 "TPU_AUTO_PREFIX for paged prefix sharing)"
             )
+        # The build directory (TPU_COMPILE_CACHE_DIR) first: it holds only
+        # if no native build of this process read the default before.
+        # from_config passes the record its own use_dir call returned.
+        self._compile_cache_info: Optional[dict[str, Any]] = (
+            compile_cache_dir if isinstance(compile_cache_dir, dict)
+            else build_cache.use_dir(compile_cache_dir) if compile_cache_dir
+            else None
+        )
         self.device = resolve_device(device)
         if kv_block % 16 and self.device.type == "cuda":
             raise ValueError(
@@ -562,6 +587,20 @@ class InferenceEngine(LoRARuntimeMixin):
         self.spec = get_model(model_name)
         self.cfg = self.spec.config
         check_supported(self.cfg, self.device)
+        self._logger = logger
+        self._metrics = metrics
+        # The compile tracker: the CUDA graph captures (one program per
+        # captured graph) and the kernel library's first load in the
+        # process. It takes the trace ambient here, so a traced boot owns
+        # its capture spans.
+        self._compiles = CompileTracker(model_name, metrics=metrics, logger=logger)
+        if self._compile_cache_info is not None:
+            self._compiles.set_cache_info(self._compile_cache_info)
+        self._capture_calls: dict[str, Any] = {}
+        self._ledger: Optional[HBMLedger] = None
+        self.prefix_evict_hbm_frac = max(0.0, float(prefix_evict_hbm_frac))
+        self.admit_min_headroom = max(0.0, float(admit_min_headroom))
+        self.hbm_budget_bytes = max(0, int(hbm_budget_bytes))
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.window_k = int(window_k)
@@ -661,9 +700,6 @@ class InferenceEngine(LoRARuntimeMixin):
         self.auto_prefix = bool(auto_prefix)
         self.prefix_cache_blocks = max(0, int(prefix_cache_blocks))
         self.prefix_evict_watermark = max(0, int(prefix_evict_watermark))
-        # The reference derives it from the HBM ledger when the explicit
-        # watermark is 0; that ledger is not ported, so it is the knob.
-        self.effective_evict_watermark = self.prefix_evict_watermark
         self.prefix_slots = max(0, int(prefix_slots))
         self.queue_prefix_aware = bool(queue_prefix_aware)
         self._radix: Optional[RadixPrefixIndex] = (
@@ -693,6 +729,15 @@ class InferenceEngine(LoRARuntimeMixin):
             if self.mega_windows > 1 else None
         )
         self._graphs: Optional[DecodeGraphs] = None
+        # The HBM ledger over what this engine allocated, and the eviction
+        # watermark: the explicit one, else derived from the ledger.
+        self._build_hbm_ledger()
+        self.effective_evict_watermark = self.prefix_evict_watermark
+        if (self.prefix_evict_watermark <= 0 and self.prefix_evict_hbm_frac > 0
+                and self.kv_block):
+            self.effective_evict_watermark = self._ledger.derive_block_watermark(
+                self.prefix_evict_hbm_frac
+            )
 
         # Host-side scheduler state (scheduler thread only).
         self._slots: list[Optional[GenRequest]] = [None] * self.n_slots
@@ -718,7 +763,7 @@ class InferenceEngine(LoRARuntimeMixin):
         # Tokens emitted since the last app_tpu_tokens_generated add.
         self._unpublished_tokens = 0
 
-        # Admission control (guarded by self._lock): the class-priority
+        # Admission control (guarded by self._submit_lock): the class-priority
         # queue, its token backlog and per-tenant seats, and the aggregate
         # throughput estimate behind projected-wait shedding.
         self.queue_max = max(1, int(queue_max))
@@ -749,18 +794,19 @@ class InferenceEngine(LoRARuntimeMixin):
         self._work = threading.Event()
         # Requests taken off the queue that wait for KV blocks (loop only).
         self._backlog: "collections.deque[GenRequest]" = collections.deque()
-        self._logger = logger
-        self._metrics = metrics
-        # Lifecycle flags (written under self._lock): running, draining
+        # Lifecycle flags (written under self._submit_lock): running, draining
         # for a graceful stop (submits get 503), and the error that killed
         # the scheduler. The scheduler sets _idle_evt once a drain finds
         # no work left.
-        self._lock = threading.Lock()
+        self._submit_lock = lockcheck.make_lock("InferenceEngine._submit_lock")
         # Held by the scheduler thread for each pass and the graph capture,
         # and by load_lora/unload_lora for their slot writes
         # (_device_turn): an adapter write lands between two passes, in
         # stream order. The scheduler stands aside between passes while a
-        # writer waits (_device_waiters, under self._lock).
+        # writer waits (_device_waiters, under self._submit_lock). It stays
+        # a plain RLock outside lockcheck: the reference has no such lock
+        # (so no name in its lock model), and lockcheck instruments plain
+        # mutexes only, raising on the re-acquisition an RLock allows.
         self._device_lock = threading.RLock()
         self._device_waiters = 0
         self._running = False
@@ -965,14 +1011,23 @@ class InferenceEngine(LoRARuntimeMixin):
 
     def _projected_wait_s(self, cost_tokens: int) -> float:
         """Seconds of queue ahead of a request costing ``cost_tokens``
-        (prompt + budget). Read under ``self._lock``."""
+        (prompt + budget). Read under ``self._submit_lock``."""
         return (self._queued_tokens + cost_tokens) / self._throughput_tps()
 
-    def _retry_after_s(self, cost: int) -> float:
+    def _retry_after_s(self, cost: int, reason: str = "") -> float:
         """The Retry-After of an admission shed: the queue-drain
-        projection (the reference's ``shed_retry_after_s`` without the
-        brownout, tenant-ledger and control-plane floors, not ported)."""
-        return max(self._projected_wait_s(max(0, cost)), 0.5)
+        projection, plus for ``hbm_headroom`` the in-flight decode backlog
+        (headroom recovers as live work retires) — the reference's
+        ``shed_retry_after_s`` without the brownout, tenant-ledger and
+        control-plane floors, not ported."""
+        wait = self._projected_wait_s(max(0, cost))
+        if reason == "hbm_headroom":
+            inflight = sum(
+                max(0, max(1, req.max_new_tokens) - len(req.token_ids))
+                for req in self._slots if req is not None
+            )
+            wait += inflight / self._throughput_tps()
+        return max(wait, 0.5)
 
     def _shed(self, reason: str, retry_after_s: float) -> None:
         self.shed_counts[reason] += 1
@@ -988,7 +1043,7 @@ class InferenceEngine(LoRARuntimeMixin):
 
     def _enqueue(self, req: GenRequest) -> None:
         cost = len(req.prompt_ids) + req.max_new_tokens
-        with self._lock:
+        with self._submit_lock:
             if self._draining:
                 raise ErrorServiceUnavailable(
                     "engine draining for shutdown; retry against another replica"
@@ -1015,6 +1070,22 @@ class InferenceEngine(LoRARuntimeMixin):
                     f"(TPU_TENANT_QUEUE_MAX={self.tenant_queue_max})",
                     retry_after_s=retry,
                 )
+            if self.admit_min_headroom > 0:
+                # Below the HBM headroom floor new work is shed 429: a
+                # nearly full pool answers "retry elsewhere" instead of a
+                # mid-stream pool-exhausted failure. A non-finite ratio
+                # reads as no signal, never as pressure.
+                headroom = self.hbm_headroom_ratio()
+                if math.isfinite(headroom) and headroom < self.admit_min_headroom:
+                    retry = self._retry_after_s(cost, "hbm_headroom")
+                    self._shed("hbm_headroom", retry)
+                    raise ErrorTooManyRequests(
+                        f"HBM headroom {headroom:.3f} below the "
+                        f"admission floor {self.admit_min_headroom:.3f} "
+                        f"(TPU_ADMIT_MIN_HEADROOM); retry against "
+                        f"another replica",
+                        retry_after_s=retry,
+                    )
             if (
                 self.queue_max_tokens
                 and self._queued_tokens + cost > self.queue_max_tokens
@@ -1059,7 +1130,7 @@ class InferenceEngine(LoRARuntimeMixin):
         """Return a popped request's tokens and tenant seat to the
         submit budgets."""
         cost = len(req.prompt_ids) + req.max_new_tokens
-        with self._lock:
+        with self._submit_lock:
             self._queued_tokens = max(0, self._queued_tokens - cost)
             if req.tenant and req.tenant in self._tenant_queued:
                 left = self._tenant_queued[req.tenant] - 1
@@ -1176,10 +1247,94 @@ class InferenceEngine(LoRARuntimeMixin):
         self.params = quantize_params(self.params, mode)
         self.quant = mode
         self._graphs = None
+        if self._ledger is not None:  # the constructor builds it after this
+            self._build_hbm_ledger()
 
     def param_bytes(self) -> int:
         """Parameter bytes as stored (``ops.quant.quantized_bytes``)."""
         return quantized_bytes(self.params)
+
+    # -- device services (serving/device_telemetry.py) ---------------------
+
+    def _device_memory_stats(self) -> Optional[dict]:
+        """The card's own memory accounting under the reference's key
+        names (``bytes_limit``: the device's memory, ``bytes_in_use`` /
+        ``peak_bytes_in_use``: PyTorch's allocated bytes); None on the
+        CPU, as the reference's CPU backend."""
+        if self.device.type != "cuda":
+            return None
+        _, total = torch.cuda.mem_get_info(self.device)
+        return {
+            "bytes_limit": int(total),
+            "bytes_in_use": int(torch.cuda.memory_allocated(self.device)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(self.device)),
+        }
+
+    def _build_hbm_ledger(self) -> None:
+        """Account every device tensor this engine allocated into an
+        ``HBMLedger``: ``params`` (stored bytes, adapter leaves apart),
+        ``lora``, ``kv_pool`` (exactly ``cache.hbm_bytes()``),
+        ``prefix_pool`` and ``workspace`` (the cache's lengths and block
+        table, the slots' request planes, the mega window's buffers).
+        Sizes are metadata reads, fixed until a re-quantize."""
+        lora_bytes = sum(
+            tree_device_bytes(v) for k, v in self.params.items()
+            if k.endswith("_lora_a") or k.endswith("_lora_b")
+        )
+        components: dict[str, int] = {
+            "params": tree_device_bytes(self.params) - lora_bytes,
+        }
+        if lora_bytes:
+            components["lora"] = lora_bytes
+        cache = self.cache
+        components["kv_pool"] = cache.hbm_bytes()
+        components["workspace"] = tree_device_bytes([
+            cache.lengths, getattr(cache, "block_table", None),
+            self.planes, self._mega,
+        ])
+        if self._prefix_pool is not None:
+            components["prefix_pool"] = self._prefix_pool.hbm_bytes()
+        block_bytes = n_blocks = 0
+        if self.kv_block:
+            block_bytes = cache.block_bytes()
+            n_blocks = cache.n_blocks
+        self._ledger = HBMLedger(
+            components,
+            block_bytes=block_bytes,
+            n_blocks=n_blocks,
+            budget_bytes=self.hbm_budget_bytes,
+            device_stats=self._device_memory_stats,
+        )
+        self._ledger.publish(self._metrics, self.model_name)
+
+    def hbm_ledger(self) -> dict:
+        """The HBM ledger's snapshot: components, totals, budget and its
+        source, headroom, and the card's own accounting beside them."""
+        if self._ledger is None:
+            return {}
+        return dict(self._ledger.snapshot(self._ledger_free_blocks()))
+
+    def _ledger_free_blocks(self) -> int:
+        return int(self._allocator.n_free) if self.kv_block else 0
+
+    def hbm_headroom_ratio(self) -> float:
+        """The saturation signal: the free fraction of the HBM budget
+        (budget slack + free paged blocks). Read by admission
+        (``admit_min_headroom``). Host arithmetic only."""
+        if self._ledger is None:
+            return 1.0
+        return float(self._ledger.headroom_ratio(self._ledger_free_blocks()))
+
+    def mark_steady_state(self) -> None:
+        """Arm the compile tracker's warm-up fence: every capture or build
+        after this call counts (and warns) as a steady-state recompile."""
+        self._compiles.mark_warm()
+
+    def compile_stats(self) -> dict:
+        """The compile tracker's snapshot: per-program compiles and their
+        seconds, the steady-state recompiles, whether the fence is armed,
+        and the build directory's provenance."""
+        return dict(self._compiles.snapshot())
 
     # -- lifecycle (the reference's start/stop and drain semantics) --------
 
@@ -1189,7 +1344,7 @@ class InferenceEngine(LoRARuntimeMixin):
     def start_sync(self) -> None:
         """Start the scheduler thread; a no-op while it runs (the
         constructor starts it), a restart after a stop."""
-        with self._lock:
+        with self._submit_lock:
             if self._running:
                 return
             self._running = True
@@ -1221,7 +1376,7 @@ class InferenceEngine(LoRARuntimeMixin):
         ``RuntimeError``; later submits raise (503 after a graceful stop,
         "engine not started" after a hard one, as in the reference)."""
         if drain_s > 0 and self._running:
-            with self._lock:
+            with self._submit_lock:
                 self._draining = True
                 self._idle_evt.clear()
             self._work.set()
@@ -1232,7 +1387,7 @@ class InferenceEngine(LoRARuntimeMixin):
                 # between two structures is never missed.
                 if self._idle_evt.wait(timeout=left) or not self._running:
                     break
-        with self._lock:
+        with self._submit_lock:
             self._running = False
         self._work.set()  # wake the loop
         thread = self._thread
@@ -1298,6 +1453,24 @@ class InferenceEngine(LoRARuntimeMixin):
                     "lookups": self._prefix_lookups,
                     "hit_tokens": self._prefix_hit_tokens,
                 }
+        if self._ledger is not None:
+            # The ledger's compact form and the compile counts, the
+            # reference's health detail.
+            snap = self.hbm_ledger()
+            details["hbm_ledger"] = {
+                "components": snap.get("components", {}),
+                "total_bytes": snap.get("total_bytes", 0),
+                "per_device_bytes": snap.get("per_device_bytes", 0),
+                "budget_bytes": snap.get("budget_bytes", 0),
+                "budget_source": snap.get("budget_source", ""),
+                "headroom_ratio": snap.get("headroom_ratio", 1.0),
+            }
+            details["compiles"] = {
+                "total": self._compiles.total,
+                "steady_state_recompiles": self._compiles.steady_state_recompiles,
+            }
+            if self._compiles.cache_info is not None:
+                details["compiles"]["compile_cache"] = dict(self._compiles.cache_info)
         up = self._running and self._state == "SERVING"
         return {"status": "UP" if up else "DOWN", "state": self._state,
                 "details": details}
@@ -1321,8 +1494,21 @@ class InferenceEngine(LoRARuntimeMixin):
         goes to ``logger``. ``TPU_LORA_SLOTS`` / ``TPU_LORA_RANK`` /
         ``TPU_LORA_TARGETS`` shape the adapter slots, and
         ``TPU_LORA_ADAPTERS`` (``name=path,name2=path2``, HF PEFT
-        directories) loads adapters at boot."""
+        directories) loads adapters at boot. ``TPU_TOKENIZER`` serves a
+        ``tokenizer.json`` directory (``tokenizer_from_config``; the byte
+        tokenizer when it cannot be read), ``TPU_HBM_BYTES``,
+        ``TPU_ADMIT_MIN_HEADROOM`` and ``TPU_PREFIX_EVICT_HBM_FRAC`` are
+        the device services' knobs, and ``TPU_COMPILE_CACHE_DIR`` the
+        native builds' directory, set before the tokenizer's core is
+        built."""
         check_unported_keys(config)
+        compile_cache_dir = config.get_or_default("TPU_COMPILE_CACHE_DIR", "")
+        # Before the tokenizer below builds the BPE core into it.
+        compile_cache = build_cache.use_dir(compile_cache_dir) if compile_cache_dir else ""
+        tokenizer = tokenizer_from_config(config, logger)
+        tok_path = config.get_or_default("TPU_TOKENIZER", "")
+        if tok_path and logger is not None:
+            logger.infof("serving tokenizer %s from %s", type(tokenizer).__name__, tok_path)
 
         def num(key: str, default: str, kind: type = int) -> Any:
             return kind(config.get_or_default(key, default))
@@ -1370,6 +1556,10 @@ class InferenceEngine(LoRARuntimeMixin):
             auto_prefix=_truthy(config, "TPU_AUTO_PREFIX", "false"),
             prefix_cache_blocks=num("TPU_PREFIX_CACHE_BLOCKS", "0"),
             prefix_evict_watermark=num("TPU_PREFIX_EVICT_WM", "0"),
+            prefix_evict_hbm_frac=num("TPU_PREFIX_EVICT_HBM_FRAC", "0", float),
+            admit_min_headroom=num("TPU_ADMIT_MIN_HEADROOM", "0", float),
+            hbm_budget_bytes=num("TPU_HBM_BYTES", "0"),
+            compile_cache_dir=compile_cache,
             prefix_slots=num("TPU_PREFIX_SLOTS", "0"),
             lora_slots=num("TPU_LORA_SLOTS", "0"),
             lora_rank=num("TPU_LORA_RANK", "16"),
@@ -1388,6 +1578,7 @@ class InferenceEngine(LoRARuntimeMixin):
             tenant_queue_max=num("TPU_TENANT_QUEUE_MAX", "0"),
             tenant_slo_class=config.get_or_default("TPU_TENANT_SLO_CLASS", ""),
             expected_tps=num("TPU_EXPECTED_TPS", "0", float),
+            tokenizer=tokenizer,
             params=params,
             quant=quant,
             device=device,
@@ -1421,12 +1612,18 @@ class InferenceEngine(LoRARuntimeMixin):
     # ------------------------------------------------------------------
 
     def _run(self) -> None:
+        on_card = self.device.type == "cuda"
+        if on_card:
+            # This thread captures and replays CUDA graphs until it ends:
+            # profiler captures are refused meanwhile (ROADMAP Queue 3).
+            profiler_capture.note_graph_replays(self, True)
         try:
-            if self.device.type == "cuda":
+            if on_card:
                 torch.cuda.set_device(self.device)
             with torch.inference_mode():
-                if self.device.type == "cuda" and self._graphs is None:
+                if on_card and self._graphs is None:
                     with self._device_lock:
+                        self._load_kernels()
                         self._capture_graphs()
                 while self._running:
                     if self._device_waiters:
@@ -1436,7 +1633,7 @@ class InferenceEngine(LoRARuntimeMixin):
                         self._pass()
         except Exception as exc:  # the loop's boundary: report, fail callers
             traceback.print_exc()
-            with self._lock:
+            with self._submit_lock:
                 self._error = exc
                 self._running = False
             self._set_state("DEGRADED")
@@ -1444,6 +1641,9 @@ class InferenceEngine(LoRARuntimeMixin):
                 self._logger.errorf("engine scheduler died: %s", exc)
             self._fail_all(exc)
             self._idle_evt.set()  # a drain waiting on this engine ends
+        finally:
+            if on_card:
+                profiler_capture.note_graph_replays(self, False)
 
     def _pass(self) -> None:
         """One scheduler pass, the reference's loop body
@@ -1496,17 +1696,39 @@ class InferenceEngine(LoRARuntimeMixin):
                 lambda: mega_begin(self._mega),
                 lambda sampling, use_bias: self._mega_step(sampling, use_bias),
                 self._mega.go,
-            ))
+            ), capture=self._capture, name="spec_mega" if self.spec_tokens else "mega")
         else:
             self._graphs = DecodeGraphs(
-                window_fn=lambda sampling, use_bias: self._window_eager(sampling, use_bias)
+                window_fn=lambda sampling, use_bias: self._window_eager(sampling, use_bias),
+                capture=self._capture,
+                name="spec_window" if self.spec_tokens else "window",
             )
+
+    def _load_kernels(self) -> None:
+        """Load the kernel library; the process's first load (a build or
+        a read from the build directory) counts as one compile."""
+        if _build.loaded():
+            return
+        w0, t0 = time.time_ns(), time.perf_counter()
+        _build.lib()
+        self._compiles._note_compile("kernel_library", time.perf_counter() - t0, w0)
+
+    def _capture(self, program: str, fn: Any, pool: Any, keep_graph: bool = False):
+        """One CUDA graph capture of ``program``, counted by the compile
+        tracker (every capture compiles: a recapture after
+        ``mark_steady_state`` is a steady-state recompile)."""
+        call = self._capture_calls.get(program)
+        if call is None:
+            call = self._capture_calls[program] = self._compiles.wrap(
+                program, CountingCall(Captured)
+            )
+        return call(fn, pool, keep_graph=keep_graph)
 
     def _note_idle(self) -> None:
         """During a drain: publish idle once nothing is queued, waiting
         for blocks, prefilling or decoding (submits are refused by then,
         so idle stays idle)."""
-        with self._lock:
+        with self._submit_lock:
             if (self._pending.qsize() == 0 and not self._backlog
                     and not self._prefilling and not self._inflight
                     and not self._prefill_emits
@@ -2150,6 +2372,8 @@ class InferenceEngine(LoRARuntimeMixin):
         in_use = sum(1 for s in self._slots if s is not None)
         m.set_gauge("app_tpu_kv_slots_in_use", in_use, "model", self.model_name)
         m.set_gauge("app_tpu_queue_depth", self._pending.qsize(), "batcher", "generate")
+        m.set_gauge("app_tpu_hbm_headroom_ratio", self.hbm_headroom_ratio(),
+                    "model", self.model_name)
         if self.kv_block:
             total, used, _ = self.kv_pool_counts()
             m.set_gauge("app_tpu_kv_pool_occupancy_ratio", used / max(1, total),
@@ -2294,6 +2518,7 @@ class InferenceEngine(LoRARuntimeMixin):
         and prefilling (the chunks queue behind it on the stream) and
         emits first tokens that land."""
         t_fetch = time.time()
+        lockcheck.note_device_sync("decode_window_fetch")
         if win.event is not None:
             if self._prefill_emits or win.wrun is not None:
                 while not win.event.query():

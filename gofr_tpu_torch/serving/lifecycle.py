@@ -21,6 +21,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Mapping, Optional
 
+from gofr_tpu_torch.analysis import lockcheck
+
 
 class Deadline:
     """An absolute expiry measured on ``clock`` (monotonic seconds).
@@ -94,7 +96,7 @@ class AggregateThroughput:
     ) -> None:
         self.window_s = float(window_s)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("AggregateThroughput._lock")
         # (bucket start time, tokens in bucket); _total mirrors the sum.
         self._buckets: deque[tuple[float, int]] = deque()
         self._total = 0
@@ -177,7 +179,7 @@ class ClassPriorityQueue:
         self.promote_after_s = float(promote_after_s)
         self._clock = clock
         self._prefix_probe = prefix_probe
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("ClassPriorityQueue._lock")
         # rank → FIFO of (enqueued_at, request); rank 1 is THE queue when
         # classing is off.
         self._lanes: dict[int, deque] = {0: deque(), 1: deque(), 2: deque()}

@@ -41,13 +41,13 @@ class LoRARuntimeMixin:
         """Hold the engine's device lock between two scheduler passes: the
         scheduler sees a waiter and stands aside instead of taking the lock
         straight back."""
-        with self._lock:
+        with self._submit_lock:
             self._device_waiters += 1
         self._work.set()
         try:
             self._device_lock.acquire()
         finally:
-            with self._lock:
+            with self._submit_lock:
                 self._device_waiters -= 1
         try:
             yield

@@ -24,12 +24,12 @@ adapter purges its entries (``purge_aid``).
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Optional, Sequence
 
 import torch
 
+from gofr_tpu_torch.analysis import lockcheck
 from gofr_tpu_torch.ops.kv_cache import KVCache
 
 _COPY_BUCKET = 256  # positions a copy covers, in multiples of this
@@ -44,7 +44,7 @@ class PrefixPool:
     def __init__(self, n_entries: int, cache: KVCache) -> None:
         self.n_entries = int(n_entries)
         self.max_len = cache.max_len
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("PrefixPool._lock")
         self._registry: "OrderedDict[_PrefixKey, int]" = OrderedDict()
 
         def like(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:

@@ -43,6 +43,7 @@ from typing import Callable, Optional
 
 import torch
 
+from gofr_tpu_torch.analysis import lockcheck
 from gofr_tpu_torch.models.transformer import (
     Rope,
     TransformerConfig,
@@ -641,6 +642,7 @@ class Captured:
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
+        lockcheck.note_device_sync("graph_capture_synchronize")
         torch.cuda.synchronize()
         self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
         t0 = time.perf_counter()
@@ -680,27 +682,45 @@ class DecodeGraphs:
 
     Capture runs every variant once eagerly and so advances every active
     slot: build this only while no slot is active (inactive slots park
-    their writes and add 0 to their counters)."""
+    their writes and add 0 to their counters).
+
+    Each capture goes through ``capture(program, fn, pool, keep_graph=)``
+    (default: ``Captured`` itself), under a program name made of ``name``
+    and the variant (``window[sampling=0,bias=1]``, ``mega_prologue``):
+    the engine counts them there as compiles."""
 
     def __init__(self, window_fn: Optional[Callable[[bool, bool], torch.Tensor]] = None,
-                 mega_fns: Optional[tuple] = None) -> None:
+                 mega_fns: Optional[tuple] = None,
+                 capture: Optional[Callable[..., Captured]] = None,
+                 name: str = "") -> None:
         if (window_fn is None) == (mega_fns is None):
             raise ValueError("DecodeGraphs captures either window_fn or mega_fns")
+        if capture is None:
+            capture = lambda program, fn, pool, keep_graph=False: Captured(  # noqa: E731
+                fn, pool, keep_graph=keep_graph)
+        name = name or ("window" if window_fn is not None else "mega")
+
+        def program(v: tuple) -> str:
+            return f"{name}[sampling={int(v[0])},bias={int(v[1])}]"
+
         self.pool = torch.cuda.graph_pool_handle()
         self.windows: dict = {}
         self.megas: dict = {}
         if window_fn is not None:
             self.windows = {
-                v: Captured(lambda v=v: window_fn(*v), self.pool) for v in VARIANTS
+                v: capture(program(v), lambda v=v: window_fn(*v), self.pool)
+                for v in VARIANTS
             }
         else:
             from gofr_tpu_torch.ops.cuda.graph_while import WhileGraph
 
             begin_fn, step_fn, go = mega_fns
-            self.prologue = Captured(begin_fn, self.pool, keep_graph=True)
+            self.prologue = capture(f"{name}_prologue", begin_fn, self.pool,
+                                    keep_graph=True)
             for v in VARIANTS:
                 begin_fn()  # the warm-up window starts at w = 0
-                body = Captured(lambda v=v: step_fn(*v), self.pool, keep_graph=True)
+                body = capture(program(v), lambda v=v: step_fn(*v), self.pool,
+                               keep_graph=True)
                 self.megas[v] = (WhileGraph(self.prologue.raw(), body.raw(), go), body)
         self.capture_s = {f"window {v}": c.capture_s for v, c in self.windows.items()}
         self.capture_s.update({f"mega {v}": b.capture_s for v, (_, b) in self.megas.items()})

@@ -32,9 +32,9 @@ dies with the engine's cache.
 
 from __future__ import annotations
 
-import threading
 from typing import Iterator, Optional
 
+from gofr_tpu_torch.analysis import lockcheck
 from gofr_tpu_torch.ops.kv_cache import BlockAllocator
 
 
@@ -74,7 +74,7 @@ class RadixPrefixIndex:
         self.block = int(block)
         self.max_blocks = max(0, int(max_blocks))  # 0 = pool-bounded only
         self._alloc = allocator
-        self._lock = threading.Lock()
+        self._lock = lockcheck.make_lock("RadixPrefixIndex._lock")
         # One root per adapter slot; roots carry no block (block -1).
         self._roots: dict[int, _RadixNode] = {}
         self._tick = 0

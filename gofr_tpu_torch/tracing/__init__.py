@@ -14,6 +14,7 @@ from gofr_tpu_torch.tracing.tracer import (
     extract_traceparent,
     get_tracer,
     set_tracer,
+    tracer_active,
 )
 
 __all__ = [
@@ -23,4 +24,5 @@ __all__ = [
     "get_tracer",
     "set_tracer",
     "extract_traceparent",
+    "tracer_active",
 ]

@@ -5,9 +5,10 @@ and opens a span per request (``http/middleware/tracer.go:15-32``); handlers
 open child spans via ``ctx.Trace(name)`` (``context.go:45-51``); clients
 inject ``traceparent`` downstream (``service/new.go:158``).
 
-The port's copy of ``gofr_tpu/tracing/tracer.py`` without ``emit_span``
-(the request-observability layer's, ROADMAP Queue 1 item 7) and
-``inject_traceparent`` (the service clients', the same item).
+The port's copy of ``gofr_tpu/tracing/tracer.py`` without
+``inject_traceparent`` (the service clients', ROADMAP Queue 1 item 7),
+plus a copy of ``tracer_active`` from the reference's
+``serving/observability.py`` (the rest of that module is item 7.2).
 """
 
 from __future__ import annotations
@@ -120,6 +121,38 @@ class Tracer:
         span._token = _current_span.set(span)
         return span
 
+    def emit_span(
+        self,
+        name: str,
+        *,
+        trace_id: str,
+        parent_span_id: Optional[str] = None,
+        start_ns: int,
+        end_ns: int,
+        attributes: Optional[dict[str, Any]] = None,
+        status: str = "OK",
+    ) -> Span:
+        """Export an already-completed span with explicit timestamps.
+
+        A span reconstructed after the fact (a graph capture's
+        ``tpu.compile``, timed on the scheduler thread) is built fully
+        ended, never touching the ambient context-var, so the calling
+        thread's context is untouched, and goes straight to the
+        exporter."""
+        span = Span(
+            name=name,
+            trace_id=trace_id,
+            span_id=_rand_hex(8),
+            parent_id=parent_span_id,
+            start_ns=int(start_ns),
+            end_ns=int(end_ns),
+            attributes=dict(attributes or {}),
+            status=status,
+            _tracer=None,  # already ended; do not re-enter _on_end
+        )
+        self._on_end(span)
+        return span
+
     def _on_end(self, span: Span) -> None:
         if self._exporter is not None:
             self._exporter.export(span, self.service_name)
@@ -143,6 +176,15 @@ def get_tracer() -> Tracer:
 def set_tracer(tracer: Tracer) -> None:
     global _global_tracer
     _global_tracer = tracer
+
+
+def tracer_active(tracer: Optional[Tracer] = None) -> bool:
+    """True when completed spans actually go somewhere (an exporter that
+    is not the no-op) — span construction is skipped entirely
+    otherwise."""
+    t = tracer or get_tracer()
+    exporter = getattr(t, "_exporter", None)
+    return exporter is not None and not getattr(exporter, "is_noop", False)
 
 
 def extract_traceparent(

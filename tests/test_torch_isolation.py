@@ -1,5 +1,7 @@
 """The port stands alone: importing every gofr_tpu_torch module and
-chip_smoke's import surface pulls in neither JAX nor anything of gofr_tpu.
+chip_smoke's import surface pulls in neither JAX nor anything of gofr_tpu,
+nor the packages the card's machine lacks (transformers, tokenizers,
+regex, jinja2: the port's tokenizers use the standard library).
 Checked in a subprocess (this test process has JAX loaded by conftest),
 with an import hook that refuses those packages outright. Also: without
 CUDA, chip_smoke.py exits non-zero and prints no result — in the repo and
@@ -18,7 +20,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 def banned(name):
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib") or root == "gofr_tpu"
+    return root in ("jax", "jaxlib", "gofr_tpu", "transformers", "tokenizers",
+                    "regex", "jinja2")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -41,9 +44,14 @@ for fn in (chip_smoke.phase_kernels, chip_smoke.phase_kernel_variants,
            chip_smoke.phase_prefill_padded, chip_smoke.phase_window_kernels,
            chip_smoke.phase_window_grad, chip_smoke.phase_mistral_forward,
            chip_smoke.phase_full_sequence, chip_smoke.phase_serve_options,
-           chip_smoke.phase_http, chip_smoke.phase_lora, chip_smoke.phase_lora_train):
+           chip_smoke.phase_http, chip_smoke.phase_lora, chip_smoke.phase_lora_train,
+           chip_smoke.phase_device_services):
     assert callable(fn)
-for name in ("gofr_tpu_torch.serving.lora", "gofr_tpu_torch.serving.lora_runtime"):
+for name in ("gofr_tpu_torch.serving.lora", "gofr_tpu_torch.serving.lora_runtime",
+             "gofr_tpu_torch.serving.hf_tokenizer", "gofr_tpu_torch.serving.native_tokenizer",
+             "gofr_tpu_torch.serving.device_telemetry",
+             "gofr_tpu_torch.serving.profiler_capture",
+             "gofr_tpu_torch.analysis.lockcheck"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked

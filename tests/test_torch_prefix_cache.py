@@ -23,7 +23,6 @@ reference's.
 """
 
 import inspect
-import re
 from types import SimpleNamespace
 
 import jax
@@ -292,10 +291,25 @@ def test_served_prefix_key_sets_the_reference_attribute(key, value, attr, extra)
 
 
 def test_hbm_frac_watermark_still_raises_naming_its_item():
+    """TPU_PREFIX_EVICT_HBM_FRAC is served since the HBM ledger was ported
+    (it no longer raises): on the slot cache the watermark stays 0, on a
+    pool it is the ledger's derived one, as in the reference. The name is
+    the one this test had while the key raised, kept so its history
+    stays one test's; it now checks the key is served."""
     cfg = MockConfig({
         "TPU_MODEL": "llama-tiny", "TPU_DEVICE": "cpu", "TPU_KV_SLOTS": "1",
         "TPU_MAX_LEN": "64", "TPU_PREFIX_EVICT_HBM_FRAC": "0.1"})
-    with pytest.raises(NotImplementedError, match=re.escape("ROADMAP Queue 1 item 6")):
-        InferenceEngine.from_config(cfg)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        InferenceEngine("llama-tiny", device="cpu", prefix_evict_hbm_frac=0.1)
+    eng = InferenceEngine.from_config(cfg)
+    try:
+        assert eng.prefix_evict_hbm_frac == pytest.approx(0.1)
+        assert eng.effective_evict_watermark == 0
+    finally:
+        eng.close()
+    eng = InferenceEngine("llama-tiny", device="cpu", n_slots=1, max_len=64,
+                          kv_block=16, auto_prefix=True, prefix_evict_hbm_frac=0.1)
+    try:
+        derived = eng._ledger.derive_block_watermark(0.1)
+        assert derived > 0
+        assert eng.effective_evict_watermark == derived
+    finally:
+        eng.close()
