@@ -119,9 +119,12 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    TPU_PREFIX_EVICT_HBM_FRAC, twice (the second past mark_steady_state:
    no recompile, greedy streams equal); the HBM ledger beside
    torch.cuda.memory_allocated(), the headroom, the derived watermark and
-   the free blocks kept; the captures per program; a 429 hbm_headroom; a
-   200 ms profiler_capture's kernels beside eager forwards; a
-   TPU_LOCKCHECK=1 child (4 layers,
+   the free blocks kept; the captures per program; a 429 hbm_headroom; the
+   profiler repair: a 200 ms profiler_capture while the engine replays its
+   decode windows (the start and stop handed to the scheduler thread) must
+   trace their flash_decode launches inside traced graph launches and end
+   within 5 s of its window, under a 120 s watchdog; a 200 ms capture's
+   kernels beside eager forwards; a TPU_LOCKCHECK=1 child (4 layers,
    0 violations) and a child reusing TPU_COMPILE_CACHE_DIR's BPE core;
 5. profiles one 8-step decode window (eager, then as a CUDA graph replay)
    and one [8, 256] prefill chunk with
@@ -161,6 +164,22 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    profiles one training step;
 7. checks transformer_prefill (right-padded llama-1b batch, the kernel's
    lengths variant) against the plain path;
+7a. trains the other decoder families and MoE through make_train_step at
+   full width, depth cut to fit f32 masters, AdamW and gradients
+   (FAMILY_TRAIN: gemma-7b, qwen2-7b and pythia-6.9b at 4 layers on
+   [1, 2048], gpt2 whole on [8, 1024], mixtral-8x7b at 2 layers on
+   [1, 2048]): step-1 loss and gradients through the kernel against the
+   plain path, 6 steps with finite and falling losses, flash_attention
+   once a layer a forward, step time, tokens/s, train_mfu and peak memory;
+   and 3 make_lora_train_step steps on gpt2;
+7b. serves the encoder and vision families behind the dynamic batcher:
+   ResNet-50 at static batch 1 against the host CPU, 64 concurrent
+   requests through the batcher and over HTTP (TPU_MODEL=resnet-50,
+   ctx.infer); BERT-base as TPU_EMBED_MODEL beside llama-1b, 64
+   concurrent /v1/embeddings of 8 to 500 tokens, each vector against
+   bert_embed on its flush's batch; ViT-B/16 at [8, 224, 224, 3], kernel
+   against dense attention, 12 flash_attention launches a forward, 64
+   requests;
 8. prints the card, the kernels line and, last, {"ok": true, ...}.
 
 Device times come from torch.profiler. On a machine where its trace holds
@@ -5214,7 +5233,9 @@ def phase_device_services(torch, dev, cfg, params) -> dict:
        steady_state_recompiles 0, greedy streams equal the first wave's
        (near-tie rule);
     4. raises admit_min_headroom above the measured headroom: a submit
-       sheds 429 with reason hbm_headroom;
+       sheds 429 with reason hbm_headroom; then the profiler repair check
+       (``profiler_under_replays``): a 200 ms capture while the engine
+       replays decode windows traces their flash_decode launches;
     5. one profiler_capture of ~200 ms beside eager forwards (the engine
        closed): the trace's kernels;
     6. a child with TPU_LOCKCHECK=1 (the same widths, 4 layers, the same
@@ -5459,13 +5480,9 @@ def phase_device_services(torch, dev, cfg, params) -> dict:
                     fail(f"{label}: the shed is not a 429 hbm_headroom")
             eng.admit_min_headroom = 0.0
 
-            # profiler_capture refuses while this engine's scheduler thread
-            # replays CUDA graphs (the open fault, ROADMAP Queue 3).
-            guard = get_capture(cooldown_s=0)
-            if guard.trigger(200, reason="chip_smoke under graphs"):
-                fail(f"{label}: profiler_capture started under a serving engine's graphs")
-            log(f"{label}: profiler_capture under the serving engine refused: "
-                f"{guard.snapshot()['last_error']}")
+            # The profiler repair check: a capture while this engine
+            # replays its decode windows.
+            out["profiler_under_replays"] = profiler_under_replays(torch, eng, label)
 
             out["ledger"] = ledger
             out["compiles"] = stats
@@ -5473,10 +5490,8 @@ def phase_device_services(torch, dev, cfg, params) -> dict:
             eng.close()
 
         # One profiler capture (its own thread, 200 ms) while this thread runs
-        # eager forwards through the kernels, after the engine closed: a
-        # capture begun while the scheduler thread replays CUDA graphs took
-        # 7.6-11.8 s and traced no kernel on an H100, and once hung the
-        # process (PERF.md, open questions). The trace must hold the
+        # eager forwards through the kernels, after the engine closed (no
+        # scheduler to hand the start to). The trace must hold the
         # forwards' flash_attention launches; a trace with no kernel (the
         # profiler once traced none on an H100, PR 10) is taken once more.
         from gofr_tpu_torch.models.transformer import transformer_forward
@@ -5558,6 +5573,671 @@ def phase_device_services(torch, dev, cfg, params) -> dict:
     return out
 
 
+# -- the encoder and vision families, family training, the profiler repair --
+
+ENC_REQUESTS = 64
+ENC_MAX_BATCH = 8
+ENC_WAIT_MS = 5
+# ResNet-50 on the card against the same forward on the card's host CPU
+# (f32 after a bf16 stem on both; the bf16 stem may round a value one ulp
+# apart, which the f32 net then carries): max |dlogits| within this share
+# of the largest |logit|, and the same top-1 unless the top-2 gap on the
+# host is under it. The same bound holds one image's logits served in a
+# batch of 8 against the same image served alone (cuDNN picks another
+# algorithm per batch size).
+RESNET_DLOGITS_REL = 1e-2
+# BERT-base through /v1/embeddings against bert_embed run directly on the
+# flush's own padded batch: the same inputs through the same kernels.
+EMBED_EQUAL_TOL = 1e-6
+# A profiler capture of 200 ms under the serving engine must have written
+# its trace this long after its window ends; the watchdog ends the run
+# after PROFILER_WATCHDOG_S, so a hang costs that, not the run's limit.
+PROFILER_END_S = 5.0
+PROFILER_WATCHDOG_S = 120.0
+
+
+def _forward_ms(torch, fn) -> float | None:
+    """Device time of one model forward: ``device_ms`` over one call (a
+    forward launches hundreds of kernels, and the queued fallback must fit
+    them all behind its spin kernel); None (not measured) where neither
+    way can time it."""
+    return device_ms(torch, fn, runs=1, required=False)
+
+
+def _ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+def _pcts(lat_s: list) -> tuple:
+    lat = sorted(lat_s)
+    return (statistics.median(lat) * 1e3,
+            lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)] * 1e3)
+
+
+def _record_flushes(eng) -> list:
+    """Every flush the engine's batcher runs from now on: (payloads,
+    results)."""
+    flushes = []
+    inner = eng._batcher._execute
+
+    def recorded(payloads):
+        out = inner(payloads)
+        flushes.append((list(payloads), out))
+        return out
+
+    eng._batcher._execute = recorded
+    return flushes
+
+
+def _fan_out(fn, items: list) -> tuple[list, list, float]:
+    """``fn(item)`` for every item at once, each from its own thread:
+    (results in order, each call's latency in s, wall s)."""
+    out, lat = [None] * len(items), [0.0] * len(items)
+    errors = []
+    start = threading.Barrier(len(items) + 1)
+
+    def run(i):
+        start.wait()
+        t0 = time.perf_counter()
+        try:
+            out[i] = fn(items[i])
+        except Exception as exc:  # reported below as a failed check
+            errors.append(repr(exc))
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(items))]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    start.wait()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{len(errors)} of {len(items)} concurrent calls failed: {errors[:3]}")
+    return out, lat, wall
+
+
+def _flush_histogram(flushes: list) -> dict:
+    return dict(sorted(collections.Counter(len(p) for p, _ in flushes).items()))
+
+
+def _serve_line(label: str, lat: list, wall: float, flushes: list, extra: str = "") -> dict:
+    p50, p99 = _pcts(lat)
+    stats = {"requests": len(lat), "req_s": len(lat) / wall, "p50_ms": p50, "p99_ms": p99,
+             "batch_sizes": _flush_histogram(flushes)}
+    log(f"{label}: {len(lat)} requests in {wall:.3f} s: {stats['req_s']:.1f} req/s, latency "
+        f"p50 {p50:.2f} ms, p99 {p99:.2f} ms; batch sizes {stats['batch_sizes']}" + extra)
+    return stats
+
+
+def _nested_to(torch, tree, device):
+    if isinstance(tree, dict):
+        return {k: _nested_to(torch, v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_nested_to(torch, v, device) for v in tree]
+    return tree.to(device)
+
+
+def _app_harness(config: dict):
+    """The port's App from ``config`` on an event-loop thread: (app,
+    loop, stop())."""
+    import asyncio
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MockConfig
+
+    app = App(config=MockConfig({"APP_NAME": "chip-smoke", "HTTP_PORT": "0",
+                                 "METRICS_PORT": "0", "LOG_LEVEL": "WARN", **config}))
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="enc-http-loop", daemon=True)
+    thread.start()
+
+    def stop():
+        try:
+            asyncio.run_coroutine_threadsafe(app.stop(), loop).result(timeout=120)
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(timeout=10)
+
+    return app, loop, stop
+
+
+def _http_raw(port: int, path: str, body: bytes, ctype: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_encoders(torch, dev) -> dict:
+    """The encoder and vision families at full width on the card, each
+    behind the port's dynamic batcher (random weights from seed 0):
+
+    1. ResNet-50 (f32 after its bf16 stem, as the reference; TF32 off) at
+       static batch 1 (BASELINE config 2: one request at a time), held
+       against the same forward on the card's host CPU (RESNET_DLOGITS_REL,
+       top-1); then ENC_REQUESTS concurrent classify requests through the
+       batcher (max_batch 8, 5 ms), each held against its batch-1 logits;
+       then the same over HTTP: the App from TPU_MODEL=resnet-50 and a
+       route that calls ctx.infer on the [224, 224, 3] f32 image posted as
+       raw bytes, each response against the engine's logits;
+    2. BERT-base as TPU_EMBED_MODEL beside a chat model (TPU_MODEL=
+       llama-1b): ENC_REQUESTS concurrent /v1/embeddings requests of 8 to
+       500 tokens; batch sizes above 1 (coalescing); every vector equal
+       (EMBED_EQUAL_TOL) to bert_embed run directly on its flush's padded
+       batch; unit norm;
+    3. ViT-B/16 at [8, 224, 224, 3]: the kernel path against the dense
+       plain path (FORWARD_DLOGITS_TOL, top-1), flash_attention launched 12
+       times a forward; ENC_REQUESTS concurrent requests, 12 launches a
+       flush.
+    Each prints requests/s, latency p50/p99, the batch sizes, the device
+    time of a forward and the peak memory. Returns the numbers and the
+    flash_attention launches."""
+    import numpy as np
+
+    from gofr_tpu_torch.models.bert import bert_embed
+    from gofr_tpu_torch.models.resnet import resnet_forward
+    from gofr_tpu_torch.models.vit import vit_forward
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.batcher import pad_bucket
+    from gofr_tpu_torch.serving.device_telemetry import tree_device_bytes
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+    from gofr_tpu_torch.serving.types import _PREFILL_BUCKETS
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((16, 224, 224, 3)).astype(np.float32)
+    batched = dict(max_batch=ENC_MAX_BATCH, max_wait_s=ENC_WAIT_MS / 1e3)
+
+    # -- 1. ResNet-50 ------------------------------------------------------
+    label = "encoders resnet-50"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine("resnet-50", max_batch=1, max_wait_s=ENC_WAIT_MS / 1e3, device=dev)
+    try:
+        cfg, params = eng.cfg, eng.params
+        n_params = tree_device_bytes(params) // 4  # every leaf f32
+        eng.classify_sync(images[0])  # warm (cuDNN picks its algorithms)
+        flushes = _record_flushes(eng)
+        one, lat = [], []
+        t0 = time.perf_counter()
+        for img in images:
+            t1 = time.perf_counter()
+            one.append(eng.classify_sync(img))
+            lat.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        x1 = torch.from_numpy(images[:1]).to(dev)
+        x8 = torch.from_numpy(images[:8]).to(dev)
+        with torch.inference_mode():
+            ms1 = _forward_ms(torch, lambda: resnet_forward(params, x1, cfg))
+            ms8 = _forward_ms(torch, lambda: resnet_forward(params, x8, cfg))
+        out["resnet-50 batch 1"] = _serve_line(
+            f"{label}, static batch 1", lat, wall, flushes,
+            f"; device {_ms(ms1)} a [1, 224, 224, 3] forward, {_ms(ms8)} a [8, ...] "
+            f"({n_params / 1e6:.2f} M parameters, f32 after the bf16 stem; device time by "
+            f"{DEVICE_TIMER['by']})")
+        out["resnet-50 batch 1"].update(device_ms_b1=ms1, device_ms_b8=ms8)
+        host = _nested_to(torch, params, "cpu")
+        with torch.inference_mode():
+            want = resnet_forward(host, torch.from_numpy(images[:2]), cfg).numpy()
+        got = np.stack(one[:2])
+        d = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        log(f"{label}: the card against the host CPU on 2 images: max|dlogits| {d:.4g} "
+            f"(limit {RESNET_DLOGITS_REL} x {scale:.4g}), top-1 equal {same} (top-2 gaps "
+            f"{(top2[:, 1] - top2[:, 0]).round(4).tolist()})")
+        if d > RESNET_DLOGITS_REL * scale or not (
+                same or (top2[:, 1] - top2[:, 0]).min() < RESNET_DLOGITS_REL * scale):
+            fail(f"{label}: the card's logits disagree with the host's")
+        if not np.isfinite(np.stack(one)).all():
+            fail(f"{label}: non-finite logits")
+    finally:
+        eng.close()
+    eng = InferenceEngine("resnet-50", device=dev, params=params, **batched)
+    try:
+        eng.classify_sync(images[0])
+        for n in (1, 2, 4, 8):  # warm every batch size cuDNN will see
+            eng._classify_step(params, torch.from_numpy(images[:n]).to(dev))
+        flushes = _record_flushes(eng)
+        items = [images[i % 16] for i in range(ENC_REQUESTS)]
+        res, lat, wall = _fan_out(eng.classify_sync, items)
+        peak = torch.cuda.max_memory_allocated()
+        worst = max(float(np.abs(r - one[i % 16]).max()) for i, r in enumerate(res))
+        out["resnet-50 batcher"] = _serve_line(
+            f"{label}, batcher (max_batch {ENC_MAX_BATCH}, {ENC_WAIT_MS} ms)", lat, wall, flushes,
+            f"; against batch 1 max|dlogits| {worst:.4g}; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+        if worst > RESNET_DLOGITS_REL * scale:
+            fail(f"{label}: a batched request's logits differ from its batch-1 logits")
+        if max(len(p) for p, _ in flushes) < 2:
+            fail(f"{label}: the batcher coalesced nothing")
+    finally:
+        eng.close()
+    app, loop, stop = _app_harness({"TPU_MODEL": "resnet-50", "TPU_DEVICE": str(dev),
+                                    "TPU_MAX_BATCH": str(ENC_MAX_BATCH),
+                                    "TPU_BATCH_WAIT_MS": str(ENC_WAIT_MS)})
+    try:
+        import asyncio
+
+        @app.post("/classify")
+        async def classify(ctx):
+            img = np.frombuffer(ctx.request.raw.body, np.float32).reshape(224, 224, 3)
+            return await ctx.infer(img)
+
+        asyncio.run_coroutine_threadsafe(app.start(), loop).result(timeout=120)
+        heng = app.container.tpu
+        if heng.family != "vision" or heng.device != dev:
+            fail(f"{label}: the App's engine is {heng.family} on {heng.device}")
+        _http_raw(app.http_port, "/classify", images[0].tobytes(), "application/octet-stream")
+        flushes = _record_flushes(heng)
+        res, lat, wall = _fan_out(lambda img: _http_raw(
+            app.http_port, "/classify", img.tobytes(), "application/octet-stream"), items)
+        worst = 0.0
+        for i, (status, raw) in enumerate(res):
+            if status != 201:
+                fail(f"{label}: HTTP {status}: {raw[:200]}")
+            data = json.loads(raw)["data"]
+            worst = max(worst, float(np.abs(np.asarray(data["logits"]) - one[i % 16]).max()))
+            if data["class"] != int(np.argmax(data["logits"])):
+                fail(f"{label}: the class is not the argmax of the logits")
+        out["resnet-50 http"] = _serve_line(
+            f"{label}, over HTTP (App, TPU_MODEL=resnet-50, ctx.infer; client clock)", lat,
+            wall, flushes, f"; against batch 1 max|dlogits| {worst:.4g}")
+        if worst > RESNET_DLOGITS_REL * scale:
+            fail(f"{label}: an HTTP response's logits differ from the engine's")
+    finally:
+        stop()
+    del params, host, app, stop, heng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 2. BERT-base as TPU_EMBED_MODEL beside a chat model -------------------
+    label = "encoders bert-base"
+    torch.cuda.reset_peak_memory_stats()
+    app, loop, stop = _app_harness({
+        "TPU_MODEL": "llama-1b", "TPU_DEVICE": str(dev), "TPU_KV_SLOTS": "4",
+        "TPU_MAX_LEN": "1024", "TPU_EMBED_MODEL": "bert-base",
+        "TPU_MAX_BATCH": str(ENC_MAX_BATCH), "TPU_BATCH_WAIT_MS": str(ENC_WAIT_MS)})
+    try:
+        import asyncio
+
+        from gofr_tpu_torch.serving.openai_compat import add_openai_routes
+
+        add_openai_routes(app)
+        asyncio.run_coroutine_threadsafe(app.start(), loop).result(timeout=120)
+        emb = app.container.tpu_embed
+        if emb is None or emb.family != "encoder" or emb.device != dev:
+            fail(f"{label}: no encoder engine on {dev}")
+        words = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+        texts = ["".join(rng.choice(words, n - 1)) for n in rng.integers(8, 501, ENC_REQUESTS)]
+        port = app.http_port
+        _http_json(port, "POST", "/v1/embeddings", {"input": texts[0]})  # warm
+        flushes = _record_flushes(emb)
+        res, lat, wall = _fan_out(lambda t: _http_json(
+            port, "POST", "/v1/embeddings", {"input": t}), texts)
+        vectors = {}
+        for text, (status, raw) in zip(texts, res):
+            if status != 200:
+                fail(f"{label}: /v1/embeddings {status}: {raw[:200]}")
+            vectors[text] = np.asarray(json.loads(raw)["data"][0]["embedding"], np.float32)
+    finally:
+        stop()
+    del app, stop  # the chat model's engine with it
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Held and timed with the App stopped: no engine thread beside the
+    # profiler.
+    worst, n_tok = 0.0, []
+    with torch.inference_mode():
+        for payloads, results in flushes:
+            ids = [emb.tokenizer.encode(t)[: emb.max_len] for t in payloads]
+            bucket = min(pad_bucket(max(len(e) for e in ids), _PREFILL_BUCKETS), emb.max_len)
+            tokens = torch.zeros((len(ids), bucket), dtype=torch.long)
+            mask = torch.zeros((len(ids), bucket), dtype=torch.long)
+            for i, e in enumerate(ids):
+                tokens[i, : len(e)] = torch.tensor(e)
+                mask[i, : len(e)] = 1
+                n_tok.append(len(e))
+            direct = bert_embed(emb.params, tokens.to(dev), mask.to(dev), emb.cfg).cpu()
+            for i, text in enumerate(payloads):
+                worst = max(worst, float(np.abs(direct[i].numpy() - results[i]).max()),
+                            float(np.abs(vectors[text] - results[i]).max()))
+        x = torch.randint(0, emb.cfg.vocab_size, (ENC_MAX_BATCH, emb.max_len), device=dev)
+        m = torch.ones_like(x)
+        ms = _forward_ms(torch, lambda: bert_embed(emb.params, x, m, emb.cfg))
+    norms = [float(np.linalg.norm(v)) for v in vectors.values()]
+    peak = torch.cuda.max_memory_allocated()
+    out["bert-base embeddings"] = _serve_line(
+        f"{label}, TPU_EMBED_MODEL beside TPU_MODEL=llama-1b, /v1/embeddings (client clock)",
+        lat, wall, flushes,
+        f"; {min(n_tok)}-{max(n_tok)} tokens; each vector against bert_embed on its "
+        f"flush's padded batch max|d| {worst:.3g} (limit {EMBED_EQUAL_TOL}); norms "
+        f"{min(norms):.6f}-{max(norms):.6f}; device {_ms(ms)} a [8, {emb.max_len}] "
+        f"bert_embed; peak "
+        f"memory {peak / 2**30:.3f} GiB (llama-1b's engine included)")
+    out["bert-base embeddings"]["device_ms_8xmax_len"] = ms
+    if max(len(p) for p, _ in flushes) < 2:
+        fail(f"{label}: the batcher coalesced nothing")
+    if worst > EMBED_EQUAL_TOL or abs(min(norms) - 1) > 1e-4 or abs(max(norms) - 1) > 1e-4:
+        fail(f"{label}: the served vectors differ from bert_embed on their batch")
+    del emb, x, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 3. ViT-B/16 ------------------------------------------------------------
+    label = "encoders vit-base"
+    torch.cuda.reset_peak_memory_stats()
+    eng = InferenceEngine("vit-base", device=dev, **batched)
+    try:
+        cfg, params = eng.cfg, eng.params
+        x8 = torch.from_numpy(images[:8]).to(dev)
+        with torch.inference_mode():
+            reset_launch_counts()
+            got = vit_forward(params, x8, cfg)
+            per_forward = fa.launches
+            want = vit_forward(params, x8, cfg, dense_attn=True)
+            ms = _forward_ms(torch, lambda: vit_forward(params, x8, cfg))
+            plain_ms = _forward_ms(torch, lambda: vit_forward(params, x8, cfg, dense_attn=True))
+        d = (got - want).abs().max().item()
+        top2 = want.sort(-1).values[:, -2:]
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        log(f"{label}: [8, 224, 224, 3] kernel path against the dense plain path: "
+            f"max|dlogits| {d:.4g} (limit {FORWARD_DLOGITS_TOL}; logits "
+            f"{want.min().item():.3g}..{want.max().item():.3g}), top-1 equal {same}; "
+            f"flash_attention {per_forward} launches a forward; device {_ms(ms)} a forward "
+            f"(dense attention {_ms(plain_ms)})")
+        if per_forward != cfg.n_layers:
+            fail(f"{label}: {per_forward} flash_attention launches a forward, not {cfg.n_layers}")
+        if d > FORWARD_DLOGITS_TOL or not (same or (top2[:, 1] - top2[:, 0]).min().item()
+                                           < FORWARD_DLOGITS_TOL):
+            fail(f"{label}: the kernel path disagrees with the plain path")
+        eng.classify_sync(images[0])
+        for n in range(1, ENC_MAX_BATCH + 1):
+            eng._classify_step(params, torch.from_numpy(images[:n]).to(dev))
+        flushes = _record_flushes(eng)
+        reset_launch_counts()
+        items = [images[i % 16] for i in range(ENC_REQUESTS)]
+        res, lat, wall = _fan_out(eng.classify_sync, items)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        out["vit-base batcher"] = _serve_line(
+            f"{label}, batcher (max_batch {ENC_MAX_BATCH}, {ENC_WAIT_MS} ms)", lat, wall, flushes,
+            f"; flash_attention {counts['flash_attention']} launches over "
+            f"{len(flushes)} flushes; device {_ms(ms)} a [8, ...] forward; peak memory "
+            f"{peak / 2**30:.3f} GiB")
+        out["vit-base batcher"].update(device_ms_b8=ms, plain_device_ms_b8=plain_ms)
+        if counts["flash_attention"] != cfg.n_layers * len(flushes):
+            fail(f"{label}: flash_attention launched {counts['flash_attention']} times over "
+                 f"{len(flushes)} flushes, not {cfg.n_layers} a flush")
+        if not all(np.isfinite(r).all() for r in res):
+            fail(f"{label}: non-finite logits")
+        out["flash_attention launches"] = {
+            "vit-base [8, 224, 224, 3] forward": per_forward,
+            f"vit-base serve, {ENC_REQUESTS} requests, {len(flushes)} flushes":
+                counts["flash_attention"]}
+    finally:
+        eng.close()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase_encoders done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# Training cells: (model, layers kept, batch, sequence). Full width; depth
+# cut where one card cannot hold f32 masters, gradients and AdamW state
+# (16 bytes a parameter) and the step's activations.
+FAMILY_TRAIN = [("gemma-7b", 4, 1, 2048), ("qwen2-7b", 4, 1, 2048),
+                ("pythia-6.9b", 4, 1, 2048), ("gpt2", 12, 8, 1024),
+                ("mixtral-8x7b", 2, 1, 2048)]
+# What a training cell may plan to hold: 16 bytes a parameter, a bf16
+# compute copy (2) and its gradients on the way to the masters (2).
+TRAIN_BYTES_BUDGET = 70 * 2**30
+
+
+def param_count(cfg) -> tuple[int, int]:
+    """(all parameters, those in matmuls: every projection, the router,
+    each expert and lm_head; the embedding lookup and the norms left out)
+    of a decoder config, from its shapes."""
+    D, H, KV, hd, Fd, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              cfg.d_ff, cfg.n_layers, cfg.vocab_size)
+    E = max(1, cfg.n_experts)
+    ffn = (3 if cfg.ffn != "mlp" else 2) * D * Fd * E
+    per_layer = D * (H + 2 * KV) * hd + H * hd * D + ffn + (D * cfg.n_experts)
+    matmul = L * per_layer + D * V
+    small = L * 2 * D + D  # norms
+    if cfg.norm == "ln":
+        small *= 2
+    if cfg.attn_bias:
+        small += L * (H + 2 * KV) * hd
+    if cfg.proj_bias:
+        small += L * (2 * D + Fd)
+    pos = cfg.max_len * D if cfg.pos_emb == "learned" else 0
+    return matmul + V * D + small + pos, matmul
+
+
+def phase_family_train(torch, dev) -> dict:
+    """make_train_step on every other decoder family and MoE at full width,
+    each cell of FAMILY_TRAIN (depth cut to fit): the step-1 loss and
+    gradients through the kernel path against the plain path (dense
+    attention, remat; for MoE without remat, its routing pinned to the
+    kernel side's at router near-ties) at TRAIN_DLOSS_TOL and
+    TRAIN_GRAD_REL_TOL; 6 steps on one fixed batch with finite, falling
+    losses; flash_attention launched once a layer a forward; step time,
+    tokens/s, train_mfu and peak memory. Then 3 make_lora_train_step steps
+    on gpt2 (every target, rank 16). Returns the launch counts by cell."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.transformer import LORA_TARGETS, init_params
+    from gofr_tpu_torch.ops.cuda import flash_attention as fa
+    from gofr_tpu_torch.ops.cuda import reset_launch_counts
+    from gofr_tpu_torch.parallel.sharding import (
+        loss_and_grads,
+        make_lora_train_step,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    out: dict = {"counts": {}, "cells": {}}
+    for model, layers, b, s in FAMILY_TRAIN:
+        full = get_model(model).config
+        while True:
+            cfg = dataclasses.replace(full, n_layers=layers)
+            n_params, n_matmul = param_count(cfg)
+            plan = 20 * n_params
+            if plan <= TRAIN_BYTES_BUDGET or layers == 1:
+                break
+            layers -= 1
+        label = f"family train {model} ({layers} of {full.n_layers} layers, [{b}, {s}])"
+        log(f"{label}: {n_params / 1e9:.3f} B parameters ({n_matmul / 1e9:.3f} B in matmuls), "
+            f"planned {plan / 2**30:.1f} GiB for masters, AdamW, gradients and the bf16 copy "
+            f"(budget {TRAIN_BYTES_BUDGET / 2**30:.0f} GiB) before activations")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(11)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+        params = {k: p.float() for k, p in init_params(cfg, 0, dev).items()}
+        if sum(p.numel() for p in params.values()) != n_params:
+            fail(f"{label}: {sum(p.numel() for p in params.values())} parameters, "
+                 f"planned {n_params}")
+        pin = RoutePin(torch) if cfg.is_moe else None
+        try:
+            reset_launch_counts()
+            if pin:
+                pin.record()
+            loss_k, grads_k = loss_and_grads(params, tokens, cfg)
+            if fa.launches != layers:
+                fail(f"{label}: {fa.launches} flash_attention launches in one forward, "
+                     f"not {layers}")
+            if pin:
+                pin.replay(label)
+            loss_p, grads_p = loss_and_grads(params, tokens, cfg, remat=not cfg.is_moe,
+                                             dense_attn=True)
+        finally:
+            if pin:
+                pin.close()
+        dloss = abs(loss_k.item() - loss_p.item())
+        grad_rel = {k: ((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm()).item()
+                    for k in grads_p}
+        worst = max(grad_rel, key=grad_rel.get)
+        log(f"{label}: step-1 loss kernel {loss_k.item():.6f} vs plain {loss_p.item():.6f}: "
+            f"|dloss| {dloss:.4g} (limit {TRAIN_DLOSS_TOL}); per-tensor ||dgrad||/||grad|| "
+            f"max {grad_rel[worst]:.4g} on {worst} (limit {TRAIN_GRAD_REL_TOL}): "
+            + json.dumps({k: round(v, 6) for k, v in grad_rel.items()}))
+        if not (torch.isfinite(loss_k) and all(torch.isfinite(g).all()
+                                               for g in grads_k.values())):
+            fail(f"{label}: non-finite step-1 loss or gradients")
+        if dloss > TRAIN_DLOSS_TOL or grad_rel[worst] > TRAIN_GRAD_REL_TOL:
+            fail(f"{label}: kernel path and plain path disagree beyond the limits")
+        del grads_k, grads_p, loss_k, loss_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, train_step, optimizer = make_train_step(cfg, device=dev)
+        opt_state = optimizer.init(params)
+        reset_launch_counts()
+        losses, secs = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, params, opt_state = train_step(params, opt_state, tokens)
+            losses.append(loss.item())
+            secs.append(time.perf_counter() - t0)
+        if fa.launches != 6 * layers:
+            fail(f"{label}: {fa.launches} flash_attention launches over 6 steps, "
+                 f"not {6 * layers}")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            fail(f"{label}: losses {losses} are not finite and falling")
+        peak = torch.cuda.max_memory_allocated()
+        step_s = statistics.median(secs[1:])
+        attn_flops = 4 * b * cfg.n_heads * cfg.head_dim * s * (s + 1) // 2
+        mfu = (6 * n_matmul * b * s + 3 * layers * attn_flops) / (step_s * BF16_FLOPS)
+        cell = {"layers": layers, "of": full.n_layers, "batch": [b, s], "losses": losses,
+                "step_ms": step_s * 1e3, "tokens_s": b * s / step_s, "train_mfu": mfu,
+                "peak_bytes": peak, "flash_attention_launches": fa.launches,
+                "dloss": dloss, "grad_rel_max": grad_rel[worst]}
+        out["cells"][model] = cell
+        out["counts"][f"make_train_step {model} {layers} layers [{b}, {s}], 6 steps"] = \
+            fa.launches
+        log(f"{label}: losses over 6 steps {[round(x, 5) for x in losses]}; step time median "
+            f"of steps 2-6 {step_s * 1e3:.1f} ms (all {[round(x * 1e3, 1) for x in secs]}), "
+            f"{b * s / step_s:.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB, train_mfu "
+            f"{mfu:.4f} (matmuls counted for every expert: the dense MoE computes them all); "
+            f"flash_attention {fa.launches} launches over the 6 steps")
+        del params, opt_state, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # One LoRA cell: gpt2, every target it has, rank 16, on its bf16 base.
+    cfg = get_model("gpt2").config
+    label = "family train gpt2 LoRA (rank 16, every target, [8, 1024])"
+    torch.cuda.reset_peak_memory_stats()
+    base = init_params(cfg, 0, dev)
+    targets = tuple(t for t in LORA_TARGETS if t != "w_gate")
+    init_lora_state, lora_step = make_lora_train_step(cfg, base, 16, targets, device=dev)
+    lora, lora_opt = init_lora_state(0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 1024), generator=gen, device=dev)
+    reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, lora, lora_opt = lora_step(lora, lora_opt, tokens)
+        losses.append(loss.item())
+        secs.append(time.perf_counter() - t0)
+    if fa.launches != 3 * cfg.n_layers or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"{label}: losses {losses}, {fa.launches} flash_attention launches")
+    out["counts"]["make_lora_train_step gpt2 [8, 1024], 3 steps"] = fa.launches
+    log(f"{label}: losses {[round(x, 5) for x in losses]}; step times "
+        f"{[round(x * 1e3, 1) for x in secs]} ms, {8 * 1024 / statistics.median(secs):.0f} "
+        f"tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"flash_attention {fa.launches} launches")
+    del base, lora, lora_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase_family_train done in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def profiler_under_replays(torch, eng, label: str) -> dict:
+    """A 200 ms profiler_capture triggered from this thread while ``eng``
+    (on the card) replays decode windows: 8 requests of 100 prompt tokens
+    and 400 new ones keep every slot decoding, and the capture starts once
+    4 windows have run. Its start and stop run on the scheduler thread
+    between two passes. Fails unless the trace holds flash_decode launches
+    of replayed windows (kernels whose correlation is a traced
+    cudaGraphLaunch) and the capture's trace is written within
+    PROFILER_END_S of its window; a watchdog ends the run after
+    PROFILER_WATCHDOG_S. Returns the numbers printed."""
+    import os
+
+    from gofr_tpu_torch.ops.cuda import launch_counts
+    from gofr_tpu_torch.serving.profiler_capture import get_capture
+
+    def watchdog():
+        print(f"chip_smoke: FAIL: {label}: the profiler capture under graph replays did not "
+              f"end within {PROFILER_WATCHDOG_S:.0f} s", file=sys.stderr, flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(PROFILER_WATCHDOG_S, watchdog)
+    timer.daemon = True
+    timer.start()
+    try:
+        cap = get_capture(cooldown_s=0)
+        reqs = [eng.submit_generate(list(range(1 + i, 101 + i)), max_new_tokens=400,
+                                    stop_on_eos=False) for i in range(8)]
+        w0, deadline = eng.decode_windows, time.perf_counter() + 60
+        while eng.decode_windows < w0 + 4 and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        before, w1 = launch_counts(), eng.decode_windows
+        t0 = time.perf_counter()
+        if not cap.trigger(200, reason="chip_smoke under graph replays"):
+            fail(f"{label}: the capture did not start: {cap.snapshot()}")
+        while cap.busy:
+            time.sleep(0.002)
+        took = time.perf_counter() - t0
+        w2, after = eng.decode_windows, launch_counts()
+        snap = cap.snapshot()
+        for r in reqs:
+            r.future.result(timeout=300)
+    finally:
+        timer.cancel()
+    if snap["last_error"] or not os.path.exists(cap.trace_file):
+        fail(f"{label}: the capture under graph replays failed: {snap}")
+    with open(cap.trace_file) as fp:
+        events = json.load(fp).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    launches = {e.get("args", {}).get("correlation") for e in events
+                if e.get("name", "").startswith("cudaGraphLaunch")}
+    flash = [e for e in kernels if "flash_decode" in e.get("name", "")]
+    replayed = [e for e in flash if e.get("args", {}).get("correlation") in launches]
+    res = {"capture_s": took, "windows": w2 - w1, "trace_events": len(events),
+           "trace_kernels": len(kernels), "graph_launches": len(launches),
+           "flash_decode": len(flash), "flash_decode_replayed": len(replayed),
+           "flash_decode_counted": after["flash_decode"] - before["flash_decode"]}
+    log(f"{label}: profiler_capture of 200 ms while the engine replays decode windows: "
+        f"trigger to trace written {took:.3f} s (limit 0.2 + {PROFILER_END_S}); "
+        f"{w2 - w1} windows ran meanwhile ({res['flash_decode_counted']} flash_decode "
+        f"launches counted); the trace: {len(events)} events, {len(kernels)} kernels, "
+        f"{len(launches)} cudaGraphLaunch, {len(flash)} flash_decode, {len(replayed)} of them "
+        f"inside a traced graph launch")
+    if not replayed or took > 0.2 + PROFILER_END_S:
+        fail(f"{label}: the capture under graph replays traced no replayed flash_decode "
+             f"or ended late: {res}")
+    return res
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5581,6 +6261,10 @@ def main() -> None:
     check_sync_counter(torch, dev)
 
     t_start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        log(f"chip_smoke: {phase} ended at {time.perf_counter() - t_start:.1f} s")
+
     t0 = time.perf_counter()
     _build.lib(verbose=True)
     log(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
@@ -5603,9 +6287,11 @@ def main() -> None:
         window = phase_window_kernels(torch, dev)
         f32_errs, f32_times = phase_f32_kernels(torch, dev)
         family_kernels = phase_family_kernels(torch, dev)
+    stamp("the kernel phases")
     tiny_counts = phase_tiny_models(torch, dev)
     phase_attention_grad(torch, dev)
     phase_window_grad(torch, dev)
+    stamp("phase_window_grad")
     with torch.inference_mode():
         cfg = get_model("llama-3-8b").config
         t0 = time.perf_counter()
@@ -5615,6 +6301,7 @@ def main() -> None:
             f"{time.perf_counter() - t0:.1f} s "
             f"({sum(p.numel() for p in params.values()) / 1e9:.2f} B parameters)")
         forward_counts = phase_forward(torch, dev, cfg, params)
+    stamp("phase_forward")
     counts, base, base_stats = phase_serve(torch, dev, params)
     pool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=161)
     pool_counts, pool_base, pool_stats = phase_serve(torch, dev, params, **pool_kv)
@@ -5624,6 +6311,7 @@ def main() -> None:
     # The App over HTTP, with its own seed-0 weights beside these; freed
     # (App.stop, then the engine dropped) before the profiles.
     http_counts = phase_http(torch, dev, base, base_stats)["counts"]
+    stamp("phase_http")
     gc.collect()
     torch.cuda.empty_cache()
     bf16_tok, int8_tok = (cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, quant)
@@ -5632,19 +6320,26 @@ def main() -> None:
         f"bf16 slot cache (8 x 2048 tokens) {8 * 2048 * bf16_tok}, int8 slot cache "
         f"{8 * 2048 * int8_tok}, int8 pool (161 blocks of 32) {161 * 32 * int8_tok}")
     decode_loop = phase_decode_loop(torch, dev, cfg, params, base, base_stats)
+    stamp("phase_decode_loop")
     spec = phase_spec(torch, dev, cfg, params, base, base_stats, pool_base, pool_stats, pool_kv)
+    stamp("phase_spec")
     prefix = phase_prefix(torch, dev, cfg, params)
+    stamp("phase_prefix")
     with torch.inference_mode():
         phase_profile(torch, dev, cfg, params, sampler=True, graph=True)
     # int8/int4 weights and TPU_CHECKPOINT, on these bf16 weights.
     quant = phase_quant(torch, dev, cfg, params, base_stats)
+    stamp("phase_quant")
     loader = phase_loader(torch, dev, cfg, params, quant.pop("int8_params"),
                           quant["int8"]["streams"])
+    stamp("phase_loader")
     # Multi-LoRA on these bf16 weights (its training part runs on
     # llama-1b after phase_train).
     lora = phase_lora(torch, dev, cfg, params, base)
+    stamp("phase_lora")
     # Tokenizers and device services on the same seed-0 weights.
     device_services = phase_device_services(torch, dev, cfg, params)
+    stamp("phase_device_services")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5705,12 +6400,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    stamp("mistral-7b")
     moe = phase_moe(torch, dev)
+    stamp("phase_moe")
 
     families = {model: phase_family(torch, dev, model, pool=pool, full_sequence=full,
                                     max_len=max_len)
                 for model, pool, full, max_len in FAMILY_SERVES}
 
+    stamp("phase_family")
     train = phase_train(torch, dev)
     counts["flash_attention"] = train["counts"]["flash_attention"]
     compute = {k: p.to(train["cfg"].dtype) for k, p in train.pop("params").items()}
@@ -5719,6 +6417,13 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     lora_train = phase_lora_train(torch, dev)
+    stamp("phase_lora_train")
+    # The other decoder families and MoE through make_train_step, then the
+    # encoder and vision families behind the dynamic batcher.
+    family_train = phase_family_train(torch, dev)
+    stamp("phase_family_train")
+    encoders = phase_encoders(torch, dev)
+    stamp("phase_encoders")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5869,6 +6574,15 @@ def main() -> None:
         if k != "flash_attention":
             entry["launches_device_services"] = {
                 run: c[k] for run, c in device_services["counts"].items()}
+    # flash_attention over the family training cells and the encoder and
+    # vision serves (ViT-B/16; row 3v of PERF.md is its serving shape).
+    fa_entry = next(x for x in kernels if x["name"] == "flash_attention")
+    fa_entry["launches_family_train"] = family_train["counts"]
+    fa_entry["launches_encoders"] = encoders["flash_attention launches"]
+    for case in fa_entry["cases"]:
+        if case["case"] == "vit-b/16":
+            case.update(launches=encoders["flash_attention launches"],
+                        launches_from="phase_encoders: vit-base forward and serve")
     # Every kernel's launches over each family's runs.
     for entry in kernels:
         k = entry["name"]

@@ -149,17 +149,18 @@ class App:
         await self._http_server.start()
         self.http_port = self._http_server.port
 
-        engine = self.container.tpu
-        if engine is not None and hasattr(engine, "start"):
-            await engine.start()
+        for engine in (self.container.tpu, self.container.tpu_embed):
+            if engine is not None and hasattr(engine, "start"):
+                await engine.start()
 
     async def stop(self) -> None:
         # TPU_DRAIN_S > 0: graceful engine drain — in-flight generations
         # complete (up to the deadline) while new submissions get 503,
         # so a rolling restart doesn't fail live requests.
         drain_s = float(self.config.get_or_default("TPU_DRAIN_S", "0"))
-        engine = self.container.tpu
-        if engine is not None and hasattr(engine, "stop"):
+        for engine in (self.container.tpu, self.container.tpu_embed):
+            if engine is None or not hasattr(engine, "stop"):
+                continue
             import inspect
 
             if "drain_s" in inspect.signature(engine.stop).parameters:

@@ -7,10 +7,10 @@ creates each from config at boot like the reference's ``Create``
 ``SQL``/``Redis``). Aggregate health mirrors ``container/health.go:8-28``.
 
 The port's copy of ``gofr_tpu/container/container.py``. The datasources
-(SQL, Redis, pub/sub) and the secondary encoder engine are not ported
-yet: their members stay ``None``, as in a reference container with none
-configured, and a config that asks for one raises ``NotImplementedError``
-naming its ROADMAP item. Instruments of unported layers are registered
+(SQL, Redis, pub/sub) are not ported yet: their members stay ``None``, as
+in a reference container with none configured, and a config that asks
+for one raises ``NotImplementedError`` naming its ROADMAP item. The
+secondary encoder engine (``TPU_EMBED_MODEL``) is ``tpu_embed``. Instruments of unported layers are registered
 when those layers come.
 """
 
@@ -29,7 +29,6 @@ _UNPORTED_DATASOURCES = (
     ("DB_DIALECT", "ROADMAP Queue 1 item 2: datasource/sql"),
     ("REDIS_HOST", "ROADMAP Queue 1 item 2: datasource/redis"),
     ("PUBSUB_BACKEND", "ROADMAP Queue 1 item 2: pubsub/"),
-    ("TPU_EMBED_MODEL", "ROADMAP Queue 1 item 5: the encoder families"),
 )
 
 
@@ -72,11 +71,20 @@ class Container:
 
         c.register_framework_metrics()
 
-        from gofr_tpu_torch.serving.backend import new_tpu_from_config
+        from gofr_tpu_torch.serving.backend import (
+            new_tpu_embed_from_config,
+            new_tpu_from_config,
+        )
 
         # An engine that cannot be built raises here (the reference logs
-        # and serves with no engine); nothing has been started yet.
+        # and serves with no engine), after closing the one built first.
         c.tpu = new_tpu_from_config(config, c.logger, c.metrics)
+        try:
+            c.tpu_embed = new_tpu_embed_from_config(config, c.logger, c.metrics)
+        except BaseException:
+            if c.tpu is not None:
+                c.tpu.close()
+            raise
 
         remote_url = config.get_or_default("REMOTE_LOG_URL", "")
         if remote_url:

@@ -1,26 +1,42 @@
-"""Named model registry — the LLM entries of ``gofr_tpu/models/registry.py``
-(``_register_llms``), same names and dims.
+"""Named model registry — the entries of ``gofr_tpu/models/registry.py``,
+same names and dims.
 
-Every entry is registered so names resolve as in the reference; the
-engine serves every config ``transformer.check_supported`` accepts (every
-dense family, and Mixtral's MoE, which fits one card with int8 weights).
+Every entry is registered so names resolve as in the reference. The
+engine serves every LLM config ``transformer.check_supported`` accepts
+(every dense family, and Mixtral's MoE, which fits one card with int8
+weights), the encoders (``bert-*``, behind the dynamic batcher) and the
+vision models (``resnet-*``, ``vit-*``). The seq2seq entries (T5) are
+registered with no config: their model is not ported yet (ROADMAP Queue 1
+item 5), and the engine refuses them naming it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Optional
 
 import torch
 
-from gofr_tpu_torch.models.transformer import TransformerConfig
+from gofr_tpu_torch.models.bert import BertConfig, init_bert
+from gofr_tpu_torch.models.resnet import ResNetConfig, init_resnet, resnet_forward
+from gofr_tpu_torch.models.transformer import TransformerConfig, init_params
+from gofr_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str  # "llm" only on this slice
-    config: TransformerConfig
+    family: str  # "llm" | "encoder" | "vision" | "seq2seq" (not ported)
+    config: Any
+    # init(config, seed, device) -> params (None: the model is not ported).
+    init: Optional[Callable] = None
     eos_token: int = 2
+    # The vision family's forward(params, images, config) -> logits; the
+    # LLM and encoder paths are generic and leave it None.
+    forward: Optional[Callable] = None
+
+    def describe(self) -> dict:
+        return {"name": self.name, "family": self.family}
 
 
 _REGISTRY: dict[str, ModelSpec] = {}
@@ -135,9 +151,53 @@ def _register_llms() -> None:
                   "gpt2": 50256, "gpt2-tiny": 0}
     for name, cfg in llm_configs.items():
         register_model(ModelSpec(
-            name=name, family="llm", config=cfg,
+            name=name, family="llm", config=cfg, init=init_params,
             eos_token=eos_tokens.get(name, 2),
         ))
 
 
+def _register_encoders() -> None:
+    register_model(ModelSpec(
+        name="bert-base", family="encoder", config=BertConfig(), init=init_bert,
+    ))
+    register_model(ModelSpec(
+        name="bert-tiny", family="encoder",
+        config=BertConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4,
+                          d_ff=256, max_len=128),
+        init=init_bert,
+    ))
+
+
+def _register_seq2seq() -> None:
+    """The reference's T5 names, so they resolve; the model itself is
+    ROADMAP Queue 1 item 5's next part."""
+    for name in ("flan-t5-small", "t5-tiny"):
+        register_model(ModelSpec(name=name, family="seq2seq", config=None, eos_token=1))
+
+
+def _register_vision() -> None:
+    register_model(ModelSpec(
+        name="resnet-50", family="vision", config=ResNetConfig(),
+        init=init_resnet, forward=resnet_forward,
+    ))
+    register_model(ModelSpec(
+        name="vit-base", family="vision", config=ViTConfig(),
+        init=init_vit, forward=vit_forward,
+    ))
+    register_model(ModelSpec(
+        name="vit-tiny", family="vision",
+        config=ViTConfig(image_size=32, patch_size=8, d_model=64, n_layers=2,
+                         n_heads=4, d_ff=128, num_classes=10),
+        init=init_vit, forward=vit_forward,
+    ))
+    register_model(ModelSpec(
+        name="resnet-tiny", family="vision",
+        config=ResNetConfig(stage_sizes=(1, 1, 1, 1), width=16, num_classes=10),
+        init=init_resnet, forward=resnet_forward,
+    ))
+
+
 _register_llms()
+_register_encoders()
+_register_seq2seq()
+_register_vision()

@@ -115,40 +115,6 @@ def check_plain_params(params: dict) -> None:
         )
 
 
-def check_trainable(cfg: TransformerConfig,
-                    device: torch.device | str | None = None,
-                    entry: str = "make_train_step") -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is on the Llama path
-    whose training (gradients, steps) is held against the reference:
-    RMSNorm, RoPE, GQA, SwiGLU, no biases, optionally Mistral's window.
-    The other dense families serve, but their training waits for ROADMAP
-    Queue 1 item 5's training remainder, and so does MoE. ``entry`` is the
-    function the message names."""
-    check_supported(cfg, device)
-    off = {
-        "attn_bias": cfg.attn_bias,
-        "head_dim_override": cfg.head_dim_override != 0,
-        f"act={cfg.act!r}": cfg.act != "silu",
-        "norm_offset": cfg.norm_offset,
-        "embed_scale": cfg.embed_scale,
-        f"norm={cfg.norm!r}": cfg.norm != "rms",
-        "parallel_residual": cfg.parallel_residual,
-        f"rotary_pct={cfg.rotary_pct}": cfg.rotary_pct != 1.0,
-        f"ffn={cfg.ffn!r}": cfg.ffn != "swiglu",
-        "proj_bias": cfg.proj_bias,
-        f"pos_emb={cfg.pos_emb!r}": cfg.pos_emb != "rope",
-        "MoE (n_experts > 0)": cfg.is_moe,
-    }
-    missing = [name for name, hit in off.items() if hit]
-    if missing:
-        raise NotImplementedError(
-            f"{entry} trains the Llama path only (RMSNorm, RoPE, GQA, "
-            f"SwiGLU, optional sliding window); this config needs "
-            f"{', '.join(missing)} (ROADMAP Queue 1 item 5: training the other "
-            "families)"
-        )
-
-
 def make_train_step(
     cfg: TransformerConfig,
     mesh: Optional[object] = None,
@@ -174,7 +140,7 @@ def make_train_step(
             "make_train_step: meshes (dp/tp/pp/cp > 1) are not ported yet "
             "(ROADMAP Queue 1 item 8: multi-device); pass mesh=None"
         )
-    check_trainable(cfg, device)
+    check_supported(cfg, device)
     device = resolve_device(device)
     optimizer = AdamW(learning_rate)
 
@@ -236,7 +202,7 @@ def make_lora_train_step(
             "make_lora_train_step: meshes (dp/tp) are not ported yet "
             "(ROADMAP Queue 1 item 8: multi-device); pass mesh=None"
         )
-    check_trainable(cfg, device, entry="make_lora_train_step")
+    check_supported(cfg, device)
     device = resolve_device(device)
     optimizer = AdamW(learning_rate)
 

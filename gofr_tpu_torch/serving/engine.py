@@ -72,6 +72,11 @@ included, goes on the engine's one stream in issue order, so a copy or a
 reused block lands after the windows in flight that still write the
 slots' earlier occupants.
 
+An encoder or vision model (``ModelSpec.family``) takes the reference's
+other engine shape: no scheduler, cache or graphs, its requests coalesced
+by the dynamic batcher into one eager batch forward
+(``serving/modalities.py``).
+
 The engine is also the App's container member: ``from_config`` builds it
 from the ``TPU_*`` keys (the reference's names and defaults; a key of an
 unported feature set to anything but its default raises), ``start`` /
@@ -93,7 +98,8 @@ import random
 import threading
 import time
 import traceback
-from concurrent.futures import InvalidStateError
+from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import TimeoutError as FutureTimeout
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Optional
 
@@ -140,6 +146,7 @@ from gofr_tpu_torch.serving.device_telemetry import (
 )
 from gofr_tpu_torch.serving.hf_loader import is_hf_checkpoint, load_hf_llama
 from gofr_tpu_torch.serving.lora_runtime import LoRARuntimeMixin
+from gofr_tpu_torch.serving.modalities import ModalityMixin
 from gofr_tpu_torch.serving.lifecycle import (
     AggregateThroughput,
     CancelToken,
@@ -179,13 +186,10 @@ _NEUTRAL_SUBMIT_OPTIONS = {
 # TPU_* keys the reference's from_config and backend read and the port
 # does not serve yet: (key, the reference's default, ROADMAP item). Set to
 # anything else, each raises NotImplementedError naming its item.
-_ENCODERS = "ROADMAP Queue 1 item 5: the encoder families"
 _MULTI = "ROADMAP Queue 1 item 8: multi-device"
 _UNPORTED_KEYS = (
     ("TPU_TP", "1", _MULTI), ("TPU_MESH_TP", "1", _MULTI),
     ("TPU_MESH_CP", "1", _MULTI),
-    ("TPU_EMBED_CHECKPOINT", "", _ENCODERS), ("TPU_EMBED_TOKENIZER", "", _ENCODERS),
-    ("TPU_MAX_BATCH", "8", _OPS_PLANE), ("TPU_BATCH_WAIT_MS", "5", _OPS_PLANE),
     ("TPU_WATCHDOG_S", "0", _OPS_PLANE), ("TPU_RESTART_MAX", "0", _OPS_PLANE),
     ("TPU_RESTART_BACKOFF_S", "0.5", _OPS_PLANE),
     ("TPU_REPLAY_EXACT", "true", _OPS_PLANE),
@@ -400,7 +404,7 @@ class _Prefill:
     done: int = 0  # prompt tokens already written to the cache
 
 
-class InferenceEngine(LoRARuntimeMixin):
+class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
     """One loaded model and its serving loop.
 
     ``device`` defaults to CUDA (raises without it); pass ``"cpu"`` to run
@@ -460,6 +464,12 @@ class InferenceEngine(LoRARuntimeMixin):
     the BPE core) at a directory a later process reuses; it takes effect
     only before the first build of the process (``build_cache``). It may
     also be the record ``build_cache.use_dir`` already returned for it.
+
+    An encoder (``bert-*``) or vision (``resnet-*``, ``vit-*``) model serves
+    behind the dynamic batcher instead (``serving/modalities.py``):
+    ``max_batch`` requests a flush at most, ``max_wait_s`` after the oldest;
+    ``embed`` / ``classify`` and ``infer`` by family. The LLM options do
+    not apply to it; ``quant`` raises, as in the reference.
     """
 
     family = "llm"
@@ -497,6 +507,8 @@ class InferenceEngine(LoRARuntimeMixin):
         lora_slots: int = 0,
         lora_rank: int = 16,
         lora_targets: str = "wq,wk,wv,wo",
+        max_batch: int = 8,
+        max_wait_s: float = 0.005,
         queue_max: int = 1024,
         queue_max_tokens: int = 0,
         class_promote_s: float = 5.0,
@@ -518,6 +530,26 @@ class InferenceEngine(LoRARuntimeMixin):
                 f"{sorted(unsupported)} (ROADMAP: the rest of the serving "
                 "features)"
             )
+        # The build directory (TPU_COMPILE_CACHE_DIR) first: it holds only
+        # if no native build of this process read the default before.
+        # from_config passes the record its own use_dir call returned.
+        self._compile_cache_info: Optional[dict[str, Any]] = (
+            compile_cache_dir if isinstance(compile_cache_dir, dict)
+            else build_cache.use_dir(compile_cache_dir) if compile_cache_dir
+            else None
+        )
+        spec = get_model(model_name)
+        if spec.family != "llm":
+            # The encoder and vision families serve behind the dynamic
+            # batcher (serving/modalities.py); the LLM options are theirs
+            # to ignore, as in the reference.
+            self._init_batch_family(
+                spec, max_len=max_len, max_batch=max_batch, max_wait_s=max_wait_s,
+                tokenizer=tokenizer, params=params, quant=quant, seed=seed,
+                device=device, hbm_budget_bytes=hbm_budget_bytes,
+                logger=logger, metrics=metrics,
+            )
+            return
         for name, val in (("n_slots", n_slots), ("window_k", window_k),
                           ("prefill_chunk", prefill_chunk),
                           ("prefill_batch", prefill_batch)):
@@ -570,14 +602,6 @@ class InferenceEngine(LoRARuntimeMixin):
                 "exclusive (the pool copies slot rows; use "
                 "TPU_AUTO_PREFIX for paged prefix sharing)"
             )
-        # The build directory (TPU_COMPILE_CACHE_DIR) first: it holds only
-        # if no native build of this process read the default before.
-        # from_config passes the record its own use_dir call returned.
-        self._compile_cache_info: Optional[dict[str, Any]] = (
-            compile_cache_dir if isinstance(compile_cache_dir, dict)
-            else build_cache.use_dir(compile_cache_dir) if compile_cache_dir
-            else None
-        )
         self.device = resolve_device(device)
         if kv_block % 16 and self.device.type == "cuda":
             raise ValueError(
@@ -809,12 +833,19 @@ class InferenceEngine(LoRARuntimeMixin):
         # mutexes only, raising on the re-acquisition an RLock allows.
         self._device_lock = threading.RLock()
         self._device_waiters = 0
+        # Calls another thread hands to the scheduler thread, run at the
+        # top of its loop between two passes (run_between_passes: the
+        # profiler capture's start and stop).
+        self._handoffs: "collections.deque[tuple[Any, Future]]" = collections.deque()
         self._running = False
         self._draining = False
         self._error: Optional[BaseException] = None
         self._idle_evt = threading.Event()
         self._state = "DOWN"
         self._thread: Optional[threading.Thread] = None
+        # The profiler's CUDA tracer attaches here, on the constructing
+        # thread, before the scheduler captures its CUDA graphs.
+        profiler_capture.warm_up(self.device)
         self.start_sync()
 
     # ------------------------------------------------------------------
@@ -871,6 +902,8 @@ class InferenceEngine(LoRARuntimeMixin):
         model). ``pin_replica`` is accepted at its neutral value and raises
         ``NotImplementedError`` naming its ROADMAP item otherwise; a name
         the reference does not take raises ``TypeError``."""
+        if self.family != "llm":
+            raise RuntimeError(f"model {self.model_name} is not a generative LLM")
         for key, val in options.items():
             if key not in _NEUTRAL_SUBMIT_OPTIONS:
                 raise TypeError(f"submit_generate() got an unexpected option {key!r}")
@@ -1216,10 +1249,15 @@ class InferenceEngine(LoRARuntimeMixin):
         }
 
     async def infer(self, inputs: Any, model: str = "", **kw: Any) -> dict:
-        """The ``ctx.infer`` seam for an LLM engine."""
+        """The ``ctx.infer`` seam: dispatch on the family (an LLM's text,
+        an encoder's embedding, a vision model's logits and class)."""
+        if self.family != "llm":
+            return await self._batch_infer(inputs)
         return self._infer_dict(await self.generate(inputs, **kw))
 
     def infer_sync(self, inputs: Any, model: str = "", **kw: Any) -> dict:
+        if self.family != "llm":
+            return self._batch_infer_sync(inputs)
         return self._infer_dict(self.generate_sync(inputs, **kw))
 
     # -- weights ----------------------------------------------------------
@@ -1242,6 +1280,8 @@ class InferenceEngine(LoRARuntimeMixin):
                 f"re-quantize as {mode!r}"
             )
         quant_fn(mode)  # the reference's ValueError for any other mode
+        if self.family != "llm":
+            raise ValueError("quantization supports llm and seq2seq models only")
         if getattr(self, "_running", False):  # the constructor calls this first
             raise RuntimeError("quantize before starting the engine")
         self.params = quantize_params(self.params, mode)
@@ -1276,7 +1316,17 @@ class InferenceEngine(LoRARuntimeMixin):
         ``lora``, ``kv_pool`` (exactly ``cache.hbm_bytes()``),
         ``prefix_pool`` and ``workspace`` (the cache's lengths and block
         table, the slots' request planes, the mega window's buffers).
-        Sizes are metadata reads, fixed until a re-quantize."""
+        Sizes are metadata reads, fixed until a re-quantize. An encoder or
+        vision engine has ``params`` alone (its batch workspace is
+        transient), built once."""
+        if self.family != "llm":
+            self._ledger = HBMLedger(
+                {"params": tree_device_bytes(self.params)},
+                budget_bytes=self.hbm_budget_bytes,
+                device_stats=self._device_memory_stats,
+            )
+            self._ledger.publish(self._metrics, self.model_name)
+            return
         lora_bytes = sum(
             tree_device_bytes(v) for k, v in self.params.items()
             if k.endswith("_lora_a") or k.endswith("_lora_b")
@@ -1342,8 +1392,12 @@ class InferenceEngine(LoRARuntimeMixin):
         self.start_sync()
 
     def start_sync(self) -> None:
-        """Start the scheduler thread; a no-op while it runs (the
-        constructor starts it), a restart after a stop."""
+        """Start the scheduler thread (an encoder or vision engine: its
+        batcher); a no-op while it runs (the constructor starts it), a
+        restart after a stop."""
+        if self.family != "llm":
+            self._batch_start()
+            return
         with self._submit_lock:
             if self._running:
                 return
@@ -1374,7 +1428,12 @@ class InferenceEngine(LoRARuntimeMixin):
         503 while queued and in-flight generations run to completion, up
         to ``drain_s`` seconds. Whatever is left then fails with
         ``RuntimeError``; later submits raise (503 after a graceful stop,
-        "engine not started" after a hard one, as in the reference)."""
+        "engine not started" after a hard one, as in the reference). An
+        encoder or vision engine stops its batcher (no drain, as in the
+        reference)."""
+        if self.family != "llm":
+            self._batch_stop()
+            return
         if drain_s > 0 and self._running:
             with self._submit_lock:
                 self._draining = True
@@ -1430,17 +1489,20 @@ class InferenceEngine(LoRARuntimeMixin):
             "devices": devices,
             "running": self._running,
             "state": self._state,
-            "kv_slots": {
-                "total": self.n_slots,
-                "in_use": sum(1 for s in self._slots if s is not None),
-            },
-            "max_len": self.max_len,
-            "pending": self._pending.qsize(),
-            "prefilling": len(self._prefilling),
-            # The loaded adapters (a replica pool routes LoRA requests by
-            # them).
-            "lora_adapters": self.lora_names(),
         }
+        if self.family == "llm":
+            details.update({
+                "kv_slots": {
+                    "total": self.n_slots,
+                    "in_use": sum(1 for s in self._slots if s is not None),
+                },
+                "max_len": self.max_len,
+                "pending": self._pending.qsize(),
+                "prefilling": len(self._prefilling),
+                # The loaded adapters (a replica pool routes LoRA requests
+                # by them).
+                "lora_adapters": self.lora_names(),
+            })
         if self.kv_block:
             details["kv_blocks"] = {
                 "block": self.kv_block,
@@ -1500,7 +1562,10 @@ class InferenceEngine(LoRARuntimeMixin):
         ``TPU_ADMIT_MIN_HEADROOM`` and ``TPU_PREFIX_EVICT_HBM_FRAC`` are
         the device services' knobs, and ``TPU_COMPILE_CACHE_DIR`` the
         native builds' directory, set before the tokenizer's core is
-        built."""
+        built. An encoder or vision ``TPU_MODEL`` serves behind the dynamic
+        batcher (``TPU_MAX_BATCH``, ``TPU_BATCH_WAIT_MS``); its
+        ``TPU_CHECKPOINT`` is a ``serving/checkpoint.py`` file over the
+        seed-0 weights (the HF loader reads decoders only)."""
         check_unported_keys(config)
         compile_cache_dir = config.get_or_default("TPU_COMPILE_CACHE_DIR", "")
         # Before the tokenizer below builds the BPE core into it.
@@ -1526,8 +1591,16 @@ class InferenceEngine(LoRARuntimeMixin):
         quant = config.get_or_default("TPU_QUANT", "")
         params = None
         ckpt = config.get_or_default("TPU_CHECKPOINT", "")
-        if ckpt:
-            cfg = get_model(model_name).config
+        spec = get_model(model_name)
+        if ckpt and spec.family in ("encoder", "vision"):
+            if is_hf_checkpoint(ckpt):
+                raise ValueError(
+                    f"TPU_CHECKPOINT={ckpt!r} is an HF directory; the HF loader reads "
+                    f"decoder checkpoints, and {model_name} is of the {spec.family} family"
+                )
+            params = maybe_restore_params(config, spec.init(spec.config, 0, device), logger)
+        elif ckpt and spec.family == "llm":
+            cfg = spec.config
             if is_hf_checkpoint(ckpt):
                 # Real weights, quantized on the device a layer at a time
                 # as they land: the bf16 tree never exists whole.
@@ -1578,6 +1651,8 @@ class InferenceEngine(LoRARuntimeMixin):
             tenant_queue_max=num("TPU_TENANT_QUEUE_MAX", "0"),
             tenant_slo_class=config.get_or_default("TPU_TENANT_SLO_CLASS", ""),
             expected_tps=num("TPU_EXPECTED_TPS", "0", float),
+            max_batch=num("TPU_MAX_BATCH", "8"),
+            max_wait_s=num("TPU_BATCH_WAIT_MS", "5", float) / 1e3,
             tokenizer=tokenizer,
             params=params,
             quant=quant,
@@ -1611,12 +1686,44 @@ class InferenceEngine(LoRARuntimeMixin):
     # device state and the slot tables)
     # ------------------------------------------------------------------
 
+    def run_between_passes(self, fn: Any, timeout: float = 30.0) -> Any:
+        """Run ``fn()`` on the scheduler thread between two passes and
+        return its result (or raise its error); on the caller's thread when
+        the scheduler does not run (or is the caller). A call not taken
+        within ``timeout`` seconds is withdrawn and raises
+        ``TimeoutError``. The profiler capture starts and stops its trace
+        here (``serving/profiler_capture.py``)."""
+        fut: Future = Future()
+        with self._submit_lock:
+            queued = (self._running and self._thread is not None
+                      and self._thread is not threading.current_thread())
+            if queued:
+                self._handoffs.append((fn, fut))
+        if not queued:
+            return fn()
+        self._work.set()
+        try:
+            return fut.result(timeout=timeout)
+        except FutureTimeout:
+            if fut.cancel():
+                raise TimeoutError(
+                    f"the scheduler did not take the call within {timeout} s") from None
+            return fut.result()  # it started just now: wait for it
+
+    def _run_handoffs(self) -> None:
+        while self._handoffs:
+            fn, fut = self._handoffs.popleft()
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as exc:  # the caller's error, raised there
+                fut.set_exception(exc)
+
     def _run(self) -> None:
         on_card = self.device.type == "cuda"
-        if on_card:
-            # This thread captures and replays CUDA graphs until it ends:
-            # profiler captures are refused meanwhile (ROADMAP Queue 3).
-            profiler_capture.note_graph_replays(self, True)
+        # A profiler capture starts and stops on this thread while it runs.
+        profiler_capture.note_device_owner(self, True)
         try:
             if on_card:
                 torch.cuda.set_device(self.device)
@@ -1630,6 +1737,7 @@ class InferenceEngine(LoRARuntimeMixin):
                         time.sleep(0.0005)  # a writer takes the lock first
                         continue
                     with self._device_lock:
+                        self._run_handoffs()
                         self._pass()
         except Exception as exc:  # the loop's boundary: report, fail callers
             traceback.print_exc()
@@ -1642,8 +1750,11 @@ class InferenceEngine(LoRARuntimeMixin):
             self._fail_all(exc)
             self._idle_evt.set()  # a drain waiting on this engine ends
         finally:
-            if on_card:
-                profiler_capture.note_graph_replays(self, False)
+            # Calls handed over before _running fell are run, so no caller
+            # waits out its timeout; later ones run on their own thread.
+            with torch.inference_mode():
+                self._run_handoffs()
+            profiler_capture.note_device_owner(self, False)
 
     def _pass(self) -> None:
         """One scheduler pass, the reference's loop body

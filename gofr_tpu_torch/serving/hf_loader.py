@@ -440,7 +440,7 @@ def load_hf_llama(
 def load_hf_t5(path: str, cfg: Any = None, *, quant: str = "") -> dict:
     raise NotImplementedError(
         "load_hf_t5: T5 checkpoints wait for the port of models/t5.py "
-        "(ROADMAP Queue 1 item 5: the encoder families)"
+        "(ROADMAP Queue 1 item 5: T5 and the seq2seq family)"
     )
 
 

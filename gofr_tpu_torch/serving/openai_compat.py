@@ -17,11 +17,11 @@ tokenizer carries one (``apply_chat_template``, token-id output so BOS
 isn't doubled), falling back to a minimal role-tagged flattening; an
 explicit ``chat_template`` arg to ``add_openai_routes`` overrides both.
 
-The port's copy of ``gofr_tpu/serving/openai_compat.py``. Two
-differences: ``/v1/models`` lists the port's registry, which holds the
-LLM families only (the encoder, vision and seq2seq families are ROADMAP
-Queue 1 item 5), and ``/v1/embeddings`` answers as the reference does
-with no encoder engine configured, since the port has none yet.
+The port's copy of ``gofr_tpu/serving/openai_compat.py``.
+``/v1/models`` lists the port's registry, which holds the reference's
+names (the seq2seq ones registered but not served yet, ROADMAP Queue 1
+item 5); ``/v1/embeddings`` serves from the secondary encoder engine
+(``TPU_EMBED_MODEL``), or from the primary when it is an encoder.
 """
 
 from __future__ import annotations
@@ -632,13 +632,50 @@ def add_openai_routes(
 
     @app.post("/v1/embeddings")
     async def embeddings(ctx: Any) -> Raw:
-        """OpenAI embeddings need an encoder engine (``TPU_EMBED_MODEL``),
-        which the port does not have yet: the reference's answer when
-        none is configured."""
-        raise OpenAIRequestError(
-            "no encoder engine configured (set TPU_EMBED_MODEL, or "
-            "TPU_MODEL to an encoder like bert-base)"
+        """OpenAI embeddings: served by the secondary encoder engine
+        (``TPU_EMBED_MODEL``), or by the primary when it is an encoder."""
+        engine = getattr(ctx.container, "tpu_embed", None)
+        if engine is None:
+            primary = getattr(ctx.container, "tpu", None)
+            if primary is not None and primary.family == "encoder":
+                engine = primary
+        if engine is None:
+            raise OpenAIRequestError(
+                "no encoder engine configured (set TPU_EMBED_MODEL, or "
+                "TPU_MODEL to an encoder like bert-base)"
+            )
+        body = _completion_body(ctx.request.raw.body)
+        _check_model(body, engine)
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if (
+            not isinstance(inputs, list) or not inputs
+            or not all(isinstance(t, str) for t in inputs)
+        ):
+            raise OpenAIRequestError(
+                "input must be a string or a non-empty list of strings"
+            )
+        vecs = await asyncio.gather(*(engine.embed(t) for t in inputs))
+        data = [
+            {
+                "object": "embedding",
+                "embedding": [float(x) for x in v],
+                "index": i,
+            }
+            for i, v in enumerate(vecs)
+        ]
+        n_tokens = sum(
+            min(len(engine.tokenizer.encode(t)), engine.max_len)
+            if engine.tokenizer else 0
+            for t in inputs
         )
+        return Raw({
+            "object": "list",
+            "data": data,
+            "model": body.get("model", engine.model_name),
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }, status=200)  # OpenAI wire-compat: POST answers 200
 
     @app.get("/v1/models")
     async def models(ctx: Any) -> Raw:

@@ -15,15 +15,17 @@ ONE process-wide :class:`ProfilerCapture` (:func:`get_capture`):
   manual capture is never cooldown-gated but notes itself so the next
   auto-trigger backs off from it.
 * **Non-blocking for the scheduler.** ``trigger`` hands the bounded
-  capture to a daemon thread and returns immediately.
-* **Refused while CUDA graphs replay.** On an H100 a ``torch.profiler``
-  capture begun while an engine's scheduler thread replayed CUDA graphs
-  took 7.6-11.8 s, traced no kernel, and once hung the process (ROADMAP
-  Queue 3, open). Each engine on the card registers its scheduler thread
-  (:func:`note_graph_replays`) for as long as it runs; while one is
-  registered, ``trigger`` refuses (counted as suppressed, the reason in
-  ``last_error``) and ``start_trace`` raises. Until that fault is
-  resolved, a trace of a serving engine is taken after it stops.
+  capture to a daemon thread and returns immediately; the capture spans
+  about ``ms``.
+* **Started and stopped on the thread that drives the device.** Each
+  engine registers itself while its scheduler thread runs
+  (:func:`note_device_owner`). A capture then hands its profiler start and
+  stop to that thread, which runs them at the top of its loop, between two
+  passes (``run_between_passes``), and writes the trace on its own thread.
+  On an H100 a ``torch.profiler`` capture begun on another thread while
+  the scheduler replayed CUDA graphs took 7.6-11.8 s, traced no kernel,
+  and once hung the process; begun between two of the scheduler's own
+  passes it traces the replayed windows' kernels (PERF.md).
 
 Clock, sleep, the start/stop callables and the thread spawn are all
 injectable, so the cooldown and concurrency contracts are tested with
@@ -107,10 +109,8 @@ class ProfilerCapture:
 
     def start_trace(self) -> None:
         """Start a trace (CPU activity, and CUDA on the card) whose output
-        :meth:`stop_trace` writes into the singleton dir. Raises while an
-        engine replays CUDA graphs (see the module docstring)."""
-        if graph_replays_live():
-            raise RuntimeError(REFUSED_GRAPHS)
+        :meth:`stop_trace` writes into the singleton dir. On the calling
+        thread: ``trigger`` calls it on the engine's scheduler thread."""
         if self._starter is not None:
             self._starter(self.trace_dir)
             return
@@ -123,14 +123,23 @@ class ProfilerCapture:
         self._profile.start()
 
     def stop_trace(self) -> None:
+        self._export(self._halt())
+
+    def _halt(self) -> Any:
+        """Stop the running trace (``trigger``: on the thread that started
+        it); returns what ``_export`` writes."""
         if self._stopper is not None:
             self._stopper()
-            return
+            return None
         prof, self._profile = self._profile, None
         if prof is None:
             raise RuntimeError("stop_trace without a running trace")
         prof.stop()
-        prof.export_chrome_trace(self.trace_file)
+        return prof
+
+    def _export(self, prof: Any) -> None:
+        if prof is not None:
+            prof.export_chrome_trace(self.trace_file)
 
     def note_manual_capture(self) -> None:
         """Record an endpoint-driven capture (counts, cooldown anchor):
@@ -148,16 +157,12 @@ class ProfilerCapture:
         the slot and spawns the capture off-thread, or returns False
         when inside the cooldown / already busy (both counted as
         suppressed — a stall storm must not thrash the profiler).
-        Never blocks the calling (scheduler) thread. Also returns False
-        while an engine replays CUDA graphs, with the reason in
-        ``last_error``."""
+        Never blocks the calling (scheduler) thread. While an engine's
+        scheduler runs, the profiler starts and stops on that thread,
+        between two passes; the trace is written on the capture's own."""
         ms = max(1, int(ms))
         with self._state_lock:
             now = self._clock()
-            if graph_replays_live():
-                self.suppressed += 1
-                self.last_error = REFUSED_GRAPHS
-                return False
             if (
                 self.last_capture_at is not None
                 and now - self.last_capture_at < self.cooldown_s
@@ -173,9 +178,14 @@ class ProfilerCapture:
 
         def run() -> None:
             try:
-                self.start_trace()
+                owner = device_owner()
+                on_owner = (
+                    (lambda fn: owner.run_between_passes(fn, timeout=HANDOFF_TIMEOUT_S))
+                    if owner is not None else (lambda fn: fn())
+                )
+                on_owner(self.start_trace)
                 self._sleep(ms / 1e3)
-                self.stop_trace()
+                self._export(on_owner(self._halt))
                 with self._state_lock:
                     self.last_error = ""
             except Exception as exc:  # noqa: BLE001 — a failed capture must never take the scheduler with it
@@ -211,30 +221,55 @@ class ProfilerCapture:
             }
 
 
-REFUSED_GRAPHS = (
-    "refused: an engine replays CUDA graphs (a capture begun then traced "
-    "no kernel and once hung the process; ROADMAP Queue 3)"
-)
+# How long a capture waits for the scheduler to take its start or stop
+# (a pass lasts well under a second).
+HANDOFF_TIMEOUT_S = 30.0
 
-# The owners (engines) whose scheduler thread captures or replays CUDA
-# graphs right now.
-_graph_replayers: "weakref.WeakSet[Any]" = weakref.WeakSet()
-_replayers_lock = lockcheck.make_lock("profiler_capture._replayers_lock")
+# The owners (engines) whose scheduler thread drives the device right now,
+# in registration order. An owner offers ``run_between_passes(fn,
+# timeout)``: ``fn`` run on its scheduler thread between two passes.
+_device_owners: "weakref.WeakValueDictionary[int, Any]" = weakref.WeakValueDictionary()
+_owners_lock = lockcheck.make_lock("profiler_capture._owners_lock")
 
 
-def note_graph_replays(owner: Any, live: bool) -> None:
-    """Register (``live``) or drop ``owner`` as replaying CUDA graphs."""
-    with _replayers_lock:
+def note_device_owner(owner: Any, live: bool) -> None:
+    """Register (``live``) or drop ``owner`` as driving the device."""
+    with _owners_lock:
         if live:
-            _graph_replayers.add(owner)
-        else:
-            _graph_replayers.discard(owner)
+            _device_owners[id(owner)] = owner
+        elif _device_owners.get(id(owner)) is owner:
+            del _device_owners[id(owner)]
 
 
-def graph_replays_live() -> bool:
-    """Whether any registered owner replays CUDA graphs now."""
-    with _replayers_lock:
-        return len(_graph_replayers) > 0
+def device_owner() -> Optional[Any]:
+    """The first registered owner still alive, or None. With several
+    engines serving, the capture rides the first one's scheduler."""
+    with _owners_lock:
+        for owner in _device_owners.values():
+            return owner
+    return None
+
+
+_warm = {"done": False}
+_warm_lock = lockcheck.make_lock("profiler_capture._warm_lock")
+
+
+def warm_up(device: Any) -> None:
+    """Attach ``torch.profiler``'s CUDA tracing once in the process: a
+    short profile around one small kernel on ``device``. The engine's
+    constructor calls it, on the constructing thread, before the scheduler
+    captures its CUDA graphs, so the tracer is not first attached while
+    graphs replay, nor on the scheduler thread."""
+    import torch
+
+    with _warm_lock:
+        if _warm["done"] or torch.device(device).type != "cuda":
+            return
+        _warm["done"] = True
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts):
+            torch.ones(8, device=device).add_(1)
+            torch.cuda.synchronize(device)
 
 
 _capture: Optional[ProfilerCapture] = None

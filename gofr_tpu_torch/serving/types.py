@@ -12,6 +12,9 @@ from typing import Optional
 
 from gofr_tpu_torch.serving.lifecycle import CancelToken, Deadline
 
+# Padded sequence buckets (the encoder family's batch shapes).
+_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
 # logit_bias entries per request — the OpenAI cap. The [slots, K] planes
 # upload only on admission, so K is cheap padding.
 LOGIT_BIAS_K = 300

@@ -1,6 +1,13 @@
 """Parameters of the port: conversion from and to the reference pytree,
 and random initialisation on the device; and a reference KV cache carried
-over into the port's layout."""
+over into the port's layout.
+
+Each family has its pair: ``params_from_jax`` / ``params_to_reference``
+for the decoders, ``bert_params_from_jax`` / ``bert_params_to_reference``,
+``vit_params_from_jax`` / ``vit_params_to_reference`` and
+``resnet_params_from_jax`` / ``resnet_params_to_reference``. Each ``to``
+function inverts its ``from`` exactly (leaves as f32 numpy arrays, which
+hold bf16 values exactly)."""
 
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ from gofr_tpu_torch.models.transformer import (
 from gofr_tpu_torch.ops.kv_cache import KVCache, PagedKVCache
 from gofr_tpu_torch.ops.quant import Q4, Q8, is_quantized
 
-__all__ = ["init_params", "kv_cache_from_jax", "params_from_jax",
-           "params_to_reference"]
+__all__ = ["bert_params_from_jax", "bert_params_to_reference", "init_params",
+           "kv_cache_from_jax", "params_from_jax", "params_to_reference",
+           "resnet_params_from_jax", "resnet_params_to_reference",
+           "vit_params_from_jax", "vit_params_to_reference"]
 
 
 # Leaves that cross over unchanged where the config has them: per layer,
@@ -132,6 +141,120 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     }
     out.update({k: n(params[k]) for k in _TOP_EXTRAS if k in params})
     return out
+
+
+def _tensor_fn(device: torch.device | str | None, dtype: torch.dtype):
+    """numpy leaf → tensor of ``dtype`` on ``device`` (through f32: exact
+    for bf16 and f32 leaves)."""
+    device = resolve_device(device)
+    return lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device,
+                                                                       dtype=dtype)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+# BERT's and ViT's per-layer leaves other than Q/K/V (carried as they are).
+_BERT_LAYER = ("wo", "w_in", "w_out", "norm1_w", "norm1_b", "norm2_w", "norm2_b")
+_BERT_TOP = ("tok_embed", "pos_embed", "embed_norm_w", "embed_norm_b")
+_VIT_LAYER = ("ln1", "ln1_b", "wo", "wo_b", "ln2", "ln2_b", "w_up", "w_up_b",
+              "w_down", "w_down_b")
+_VIT_TOP = ("patch_proj", "patch_proj_b", "cls_token", "pos_embed", "ln_f", "ln_f_b",
+            "head", "head_b")
+
+
+def bert_params_from_jax(np_params: dict, cfg: Any,
+                         device: torch.device | str | None = None,
+                         dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """The reference's ``init_bert`` pytree (numpy leaves) → the port's
+    BERT parameters (``models/bert.py``): ``wq/wk/wv`` concatenated into
+    ``wqkv`` along the output axis, the rest as they are, in ``dtype``
+    (default ``cfg.dtype``)."""
+    t = _tensor_fn(device, cfg.dtype if dtype is None else dtype)
+    lp = np_params["layers"]
+    params = {k: t(np_params[k]) for k in _BERT_TOP}
+    params["wqkv"] = torch.cat([t(lp["wq"]), t(lp["wk"]), t(lp["wv"])], dim=-1)
+    params.update({k: t(lp[k]) for k in _BERT_LAYER})
+    return params
+
+
+def bert_params_to_reference(params: dict, cfg: Any) -> dict:
+    """The inverse of ``bert_params_from_jax``: f32 numpy leaves in the
+    reference's layout."""
+    wq, wk, wv = params["wqkv"].split(cfg.d_model, dim=-1)
+    layers = {"wq": _host(wq), "wk": _host(wk), "wv": _host(wv)}
+    layers.update({k: _host(params[k]) for k in _BERT_LAYER})
+    out = {k: _host(params[k]) for k in _BERT_TOP}
+    out["layers"] = layers
+    return out
+
+
+def vit_params_from_jax(np_params: dict, cfg: Any,
+                        device: torch.device | str | None = None,
+                        dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """The reference's ``init_vit`` pytree (numpy leaves) → the port's ViT
+    parameters (``models/vit.py``): ``wq/wk/wv`` into ``wqkv`` and their
+    biases into ``wqkv_b``, the rest as they are, in ``dtype`` (default
+    ``cfg.dtype``)."""
+    t = _tensor_fn(device, cfg.dtype if dtype is None else dtype)
+    lp = np_params["layers"]
+    params = {k: t(np_params[k]) for k in _VIT_TOP}
+    params["wqkv"] = torch.cat([t(lp["wq"]), t(lp["wk"]), t(lp["wv"])], dim=-1)
+    params["wqkv_b"] = torch.cat([t(lp["wq_b"]), t(lp["wk_b"]), t(lp["wv_b"])], dim=-1)
+    params.update({k: t(lp[k]) for k in _VIT_LAYER})
+    return params
+
+
+def vit_params_to_reference(params: dict, cfg: Any) -> dict:
+    """The inverse of ``vit_params_from_jax``: f32 numpy leaves in the
+    reference's layout."""
+    D = cfg.d_model
+    layers = {}
+    for name, leaf in (("w", "wqkv"), ("b", "wqkv_b")):
+        for proj, part in zip(("wq", "wk", "wv"), params[leaf].split(D, dim=-1)):
+            layers[proj if name == "w" else proj + "_b"] = _host(part)
+    layers.update({k: _host(params[k]) for k in _VIT_LAYER})
+    out = {k: _host(params[k]) for k in _VIT_TOP}
+    out["layers"] = layers
+    return out
+
+
+def resnet_params_from_jax(np_params: dict, cfg: Any = None,
+                           device: torch.device | str | None = None) -> dict:
+    """The reference's ``init_resnet`` tree (numpy leaves; convolutions
+    HWIO) → the port's (``models/resnet.py``; convolutions OIHW), every
+    leaf f32 as in the reference. ``cfg`` is accepted for symmetry with
+    the other families and not read: the tree carries its own shape."""
+    t = _tensor_fn(device, torch.float32)
+
+    def conv(a: Any) -> torch.Tensor:
+        return t(a).permute(3, 2, 0, 1).contiguous()
+
+    def tree(d: dict) -> dict:
+        return {k: {n: t(x) for n, x in v.items()} if isinstance(v, dict) else conv(v)
+                for k, v in d.items()}
+
+    return {
+        "stem": tree(np_params["stem"]),
+        "stages": [[tree(block) for block in stage] for stage in np_params["stages"]],
+        "head": {"w": t(np_params["head"]["w"]), "b": t(np_params["head"]["b"])},
+    }
+
+
+def resnet_params_to_reference(params: dict, cfg: Any = None) -> dict:
+    """The inverse of ``resnet_params_from_jax``: f32 numpy leaves,
+    convolutions HWIO."""
+
+    def tree(d: dict) -> dict:
+        return {k: _host(v.permute(2, 3, 1, 0)) if isinstance(v, torch.Tensor)
+                else {n: _host(x) for n, x in v.items()} for k, v in d.items()}
+
+    return {
+        "stem": tree(params["stem"]),
+        "stages": [[tree(block) for block in stage] for stage in params["stages"]],
+        "head": {"w": _host(params["head"]["w"]), "b": _host(params["head"]["b"])},
+    }
 
 
 def _cat(leaves: list):

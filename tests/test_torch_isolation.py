@@ -45,13 +45,16 @@ for fn in (chip_smoke.phase_kernels, chip_smoke.phase_kernel_variants,
            chip_smoke.phase_window_grad, chip_smoke.phase_mistral_forward,
            chip_smoke.phase_full_sequence, chip_smoke.phase_serve_options,
            chip_smoke.phase_http, chip_smoke.phase_lora, chip_smoke.phase_lora_train,
-           chip_smoke.phase_device_services):
+           chip_smoke.phase_device_services, chip_smoke.phase_encoders,
+           chip_smoke.phase_family_train, chip_smoke.profiler_under_replays):
     assert callable(fn)
 for name in ("gofr_tpu_torch.serving.lora", "gofr_tpu_torch.serving.lora_runtime",
              "gofr_tpu_torch.serving.hf_tokenizer", "gofr_tpu_torch.serving.native_tokenizer",
              "gofr_tpu_torch.serving.device_telemetry",
              "gofr_tpu_torch.serving.profiler_capture",
-             "gofr_tpu_torch.analysis.lockcheck"):
+             "gofr_tpu_torch.analysis.lockcheck", "gofr_tpu_torch.serving.batcher",
+             "gofr_tpu_torch.serving.modalities", "gofr_tpu_torch.models.bert",
+             "gofr_tpu_torch.models.vit", "gofr_tpu_torch.models.resnet"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked

@@ -42,6 +42,7 @@ from gofr_tpu.models.transformer import init_transformer
 from gofr_tpu.serving.engine import InferenceEngine as RefEngine
 from gofr_tpu.serving.tokenizer import ByteTokenizer as RefByteTokenizer
 from gofr_tpu_torch.models.registry import get_model
+from gofr_tpu_torch.serving import backend as port_backend
 from gofr_tpu_torch.serving import engine as port_engine_mod
 from gofr_tpu_torch.serving.engine import InferenceEngine
 from gofr_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -305,13 +306,18 @@ def test_same_error(apps, case):
 
 
 def test_models_lists_the_llm_subset(apps):
+    """/v1/models lists the reference's built-in names, every family (the
+    LLMs once alone; the encoders, the vision models and the seq2seq
+    names since the encoder families were ported), entry for entry."""
     got = _both(apps, "GET", "/v1/models")
     (ps, _, pb), (rs, _, rb) = got["port"], got["reference"]
     assert ps == rs == 200
     port, ref = json.loads(pb), json.loads(rb)
-    llms = [n for n in ref_list_models() if ref_get_model(n).family == "llm"]
-    assert [m for m in ref["data"] if m["id"] in llms] == port["data"]
-    assert [m["id"] for m in port["data"]] == llms
+    names = [n for n in ref_list_models()
+             if ref_get_model(n).family in ("llm", "encoder", "vision", "seq2seq")]
+    assert {"bert-base", "resnet-50", "vit-base", "t5-tiny"} <= set(names)
+    assert [m for m in ref["data"] if m["id"] in names] == port["data"]
+    assert [m["id"] for m in port["data"]] == names
     assert [m["id"] for m in port["data"] if m["loaded"]] == [MODEL]
 
 
@@ -576,7 +582,8 @@ def test_every_reference_key_is_served_or_refused():
                + inspect.getsource(gofr_tpu.serving.backend))
     ref_keys = set(re.findall(r'"(TPU_[A-Z0-9_]+)"', ref_src))
     served = set(re.findall(r'"(TPU_[A-Z0-9_]+)"',
-                            inspect.getsource(InferenceEngine.from_config)))
+                            inspect.getsource(InferenceEngine.from_config)
+                            + inspect.getsource(port_backend.new_tpu_embed_from_config)))
     refused = {k for k, _, _ in port_engine_mod._UNPORTED_KEYS}
     elsewhere = {"TPU_REPLICAS", "TPU_REPLICA_ADDRS", "TPU_EMBED_MODEL"}
     assert ref_keys - served - refused - elsewhere == set()
@@ -624,7 +631,8 @@ def test_unported_key_raises_with_its_item(key, default, item):
     ({"DB_DIALECT": "sqlite"}, "item 2"),
     ({"REDIS_HOST": "localhost"}, "item 2"),
     ({"PUBSUB_BACKEND": "memory"}, "item 2"),
-    ({"TPU_EMBED_MODEL": "bert-tiny"}, "item 5"),
+    # An encoder beside a seq2seq primary, whose model (T5) is not ported.
+    ({"TPU_EMBED_MODEL": "bert-tiny", "TPU_MODEL": "t5-tiny"}, "item 5"),
 ], ids=["tenant slo", "replicas", "replica addrs", "trace exporter",
         "async plane", "sql", "redis", "pubsub", "embed model"])
 def test_unported_app_config_raises(config, item):

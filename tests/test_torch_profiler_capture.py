@@ -3,13 +3,16 @@ profiler_capture``) against the reference's: ``trigger``, the busy slot,
 the cooldown, manual captures and ``snapshot`` agree step for step under
 an injected clock and synchronous spawns, a failed capture is recorded
 and frees the slot in both, and a real ``torch.profiler`` capture on the
-CPU writes its Chrome trace into ``trace_dir``.
+CPU writes its Chrome trace into ``trace_dir``. While an engine serves, a
+capture's start and stop run on its scheduler thread between passes (the
+port's repair of a capture under CUDA graph replays).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 
 import pytest
 import torch
@@ -110,40 +113,80 @@ def test_a_cpu_trace_lands_in_the_trace_dir():
 
 
 def test_a_capture_is_refused_while_cuda_graphs_replay(monkeypatch):
-    """While an owner (an engine's scheduler thread on the card) replays
-    CUDA graphs, trigger refuses and says why, and start_trace raises; the
-    slot and the cooldown anchor stay untouched, and the capture starts
-    once the owner is gone."""
-    monkeypatch.setattr(pc, "_graph_replayers", type(pc._graph_replayers)())
+    """The capture once refused while an engine's scheduler replayed CUDA
+    graphs; it now hands its start and stop to that thread. A capture
+    triggered from another thread while a CPU engine serves starts and
+    stops on the engine's scheduler thread, between two passes (an
+    injected clock and sleep; the trace itself written on the capture's
+    thread); the engine's requests complete. After the engine closes, a
+    capture runs on its own thread, and an owner collected without
+    deregistering does not hold it."""
+    import threading
+
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    monkeypatch.setattr(pc, "_device_owners", type(pc._device_owners)())
     w = _World()
-    cap = pc.ProfilerCapture(**w.kw())
-
-    class Engine:
-        pass
-
-    eng = Engine()
-    pc.note_graph_replays(eng, True)
-    assert pc.graph_replays_live()
-    assert cap.trigger(200) is False
-    snap = cap.snapshot()
-    assert snap["suppressed"] == 1 and snap["captures"] == 0 and not snap["busy"]
-    assert snap["last_error"] == pc.REFUSED_GRAPHS
-    assert cap.last_capture_at is None and w.pending == []
-    with pytest.raises(RuntimeError, match="replays CUDA graphs"):
-        cap.start_trace()
-    assert w.events == []
-
-    pc.note_graph_replays(eng, False)
-    assert not pc.graph_replays_live()
-    assert cap.trigger(200) is True
+    seen = []
+    kw = w.kw()
+    kw.update(starter=lambda d: seen.append(("start", threading.current_thread().name)),
+              stopper=lambda: seen.append(("stop", threading.current_thread().name)))
+    cap = pc.ProfilerCapture(**kw)
+    eng = InferenceEngine("llama-tiny-f32", n_slots=2, max_len=128, window_k=4, device="cpu")
+    try:
+        assert pc.device_owner() is eng
+        reqs = [eng.submit_generate([1, 2, 3, 4], max_new_tokens=40, stop_on_eos=False)
+                for _ in range(2)]
+        assert cap.trigger(200) is True
+        capture = threading.Thread(target=w.pending.pop(0), name="capture")
+        capture.start()
+        capture.join(timeout=60)
+        assert not capture.is_alive()
+        sched = eng._thread.name
+        assert seen == [("start", sched), ("stop", sched)]
+        assert ("sleep", 0.2) in w.events
+        snap = cap.snapshot()
+        assert snap["captures"] == 1 and snap["last_error"] == "" and not snap["busy"]
+        assert all(len(r.future.result(timeout=60).token_ids) == 40 for r in reqs)
+    finally:
+        eng.close()
+    assert pc.device_owner() is None
+    w.now = 100.0
+    assert cap.trigger(10) is True
     w.pending.pop(0)()
-    snap = cap.snapshot()
-    assert snap["captures"] == 1 and snap["last_error"] == ""
-    assert w.events == [("start", True), ("sleep", 0.2), ("stop",)]
+    assert seen[-2:] == [("start", threading.current_thread().name),
+                         ("stop", threading.current_thread().name)]
 
-    # An owner that is collected without deregistering does not hold it.
-    pc.note_graph_replays(Engine(), True)
+    class Owner:
+        def run_between_passes(self, fn, timeout):
+            raise AssertionError("a collected owner must not be used")
+
+    pc.note_device_owner(Owner(), True)
     import gc
 
     gc.collect()
-    assert not pc.graph_replays_live()
+    assert pc.device_owner() is None
+
+
+def test_a_handoff_the_scheduler_never_takes_times_out():
+    """run_between_passes withdraws a call its scheduler has not taken
+    within the timeout (the capture then records the error and frees its
+    slot); a call handed to a stopped engine runs on the caller."""
+    import threading
+
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine("llama-tiny-f32", n_slots=2, max_len=128, window_k=4, device="cpu")
+    try:
+        ran = []
+        with eng._device_lock:  # the scheduler waits between passes
+            with pytest.raises(TimeoutError):
+                eng.run_between_passes(lambda: ran.append(1), timeout=0.2)
+        time.sleep(0.2)
+        assert ran == []  # withdrawn, never run
+        assert eng.run_between_passes(lambda: threading.current_thread().name,
+                                      timeout=30) == eng._thread.name
+    finally:
+        eng.close()
+    assert eng.run_between_passes(lambda: threading.current_thread().name) == \
+        threading.current_thread().name
