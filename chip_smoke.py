@@ -180,6 +180,17 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    bert_embed on its flush's batch; ViT-B/16 at [8, 224, 224, 3], kernel
    against dense attention, 12 flash_attention launches a forward, 64
    requests;
+7c. serves the seq2seq family: Unigram, SentencePiece BPE (byte
+   fallback) and WordPiece tokenizer.json files learned from the repo's
+   Markdown (encode MB/s over ~1 MB, the byte-fallback round trip);
+   flan-t5-small at full width behind the App with enable_api_key_auth
+   and the Unigram TPU_TOKENIZER: 64 concurrent requests of 8 to 400
+   tokens (one without the key: 401), each answer against t5_generate on
+   its flush's padded batch, a stream against its one-shot ids, BERT-base's
+   /v1/embeddings through the WordPiece TPU_EMBED_TOKENIZER; the f32 twin
+   on the card against the host CPU (bucket ids, decoder logits); int8 and
+   int4 through TPU_QUANT; load_hf_t5 at flan-t5-large's widths in bf16
+   and int8 (load rate, peak memory, a [8, 128] generate);
 8. prints the card, the kernels line and, last, {"ok": true, ...}.
 
 Device times come from torch.profiler. On a machine where its trace holds
@@ -3456,11 +3467,11 @@ class _SSEClient(threading.Thread):
                 for ch in ev.get("choices", []) for tok in ch.get("token_ids", [])]
 
 
-def _http_json(port: int, method: str, path: str, body=None):
+def _http_json(port: int, method: str, path: str, body=None, headers: dict | None = None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         conn.request(method, path, body=None if body is None else json.dumps(body),
-                     headers={"Content-Type": "application/json"})
+                     headers={"Content-Type": "application/json", **(headers or {})})
         resp = conn.getresponse()
         return resp.status, resp.read()
     finally:
@@ -4955,16 +4966,23 @@ def repo_markdown() -> str:
 
 def learn_merges(text: str, n: int) -> list:
     """``n`` byte-level BPE merges by greedy pair count over ``text`` split
-    as Llama-3 splits it: the most frequent adjacent pair (ties: the
-    smallest pair) is merged in every word, counts updated incrementally."""
-    import heapq
+    as Llama-3 splits it (``greedy_merges``)."""
     import re as _re
 
     from gofr_tpu_torch.serving.hf_tokenizer import translate_pattern
 
     freq = collections.Counter(_re.findall(translate_pattern(LLAMA3_SPLIT), text))
-    words = [[bytes([b]) for b in w.encode("utf-8")] for w in freq]
-    counts = list(freq.values())
+    return greedy_merges([[bytes([b]) for b in w.encode("utf-8")] for w in freq],
+                         list(freq.values()), n)
+
+
+def greedy_merges(words: list, counts: list, n: int) -> list:
+    """``n`` BPE merges over ``words`` (symbol lists: bytes or str, a merge
+    concatenates the pair) weighted by ``counts``: the most frequent
+    adjacent pair (ties: the smallest pair) is merged in every word, counts
+    updated incrementally."""
+    import heapq
+
     pairs: collections.Counter = collections.Counter()
     where: dict = collections.defaultdict(set)
     for i, w in enumerate(words):
@@ -6238,6 +6256,702 @@ def profiler_under_replays(torch, eng, label: str) -> dict:
     return res
 
 
+# -- the seq2seq family (T5), its tokenizers and the auth enablers ------------
+
+SEQ2SEQ_REQUESTS = 64
+SEQ2SEQ_MAX_BATCH = 8
+SEQ2SEQ_WAIT_MS = 5
+SEQ2SEQ_TOKENS = (8, 400)  # the requests' input lengths under the Unigram file
+SEQ2SEQ_KEY = "chip-smoke-api-key"
+# The phase ends the run after this long (a hang costs this, not the limit).
+SEQ2SEQ_WATCHDOG_S = 300.0
+# flan-t5-small's f32 twin on the card (TF32 off) against the same weights
+# on the host CPU, calibrated by the host's own f32 against a float64 run
+# of the same weights: random weights leave T5's unscaled scores at std
+# ~8 (d_kv 64), so the softmax is nearly one-hot and an f32 rounding
+# moves whole attention rows through 8+8 layers. The card's max and rms
+# decoder-logit differences from the host must stay within this multiple
+# of the host's from float64.
+T5_F32_VS_F64_FACTOR = 3.0
+# google/flan-t5-large's config.json widths (about 0.78 B parameters).
+T5_LARGE_CONFIG = {
+    "model_type": "t5", "vocab_size": 32128, "d_model": 1024, "d_kv": 64, "num_heads": 16,
+    "num_layers": 24, "num_decoder_layers": 24, "d_ff": 2816,
+    "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False,
+    "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+    "layer_norm_epsilon": 1e-6}
+TOKENIZER_RATE_BYTES = 1_000_000
+SEQ2SEQ_LEARN_CHARS = 300_000  # the Markdown the three vocabularies are learned from
+SP = "▁"  # SentencePiece's word boundary
+
+
+def _write_tokenizer(directory: str, spec: dict, config: dict) -> str:
+    import os
+
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "tokenizer.json"), "w", encoding="utf-8") as fp:
+        json.dump({"version": "1.0", "truncation": None, "padding": None, **spec}, fp,
+                  ensure_ascii=False)
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as fp:
+        json.dump(config, fp)
+    return directory
+
+
+def _added(tokens: list) -> list:
+    return [{"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False,
+             "normalized": False, "special": True} for i, t in enumerate(tokens)]
+
+
+def _template(pre: list, post: list, ids: dict) -> dict:
+    seq = ([{"SpecialToken": {"id": t, "type_id": 0}} for t in pre]
+           + [{"Sequence": {"id": "A", "type_id": 0}}]
+           + [{"SpecialToken": {"id": t, "type_id": 0}} for t in post])
+    return {"type": "TemplateProcessing", "single": seq, "pair": seq,
+            "special_tokens": {t: {"id": t, "ids": [ids[t]], "tokens": [t]}
+                               for t in pre + post}}
+
+
+def write_unigram_tokenizer(directory: str, text: str, size: int = 8000) -> str:
+    """A T5-shaped Unigram tokenizer.json over ``text``: <pad>, </s>, <unk>
+    (ids 0-2), every character of the text and the most frequent
+    substrings (up to 8 characters) of its ``▁``-prefixed words, each
+    scored by the log of its share of the counts; WhitespaceSplit +
+    Metaspace (always, split), the ``$A </s>`` template, the Metaspace
+    decoder; class T5Tokenizer without sentinels."""
+    words = collections.Counter(text.split())
+    counts: collections.Counter = collections.Counter()
+    for w, c in words.items():
+        s = SP + w
+        for i in range(len(s)):
+            for j in range(i + 1, min(len(s), i + 8) + 1):
+                counts[s[i:j]] += c
+    chars = [p for p in counts if len(p) == 1]
+    longer = sorted((p for p in counts if len(p) > 1), key=lambda p: (-counts[p], p))
+    chosen = chars + longer[:max(0, size - len(chars))]
+    total = sum(counts[p] for p in chosen)
+    specials = ["<pad>", "</s>", "<unk>"]
+    vocab = [[t, 0.0] for t in specials] + [[p, math.log(counts[p] / total)] for p in chosen]
+    metaspace = {"type": "Metaspace", "replacement": SP, "prepend_scheme": "always",
+                 "split": True}
+    return _write_tokenizer(directory, {
+        "added_tokens": _added(specials), "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [{"type": "WhitespaceSplit"},
+                                                                metaspace]},
+        "post_processor": _template([], ["</s>"], {"</s>": 1}), "decoder": metaspace,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab, "byte_fallback": False},
+    }, {"tokenizer_class": "T5Tokenizer", "extra_ids": 0})
+
+
+def write_sp_bpe_tokenizer(directory: str, text: str, n_merges: int = 2000) -> str:
+    """A Llama-2-shaped SentencePiece BPE tokenizer.json over ``text``:
+    <unk>, <s>, </s>, then <0x00>..<0xFF> (byte fallback), the text's
+    characters and ``n_merges`` character merges learned over its
+    ``▁``-prefixed words (``greedy_merges``); the Prepend/Replace
+    normalizers, no pre-tokenizer, the Replace/ByteFallback/Fuse/Strip
+    decoders, a BOS template; class LlamaTokenizerFast."""
+    words = collections.Counter(SP + w for w in text.split())
+    merges = greedy_merges([list(w) for w in words], list(words.values()), n_merges)
+    specials = ["<unk>", "<s>", "</s>"]
+    vocab = specials + [f"<0x{b:02X}>" for b in range(256)]
+    seen = set(vocab)
+    for tok in sorted({c for w in words for c in w}) + [a + b for a, b in merges]:
+        if tok not in seen:
+            seen.add(tok)
+            vocab.append(tok)
+    return _write_tokenizer(directory, {
+        "added_tokens": _added(specials),
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": SP},
+            {"type": "Replace", "pattern": {"String": " "}, "content": SP}]},
+        "pre_tokenizer": None,
+        "post_processor": _template(["<s>"], [], {"<s>": 1}),
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": SP}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": {t: i for i, t in enumerate(vocab)},
+                  "merges": [f"{a} {b}" for a, b in merges]},
+    }, {"tokenizer_class": "LlamaTokenizerFast", "add_bos_token": True,
+        "add_eos_token": False})
+
+
+def write_wordpiece_tokenizer(directory: str, text: str, size: int = 12000) -> str:
+    """A BERT-shaped WordPiece tokenizer.json over ``text``: [PAD], [UNK],
+    [CLS], [SEP], [MASK], every character of the normalized text alone and
+    ``##``-continued, then its most frequent words and word endings;
+    BertNormalizer (lowercase), BertPreTokenizer, the ``[CLS] $A [SEP]``
+    template, the WordPiece decoder; class BertTokenizer."""
+    from gofr_tpu_torch.serving import hf_pipeline as hp
+
+    norm = hp.bert_normalize(text, True, True, None, True)
+    words = collections.Counter(p for p, _ in hp._bert_pre_tokenize((norm, True)))
+    ends: collections.Counter = collections.Counter()
+    for w, c in words.items():
+        for i in range(1, len(w) - 1):
+            ends["##" + w[i:]] += c
+    chars = sorted({c for w in words for c in w})
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab = specials + chars + ["##" + c for c in chars]
+    seen = set(vocab)
+    ranked = sorted(words, key=lambda w: (-words[w], w))[: size // 2] + sorted(
+        ends, key=lambda e: (-ends[e], e))[: size // 2]
+    for tok in ranked:
+        if tok not in seen and len(vocab) < size:
+            seen.add(tok)
+            vocab.append(tok)
+    return _write_tokenizer(directory, {
+        "added_tokens": _added(specials),
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None, "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": _template(["[CLS]"], ["[SEP]"], {"[CLS]": 2, "[SEP]": 3}),
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100, "vocab": {t: i for i, t in enumerate(vocab)}},
+    }, {"tokenizer_class": "BertTokenizer", "do_lower_case": True})
+
+
+def seq2seq_texts(tok, text: str, n: int, lengths: tuple, seed: int = 0) -> list:
+    """``n`` distinct windows of ``text``'s words, each the shortest whose
+    encoding under ``tok`` holds at least its drawn length of
+    ``lengths`` (the EOS included)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = text.split()
+    sizes = {}
+    out, seen = [], set()
+    while len(out) < n:
+        want = int(rng.integers(lengths[0], lengths[1] + 1))
+        i = int(rng.integers(0, len(words) - 2 * lengths[1]))
+        got, j = 1, i
+        while got < want:
+            w = words[j]
+            if w not in sizes:
+                sizes[w] = len(tok.encode(w)) - 1
+            got += sizes[w]
+            j += 1
+        s = " ".join(words[i:j])
+        if s not in seen:
+            seen.add(s)
+            out.append(s)
+    return out
+
+
+def _timed(torch, fn) -> tuple:
+    """(result, wall ms) of one call, the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def graph_replay_ms(torch, fn, replays: int = 3):
+    """(device ms, result): ``fn`` captured whole as one CUDA graph (after
+    an eager warm-up that fills the caches it reads) and replayed
+    ``replays`` times, the median replay timed by CUDA events: the
+    kernels back to back with no host launch between them, each node's
+    own scheduling (~1 µs) included. A whole eager generate holds tens of
+    thousands of kernels, which a torch.profiler trace takes 15-25 s to
+    read back on the card's host; this takes a capture."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    result = out.clone()
+    del graph
+    return statistics.median(times), result
+
+
+def _trim_eos(row: list, eos: int = 1) -> list:
+    return row[: row.index(eos)] if eos in row else row
+
+
+def phase_seq2seq(torch, dev) -> dict:
+    """The seq2seq family (T5) on the card, its tokenizer.json kinds and
+    the auth enablers, under a SEQ2SEQ_WATCHDOG_S watchdog:
+
+    1. writes a Unigram (T5), a SentencePiece BPE with byte fallback
+       (Llama-2's layout) and a WordPiece (BERT) tokenizer.json learned
+       from the repo's Markdown; encode MB/s of each over about 1 MB of
+       text on the host; decode(encode(x)) == x on the byte-fallback file;
+    2. flan-t5-small at full width in bf16 (seed-0 weights) served by the
+       port's App from config (TPU_MODEL=flan-t5-small, the Unigram file
+       as TPU_TOKENIZER) behind enable_api_key_auth: SEQ2SEQ_REQUESTS
+       concurrent requests of 8 to 400 tokens to a ctx.infer route with
+       the key (requests/s, p50/p99, flush sizes, generated tokens/s), one
+       without it (401), every answer equal to t5_generate run directly on
+       its flush's padded batch, one request's stream equal to its
+       one-shot ids; BERT-base beside it as TPU_EMBED_MODEL with the
+       WordPiece file as TPU_EMBED_TOKENIZER answers /v1/embeddings once
+       (against bert_embed on the same tokens); device ms of t5_generate
+       at [8, bucket] and [1, bucket] beside its wall ms;
+    3. flan-t5-small's f32 twin on the card against the host CPU: the
+       relative-bias bucket ids equal, decoder logits within
+       T5_F32_VS_F64_FACTOR times the host's own distance from a float64
+       run of the same weights;
+    4. TPU_QUANT=int8 and int4 at flan-t5-small: param_bytes, device ms a
+       [8, bucket] generate, the share of ids equal to bf16's;
+    5. load_hf_t5 at flan-t5-large's published widths: random bf16
+       weights written with write_safetensors, loaded in bf16 and int8
+       (load s, GB/s, peak memory, a leaf of each checked), device ms of
+       a [8, 128] generate.
+    T5 launches none of the three attention kernels. Returns the numbers
+    printed."""
+    import asyncio
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from gofr_tpu_torch.config import MockConfig
+    from gofr_tpu_torch.models.bert import bert_embed
+    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.t5 import (
+        _rel_bucket,
+        bucket_ids,
+        config_from_hf_t5,
+        init_t5,
+        load_hf_t5,
+        t5_decode,
+        t5_encode,
+        t5_generate,
+        t5_param_count,
+    )
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.ops.quant import quantize_array
+    from gofr_tpu_torch.serving.batcher import pad_bucket
+    from gofr_tpu_torch.serving.device_telemetry import tree_device_bytes
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+    from gofr_tpu_torch.serving.hf_tokenizer import HFTokenizer
+    from gofr_tpu_torch.serving.openai_compat import add_openai_routes
+    from gofr_tpu_torch.serving.stream_text import stream_seq2seq
+    from gofr_tpu_torch.serving.types import _PREFILL_BUCKETS
+
+    def watchdog():
+        print(f"chip_smoke: FAIL: phase_seq2seq did not end within {SEQ2SEQ_WATCHDOG_S:.0f} s",
+              file=sys.stderr, flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(SEQ2SEQ_WATCHDOG_S, watchdog)
+    timer.daemon = True
+    timer.start()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t5_")
+    out: dict = {"step_s": {}}
+
+    def step_done(name: str) -> None:
+        out["step_s"][name] = time.perf_counter() - t_phase
+    try:
+        # -- 1. the tokenizer.json kinds --------------------------------------
+        label = "seq2seq tokenizers"
+        text = repo_markdown()
+        t0 = time.perf_counter()
+        learn = text[:SEQ2SEQ_LEARN_CHARS]
+        uni = write_unigram_tokenizer(os.path.join(tmp, "unigram"), learn)
+        bpe = write_sp_bpe_tokenizer(os.path.join(tmp, "sp_bpe"), learn)
+        wp = write_wordpiece_tokenizer(os.path.join(tmp, "wordpiece"), learn)
+        built_s = time.perf_counter() - t0
+        lines = [ln for ln in text.split("\n") if ln.strip()]
+        corpus, size = [], 0
+        while size < TOKENIZER_RATE_BYTES:
+            for ln in lines:
+                corpus.append(ln)
+                size += len(ln.encode())
+                if size >= TOKENIZER_RATE_BYTES:
+                    break
+        rates = {}
+        for kind, d in (("unigram", uni), ("sentencepiece bpe, byte_fallback", bpe),
+                        ("wordpiece", wp)):
+            tok = HFTokenizer(d)
+            mbs, ids = encode_rate(tok, corpus)
+            rates[kind] = {"mb_s": mbs, "tokens": sum(map(len, ids)), "vocab": tok.vocab_size}
+        sp_tok = HFTokenizer(bpe)
+        extra = ["emoji 🙂👍🏽 🚀 and ZWJ 👩‍💻", "日本語のテキスト 中文 한국어", "café naïve Ærø",
+                 "  two leading, two trailing  ", "tabs\t\tand\nnewlines\n", ""]
+        byte_ids = {sp_tok.vocab[f"<0x{b:02X}>"] for b in range(256)}
+        bad, fallback = [], 0
+        # Lines that write a special token or ▁ cannot come back: decode
+        # skips the specials and reads ▁ as a space.
+        lines = [x for x in lines if not any(t in x for t in ("<s>", "</s>", "<unk>", SP))]
+        for x in lines + extra:
+            ids = sp_tok.encode(x)
+            fallback += sum(1 for i in ids if i in byte_ids)
+            if sp_tok.decode(ids) != x:
+                bad.append(x)
+        out["tokenizers"] = {"rates": rates, "round_trip_lines": len(lines) + len(extra),
+                             "byte_fallback_tokens": fallback, "built_s": built_s}
+        log(f"{label}: written in {built_s:.1f} s; encode rates on the host over "
+            f"{size / 1e6:.2f} MB ({len(corpus)} lines): " + "; ".join(
+                f"{k} {v['mb_s']:.3f} MB/s ({v['tokens']} tokens, vocab {v['vocab']})"
+                for k, v in rates.items())
+            + f"; decode(encode(x)) == x on the byte-fallback file over {len(lines) + len(extra)} "
+            f"lines: {len(bad)} differ ({fallback} <0xNN> pieces used)")
+        if bad or not fallback:
+            fail(f"{label}: the byte-fallback file does not round-trip: {bad[:3]}")
+        step_done("tokenizers")
+
+        # -- 2. flan-t5-small behind the App, the API key and the batcher ----
+        label = "seq2seq flan-t5-small"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        app, loop, stop = _app_harness({
+            "TPU_MODEL": "flan-t5-small", "TPU_DEVICE": str(dev), "TPU_TOKENIZER": uni,
+            "TPU_MAX_BATCH": str(SEQ2SEQ_MAX_BATCH), "TPU_BATCH_WAIT_MS": str(SEQ2SEQ_WAIT_MS),
+            "TPU_MAX_LEN": "512", "TPU_EMBED_MODEL": "bert-base", "TPU_EMBED_TOKENIZER": wp})
+        key = {"X-API-KEY": SEQ2SEQ_KEY}
+        try:
+            app.enable_api_key_auth(SEQ2SEQ_KEY)
+            add_openai_routes(app)
+
+            @app.post("/t2t")
+            async def t2t(ctx):
+                return await ctx.infer(ctx.request.json()["input"])
+
+            asyncio.run_coroutine_threadsafe(app.start(), loop).result(timeout=120)
+            heng, emb = app.container.tpu, app.container.tpu_embed
+            cfg = heng.cfg
+            if (heng.family != "seq2seq" or heng.device != dev
+                    or not isinstance(heng.tokenizer, HFTokenizer)
+                    or not isinstance(emb.tokenizer, HFTokenizer)):
+                fail(f"{label}: the App's engines are {heng.family} on {heng.device} with "
+                     f"{type(heng.tokenizer).__name__}, embed {type(emb.tokenizer).__name__}")
+            port = app.http_port
+            texts = seq2seq_texts(heng.tokenizer, text, SEQ2SEQ_REQUESTS, SEQ2SEQ_TOKENS)
+            n_tok = [len(heng.tokenizer.encode(t)) for t in texts]
+            status, raw = _http_json(port, "POST", "/t2t", {"input": texts[0]}, key)  # warm
+            if status != 201:
+                fail(f"{label}: warm-up request {status}: {raw[:200]}")
+            denied, denied_raw = _http_json(port, "POST", "/t2t", {"input": texts[0]})
+            probe = _http_json(port, "GET", "/.well-known/alive")[0]
+            if denied != 401 or json.loads(denied_raw) != {"error": {"message": "Unauthorized"}} \
+                    or probe != 200:
+                fail(f"{label}: without the key {denied} {denied_raw[:200]}, probe {probe}")
+            flushes = _record_flushes(heng)
+            res, lat, wall = _fan_out(lambda t: _http_json(
+                port, "POST", "/t2t", {"input": t}, key), texts)
+            answers = {}
+            for t, (status, raw) in zip(texts, res):
+                if status != 201:
+                    fail(f"{label}: HTTP {status}: {raw[:200]}")
+                data = json.loads(raw)["data"]
+                answers[t] = data
+                if set(data) != {"text", "token_ids"} or \
+                        data["text"] != heng.tokenizer.decode(data["token_ids"]):
+                    fail(f"{label}: a malformed answer {str(data)[:200]}")
+            status, raw = _http_json(port, "POST", "/v1/embeddings",
+                                     {"input": texts[1]}, key)
+            if status != 200:
+                fail(f"{label}: /v1/embeddings {status}: {raw[:200]}")
+            vector = np.asarray(json.loads(raw)["data"][0]["embedding"], np.float32)
+            stream_text = texts[2]
+            chunks = list(heng.seq2seq_stream_blocking(stream_text))
+
+            async def drain():
+                return [e async for e in stream_seq2seq(heng, stream_text, heng.tokenizer)]
+
+            events = asyncio.run(drain())
+            solo = heng.seq2seq_sync(stream_text)
+        finally:
+            stop()
+        step_done("serve over HTTP")
+        peak = torch.cuda.max_memory_allocated()
+        streamed = [t for c in chunks for t in c]
+        if streamed != solo or events[-1]["tokens"] != len(solo) or \
+                "".join(e["text"] for e in events[:-1]) != heng.tokenizer.decode(solo):
+            fail(f"{label}: the stream ({len(streamed)} ids in {len(chunks)} chunks, done "
+                 f"{events[-1]}) differs from the one-shot ids ({len(solo)})")
+        # Every answer against t5_generate on its flush's padded batch, with
+        # the App stopped (no engine thread beside the timers).
+        worst_flush, buckets = 0, []
+        params = heng.params
+        with torch.inference_mode():
+            for payloads, results in flushes:
+                tokens, lengths = heng._seq2seq_rows(payloads)
+                buckets.append(tokens.shape[1])
+                direct = t5_generate(params, torch.from_numpy(tokens).to(dev),
+                                     torch.from_numpy(lengths).to(dev), cfg,
+                                     max_new=heng._seq2seq_max_new).cpu().tolist()
+                for p, r, d in zip(payloads, results, direct):
+                    if r != _trim_eos(d) or answers[p]["token_ids"] != r:
+                        worst_flush += 1
+            toks, lens = heng._seq2seq_rows([stream_text])
+            one = t5_generate(params, torch.from_numpy(toks).to(dev),
+                              torch.from_numpy(lens).to(dev), cfg,
+                              max_new=heng._seq2seq_max_new).cpu().tolist()[0]
+            ids = emb.tokenizer.encode(texts[1])[: emb.max_len]
+            ebucket = min(pad_bucket(len(ids), _PREFILL_BUCKETS), emb.max_len)
+            etoks = torch.zeros((1, ebucket), dtype=torch.long)
+            emask = torch.zeros((1, ebucket), dtype=torch.long)
+            etoks[0, : len(ids)] = torch.tensor(ids)
+            emask[0, : len(ids)] = 1
+            direct_vec = bert_embed(emb.params, etoks.to(dev), emask.to(dev),
+                                    emb.cfg).cpu().numpy()[0]
+        step_done("answers against t5_generate")
+        bucket = max(buckets)
+        big = [p for p, _ in flushes if len(p) == SEQ2SEQ_MAX_BATCH] or [texts[:8]]
+        tok8, len8 = heng._seq2seq_rows(big[0])
+        if tok8.shape[1] != bucket:
+            tok8 = np.pad(tok8, ((0, 0), (0, bucket - tok8.shape[1])))
+        tok8, len8 = torch.from_numpy(tok8).to(dev), torch.from_numpy(len8).to(dev)
+        tok1, len1 = tok8[:1], len8[:1]
+        max_new = heng._seq2seq_max_new
+        gen = lambda t, n, p=params: t5_generate(p, t, n, cfg, max_new=max_new)  # noqa: E731
+        with torch.inference_mode():
+            reset_launch_counts()
+            eager8, wall8 = _timed(torch, lambda: gen(tok8, len8))
+            kernels = {k: v for k, v in launch_counts().items() if v}
+            _, wall1 = _timed(torch, lambda: gen(tok1, len1))
+            ms8, graph8 = graph_replay_ms(torch, lambda: gen(tok8, len8))
+            ms1, _ = graph_replay_ms(torch, lambda: gen(tok1, len1))
+        step_done("generate timings")
+        generated = sum(len(a["token_ids"]) for a in answers.values())
+        out["flan-t5-small http"] = _serve_line(
+            f"{label}, App (TPU_MODEL=flan-t5-small, Unigram TPU_TOKENIZER, enable_api_key_auth,"
+            f" ctx.infer; max_batch {SEQ2SEQ_MAX_BATCH}, {SEQ2SEQ_WAIT_MS} ms; client clock)",
+            lat, wall, flushes,
+            f"; {min(n_tok)}-{max(n_tok)} input tokens, {generated} generated "
+            f"({generated / wall:.1f} tokens/s); without the key: {denied} "
+            f"{denied_raw.decode()}; every answer against t5_generate on its flush's padded "
+            f"batch: {worst_flush} differ; the stream of a {n_tok[2]}-token input: "
+            f"{len(streamed)} ids in {len(chunks)} chunks, equal to its one-shot ids "
+            f"{streamed == solo}; peak memory {peak / 2**30:.3f} GiB (BERT-base beside it)")
+        out["flan-t5-small http"].update(
+            generated_tokens=generated, tokens_s=generated / wall, bucket=bucket,
+            device_ms_b8=ms8, device_ms_b1=ms1,
+            wall_ms_b8=wall8, wall_ms_b1=wall1)
+        log(f"{label}: t5_generate ({max_new} steps, the decoder over the whole "
+            f"[b, 1 + {max_new}] buffer each step): [8, {bucket}] device {ms8:.3f} ms as one "
+            f"CUDA graph replay, wall {wall8:.1f} ms eager (host share {1 - ms8 / wall8:.3f}); [1, {bucket}] device "
+            f"{ms1:.3f} ms, wall {wall1:.1f} ms (host share {1 - ms1 / wall1:.3f}); the graph "
+            f"replay's ids equal the eager call's {torch.equal(graph8, eager8)}; kernel "
+            f"launches in a generate: {kernels or 'none'} (T5 runs no hand-written kernel)")
+        if not torch.equal(graph8, eager8):
+            fail(f"{label}: the captured generate gives other ids than the eager one")
+        if worst_flush or _trim_eos(one) != solo:
+            fail(f"{label}: {worst_flush} answers differ from t5_generate on their flush, "
+                 f"or the one-shot ids of the stream's input differ")
+        if max(len(p) for p, _ in flushes) < 2 or kernels:
+            fail(f"{label}: the batcher coalesced nothing, or T5 launched {kernels}")
+        d = float(np.abs(vector - direct_vec).max())
+        log(f"{label}: /v1/embeddings from BERT-base with the WordPiece TPU_EMBED_TOKENIZER "
+            f"({len(ids)} tokens): against bert_embed on the same ids max|d| {d:.3g} "
+            f"(limit {EMBED_EQUAL_TOL}), norm {float(np.linalg.norm(vector)):.6f}")
+        if d > EMBED_EQUAL_TOL:
+            fail(f"{label}: the served embedding differs from bert_embed")
+        bf16_params = params
+        del app, stop, heng, emb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 3. CUDA against the CPU (f32 twin) --------------------------------
+        label = "seq2seq flan-t5-small f32"
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        rng = np.random.default_rng(3)
+        same_ids = {}
+        for q, k, bi in ((bucket, bucket, True), (65, 65, False), (512, 512, True)):
+            same_ids[f"{q}x{k} {'bidirectional' if bi else 'causal'}"] = bool(torch.equal(
+                bucket_ids(q, k, bi, 32, 128, dev).cpu(),
+                bucket_ids(q, k, bi, 32, 128, torch.device("cpu"))))
+        rel = torch.arange(-1024, 1025)
+        raw_same = {bi: bool(torch.equal(_rel_bucket(rel.to(dev), bi, 32, 128).cpu(),
+                                         _rel_bucket(rel, bi, 32, 128))) for bi in (True, False)}
+        with torch.inference_mode():
+            p32 = init_t5(cfg32, 0, dev)
+            host = _nested_to(torch, p32, "cpu")
+            toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 128)))
+            lens = torch.tensor([128, 77])
+            dec = torch.from_numpy(rng.integers(2, cfg.vocab_size, (2, 17)))
+            dec[:, 0] = 0
+            got = t5_decode(p32, dec.to(dev), t5_encode(p32, toks.to(dev), lens.to(dev), cfg32),
+                            lens.to(dev), cfg32).cpu()
+            want = t5_decode(host, dec, t5_encode(host, toks, lens, cfg32), lens, cfg32)
+            cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+            host64 = _nested_to(torch, host, torch.float64)
+            wide = t5_decode(host64, dec, t5_encode(host64, toks, lens, cfg64), lens, cfg64)
+        d_card, d_host = (got - want).double(), want.double() - wide
+        dmax, drms = float(d_card.abs().max()), float(d_card.pow(2).mean().sqrt())
+        hmax, hrms = float(d_host.abs().max()), float(d_host.pow(2).mean().sqrt())
+        rms = float(want.pow(2).mean().sqrt())
+        out["f32 cuda vs cpu"] = {"bucket_ids_equal": same_ids, "rel_bucket_on_device_equal":
+                                  raw_same, "max_dlogits": dmax, "rms_dlogits": drms,
+                                  "host_vs_f64_max": hmax, "host_vs_f64_rms": hrms,
+                                  "logits_rms": rms}
+        log(f"{label}: the card against the host CPU on the same weights: the model's bucket "
+            f"ids (computed on the host, cached on the card) equal {same_ids}; _rel_bucket run "
+            f"on the card over -1024..1024 equal to the CPU's {raw_same}; decoder logits "
+            f"[2, 17, {cfg.vocab_size}] (rms {rms:.4g}) card against host max|d| {dmax:.4g}, "
+            f"rms {drms:.4g}; host f32 against float64 max|d| {hmax:.4g}, rms {hrms:.4g} "
+            f"(limit {T5_F32_VS_F64_FACTOR} x the host's)")
+        if not all(same_ids.values()) or dmax > T5_F32_VS_F64_FACTOR * hmax \
+                or drms > T5_F32_VS_F64_FACTOR * hrms:
+            fail(f"{label}: the card's bucket ids or logits differ from the host's")
+        del p32, host, host64
+        step_done("f32 card against host")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 4. int8 / int4 weights ---------------------------------------------
+        label = "seq2seq flan-t5-small quantized"
+        with torch.inference_mode():
+            want = gen(tok8, len8, bf16_params).cpu()
+        bf16_bytes = tree_device_bytes(bf16_params)
+        out["quant"] = {"bf16": {"param_bytes": bf16_bytes, "device_ms_b8": ms8}}
+        for mode in ("int8", "int4"):
+            eng = InferenceEngine.from_config(MockConfig({
+                "TPU_MODEL": "flan-t5-small", "TPU_QUANT": mode, "TPU_DEVICE": str(dev)}))
+            try:
+                with torch.inference_mode():
+                    qms, got = graph_replay_ms(torch, lambda: gen(tok8, len8, eng.params))
+                got = got.cpu()
+                share = float((got == want).float().mean())
+                rows = [_trim_eos(r) for r in got.tolist()]
+                out["quant"][mode] = {"param_bytes": eng.param_bytes(), "device_ms_b8": qms,
+                                      "ids_equal_share": share}
+                log(f"{label} {mode}: TPU_QUANT through from_config: param_bytes "
+                    f"{eng.param_bytes()} (bf16 {bf16_bytes}); device {qms:.3f} ms a [8, {bucket}]"
+                    f" generate as a graph replay (bf16 {ms8:.3f}); share of ids equal to bf16's on the same "
+                    f"batch {share:.3f}; answer lengths {[len(r) for r in rows]}")
+                if eng.quant != mode or eng.param_bytes() >= bf16_bytes:
+                    fail(f"{label} {mode}: the engine's weights are not {mode}")
+            finally:
+                eng.close()
+        del bf16_params
+        step_done("int8 and int4")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 5. load_hf_t5 at flan-t5-large's widths -------------------------------
+        label = "seq2seq load_hf_t5 flan-t5-large widths"
+        ckpt = os.path.join(tmp, "flan-t5-large")
+        os.makedirs(ckpt)
+        with open(os.path.join(ckpt, "config.json"), "w") as fp:
+            json.dump(T5_LARGE_CONFIG, fp)
+        large = config_from_hf_t5(ckpt)
+        n_params = t5_param_count(large)
+        free = shutil.disk_usage(tmp).free
+        if free < 4 * n_params:
+            fail(f"{label}: {free} bytes free under {tmp}, need {4 * n_params}")
+        t0 = time.perf_counter()
+        tensors = hf_t5_tensors(torch, large, dev)
+        if sum(t.numel() for t in tensors.values()) != n_params:
+            fail(f"{label}: the checkpoint's tensors hold other than {n_params} parameters")
+        nbytes = write_safetensors(os.path.join(ckpt, "model.safetensors"), tensors)
+        write_s = time.perf_counter() - t0
+        li, lj = large.n_layers // 2, large.n_layers - 1  # the layers checked after the load
+        probe_q = tensors[f"encoder.block.{li}.layer.0.SelfAttention.q.weight"].t().contiguous()
+        probe_wi = tensors[f"decoder.block.{lj}.layer.2.DenseReluDense.wi_1.weight"].t().contiguous()
+        del tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{label}: {n_params / 1e9:.3f} B parameters, {nbytes / 1e9:.3f} GB of random bf16 "
+            f"weights written in {write_s:.1f} s")
+        out["loader"] = {"parameters": n_params, "bytes": nbytes, "write_s": write_s}
+        gtok = torch.from_numpy(rng.integers(2, large.vocab_size, (8, 128))).to(dev)
+        glen = torch.full((8,), 128, device=dev)
+        for mode in ("", "int8"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lp = load_hf_t5(ckpt, None, quant=mode, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            lpeak = torch.cuda.max_memory_allocated() - base
+            q = lp["encoder"]["sa_wq"][li]
+            wi = lp["decoder"]["w_up"][lj]
+            if mode:
+                wq = quantize_array(probe_q)
+                ok = (torch.equal(q.q, wq.q) and torch.equal(q.s, wq.s)
+                      and torch.equal(wi.q, quantize_array(probe_wi).q))
+            else:
+                ok = torch.equal(q, probe_q) and torch.equal(wi, probe_wi)
+            with torch.inference_mode():
+                lms, ids = graph_replay_ms(
+                    torch, lambda: t5_generate(lp, gtok, glen, large, max_new=64))
+            name = mode or "bf16"
+            out["loader"][name] = {"load_s": load_s, "gb_s": nbytes / load_s / 1e9,
+                                   "peak_bytes": lpeak, "device_ms_8x128": lms,
+                                   "param_bytes": tree_device_bytes(lp)}
+            log(f"{label} {name}: loaded in {load_s:.2f} s ({nbytes / load_s / 1e9:.2f} GB/s of "
+                f"the file), peak {lpeak / 2**30:.3f} GiB over the load "
+                f"({out['loader'][name]['param_bytes'] / 2**30:.3f} GiB of parameters); leaves "
+                f"against the file{' quantized on the card' if mode else ''} equal {ok}; device "
+                f"{lms:.3f} ms a [8, 128] generate of 64 steps (a graph replay); ids "
+                f"{tuple(ids.shape)}")
+            if not ok or ids.shape != (8, 64) or int(ids.min()) < 0:
+                fail(f"{label} {name}: the loaded tree or its generate is wrong")
+            del lp, q, wi
+            gc.collect()
+            torch.cuda.empty_cache()
+            step_done(f"load_hf_t5 {name}")
+    finally:
+        timer.cancel()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase_seq2seq done in {time.perf_counter() - t_phase:.1f} s; steps ended at "
+        + json.dumps({k: round(v, 1) for k, v in out["step_s"].items()}))
+    return out
+
+
+def hf_t5_tensors(torch, cfg, dev) -> dict:
+    """Random bf16 weights (std 0.02, norms one) of an HF T5 checkpoint of
+    ``cfg``, under transformers' tensor names: [out, in] linears, the bias
+    tables in block 0 of each stack, gated ``wi_0``/``wi_1``, an untied
+    ``lm_head``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    D, A, F, L = cfg.d_model, cfg.n_heads * cfg.d_kv, cfg.d_ff, cfg.n_layers
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device=dev)
+
+    t = {"shared.weight": w(cfg.vocab_size, D)}
+    for side in ("encoder", "decoder"):
+        for i in range(L):
+            b = f"{side}.block.{i}.layer."
+            for j, kind in enumerate(["SelfAttention"] + (["EncDecAttention"]
+                                                          if side == "decoder" else [])):
+                for p in "qkv":
+                    t[f"{b}{j}.{kind}.{p}.weight"] = w(A, D)
+                t[f"{b}{j}.{kind}.o.weight"] = w(D, A)
+                t[f"{b}{j}.layer_norm.weight"] = ones(D)
+                if i == 0 and j == 0:
+                    t[f"{b}0.SelfAttention.relative_attention_bias.weight"] = w(
+                        cfg.rel_buckets, cfg.n_heads)
+            f = 2 if side == "decoder" else 1
+            t[f"{b}{f}.DenseReluDense.wi_0.weight"] = w(F, D)
+            t[f"{b}{f}.DenseReluDense.wi_1.weight"] = w(F, D)
+            t[f"{b}{f}.DenseReluDense.wo.weight"] = w(D, F)
+            t[f"{b}{f}.layer_norm.weight"] = ones(D)
+        t[f"{side}.final_layer_norm.weight"] = ones(D)
+    t["lm_head.weight"] = w(cfg.vocab_size, D)
+    return t
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -6424,6 +7138,11 @@ def main() -> None:
     stamp("phase_family_train")
     encoders = phase_encoders(torch, dev)
     stamp("phase_encoders")
+    # T5 behind the batcher, the tokenizer.json kinds and the auth
+    # enablers: no attention kernel on this path (the kernels line is
+    # unchanged).
+    phase_seq2seq(torch, dev)
+    stamp("phase_seq2seq")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

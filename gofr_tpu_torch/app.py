@@ -11,8 +11,10 @@ Owns config, container, router, middleware, and the servers. Lifecycle:
   (:8000), then block until SIGINT/SIGTERM and shut down gracefully
   (``TPU_DRAIN_S`` > 0 drains the engine first).
 
-The port's copy of ``gofr_tpu/app.py::App``. Not ported yet, each with
-its ROADMAP Queue 1 item: the auth enablers, gRPC (``register_service``),
+The port's copy of ``gofr_tpu/app.py::App``, with the auth enablers
+(``enable_basic_auth``, ``enable_api_key_auth``, their ``_with_validator``
+forms and ``enable_oauth``; reference ``gofr.go:310-344``). Not ported
+yet, each with its ROADMAP Queue 1 item: gRPC (``register_service``),
 pub/sub (``use_pubsub``, ``subscribe``), ``use_mongo``,
 ``add_http_service``, ``migrate`` and ``add_rest_handlers`` (item 2); the
 trace exporters (``TRACE_EXPORTER``), the async serving plane
@@ -31,9 +33,13 @@ from gofr_tpu_torch.config.env import new_env_file
 from gofr_tpu_torch.container import Container
 from gofr_tpu_torch.handler import alive_handler, favicon_handler, health_handler, wrap_handler
 from gofr_tpu_torch.http.middleware import (
+    JWKSProvider,
+    apikey_auth_middleware,
+    basic_auth_middleware,
     cors_middleware,
     logging_middleware,
     metrics_middleware,
+    oauth_middleware,
     tracer_middleware,
 )
 from gofr_tpu_torch.http.proto import Response
@@ -125,6 +131,27 @@ class App:
     def use_middleware(self, *mws) -> None:
         """Custom middleware (reference ``gofr.go:372``)."""
         self.router.use_middleware(*mws)
+
+    # -- auth enablers (reference gofr.go:310-344) -------------------------
+
+    def enable_basic_auth(self, users: dict[str, str]) -> None:
+        self.router.use_middleware(basic_auth_middleware(users=users))
+
+    def enable_basic_auth_with_validator(self, validate_func) -> None:
+        self.router.use_middleware(
+            basic_auth_middleware(validate_func=validate_func, container=self.container))
+
+    def enable_api_key_auth(self, *keys: str) -> None:
+        self.router.use_middleware(apikey_auth_middleware(keys=keys))
+
+    def enable_api_key_auth_with_validator(self, validate_func) -> None:
+        self.router.use_middleware(
+            apikey_auth_middleware(validate_func=validate_func, container=self.container))
+
+    def enable_oauth(self, jwks_url: str, refresh_interval_s: float = 300.0) -> None:
+        provider = JWKSProvider(jwks_url, refresh_interval_s, logger=self.logger)
+        provider.start()
+        self.router.use_middleware(oauth_middleware(jwks=provider))
 
     # -- lifecycle ----------------------------------------------------------
 

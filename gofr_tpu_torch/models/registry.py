@@ -5,9 +5,8 @@ Every entry is registered so names resolve as in the reference. The
 engine serves every LLM config ``transformer.check_supported`` accepts
 (every dense family, and Mixtral's MoE, which fits one card with int8
 weights), the encoders (``bert-*``, behind the dynamic batcher) and the
-vision models (``resnet-*``, ``vit-*``). The seq2seq entries (T5) are
-registered with no config: their model is not ported yet (ROADMAP Queue 1
-item 5), and the engine refuses them naming it.
+vision models (``resnet-*``, ``vit-*``) and the seq2seq models
+(``flan-t5-small``, ``t5-tiny``; T5 behind the dynamic batcher).
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import torch
 
 from gofr_tpu_torch.models.bert import BertConfig, init_bert
 from gofr_tpu_torch.models.resnet import ResNetConfig, init_resnet, resnet_forward
+from gofr_tpu_torch.models.t5 import T5Config, init_t5
 from gofr_tpu_torch.models.transformer import TransformerConfig, init_params
 from gofr_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 
@@ -26,9 +26,9 @@ from gofr_tpu_torch.models.vit import ViTConfig, init_vit, vit_forward
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str  # "llm" | "encoder" | "vision" | "seq2seq" (not ported)
+    family: str  # "llm" | "encoder" | "vision" | "seq2seq"
     config: Any
-    # init(config, seed, device) -> params (None: the model is not ported).
+    # init(config, seed, device) -> params.
     init: Optional[Callable] = None
     eos_token: int = 2
     # The vision family's forward(params, images, config) -> logits; the
@@ -169,10 +169,18 @@ def _register_encoders() -> None:
 
 
 def _register_seq2seq() -> None:
-    """The reference's T5 names, so they resolve; the model itself is
-    ROADMAP Queue 1 item 5's next part."""
-    for name in ("flan-t5-small", "t5-tiny"):
-        register_model(ModelSpec(name=name, family="seq2seq", config=None, eos_token=1))
+    register_model(ModelSpec(
+        name="flan-t5-small", family="seq2seq",
+        # t5-v1.1-small / flan-t5-small dims: gated-gelu, untied head.
+        config=T5Config(d_model=512, d_kv=64, n_heads=6, n_layers=8, d_ff=1024),
+        init=init_t5, eos_token=1,
+    ))
+    register_model(ModelSpec(
+        name="t5-tiny", family="seq2seq",
+        config=T5Config(vocab_size=512, d_model=64, d_kv=16, n_heads=4, n_layers=2,
+                        d_ff=128, max_len=128),
+        init=init_t5, eos_token=1,
+    ))
 
 
 def _register_vision() -> None:

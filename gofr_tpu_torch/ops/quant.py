@@ -228,15 +228,21 @@ def quantize_params(params: dict, mode: str = "int8") -> dict:
 
 def params_quant_mode(params: dict) -> str:
     """``"int8"``, ``"int4"`` or ``""``: the mode of the first quantized
-    leaf of a parameter dict."""
+    leaf of a parameter dict (nested dicts included: T5's stacks)."""
     for leaf in params.values():
         if isinstance(leaf, _Quantized):
             return leaf.mode
+        if isinstance(leaf, dict):
+            mode = params_quant_mode(leaf)
+            if mode:
+                return mode
     return ""
 
 
 def quantized_bytes(params: dict) -> int:
     """Parameter bytes as stored: int8 one byte an element, int4 half (its
-    packed uint8), the f32 scales, every plain leaf at its itemsize."""
-    return int(sum(v.nbytes if isinstance(v, _Quantized) else v.numel() * v.element_size()
-                   for v in params.values()))
+    packed uint8), the f32 scales, every plain leaf at its itemsize (nested
+    dicts included)."""
+    return int(sum(v.nbytes if isinstance(v, _Quantized)
+                   else quantized_bytes(v) if isinstance(v, dict)
+                   else v.numel() * v.element_size() for v in params.values()))

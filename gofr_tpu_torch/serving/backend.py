@@ -22,9 +22,8 @@ its own tokenizer (``TPU_EMBED_TOKENIZER``, else the byte tokenizer: the
 chat model's vocabulary would index outside BERT's table), the batcher
 keys and ``TPU_EMBED_CHECKPOINT``; ``TPU_DEVICE`` places it, as it places
 the primary. As there, an encoder that cannot be built raises where the
-reference logs and returns ``None``. A BERT ``tokenizer.json`` is
-WordPiece, which the port's reader does not read (ROADMAP Queue 1 item
-6.5): it is logged, and the byte tokenizer serves.
+reference logs and returns ``None``. A BERT ``tokenizer.json`` (WordPiece)
+is read by the port's own reader, as any ``TPU_TOKENIZER``.
 """
 
 from __future__ import annotations

@@ -72,10 +72,10 @@ included, goes on the engine's one stream in issue order, so a copy or a
 reused block lands after the windows in flight that still write the
 slots' earlier occupants.
 
-An encoder or vision model (``ModelSpec.family``) takes the reference's
-other engine shape: no scheduler, cache or graphs, its requests coalesced
-by the dynamic batcher into one eager batch forward
-(``serving/modalities.py``).
+An encoder, vision or seq2seq model (``ModelSpec.family``) takes the
+reference's other engine shape: no scheduler, cache or graphs, its
+requests coalesced by the dynamic batcher into one eager batch forward
+(T5: one batched greedy generate; ``serving/modalities.py``).
 
 The engine is also the App's container member: ``from_config`` builds it
 from the ``TPU_*`` keys (the reference's names and defaults; a key of an
@@ -144,7 +144,7 @@ from gofr_tpu_torch.serving.device_telemetry import (
     HBMLedger,
     tree_device_bytes,
 )
-from gofr_tpu_torch.serving.hf_loader import is_hf_checkpoint, load_hf_llama
+from gofr_tpu_torch.serving.hf_loader import is_hf_checkpoint, load_hf_llama, load_hf_t5
 from gofr_tpu_torch.serving.lora_runtime import LoRARuntimeMixin
 from gofr_tpu_torch.serving.modalities import ModalityMixin
 from gofr_tpu_torch.serving.lifecycle import (
@@ -465,11 +465,13 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
     only before the first build of the process (``build_cache``). It may
     also be the record ``build_cache.use_dir`` already returned for it.
 
-    An encoder (``bert-*``) or vision (``resnet-*``, ``vit-*``) model serves
-    behind the dynamic batcher instead (``serving/modalities.py``):
-    ``max_batch`` requests a flush at most, ``max_wait_s`` after the oldest;
-    ``embed`` / ``classify`` and ``infer`` by family. The LLM options do
-    not apply to it; ``quant`` raises, as in the reference.
+    An encoder (``bert-*``), vision (``resnet-*``, ``vit-*``) or seq2seq
+    (``flan-t5-small``, ``t5-tiny``) model serves behind the dynamic batcher
+    instead (``serving/modalities.py``): ``max_batch`` requests a flush at
+    most, ``max_wait_s`` after the oldest; ``embed`` / ``classify`` /
+    ``seq2seq`` and ``infer`` by family. The LLM options do not apply to
+    it; ``quant`` quantizes a seq2seq model and raises for the others, as
+    in the reference.
     """
 
     family = "llm"
@@ -1280,10 +1282,18 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
                 f"re-quantize as {mode!r}"
             )
         quant_fn(mode)  # the reference's ValueError for any other mode
-        if self.family != "llm":
+        if self.family not in ("llm", "seq2seq"):
             raise ValueError("quantization supports llm and seq2seq models only")
         if getattr(self, "_running", False):  # the constructor calls this first
             raise RuntimeError("quantize before starting the engine")
+        if self.family == "seq2seq":
+            from gofr_tpu_torch.models.t5 import quantize_t5_params
+
+            self.params = quantize_t5_params(self.params, mode)
+            self.quant = mode
+            if self._ledger is not None:
+                self._build_hbm_ledger()
+            return
         self.params = quantize_params(self.params, mode)
         self.quant = mode
         self._graphs = None
@@ -1548,9 +1558,10 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
         yet raises ``NotImplementedError`` unless it holds the reference's
         default (``check_unported_keys``). ``TPU_CHECKPOINT`` and
         ``TPU_QUANT`` in the reference's order: an HF directory loads
-        through ``load_hf_llama`` with the quant mode; anything else is
-        restored by ``maybe_restore_params`` over the seed-0 weights, then
-        quantized. ``TPU_SPEC_TOKENS`` is resolved
+        through ``load_hf_llama`` with the quant mode (a seq2seq model's
+        through ``load_hf_t5``, held against the registry's config);
+        anything else is restored by ``maybe_restore_params`` over the
+        seed-0 weights, then quantized. ``TPU_SPEC_TOKENS`` is resolved
         by ``resolve_spec_tokens`` before the constructor, with the
         device's type as the backend (so ``auto`` is 0 here); its note
         goes to ``logger``. ``TPU_LORA_SLOTS`` / ``TPU_LORA_RANK`` /
@@ -1562,10 +1573,12 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
         ``TPU_ADMIT_MIN_HEADROOM`` and ``TPU_PREFIX_EVICT_HBM_FRAC`` are
         the device services' knobs, and ``TPU_COMPILE_CACHE_DIR`` the
         native builds' directory, set before the tokenizer's core is
-        built. An encoder or vision ``TPU_MODEL`` serves behind the dynamic
-        batcher (``TPU_MAX_BATCH``, ``TPU_BATCH_WAIT_MS``); its
+        built. An encoder, vision or seq2seq ``TPU_MODEL`` serves behind the
+        dynamic batcher (``TPU_MAX_BATCH``, ``TPU_BATCH_WAIT_MS``; T5 reads
+        ``TPU_SEQ2SEQ_MAX_NEW`` and ``TPU_SEQ2SEQ_CHUNK`` from the process
+        environment, as the reference); an encoder's or vision model's
         ``TPU_CHECKPOINT`` is a ``serving/checkpoint.py`` file over the
-        seed-0 weights (the HF loader reads decoders only)."""
+        seed-0 weights (the HF loader reads decoders and T5)."""
         check_unported_keys(config)
         compile_cache_dir = config.get_or_default("TPU_COMPILE_CACHE_DIR", "")
         # Before the tokenizer below builds the BPE core into it.
@@ -1599,6 +1612,13 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
                     f"decoder checkpoints, and {model_name} is of the {spec.family} family"
                 )
             params = maybe_restore_params(config, spec.init(spec.config, 0, device), logger)
+        elif ckpt and spec.family == "seq2seq":
+            if is_hf_checkpoint(ckpt):
+                # flan-t5 / t5 safetensors, each projection quantized as it
+                # lands with TPU_QUANT, checked against the registry's config.
+                params = load_hf_t5(ckpt, spec.config, quant=quant, device=device)
+            else:
+                params = maybe_restore_params(config, spec.init(spec.config, 0, device), logger)
         elif ckpt and spec.family == "llm":
             cfg = spec.config
             if is_hf_checkpoint(ckpt):

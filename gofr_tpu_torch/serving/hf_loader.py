@@ -23,8 +23,9 @@ scales are per output column (per group and column), so quantizing a
 fused or a one-layer slice is the reference's quantization of the
 separate whole leaves, bit for bit.
 
-T5 (``load_hf_t5``) waits for ``models/t5.py`` (ROADMAP Queue 1 item 5),
-and ``mesh=`` for multi-device serving (item 8).
+T5 checkpoints load through ``load_hf_t5`` (``models/t5.py``, re-exported
+here), which reads the shards through the same ``_TensorSource``.
+``mesh=`` waits for multi-device serving (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from gofr_tpu_torch.device import resolve_device
+from gofr_tpu_torch.models.t5 import load_hf_t5
 from gofr_tpu_torch.models.transformer import TransformerConfig
 from gofr_tpu_torch.ops.quant import (
     empty_quantized,
@@ -437,13 +439,5 @@ def load_hf_llama(
     return params
 
 
-def load_hf_t5(path: str, cfg: Any = None, *, quant: str = "") -> dict:
-    raise NotImplementedError(
-        "load_hf_t5: T5 checkpoints wait for the port of models/t5.py "
-        "(ROADMAP Queue 1 item 5: T5 and the seq2seq family)"
-    )
-
-
 def params_have_q8(params: dict) -> bool:
     return params_quant_mode(params) == "int8"
-

@@ -1,28 +1,32 @@
-"""A reader for Hugging Face ``tokenizer.json`` files of byte-level BPE
-tokenizers, in the standard library only — the port's counterpart of the
-reference's ``AutoTokenizer`` branch of ``tokenizer_from_config`` (the
-port may not import ``transformers`` or ``tokenizers``).
+"""A reader for Hugging Face ``tokenizer.json`` files in the standard
+library only — the port's counterpart of the reference's ``AutoTokenizer``
+branch of ``tokenizer_from_config`` (the port may not import
+``transformers`` or ``tokenizers``).
 
-Scope: ``model.type == "BPE"`` over GPT-2's byte-level alphabet, the
-tokenizers of the byte-level families the port serves:
+Scope, by model:
 
-* GPT-2 and GPT-NeoX/Pythia: the ``ByteLevel`` pre-tokenizer with its
-  regex;
-* Llama-3: ``Split`` with its pattern, then ``ByteLevel(use_regex=false)``,
-  ``ignore_merges``, and a ``TemplateProcessing`` post-processor that
-  adds BOS;
-* Qwen2: an ``NFC`` normalizer, ``Split`` and ``ByteLevel``, no BOS.
+* byte-level BPE (GPT-2's alphabet): GPT-2 and GPT-NeoX/Pythia (the
+  ``ByteLevel`` pre-tokenizer with its regex); Llama-3 (``Split`` with its
+  pattern, then ``ByteLevel(use_regex=false)``, ``ignore_merges``, a BOS
+  template); Qwen2 (``NFC``, ``Split`` and ``ByteLevel``, no BOS). The
+  merge loop runs in the native BPE core (``native_tokenizer``) over the
+  vocabulary and merges converted to bytes, or in ``PyBPE`` without a
+  compiler;
+* SentencePiece-style BPE over characters with ``<0xNN>`` byte fallback
+  and the ``unk`` token: Llama-2 (``Prepend``/``Replace`` normalizers, the
+  ``Replace``/``ByteFallback``/``Fuse``/``Strip`` decoders), Mistral-7B
+  (the ``Metaspace`` pre-tokenizer and decoder), Gemma;
+* Unigram (T5: ``WhitespaceSplit`` and ``Metaspace``, the ``$A </s>``
+  template) and WordPiece (BERT: ``BertNormalizer``, ``BertPreTokenizer``,
+  ``##`` continuations, the ``[CLS] $A [SEP]`` template, the ``WordPiece``
+  decoder).
 
-The pipeline is HF's: the ``added_tokens`` are matched in the text first
-(leftmost-longest; those with ``normalized: false`` on the raw text, the
-others after the normalizer), the rest is normalized, pre-tokenized
-(``Split`` with ``Isolated`` behavior, ``ByteLevel`` with or without its
-regex), each piece is mapped through GPT-2's
-``bytes_to_unicode`` and merged lowest rank first (a piece already in the
-vocabulary is kept whole under ``ignore_merges``), and the post-processor
-adds its special tokens. The merge loop itself runs in the native BPE
-core (``native_tokenizer``) over the vocabulary and merges converted to
-bytes, or in ``PyBPE`` without a compiler.
+Their stages live in ``hf_pipeline``. The pipeline is HF's: the
+``added_tokens`` are matched in the text first (leftmost-longest; those
+with ``normalized: false`` on the raw text, the others after the
+normalizer), the rest is normalized a piece at a time, pre-tokenized
+(``Metaspace``'s ``first`` scheme prepends only at the text's start),
+run through the model, and the post-processor adds its special tokens.
 
 HF's patterns use Oniguruma's ``\\p{L}``, ``\\p{N}`` and ``\\s``; Python's
 ``re`` has no ``\\p{..}`` and a wider ``\\s``, so the patterns are
@@ -31,23 +35,27 @@ rewritten with explicit character classes built once a process from
 
 ``tokenizer_config.json`` gives the special tokens as ``transformers``
 resolves them: the class's defaults (``PreTrainedTokenizerFast``,
-``GPT2Tokenizer``, ``Qwen2Tokenizer``, ``GPTNeoXTokenizer``; the class
-comes from ``tokenizer_class`` or ``config.json``'s ``model_type``), then
-the config's ``bos_token``/``eos_token``/``pad_token``/``unk_token``
-(an explicit ``null`` clears one), ``special_tokens_map.json`` when the
-config has no ``added_tokens_decoder``, ``add_bos_token``/
-``add_eos_token`` for GPT-NeoX, and ``clean_up_tokenization_spaces``.
-A named special token from the vocabulary becomes a special added token.
+``GPT2Tokenizer``, ``Qwen2Tokenizer``, ``GPTNeoXTokenizer``,
+``LlamaTokenizer``, ``GemmaTokenizer``, ``T5Tokenizer`` with its
+``<extra_id_N>`` sentinels, ``BertTokenizer`` with its ``do_lower_case``
+/ ``strip_accents`` / ``tokenize_chinese_chars`` over the file's
+``BertNormalizer``; the class comes from ``tokenizer_class`` or
+``config.json``'s ``model_type``), then the config's named tokens (an
+explicit ``null`` clears one), ``special_tokens_map.json`` when the config
+has no ``added_tokens_decoder``, ``add_bos_token``/``add_eos_token`` for
+the classes that rebuild their template from them (GPT-NeoX, Llama,
+Gemma), and ``clean_up_tokenization_spaces``. A named special token
+becomes a special added token: its vocabulary id, or a new id after the
+vocabulary as transformers adds it.
 
-Anything else raises :class:`UnsupportedTokenizer` — SentencePiece-style
-files (``Metaspace``, ``byte_fallback``: Llama-2, Mistral-7B, Gemma),
-other models, normalizers, pre-tokenizers, post-processors and decoders,
-``add_prefix_space``, added tokens with ``single_word``, ``lstrip`` or
-``rstrip``, a named special token outside the vocabulary — and
-``tokenizer_from_config`` then serves
-the byte tokenizer, as the reference does when its load fails. There is
-no ``apply_chat_template``: chat templates are Jinja, which the standard
-library lacks.
+Anything else raises :class:`UnsupportedTokenizer` — the ``Precompiled``
+normalizer (a SentencePiece charsmap, which real T5 files carry: ROADMAP
+Queue 1 item 6.4), other models, normalizers, pre-tokenizers,
+post-processors and decoders, ``add_prefix_space``, added tokens with
+``single_word``, ``lstrip`` or ``rstrip`` — and ``tokenizer_from_config``
+then serves the byte tokenizer, as the reference does when its load
+fails. There is no ``apply_chat_template``: chat templates are Jinja,
+which the standard library lacks.
 """
 
 from __future__ import annotations
@@ -60,12 +68,9 @@ import tempfile
 import unicodedata
 from typing import Any, Optional, Sequence
 
+from gofr_tpu_torch.serving import hf_pipeline as pipeline
+from gofr_tpu_torch.serving.hf_pipeline import UnsupportedTokenizer
 from gofr_tpu_torch.serving.native_tokenizer import NativeBPE, load_core, write_bpe_files
-
-
-class UnsupportedTokenizer(ValueError):
-    """A tokenizer file outside the reader's scope (see the module
-    docstring)."""
 
 
 # -- GPT-2's byte <-> unicode map ----------------------------------------
@@ -221,52 +226,6 @@ GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+"
                 r"|\s+(?!\S)|\s+")
 
 
-def _split_isolated(rx: "re.Pattern[str]", text: str) -> list[str]:
-    """HF's ``Split`` with ``Isolated`` behavior: matches and the gaps
-    between them, in order, empty ones dropped."""
-    out, pos = [], 0
-    for m in rx.finditer(text):
-        if m.start() == m.end():
-            continue
-        if m.start() > pos:
-            out.append(text[pos:m.start()])
-        out.append(m.group())
-        pos = m.end()
-    if pos < len(text):
-        out.append(text[pos:])
-    return out
-
-
-# -- the pipeline's stages -----------------------------------------------
-
-
-def _pre_tokenizer(spec: Optional[dict]) -> list:
-    """The pre-tokenizer as a list of stages, each a function from one
-    piece to its pieces."""
-    if spec is None:
-        return []
-    kind = spec.get("type")
-    if kind == "Sequence":
-        return [s for sub in spec.get("pretokenizers", []) for s in _pre_tokenizer(sub)]
-    if kind == "Split":
-        if spec.get("behavior") != "Isolated" or spec.get("invert"):
-            raise UnsupportedTokenizer(
-                f"Split behavior {spec.get('behavior')!r} invert={spec.get('invert')}")
-        pat = spec.get("pattern", {})
-        if "Regex" not in pat:
-            raise UnsupportedTokenizer(f"Split pattern {pat!r}")
-        rx = re.compile(translate_pattern(pat["Regex"]))
-        return [lambda piece, rx=rx: _split_isolated(rx, piece)]
-    if kind == "ByteLevel":
-        if spec.get("add_prefix_space", False):
-            raise UnsupportedTokenizer("ByteLevel add_prefix_space")
-        if not spec.get("use_regex", True):
-            return []
-        rx = re.compile(translate_pattern(GPT2_PATTERN))
-        return [lambda piece, rx=rx: _split_isolated(rx, piece)]
-    raise UnsupportedTokenizer(f"pre-tokenizer {kind!r}")
-
-
 def _is_byte_level(spec: Optional[dict]) -> bool:
     if spec is None:
         return False
@@ -275,15 +234,13 @@ def _is_byte_level(spec: Optional[dict]) -> bool:
     return spec.get("type") == "ByteLevel"
 
 
-def _normalizer(spec: Optional[dict]):
-    if spec is None:
-        return lambda s: s
-    kind = spec.get("type")
-    if kind == "NFC":
-        return lambda s: unicodedata.normalize("NFC", s)
-    if kind == "Sequence" and not spec.get("normalizers"):
-        return lambda s: s
-    raise UnsupportedTokenizer(f"normalizer {kind!r}")
+def _uses(spec: Any, kind: str) -> bool:
+    """Whether a stage of ``kind`` appears anywhere in ``spec``."""
+    if isinstance(spec, dict):
+        return spec.get("type") == kind or any(_uses(v, kind) for v in spec.values())
+    if isinstance(spec, list):
+        return any(_uses(v, kind) for v in spec)
+    return False
 
 
 def _post_processor(spec: Optional[dict]) -> tuple[list[int], list[int]]:
@@ -309,38 +266,39 @@ def _post_processor(spec: Optional[dict]) -> tuple[list[int], list[int]]:
                 ids = specials[item["SpecialToken"]["id"]]["ids"]
                 (post if seen else pre).extend(int(i) for i in ids)
         return pre, post
+    if kind == "BertProcessing":
+        return [int(spec["cls"][1])], [int(spec["sep"][1])]
     raise UnsupportedTokenizer(f"post-processor {kind!r}")
-
-
-def _merges(raw: list) -> list[tuple[str, str]]:
-    out = []
-    for m in raw:
-        if isinstance(m, str):
-            parts = m.split(" ")
-        else:
-            parts = list(m)
-        if len(parts) != 2:
-            raise UnsupportedTokenizer(f"merge {m!r}")
-        out.append((parts[0], parts[1]))
-    return out
 
 
 # -- special tokens, as transformers resolves them -----------------------
 
 _EOT = "<|endoftext|>"
-# Per tokenizer class: its special-token defaults, and whether it replaces
-# the post-processor from add_bos_token / add_eos_token.
-_CLASSES = {
-    "PreTrainedTokenizerFast": ({}, False),
-    "GPT2Tokenizer": ({"unk_token": _EOT, "bos_token": _EOT, "eos_token": _EOT}, False),
+# Per tokenizer class: its special-token defaults, and the defaults of
+# add_bos_token / add_eos_token when the class rebuilds the
+# post-processor from them (None: it keeps the file's).
+_CLASSES: dict[str, tuple[dict, Optional[tuple[bool, bool]]]] = {
+    "PreTrainedTokenizerFast": ({}, None),
+    "GPT2Tokenizer": ({"unk_token": _EOT, "bos_token": _EOT, "eos_token": _EOT}, None),
     "Qwen2Tokenizer": ({"unk_token": _EOT, "bos_token": None, "eos_token": _EOT,
-                        "pad_token": _EOT}, False),
+                        "pad_token": _EOT}, None),
     "GPTNeoXTokenizer": ({"unk_token": _EOT, "bos_token": _EOT, "eos_token": _EOT,
-                          "pad_token": None}, True),
+                          "pad_token": None}, (False, False)),
+    "LlamaTokenizer": ({"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>",
+                        "pad_token": None}, (True, False)),
+    "GemmaTokenizer": ({"unk_token": "<unk>", "bos_token": "<bos>", "eos_token": "<eos>",
+                        "pad_token": "<pad>"}, (True, False)),
+    "T5Tokenizer": ({"eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>"}, None),
+    "BertTokenizer": ({"unk_token": "[UNK]", "sep_token": "[SEP]", "pad_token": "[PAD]",
+                       "cls_token": "[CLS]", "mask_token": "[MASK]"}, None),
 }
 _MODEL_TYPES = {"gpt2": "GPT2Tokenizer", "qwen2": "Qwen2Tokenizer",
-                "gpt_neox": "GPTNeoXTokenizer"}
-_SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "pad_token")
+                "gpt_neox": "GPTNeoXTokenizer", "llama": "LlamaTokenizer",
+                "mistral": "LlamaTokenizer", "gemma": "GemmaTokenizer", "t5": "T5Tokenizer",
+                "bert": "BertTokenizer"}
+# transformers' SPECIAL_TOKENS_ATTRIBUTES order (the order it adds them).
+_SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token",
+                 "cls_token", "mask_token")
 
 
 def _read_json(path: str) -> Optional[dict]:
@@ -373,12 +331,29 @@ def _tokenizer_class(directory: str, config: dict) -> str:
     return base
 
 
+def _additional_specials(cls: str, config: dict, legacy: dict) -> list[str]:
+    """The additional special tokens: the config's (or the legacy map's),
+    and T5's ``<extra_id_N>`` for ``extra_ids`` (default 100) when none is
+    named."""
+    extra = config.get("additional_special_tokens", legacy.get("additional_special_tokens"))
+    out = [_token_content(t) for t in (extra or [])]
+    if cls == "T5Tokenizer":
+        n = int(config.get("extra_ids", 100))
+        named = [t for t in out if "<extra_id_" in str(t)]
+        if not named:
+            out += [f"<extra_id_{i}>" for i in range(n)]
+        elif n > 0 and n != len(named):
+            raise UnsupportedTokenizer(f"extra_ids={n} but {len(named)} extra tokens named")
+    return [t for t in out if t is not None]
+
+
 class HFTokenizer:
-    """A byte-level BPE ``tokenizer.json`` served through the native core:
-    the engine's tokenizer protocol (``bos_id``, ``eos_id``, ``pad_id``,
-    ``encode``, ``decode``) with the reference's ``tokenizer_from_config``
-    semantics — ``encode`` adds what the post-processor adds, ``decode``
-    skips special tokens."""
+    """A ``tokenizer.json`` directory as the engine's tokenizer protocol
+    (``bos_id``, ``eos_id``, ``pad_id``, ``encode``, ``decode``) with the
+    reference's ``tokenizer_from_config`` semantics — ``encode`` adds what
+    the post-processor adds, ``decode`` skips special tokens. Byte-level
+    BPE goes through the native core; the other models through
+    ``hf_pipeline``."""
 
     def __init__(self, directory: str, prefer_native: bool = True) -> None:
         spec = _read_json(os.path.join(directory, "tokenizer.json"))
@@ -386,21 +361,41 @@ class HFTokenizer:
             raise FileNotFoundError(f"no tokenizer.json in {directory!r}")
         config = _read_json(os.path.join(directory, "tokenizer_config.json")) or {}
         model = spec.get("model") or {}
-        if model.get("type") != "BPE":
-            raise UnsupportedTokenizer(f"model type {model.get('type')!r}")
-        for key in ("byte_fallback", "continuing_subword_prefix", "end_of_word_suffix",
-                    "dropout"):
-            if model.get(key):
-                raise UnsupportedTokenizer(f"BPE {key}={model[key]!r}")
-        if not _is_byte_level(spec.get("pre_tokenizer")):
-            raise UnsupportedTokenizer("not a byte-level pre-tokenizer")
-        if (spec.get("decoder") or {}).get("type") != "ByteLevel":
-            raise UnsupportedTokenizer(f"decoder {(spec.get('decoder') or {}).get('type')!r}")
-        self._normalize = _normalizer(spec.get("normalizer"))
-        self._stages = _pre_tokenizer(spec.get("pre_tokenizer"))
+        if _uses(spec.get("normalizer"), "Precompiled"):
+            raise UnsupportedTokenizer(
+                "normalizer 'Precompiled' (ROADMAP Queue 1 item 6.4: the Precompiled "
+                "normalizer, a SentencePiece charsmap)")
+        cls = _tokenizer_class(directory, config)
+        defaults, flag_defaults = _CLASSES[cls]
+        self.byte_level = (model.get("type") == "BPE"
+                           and _is_byte_level(spec.get("pre_tokenizer")))
+        if self.byte_level:
+            for key in ("byte_fallback", "continuing_subword_prefix", "end_of_word_suffix",
+                        "dropout"):
+                if model.get(key):
+                    raise UnsupportedTokenizer(f"BPE {key}={model[key]!r}")
+            if (spec.get("decoder") or {}).get("type") != "ByteLevel":
+                raise UnsupportedTokenizer(
+                    f"decoder {(spec.get('decoder') or {}).get('type')!r}")
+        else:
+            self._model = pipeline.model_for(model)
+            self._decoder = pipeline.decoder(spec.get("decoder"), translate_pattern)
+        # BertTokenizerFast rebuilds its normalizer from its own arguments.
+        bert = None
+        if cls == "BertTokenizer" and (spec.get("normalizer") or {}).get("type") == "BertNormalizer":
+            bert = {"lowercase": bool(config.get("do_lower_case", True)),
+                    "strip_accents": config.get("strip_accents"),
+                    "chinese": bool(config.get("tokenize_chinese_chars", True))}
+        self._normalize = pipeline.normalizer(spec.get("normalizer"), translate_pattern, bert)
+        self._stages = pipeline.pre_tokenizer(spec.get("pre_tokenizer"), translate_pattern,
+                                              GPT2_PATTERN)
         self._ignore_merges = bool(model.get("ignore_merges", False))
-        self.vocab: dict[str, int] = {str(k): int(v) for k, v in model["vocab"].items()}
-        merges = _merges(model.get("merges", []))
+        if model.get("type") == "Unigram":
+            self.vocab = {p: i for i, p in enumerate(self._model.pieces)}
+        else:
+            self.vocab = {str(k): int(v) for k, v in model["vocab"].items()}
+        self._model_size = (len(self._model.pieces) if model.get("type") == "Unigram"
+                            else len(self.vocab))
 
         # Added tokens by id: content, special, normalized.
         self._added: dict[int, dict] = {}
@@ -417,19 +412,18 @@ class HFTokenizer:
             have["special"] = bool(tok.get("special", have.get("special")))
 
         # Special tokens: the class's defaults, the config, then the legacy
-        # special_tokens_map.json.
-        cls = _tokenizer_class(directory, config)
-        defaults, template_from_flags = _CLASSES[cls]
+        # special_tokens_map.json; added in transformers' order.
         named: dict[str, Optional[str]] = {k: defaults.get(k) for k in _SPECIAL_KEYS}
         for key in _SPECIAL_KEYS:
             if key in config:
                 named[key] = _token_content(config[key])
+        legacy: dict = {}
         if "added_tokens_decoder" not in config:
             legacy = _read_json(os.path.join(directory, "special_tokens_map.json")) or {}
             for key in _SPECIAL_KEYS:
                 if key in legacy:
                     named[key] = _token_content(legacy[key])
-        for content in named.values():
+        for content in [*named.values(), *_additional_specials(cls, config, legacy)]:
             if content is not None:
                 self._add_special(content)
         self._added_by_content = {t["content"]: i for i, t in self._added.items()}
@@ -449,10 +443,14 @@ class HFTokenizer:
         self.eos_id = eos if eos is not None else -1
         self.pad_id = pad if pad is not None else (eos if eos is not None else -1)
 
-        if template_from_flags:
-            # GPT-NeoX's class rebuilds the post-processor from its flags.
-            self._prefix = [bos] if config.get("add_bos_token", False) and bos is not None else []
-            self._suffix = [eos] if config.get("add_eos_token", False) and eos is not None else []
+        if flag_defaults is not None:
+            # The class rebuilds the post-processor from its flags.
+            add_bos = config.get("add_bos_token", flag_defaults[0])
+            add_eos = config.get("add_eos_token", flag_defaults[1])
+            if (add_bos and bos is None) or (add_eos and eos is None):
+                raise UnsupportedTokenizer("add_bos_token/add_eos_token without the token")
+            self._prefix = [bos] if add_bos else []
+            self._suffix = [eos] if add_eos else []
         else:
             self._prefix, self._suffix = _post_processor(spec.get("post_processor"))
         self._clean_up = bool(config.get("clean_up_tokenization_spaces", False))
@@ -465,14 +463,19 @@ class HFTokenizer:
             self._id_to_token[i] = t["content"]
         self.vocab_size = max(self._id_to_token, default=-1) + 1
 
-        # The merge loop's core over the vocabulary and merges as bytes.
+        if self.byte_level:
+            self._build_core(model, prefer_native)
+
+    def _build_core(self, model: dict, prefer_native: bool) -> None:
+        """The byte-level merge loop's core over the vocabulary and merges
+        as bytes."""
         table: list[bytes] = [b""] * (max(self.vocab.values(), default=-1) + 1)
         for s, i in self.vocab.items():
             raw = _token_bytes(s)
             if raw is not None:
                 table[i] = raw
         byte_merges = []
-        for a, b in merges:
+        for a, b in pipeline.parse_merges(model.get("merges", [])):
             ra, rb = _token_bytes(a), _token_bytes(b)
             if ra is None or rb is None or (a + b) not in self.vocab:
                 raise UnsupportedTokenizer(f"merge {a!r} {b!r} outside the vocabulary")
@@ -483,18 +486,20 @@ class HFTokenizer:
 
     @property
     def is_native(self) -> bool:
-        return isinstance(self._core, NativeBPE)
+        return self.byte_level and isinstance(self._core, NativeBPE)
 
     def _add_special(self, content: str) -> None:
         """A named special token becomes a special added token, as
-        transformers registers it."""
+        transformers registers it: its vocabulary id, or a new id after the
+        model's vocabulary and the added tokens when it has none."""
         for t in self._added.values():
             if t["content"] == content:
                 t["special"] = True
                 return
         idx = self.vocab.get(content)
         if idx is None:
-            raise UnsupportedTokenizer(f"special token {content!r} outside the vocabulary")
+            top = max(self._added, default=None)
+            idx = (self._model_size if top is None or top < self._model_size else top + 1)
         self._added[idx] = {"id": idx, "content": content, "special": True,
                             "normalized": False}
 
@@ -514,28 +519,33 @@ class HFTokenizer:
                 matcher([t for t in toks if t.get("normalized", True)]))
 
     @staticmethod
-    def _split_added(rx, text: str) -> list[tuple[str, Optional[int]]]:
+    def _split_added(rx, text: str) -> list[tuple[str, Optional[int], int]]:
+        """(piece, added token id or None, start) over ``text``."""
         if rx is None:
-            return [(text, None)] if text else []
-        out: list[tuple[str, Optional[int]]] = []
+            return [(text, None, 0)] if text else []
+        out: list[tuple[str, Optional[int], int]] = []
         pos = 0
         for m in rx.finditer(text):
             if m.start() == m.end():
                 continue
             if m.start() > pos:
-                out.append((text[pos:m.start()], None))
-            out.append((m.group(), int(m.lastgroup[1:])))
+                out.append((text[pos:m.start()], None, pos))
+            out.append((m.group(), int(m.lastgroup[1:]), m.start()))
             pos = m.end()
         if pos < len(text):
-            out.append((text[pos:], None))
+            out.append((text[pos:], None, pos))
         return out
 
-    def _encode_piece(self, piece: str) -> list[int]:
-        pieces = [piece]
+    def _encode_piece(self, piece: str, at0: bool) -> list[int]:
+        pieces = [(piece, at0)]
         for stage in self._stages:
             pieces = [p for q in pieces for p in stage(q)]
         ids: list[int] = []
-        for p in pieces:
+        if not self.byte_level:
+            for p, _ in pieces:
+                ids.extend(self._model.tokenize(p))
+            return ids
+        for p, _ in pieces:
             if self._ignore_merges:
                 whole = self.vocab.get(_byte_level(p))
                 if whole is not None:
@@ -546,23 +556,24 @@ class HFTokenizer:
 
     def encode(self, text: str) -> list[int]:
         ids = list(self._prefix)
-        for raw, tid in self._split_added(self._raw_split, text):
+        for raw, tid, start in self._split_added(self._raw_split, text):
             if tid is not None:
                 ids.append(tid)
                 continue
-            for part, nid in self._split_added(self._norm_split, self._normalize(raw)):
+            for part, nid, nstart in self._split_added(self._norm_split, self._normalize(raw)):
                 if nid is not None:
                     ids.append(nid)
                 else:
-                    ids.extend(self._encode_piece(part))
+                    ids.extend(self._encode_piece(part, start == 0 and nstart == 0))
         return ids + list(self._suffix)
 
     def decode(self, ids: Sequence[int]) -> str:
-        data = b"".join(
-            _decode_token(self._id_to_token[i]) for i in ids
-            if i in self._id_to_token and i not in self._specials
-        )
-        text = data.decode("utf-8", "replace")
+        tokens = [self._id_to_token[i] for i in ids
+                  if i in self._id_to_token and i not in self._specials]
+        if self.byte_level:
+            text = b"".join(_decode_token(t) for t in tokens).decode("utf-8", "replace")
+        else:
+            text = "".join(self._decoder(tokens)) if tokens else ""
         if self._clean_up:
             text = clean_up_tokenization(text)
         return text

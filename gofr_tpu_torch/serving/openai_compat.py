@@ -19,9 +19,11 @@ explicit ``chat_template`` arg to ``add_openai_routes`` overrides both.
 
 The port's copy of ``gofr_tpu/serving/openai_compat.py``.
 ``/v1/models`` lists the port's registry, which holds the reference's
-names (the seq2seq ones registered but not served yet, ROADMAP Queue 1
-item 5); ``/v1/embeddings`` serves from the secondary encoder engine
-(``TPU_EMBED_MODEL``), or from the primary when it is an encoder.
+names; ``/v1/embeddings`` serves from the secondary encoder engine
+(``TPU_EMBED_MODEL``), or from the primary when it is an encoder. A
+primary of another family answers as the reference's does: a seq2seq
+(T5) primary serves text through ``ctx.infer``, and the completion
+routes refuse it (``submit_generate``: "not a generative LLM").
 """
 
 from __future__ import annotations

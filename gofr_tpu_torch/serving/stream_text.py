@@ -11,9 +11,10 @@ JSON gRPC servicers expose (and that must match the unary replies):
   generator finalization, downstream error), so the KV slot frees
   instead of decoding for nobody.
 
-The port's copy of ``gofr_tpu/serving/stream_text.py`` (``normalize_stop``
-and ``stream_generation``); ``stream_seq2seq`` waits for T5 (ROADMAP
-Queue 1 item 5).
+The port's copy of ``gofr_tpu/serving/stream_text.py``: ``normalize_stop``,
+``stream_generation`` and ``stream_seq2seq``. No surface of the port
+calls ``stream_seq2seq`` until the gRPC servicers are ported (ROADMAP
+Queue 1 item 2.6).
 """
 
 from __future__ import annotations
@@ -101,3 +102,27 @@ async def stream_generation(
             # cancel_request also trips the request's CancelToken, which
             # the scheduler's lifecycle reap retires within one window.
             req.cancel_request()
+
+
+async def stream_seq2seq(engine: Any, prompt: Any, tokenizer: Any) -> AsyncIterator[dict]:
+    """Stepped seq2seq streaming: ``{"type": "piece", "token", "text"}`` a
+    chunk of the engine's ``seq2seq_stream``, then ``{"type": "done",
+    "tokens", "ttft_ms", "finish_reason"}``. Pieces use cumulative decode,
+    so multi-byte text never splits inside a chunk."""
+    t0 = time.monotonic()
+    all_ids: list[int] = []
+    printed = ""
+    ttft_ms = 0.0
+    async for toks in engine.seq2seq_stream(prompt):
+        if not all_ids:
+            ttft_ms = round((time.monotonic() - t0) * 1e3, 2)
+        all_ids.extend(toks)
+        decoded = tokenizer.decode(all_ids) if tokenizer is not None else ""
+        piece, printed = decoded[len(printed):], decoded
+        yield {"type": "piece", "token": toks[0], "text": piece}
+    yield {
+        "type": "done",
+        "tokens": len(all_ids),
+        "ttft_ms": ttft_ms,
+        "finish_reason": "stop",
+    }

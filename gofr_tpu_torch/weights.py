@@ -5,7 +5,8 @@ over into the port's layout.
 Each family has its pair: ``params_from_jax`` / ``params_to_reference``
 for the decoders, ``bert_params_from_jax`` / ``bert_params_to_reference``,
 ``vit_params_from_jax`` / ``vit_params_to_reference`` and
-``resnet_params_from_jax`` / ``resnet_params_to_reference``. Each ``to``
+``resnet_params_from_jax`` / ``resnet_params_to_reference`` and
+``t5_params_from_jax`` / ``t5_params_to_reference``. Each ``to``
 function inverts its ``from`` exactly (leaves as f32 numpy arrays, which
 hold bf16 values exactly)."""
 
@@ -28,6 +29,7 @@ from gofr_tpu_torch.ops.quant import Q4, Q8, is_quantized
 __all__ = ["bert_params_from_jax", "bert_params_to_reference", "init_params",
            "kv_cache_from_jax", "params_from_jax", "params_to_reference",
            "resnet_params_from_jax", "resnet_params_to_reference",
+           "t5_params_from_jax", "t5_params_to_reference",
            "vit_params_from_jax", "vit_params_to_reference"]
 
 
@@ -58,19 +60,8 @@ def params_from_jax(
     output axis of both ``q`` and ``s``, bit for bit. The tensors go to
     CUDA unless ``device="cpu"``; without CUDA that raises."""
     check_supported(cfg, device)
-    device = resolve_device(device)
-    dtype = cfg.dtype if dtype is None else dtype
     lp = np_params["layers"]
-
-    def t(a: Any):
-        if hasattr(a, "q") and hasattr(a, "s"):  # the reference's Q8 / Q4
-            q = torch.from_numpy(np.array(a.q)).to(device)
-            s = torch.from_numpy(np.array(a.s, dtype=np.float32)).to(device)
-            return (Q4 if q.dtype == torch.uint8 else Q8)(q, s)
-        # Through f32: exact for bf16 and f32 leaves, and numpy has no bf16.
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=dtype
-        )
+    t = _leaf_fn(device, cfg.dtype if dtype is None else dtype)
 
     params = {
         "embed": t(np_params["embed"]),
@@ -107,11 +98,7 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     (f32), split the same way."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qkv = [H * hd, KV * hd, KV * hd]
-
-    def n(t):
-        if is_quantized(t):
-            return type(t)(t.q.cpu().numpy(), t.s.cpu().numpy())
-        return t.detach().float().cpu().numpy()
+    n = _host_leaf
 
     wq, wk, wv = _split(params["wqkv"], qkv)
     layers = {
@@ -141,6 +128,30 @@ def params_to_reference(params: dict, cfg: TransformerConfig) -> dict:
     }
     out.update({k: n(params[k]) for k in _TOP_EXTRAS if k in params})
     return out
+
+
+def _leaf_fn(device: torch.device | str | None, dtype: torch.dtype):
+    """A reference leaf → the port's: its Q8 / Q4 (numpy ``q`` and ``s``)
+    as the port's, bit for bit; a plain leaf in ``dtype`` on ``device``."""
+    device = resolve_device(device)
+    plain = _tensor_fn(device, dtype)
+
+    def t(a: Any):
+        if hasattr(a, "q") and hasattr(a, "s"):  # the reference's Q8 / Q4
+            q = torch.from_numpy(np.array(a.q)).to(device)
+            s = torch.from_numpy(np.array(a.s, dtype=np.float32)).to(device)
+            return (Q4 if q.dtype == torch.uint8 else Q8)(q, s)
+        return plain(a)
+
+    return t
+
+
+def _host_leaf(t: Any):
+    """A port leaf → f32 numpy (a quantized one a Q8/Q4 of numpy ``q`` and
+    ``s``)."""
+    if is_quantized(t):
+        return type(t)(t.q.cpu().numpy(), t.s.cpu().numpy())
+    return _host(t)
 
 
 def _tensor_fn(device: torch.device | str | None, dtype: torch.dtype):
@@ -255,6 +266,28 @@ def resnet_params_to_reference(params: dict, cfg: Any = None) -> dict:
         "stages": [[tree(block) for block in stage] for stage in params["stages"]],
         "head": {"w": _host(params["head"]["w"]), "b": _host(params["head"]["b"])},
     }
+
+
+def t5_params_from_jax(np_params: dict, cfg: Any,
+                       device: torch.device | str | None = None,
+                       dtype: torch.dtype | None = None) -> dict:
+    """The reference's T5 tree (``init_t5``, ``load_hf_t5`` or
+    ``quantize_t5_params``; numpy leaves) → the port's, the same tree
+    (``models/t5.py`` keeps the reference's layout): the encoder and
+    decoder stacks, the bias tables, the embedding, the norms and an
+    untied ``lm_head`` in ``dtype`` (default ``cfg.dtype``), and the
+    reference's Q8/Q4 leaves as the port's, bit for bit."""
+    t = _leaf_fn(device, cfg.dtype if dtype is None else dtype)
+    return {k: {kk: t(vv) for kk, vv in v.items()} if isinstance(v, dict) else t(v)
+            for k, v in np_params.items()}
+
+
+def t5_params_to_reference(params: dict, cfg: Any = None) -> dict:
+    """The inverse of ``t5_params_from_jax``: f32 numpy leaves (a quantized
+    leaf a Q8/Q4 of numpy ``q`` and ``s``) in the same tree."""
+    n = _host_leaf
+    return {k: {kk: n(vv) for kk, vv in v.items()} if isinstance(v, dict) else n(v)
+            for k, v in params.items()}
 
 
 def _cat(leaves: list):

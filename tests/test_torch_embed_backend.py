@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import io
 import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -212,13 +213,16 @@ def test_embed_model_must_be_an_encoder():
 
 
 def test_a_wordpiece_tokenizer_is_logged_and_served_by_bytes(tmp_path):
-    """A BERT tokenizer.json is WordPiece, which the port's reader does not
-    read: the error is logged and the encoder serves the byte tokenizer
-    (ROADMAP Queue 1 item 6.5)."""
+    """A WordPiece tokenizer.json the reader cannot read (one with a
+    SentencePiece ``Precompiled`` normalizer, ROADMAP Queue 1 item 6.4):
+    the error is logged and the encoder serves the byte tokenizer. A plain
+    BERT file is read (test_wordpiece_embed_tokenizer_serves_as_the_reference)."""
     tok = tmp_path / "bert-tok"
     tok.mkdir()
     (tok / "tokenizer.json").write_text(json.dumps({
-        "version": "1.0", "added_tokens": [], "normalizer": {"type": "BertNormalizer"},
+        "version": "1.0", "added_tokens": [], "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": "AAAA"},
+            {"type": "BertNormalizer"}]},
         "pre_tokenizer": {"type": "BertPreTokenizer"}, "post_processor": None,
         "decoder": {"type": "WordPiece", "prefix": "##"},
         "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
@@ -235,6 +239,47 @@ def test_a_wordpiece_tokenizer_is_logged_and_served_by_bytes(tmp_path):
     try:
         assert isinstance(eng.tokenizer, ByteTokenizer)
         assert "could not load tokenizer" in err.getvalue() and str(tok) in err.getvalue()
+        assert "Precompiled" in err.getvalue()
         assert eng.embed_sync("the cat").shape == (128,)
     finally:
         eng.close()
+
+
+def test_wordpiece_embed_tokenizer_serves_as_the_reference(tmp_path):
+    """TPU_EMBED_TOKENIZER with a WordPiece BERT tokenizer.json (trained
+    here with ``tokenizers``): the port's reader serves it, and
+    /v1/embeddings answers as the reference's (which reads it with
+    transformers) on the same weights."""
+    from tokenizers import Tokenizer, decoders, models, normalizers, pre_tokenizers
+    from tokenizers import processors, trainers
+
+    from gofr_tpu_torch.serving.hf_tokenizer import HFTokenizer
+
+    wp = Tokenizer(models.WordPiece(unk_token="[UNK]"))
+    wp.normalizer = normalizers.BertNormalizer(lowercase=True)
+    wp.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    wp.decoder = decoders.WordPiece()
+    wp.train_from_iterator(
+        (Path(__file__).resolve().parents[1] / "README.md").read_text().split("\n"),
+        trainers.WordPieceTrainer(vocab_size=400, special_tokens=[
+            "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]))
+    wp.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]", special_tokens=[("[CLS]", 2), ("[SEP]", 3)])
+    tok = tmp_path / "wordpiece"
+    tok.mkdir()
+    wp.save(str(tok / "tokenizer.json"))
+    (tok / "tokenizer_config.json").write_text(json.dumps({"tokenizer_class": "BertTokenizer"}))
+    ckpt = _checkpoint(tmp_path, "bert-tiny")
+    apps = _apps({"TPU_EMBED_CHECKPOINT": ckpt}, TPU_MODEL="llama-tiny",
+                 TPU_EMBED_MODEL="bert-tiny", TPU_EMBED_TOKENIZER=str(tok))
+    try:
+        emb = apps["port"].app.container.tpu_embed
+        assert isinstance(emb.tokenizer, HFTokenizer)
+        ref_tok = apps["reference"].app.container.tpu_embed.tokenizer
+        text = "The Cat sat, on the mat — naïvely!"
+        assert emb.tokenizer.encode(text) == ref_tok.encode(text)
+        got = _post(apps, "/v1/embeddings", {"input": [text, "the embeddings endpoint"]})
+        assert got["port"][0] == got["reference"][0] == 200
+        _same_embeddings(got["port"][1], got["reference"][1])
+    finally:
+        _close_all(apps)

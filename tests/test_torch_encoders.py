@@ -72,15 +72,13 @@ def _weights(name: str, dtype: str = "bf16", seed: int = 0):
 
 
 def test_registry_mirrors_reference_encoder_and_vision_entries():
-    """Same names, families and config fields as the reference; the
-    seq2seq names registered without a model."""
+    """Same names, families and config fields as the reference (the
+    seq2seq names with T5's configs and init)."""
     for name in ("bert-base", "bert-tiny", "vit-base", "vit-tiny", "resnet-50",
                  "resnet-tiny", "flan-t5-small", "t5-tiny"):
         ref, port = ref_get_model(name), get_model(name)
         assert port.family == ref.family and port.eos_token == ref.eos_token
-        if port.family == "seq2seq":
-            assert port.config is None and port.init is None
-            continue
+        assert port.init is not None
         for field in dataclasses.fields(port.config):
             want = getattr(ref.config, field.name)
             got = getattr(port.config, field.name)
@@ -362,11 +360,14 @@ def test_classify_sync_matches_reference(name, size):
 
 
 def test_unported_and_refused_options():
-    """A seq2seq model raises naming T5's ROADMAP item; quantizing an
-    encoder raises the reference's ValueError; an engine stops and
-    restarts its batcher."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5: T5"):
-        InferenceEngine("t5-tiny", device="cpu")
+    """A seq2seq model serves (T5, ported); quantizing an encoder raises
+    the reference's ValueError; an engine stops and restarts its
+    batcher."""
+    t5 = InferenceEngine("t5-tiny", device="cpu")
+    try:
+        assert t5.family == "seq2seq" and isinstance(t5.seq2seq_sync("hi"), list)
+    finally:
+        t5.close()
     with pytest.raises(ValueError, match="quantization supports llm and seq2seq models only"):
         InferenceEngine("bert-tiny", quant="int8", device="cpu")
     eng = InferenceEngine("resnet-tiny", device="cpu")

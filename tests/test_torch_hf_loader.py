@@ -99,8 +99,9 @@ def test_loader_matches_reference_bit_for_bit(checkpoints, kind, quant):
 
 def test_reference_errors_word_for_word(checkpoints, tmp_path):
     """Config mismatch, an unsupported model_type, a max_len past GPT-2's
-    position table, a directory with no *.safetensors; and the port's own
-    refusals (mesh=, T5, a tensor dtype its reader does not take)."""
+    position table, a directory with no *.safetensors, T5's loader on a
+    decoder's directory; and the port's own refusals (mesh=, a tensor
+    dtype its reader does not take)."""
     def both(ref_call, port_call, exc):
         with pytest.raises(exc) as want:
             ref_call()
@@ -133,8 +134,11 @@ def test_reference_errors_word_for_word(checkpoints, tmp_path):
     assert not hf_loader.is_hf_checkpoint(str(tmp_path / "nowhere"))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         hf_loader.load_hf_llama(path, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        hf_loader.load_hf_t5(path)
+    # T5's loader (ported) on a decoder's directory: the reference's refusal.
+    from gofr_tpu.models.t5 import load_hf_t5 as ref_load_hf_t5
+
+    both(lambda: ref_load_hf_t5(path), lambda: hf_loader.load_hf_t5(path, device="cpu"),
+         ValueError)
     from safetensors.numpy import save_file
     save_file({"x": np.zeros((2, 2), np.uint16)}, str(tmp_path / "u16.safetensors"))
     with pytest.raises(ValueError, match="dtype U16"):

@@ -246,7 +246,10 @@ def test_bad_path_and_metaspace_fall_back_with_an_error(tmp_path):
     assert len(log.errors) == 1 and "could not load tokenizer" in log.errors[0]
 
     # A SentencePiece-style file (Llama-2, Mistral-7B, Gemma): Metaspace
-    # pre-tokenizer and byte_fallback.
+    # pre-tokenizer and byte_fallback. The reader serves it now
+    # (tests/test_torch_hf_tokenizer_sp.py holds it against transformers);
+    # with a Precompiled normalizer (a SentencePiece charsmap) it still
+    # falls back with the logged error.
     sp = Tokenizer(models.BPE(byte_fallback=True, unk_token="<unk>"))
     sp.pre_tokenizer = pre_tokenizers.Metaspace()
     sp.decoder = decoders.Metaspace()
@@ -259,8 +262,14 @@ def test_bad_path_and_metaspace_fall_back_with_an_error(tmp_path):
         json.dumps({"tokenizer_class": "PreTrainedTokenizerFast"}))
     log = _Log()
     tok = tokenizer_from_config(MockConfig({"TPU_TOKENIZER": str(d)}), log)
+    assert isinstance(tok, HFTokenizer) and not log.errors
+    assert tok.decode(tok.encode("read the file")) == "read the file"
+    spec = json.loads((d / "tokenizer.json").read_text())
+    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": "AAAA"}
+    (d / "tokenizer.json").write_text(json.dumps(spec))
+    tok = tokenizer_from_config(MockConfig({"TPU_TOKENIZER": str(d)}), log)
     assert isinstance(tok, ByteTokenizer)
-    assert len(log.errors) == 1 and "byte_fallback" in log.errors[0]
+    assert len(log.errors) == 1 and "Precompiled" in log.errors[0]
     with pytest.raises(UnsupportedTokenizer):
         HFTokenizer(str(d))
 

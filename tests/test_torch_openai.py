@@ -631,8 +631,9 @@ def test_unported_key_raises_with_its_item(key, default, item):
     ({"DB_DIALECT": "sqlite"}, "item 2"),
     ({"REDIS_HOST": "localhost"}, "item 2"),
     ({"PUBSUB_BACKEND": "memory"}, "item 2"),
-    # An encoder beside a seq2seq primary, whose model (T5) is not ported.
-    ({"TPU_EMBED_MODEL": "bert-tiny", "TPU_MODEL": "t5-tiny"}, "item 5"),
+    # An encoder beside a primary asked for a mesh (T5 and the encoder
+    # itself are ported: tests/test_torch_t5_engine.py serves the pair).
+    ({"TPU_EMBED_MODEL": "bert-tiny", "TPU_MESH_TP": "2"}, "item 8"),
 ], ids=["tenant slo", "replicas", "replica addrs", "trace exporter",
         "async plane", "sql", "redis", "pubsub", "embed model"])
 def test_unported_app_config_raises(config, item):

@@ -124,7 +124,8 @@ def ref_run(request):
         logits = ref_forward(p, jnp.asarray(tokens), ref_cfg)
         return ref_cross_entropy(logits[:, :-1], jnp.asarray(tokens)[:, 1:])
 
-    grads1 = _np_tree(jax.grad(loss)(params))
+    # One compiled program, not op-by-op dispatch: ~2x faster to build.
+    grads1 = _np_tree(jax.jit(jax.grad(loss))(params))
     losses = []
     for _ in range(3):  # the step donates params: p0 was copied first
         value, params, opt_state = step(params, opt_state, jnp.asarray(tokens))
