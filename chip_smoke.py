@@ -55,6 +55,16 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    before any SSE header) and a 0.05 s X-Request-Timeout (ends early);
    /metrics against what the client received; tok/s, TTFT p50 and ITL
    p50 over HTTP beside the direct engine's; App.stop frees every slot;
+4b'. config 4, offline batch inference over pub/sub: the App from config
+   (the same seed-0 weights) with PUBSUB_BACKEND=INPROC, sqlite, the
+   port's MiniRedis and TRACE_EXPORTER=zipkin to a local collector,
+   migrate and add_rest_handlers; a subscriber on two topics runs 8 of
+   phase_serve's greedy prompts through ctx.infer and answers in SQL,
+   Redis and infer-responses, each equal to phase_serve's stream; the
+   /debug/* routes during a second wave (a /debug/tpu-trace holding
+   replayed flash_decode launches); the same prompts over MQTT at QoS 1;
+   a new_cmd child on llama-tiny against a parent engine; messages/s,
+   latency p50/p99 and tok/s beside the batch-1 bound;
 4c. the decode loop (every serve above already runs it: pipeline depth 2,
    each window a CUDA graph replay, launches counted through replays, no
    stream sync allowed in a serve): the captured window against the eager
@@ -3704,6 +3714,441 @@ def phase_http(torch, dev, base: list, base_stats: dict, *, model: str = "llama-
         loop.close()
 
 
+# -- the data plane: config 4, offline batch inference over pub/sub ----------
+
+PUBSUB_TOPICS = ("infer-requests-a", "infer-requests-b")
+# The phase ends the run after this long (a hang costs this, not the limit).
+PUBSUB_WATCHDOG_S = 240.0
+PUBSUB_TRACE_MS = 200
+PUBSUB_CLI_CHILD = r'''
+import json, sys
+from gofr_tpu_torch import new_cmd
+
+app = new_cmd(config_dir=sys.argv[1])
+
+
+@app.sub_command("^generate")
+def generate(ctx):
+    res = ctx.infer_sync(ctx.param("prompt"), max_new_tokens=int(ctx.param("n")),
+                         temperature=0.0)
+    return {"text": res["text"], "tokens": res["tokens"], "device": str(ctx.tpu.device)}
+
+
+code = app.run(sys.argv[2:])
+app.container.tpu.close()
+sys.exit(code)
+'''
+PUBSUB_CLI_ENV = {"TPU_MODEL": "llama-tiny", "TPU_KV_SLOTS": "2", "TPU_MAX_LEN": "256",
+                  "LOG_LEVEL": "WARN"}
+PUBSUB_CLI_PROMPT = "the card answers a command"
+
+
+class _Collector(threading.Thread):
+    """A local zipkin collector: every POSTed batch's spans."""
+
+    def __init__(self) -> None:
+        super().__init__(daemon=True)
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        spans = self.spans = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                spans.extend(json.loads(body))
+                self.send_response(202)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_port}/api/v2/spans"
+
+    def run(self) -> None:
+        self.server.serve_forever()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def _wave(label: str, app, broker, prompts: list, first_id: int, during=None) -> dict:
+    """Publish one message a prompt (alternating the two request topics),
+    collect every answer from ``infer-responses`` through ``broker`` (the
+    test side's client), and time each from its publish to its answer.
+    ``during(eng)`` runs on this thread while the answers come in."""
+    eng = app.container.tpu
+    submitted = []
+    submit = eng.submit_generate
+
+    def spy(*args, **kw):
+        req = submit(*args, **kw)
+        submitted.append(req)
+        return req
+
+    eng.submit_generate = spy
+    sent, got = {}, {}
+    done = threading.Event()
+
+    def consume():
+        while len(got) < len(prompts):
+            msg = broker.subscribe("infer-responses", timeout=0.05)
+            if msg is None:
+                continue
+            t = time.perf_counter()
+            msg.commit()
+            got[json.loads(msg.value)["id"]] = (t, msg.value)
+        done.set()
+
+    consumer = threading.Thread(target=consume, name="pubsub-consumer", daemon=True)
+    consumer.start()
+    t0 = time.perf_counter()
+    for i, ids in enumerate(prompts):
+        sent[first_id + i] = time.perf_counter()
+        broker.publish(PUBSUB_TOPICS[i % 2], json.dumps({"id": first_id + i, "ids": ids}).encode())
+    extra = during(eng) if during is not None else None
+    if not done.wait(300):
+        fail(f"{label}: {len(got)} of {len(prompts)} answers arrived")
+    wall = time.perf_counter() - t0
+    del eng.submit_generate
+    lat = sorted(got[i][0] - sent[i] for i in sent)
+    answers = {i: json.loads(got[i][1]) for i in sent}
+    service = [r.token_times[-1] - r.enqueued_at for r in submitted]  # a message's engine time
+    tokens = sum(len(r.token_ids) for r in submitted)
+    return {"answers": answers, "raw": {i: got[i][1] for i in sent}, "wall": wall,
+            "msg_s": len(prompts) / wall, "tok_s": tokens / wall,
+            "lat_p50_ms": statistics.median(lat) * 1e3,
+            "lat_p99_ms": lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)] * 1e3,
+            "service_p50_ms": statistics.median(service) * 1e3,
+            "service_mean_ms": statistics.fmean(service) * 1e3,
+            "engine_ttft_p50_ms": statistics.median(r.ttft_s for r in submitted) * 1e3,
+            "engine_itl_p50_ms": statistics.median(
+                (r.token_times[-1] - r.token_times[0]) / (len(r.token_times) - 1)
+                for r in submitted if len(r.token_times) > 1) * 1e3,
+            "max_in_flight": max(sum(1 for s in submitted if s.enqueued_at <= r.enqueued_at
+                                     < s.token_times[-1]) for r in submitted),
+            "extra": extra}
+
+
+def _commits(port: int) -> dict:
+    status, raw = _http_json(port, "GET", "/metrics")
+    return {t: float(v) for t, v in re.findall(
+        r'^app_pubsub_subscribe_success_count\{topic="([^"]+)"\} (\S+)$', raw.decode(), re.M)}
+
+
+def phase_pubsub(torch, dev, base: list, base_stats: dict, *, model: str = "llama-3-8b",
+                 lengths: tuple = LLAMA_PROMPTS[:8], geometry: dict | None = None) -> dict:
+    """Config 4, offline batch inference over pub/sub (``examples/
+    using-subscriber``), at full width on the card: the port's App from
+    config (TPU_MODEL and phase_serve's geometry: the same seed-0 weights;
+    PUBSUB_BACKEND=INPROC, DB_DIALECT=sqlite on a temp file, REDIS_HOST
+    and REDIS_PORT on the port's MiniRedis, TRACE_EXPORTER=zipkin to a
+    local collector), with migrate (a ``results`` table) and
+    add_rest_handlers. One async handler subscribed to two request topics
+    (one message in flight a topic, the reference's rule) takes each
+    message's token ids through ``await ctx.infer(ids, max_new_tokens=32,
+    temperature=0.0)``, writes the text into ``results`` and a Redis key
+    and publishes ``{"id", "text"}`` to ``infer-responses``. The engine's
+    tokenizer decodes ids as ``<id>`` (IdTokenizer: the byte tokenizer
+    drops every id over 255). Checks: phase_serve's 8 greedy prompts give
+    texts equal to the decode of ``base`` (32 tokens each, or fewer ending
+    in EOS), in the
+    published answer, the SQL row over ``GET /results/{id}`` and the Redis
+    value; each message committed once; flash_cache_attention and
+    flash_decode launched; during a second wave ``/debug/tpu-trace?ms=200``
+    (its trace holding flash_decode launches inside traced graph
+    launches), ``/debug/threads`` (the scheduler's stack),
+    ``/debug/engine``, ``/debug/capacity`` and ``/debug/flight`` (501);
+    idle after it, /debug/capacity's hbm equal to ``hbm_ledger()`` and
+    /debug/engine to ``health_check()``; the collector holding a zipkin
+    span (path and status tags) for each HTTP request before App.stop
+    returns; the same prompts over PUBSUB_BACKEND=MQTT (the port's broker
+    on 127.0.0.1, QoS 1) equal to ``base``; a new_cmd child process on
+    llama-tiny whose ctx.infer_sync text equals a parent engine's. Prints
+    messages/s, publish-to-answer latency p50/p99 and generated tok/s
+    beside phase_serve's and the batch-1 bound. A watchdog ends the run
+    after PUBSUB_WATCHDOG_S."""
+    import asyncio
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch import App
+    from gofr_tpu_torch.config import MockConfig
+    from gofr_tpu_torch.datasource.pubsub import MQTTClient
+    from gofr_tpu_torch.datasource.redis import MiniRedis
+    from gofr_tpu_torch.migration import Migrate
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+    from gofr_tpu_torch.serving.profiler_capture import get_capture
+    from gofr_tpu_torch.testutil.mqtt_broker import InProcMQTTBroker
+
+    label = f"pubsub {model}"
+
+    def watchdog():
+        print(f"chip_smoke: FAIL: {label}: the phase did not end within "
+              f"{PUBSUB_WATCHDOG_S:.0f} s", file=sys.stderr, flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(PUBSUB_WATCHDOG_S, watchdog)
+    timer.daemon = True
+    timer.start()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-pubsub-")
+    # The CLI child first: it reaches the card while the App is built.
+    cli_env = dict(PUBSUB_CLI_ENV, TPU_DEVICE=str(dev))
+    with open(os.path.join(tmp, ".env"), "w") as fp:
+        fp.write("".join(f"{k}={v}\n" for k, v in cli_env.items()))
+    child = subprocess.Popen(
+        [sys.executable, "-c", PUBSUB_CLI_CHILD, tmp, "generate",
+         f"-prompt={PUBSUB_CLI_PROMPT}", "-n=16"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    geometry = geometry or {"TPU_KV_SLOTS": "8", "TPU_MAX_LEN": "2048",
+                            "TPU_DECODE_WINDOW": "8", "TPU_PREFILL_CHUNK": "256",
+                            "TPU_PREFILL_BATCH": "8"}
+    mini = MiniRedis().start()
+    collector = _Collector()
+    collector.start()
+    mqtt_broker = driver = None
+    stops = []
+    try:
+        t0 = time.perf_counter()
+        app, loop, stop = _app_harness({
+            "APP_NAME": "chip-smoke-pubsub", "TPU_MODEL": model, "TPU_DEVICE": str(dev),
+            **geometry, "PUBSUB_BACKEND": "INPROC", "DB_DIALECT": "sqlite",
+            "DB_NAME": os.path.join(tmp, "results.db"), "REDIS_HOST": "127.0.0.1",
+            "REDIS_PORT": str(mini.port), "TRACE_EXPORTER": "zipkin",
+            "TRACER_URL": collector.url})
+        stops.append(stop)
+        eng = app.container.tpu
+        eng.tokenizer = IdTokenizer()
+        log(f"{label}: App built from config in {time.perf_counter() - t0:.1f} s (engine on "
+            f"{eng.device}; pub/sub {type(app.container.pubsub).__name__}, SQL "
+            f"{app.container.sql.dialect()}, Redis {app.container.redis.host}:"
+            f"{app.container.redis.port}, tracer exporter "
+            f"{type(app._tracer._exporter).__name__})")
+        if eng.device.type != dev.type:
+            fail(f"{label}: the App's engine is on {eng.device}, not {dev}")
+        app.migrate({1: Migrate(up=lambda ds: ds.sql.exec(
+            "CREATE TABLE results (id INTEGER PRIMARY KEY, text TEXT)"))})
+
+        @dataclasses.dataclass
+        class Results:
+            id: int = 0
+            text: str = ""
+
+        app.add_rest_handlers(Results)
+
+        async def handle(ctx):
+            payload = ctx.request.json()
+            res = await ctx.infer(payload["ids"], max_new_tokens=32, temperature=0.0)
+            if ctx.sql is not None:
+                ctx.sql.exec("INSERT INTO results (id, text) VALUES (?, ?)",
+                             payload["id"], res["text"])
+                ctx.redis.set(f"result:{payload['id']}", res["text"])
+            ctx.publish("infer-responses",
+                        json.dumps({"id": payload["id"], "text": res["text"]}).encode())
+
+        for topic in PUBSUB_TOPICS:
+            app.subscribe(topic, handle)
+        asyncio.run_coroutine_threadsafe(app.start(), loop).result(timeout=120)
+        broker = app.container.pubsub
+        prompts = serve_prompts(eng.cfg.vocab_size, lengths, sampled=False)
+        want = {i: eng.tokenizer.decode(base[i]) for i in range(len(prompts))}
+        eos = eng.tokenizer.eos_id
+        if any(len(b) != 32 and b[-1] != eos for b in base[:len(prompts)]):
+            fail(f"{label}: phase_serve's greedy streams are not 32 tokens or EOS-ended")
+        # Warm-up, off the record: one message through the whole path.
+        eng.generate_sync([1, 2, 3], max_new_tokens=2, timeout=600)
+        torch.cuda.synchronize()
+
+        reset_launch_counts()
+        w1 = _wave(label, app, broker, prompts, 0)
+        counts = launch_counts()
+        for k in ("flash_decode", "flash_cache_attention"):
+            if counts[k] <= 0:
+                fail(f"{label}: kernel {k} was not launched in the pub/sub phase")
+        for i, text in want.items():
+            if w1["answers"][i] != {"id": i, "text": text}:
+                fail(f"{label}: published answer {i} differs from the decode of phase_serve's "
+                     f"stream: {w1['raw'][i][:120]!r}")
+            status, raw = _http_json(app.http_port, "GET", f"/results/{i}")
+            row = json.loads(raw).get("data")
+            if status != 200 or row != {"id": i, "text": text}:
+                fail(f"{label}: GET /results/{i} gave {status} {raw[:120]!r}")
+            if app.container.redis.get(f"result:{i}") != text:
+                fail(f"{label}: the Redis value of result:{i} differs")
+
+        # A second wave of the same prompts, with the debug routes hit
+        # while it runs.
+        def debug_reads(eng):
+            w0 = eng.decode_windows
+            while eng.decode_windows < w0 + 2:
+                time.sleep(0.002)
+            out = {path: _http_json(app.metrics_port, "GET", path) for path in (
+                "/debug/threads", "/debug/engine", "/debug/capacity", "/debug/flight")}
+            t = time.perf_counter()
+            status, raw = _http_json(app.metrics_port, "GET",
+                                     f"/debug/tpu-trace?ms={PUBSUB_TRACE_MS}")
+            out["trace"] = (status, json.loads(raw), time.perf_counter() - t,
+                            get_capture().trace_file)
+            return out
+
+        w2 = _wave(label, app, broker, prompts, len(prompts), during=debug_reads)
+        for i, text in want.items():
+            if w2["answers"][len(prompts) + i]["text"] != text:
+                fail(f"{label}: the second wave's answer {i} differs")
+        reads = w2["extra"]
+        status, body, took, trace_file = reads["trace"]
+        if status != 200 or body.get("captured_ms") != PUBSUB_TRACE_MS or took > 30:
+            fail(f"{label}: /debug/tpu-trace?ms={PUBSUB_TRACE_MS} gave {status} {body} "
+                 f"in {took:.1f} s")
+        with open(trace_file) as fp:
+            events = json.load(fp).get("traceEvents", [])
+        graph_launches = {e.get("args", {}).get("correlation") for e in events
+                          if e.get("name", "").startswith("cudaGraphLaunch")}
+        flash = [e for e in events if e.get("cat") == "kernel"
+                 and "flash_decode" in e.get("name", "")]
+        replayed = [e for e in flash if e.get("args", {}).get("correlation") in graph_launches]
+        if not replayed:
+            fail(f"{label}: the /debug/tpu-trace trace holds no flash_decode inside a traced "
+                 f"graph launch ({len(events)} events, {len(flash)} flash_decode)")
+        status, raw = reads["/debug/threads"]
+        stack = raw.decode().split(f"Thread {eng._thread.name} (ident {eng._thread.ident}):")
+        if status != 200 or len(stack) < 2 or 'File "' not in stack[1].split("\nThread ")[0]:
+            fail(f"{label}: /debug/threads does not list the scheduler thread's stack")
+        for path, key in (("/debug/engine", lambda r: r["details"]["model"]),
+                          ("/debug/capacity", lambda r: r["model"])):
+            status, raw = reads[path]
+            if status != 200 or key(json.loads(raw)["tpu"]) != model:
+                fail(f"{label}: {path} during the wave gave {status} {raw[:200]!r}")
+        status, raw = reads["/debug/flight"]
+        if status != 501 or "ROADMAP Queue 1 item 7" not in json.loads(raw)["error"]:
+            fail(f"{label}: /debug/flight gave {status} {raw[:200]!r}, not 501")
+        # Idle: the reports equal the engine's own.
+        hbm = json.loads(_http_json(app.metrics_port, "GET", "/debug/capacity")[1])["tpu"]["hbm"]
+        if hbm != json.loads(json.dumps(eng.hbm_ledger())):
+            fail(f"{label}: /debug/capacity's hbm differs from hbm_ledger(): {hbm} vs "
+                 f"{eng.hbm_ledger()}")
+        health = json.loads(_http_json(app.metrics_port, "GET", "/debug/engine")[1])["tpu"]
+        if health != json.loads(json.dumps(eng.health_check())):
+            fail(f"{label}: /debug/engine differs from health_check()")
+        commits = _commits(app.metrics_port)
+        per_topic = {t: commits.get(t) for t in PUBSUB_TOPICS}
+        if per_topic != {t: float(len(prompts)) for t in PUBSUB_TOPICS}:
+            fail(f"{label}: messages committed per topic {per_topic}, expected "
+                 f"{len(prompts)} each (two waves of {len(prompts)} over two topics)")
+        http_paths = [f"/results/{i}" for i in range(len(prompts))]
+        # MQTT: the same prompts through PUBSUB_BACKEND=MQTT, on the same
+        # engine (handed from the INPROC App to an MQTT App).
+        app.container.tpu = None
+        stop()
+        stops.remove(stop)
+        spans = list(collector.spans)
+        for path in http_paths:
+            if not any(s["tags"].get("http.target") == path
+                       and s["tags"].get("http.status_code") == "200" for s in spans):
+                fail(f"{label}: the collector holds no span of GET {path} with its status "
+                     f"before App.stop returned ({len(spans)} spans)")
+        mqtt_broker = InProcMQTTBroker()
+        mqtt_app, mloop, mstop = _app_harness({
+            "APP_NAME": "chip-smoke-mqtt", "PUBSUB_BACKEND": "MQTT", "MQTT_HOST": "127.0.0.1",
+            "MQTT_PORT": str(mqtt_broker.port), "MQTT_CLIENT_ID": "chip-smoke-app",
+            "MQTT_QOS": "1"})
+        stops.append(mstop)
+        mqtt_app.container.tpu = eng
+        for topic in PUBSUB_TOPICS:
+            mqtt_app.subscribe(topic, handle)
+        driver = MQTTClient(host="127.0.0.1", port=mqtt_broker.port, client_id="chip-smoke-driver")
+        driver.subscribe("infer-responses", timeout=0.01)
+        for topic in PUBSUB_TOPICS:  # subscribed before the first publish
+            mqtt_app.container.pubsub.subscribe(topic, timeout=0.01)
+        asyncio.run_coroutine_threadsafe(mqtt_app.start(), mloop).result(timeout=120)
+        reset_launch_counts()
+        w3 = _wave(label + " mqtt", mqtt_app, driver, prompts, 0)
+        mqtt_counts = launch_counts()
+        for i, text in want.items():
+            if w3["answers"][i] != {"id": i, "text": text}:
+                fail(f"{label}: the MQTT answer {i} differs from the decode of phase_serve's "
+                     "stream")
+        mcommits = _commits(mqtt_app.metrics_port)
+        if {t: mcommits.get(t) for t in PUBSUB_TOPICS} != {
+                t: float(len(prompts) // 2) for t in PUBSUB_TOPICS}:
+            fail(f"{label}: MQTT messages committed per topic {mcommits}")
+        mstop()
+        stops.remove(mstop)
+
+        # The CLI child against an engine built here from the same config.
+        cli_out, cli_err = child.communicate(timeout=120)
+        lines = [ln for ln in cli_out.splitlines() if ln.startswith("{")]
+        if child.returncode != 0 or not lines:
+            fail(f"{label}: the new_cmd child exited {child.returncode}: {cli_err[-2000:]}")
+        cli = json.loads(lines[-1])
+        ref = InferenceEngine.from_config(MockConfig(cli_env))
+        try:
+            want_cli = ref.generate_sync(PUBSUB_CLI_PROMPT, max_new_tokens=16,
+                                         temperature=0.0, timeout=600)
+        finally:
+            ref.close()
+        if (cli["text"], cli["tokens"]) != (want_cli.text, len(want_cli.token_ids)) or \
+                not cli["device"].startswith(dev.type):
+            fail(f"{label}: the new_cmd child's answer {cli} differs from the parent's "
+                 f"{want_cli.text!r} ({len(want_cli.token_ids)} tokens)")
+        # One message in flight a topic: a topic's messages run one after
+        # another, so messages/s cannot pass n_topics / the mean engine time.
+        bound = len(PUBSUB_TOPICS) / (w1["service_mean_ms"] / 1e3)
+        stats = {k: w1[k] for k in ("msg_s", "tok_s", "lat_p50_ms", "lat_p99_ms",
+                                    "service_p50_ms", "service_mean_ms", "engine_ttft_p50_ms",
+                                    "engine_itl_p50_ms", "max_in_flight", "wall")}
+        stats.update(bound_msg_s=bound,
+                     mqtt={k: w3[k] for k in ("msg_s", "tok_s", "lat_p50_ms", "lat_p99_ms")},
+                     trace_flash_decode_replayed=len(replayed), trace_s=took,
+                     spans=len(spans), cli=cli, phase_s=time.perf_counter() - t_phase)
+        log(f"{label}: launch counts over the INPROC wave: {counts}; over the MQTT wave: "
+            f"{mqtt_counts}")
+        log(f"{label}: every check passed: {len(prompts)} answers equal to the decode of "
+            f"phase_serve's streams ({[len(b) for b in base[:len(prompts)]]} tokens) through "
+            f"the publisher, SQL over GET "
+            f"/results/{{id}} and Redis; commits {per_topic} over two waves; /debug/tpu-trace "
+            f"?ms={PUBSUB_TRACE_MS} 200 in {took:.2f} s with {len(replayed)} flash_decode "
+            f"inside traced graph launches; /debug/threads, /debug/engine, /debug/capacity "
+            f"(hbm == hbm_ledger()), /debug/flight 501; {len(spans)} zipkin spans, one for "
+            f"each GET /results/{{id}}; MQTT QoS 1 answers equal; the new_cmd child's text "
+            f"equal to the parent's ({cli['tokens']} tokens on {cli['device']})")
+        log(f"{label}: {len(prompts)} messages over {len(PUBSUB_TOPICS)} topics (one in flight "
+            f"a topic; at most {w1['max_in_flight']} in the engine at once) in "
+            f"{w1['wall']:.3f} s: {w1['msg_s']:.2f} messages/s, {w1['tok_s']:.1f} generated "
+            f"tok/s, publish-to-answer latency p50 {w1['lat_p50_ms']:.1f} ms p99 "
+            f"{w1['lat_p99_ms']:.1f} ms; engine TTFT p50 {w1['engine_ttft_p50_ms']:.1f} ms, "
+            f"ITL p50 {w1['engine_itl_p50_ms']:.2f} ms, a message's engine time p50 "
+            f"{w1['service_p50_ms']:.1f} ms (mean {w1['service_mean_ms']:.1f}); bound "
+            f"n_topics / mean engine time = "
+            f"{bound:.2f} messages/s; phase_serve (10 requests at once): "
+            f"{base_stats['tok_s']:.1f} tok/s, TTFT p50 {base_stats['ttft_p50_ms']:.1f} ms, "
+            f"ITL p50 {base_stats['itl_p50_ms']:.2f} ms")
+        log(f"{label}: MQTT wave: {w3['msg_s']:.2f} messages/s, {w3['tok_s']:.1f} tok/s, "
+            f"latency p50 {w3['lat_p50_ms']:.1f} ms p99 {w3['lat_p99_ms']:.1f} ms; "
+            f"phase {stats['phase_s']:.1f} s")
+        return {"counts": counts, "mqtt_counts": mqtt_counts, "stats": stats}
+    finally:
+        timer.cancel()
+        for stop_fn in stops:
+            stop_fn()
+        if driver is not None:
+            driver.close()
+        if mqtt_broker is not None:
+            mqtt_broker.close()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        collector.close()
+        mini.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _busy_ms(events) -> tuple[float, int]:
     """Union of the GPU kernel intervals (ms) and the number of kernels."""
     spans = sorted(
@@ -7026,6 +7471,10 @@ def main() -> None:
     # (App.stop, then the engine dropped) before the profiles.
     http_counts = phase_http(torch, dev, base, base_stats)["counts"]
     stamp("phase_http")
+    # Config 4, offline batch inference over pub/sub, with the data plane
+    # (SQL, Redis, the trace exporter, /debug/*, new_cmd) on the same App.
+    pubsub = phase_pubsub(torch, dev, base, base_stats)
+    stamp("phase_pubsub")
     gc.collect()
     torch.cuda.empty_cache()
     bf16_tok, int8_tok = (cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, quant)
@@ -7249,6 +7698,8 @@ def main() -> None:
         entry = next(x for x in kernels if x["name"] == k)
         entry["launches_serve_options"] = {case: o["counts"][k] for case, o in options.items()}
         entry["launches_http"] = http_counts[k]
+        entry["launches_pubsub"] = {"INPROC wave": pubsub["counts"][k],
+                                    "MQTT wave": pubsub["mqtt_counts"][k]}
         entry["launches_decode_loop"] = {label: st["counts"][k] for label, st in
                                          decode_loop["settings"].items()}
         entry["launches_mistral_prefill_depth_4"] = mdeep_counts[k]

@@ -37,6 +37,7 @@ __version__ = FRAMEWORK_VERSION
 _LAZY = {
     "App": ("gofr_tpu_torch.app", "App"),
     "Context": ("gofr_tpu_torch.context", "Context"),
+    "new_cmd": ("gofr_tpu_torch.app", "new_cmd"),
 }
 
 
@@ -49,4 +50,4 @@ def __getattr__(name):
     raise AttributeError(f"module 'gofr_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["App", "Context", "FRAMEWORK_VERSION", "resolve_device"]
+__all__ = ["App", "Context", "FRAMEWORK_VERSION", "new_cmd", "resolve_device"]

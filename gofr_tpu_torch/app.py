@@ -2,33 +2,39 @@
 
 Owns config, container, router, middleware, and the servers. Lifecycle:
 
-* ``App()`` — load ``configs/`` dotenv, create the container (the serving
-  engine from ``TPU_*`` keys when ``TPU_MODEL`` is set), initialise
-  tracing (reference ``New()``, ``gofr.go:62-96``);
+* ``App()`` — load ``configs/`` dotenv, create the container (datasources
+  and the serving engine from config), initialise tracing with the
+  exporter ``TRACE_EXPORTER`` names (reference ``New()``,
+  ``gofr.go:62-96``);
 * route verbs ``get/post/put/patch/delete`` usable directly or as
   decorators (reference ``gofr.go:202-219``);
-* ``run()`` — start the metrics server (:2121) and the HTTP server
-  (:8000), then block until SIGINT/SIGTERM and shut down gracefully
-  (``TPU_DRAIN_S`` > 0 drains the engine first).
+* ``run()`` — start the metrics server (:2121), the HTTP server (:8000)
+  and the subscriber loops, then block until SIGINT/SIGTERM and shut down
+  gracefully (``TPU_DRAIN_S`` > 0 drains the engine first).
 
 The port's copy of ``gofr_tpu/app.py::App``, with the auth enablers
-(``enable_basic_auth``, ``enable_api_key_auth``, their ``_with_validator``
-forms and ``enable_oauth``; reference ``gofr.go:310-344``). Not ported
-yet, each with its ROADMAP Queue 1 item: gRPC (``register_service``),
-pub/sub (``use_pubsub``, ``subscribe``), ``use_mongo``,
-``add_http_service``, ``migrate`` and ``add_rest_handlers`` (item 2); the
-trace exporters (``TRACE_EXPORTER``), the async serving plane
-(``TPU_ASYNC``) and the ``/debug/*`` surface of the metrics port (item
-7). A config that asks for the exporters or the async plane raises
-``NotImplementedError``.
+(reference ``gofr.go:310-344``), pub/sub (``use_pubsub``, ``subscribe``),
+``use_mongo``, ``migrate``, ``add_rest_handlers``, ``new_cmd`` and the
+metrics port's ``/debug/*`` routes whose sources the port has. Not ported
+yet, each with its ROADMAP Queue 1 item: ``add_http_service`` (item 2.5),
+gRPC (``register_service``, item 2.6), and the async serving plane
+(``TPU_ASYNC``, item 7), which raises ``NotImplementedError`` when a
+config asks for it. The ``/debug/*`` routes of item 7's components answer
+501 naming it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 import signal
-from typing import Callable, Optional
+import sys
+import threading
+import traceback
+import urllib.parse
+from typing import Any, Callable, Optional
 
+from gofr_tpu_torch.analysis import lockcheck
 from gofr_tpu_torch.config.env import new_env_file
 from gofr_tpu_torch.container import Container
 from gofr_tpu_torch.handler import alive_handler, favicon_handler, health_handler, wrap_handler
@@ -47,7 +53,8 @@ from gofr_tpu_torch.http.router import Router
 from gofr_tpu_torch.http.server import HTTPServer
 from gofr_tpu_torch.logging import Logger, level_from_string
 from gofr_tpu_torch.metrics import render_prometheus
-from gofr_tpu_torch.tracing import Tracer, set_tracer
+from gofr_tpu_torch.subscriber import SubscriptionManager
+from gofr_tpu_torch.tracing import Tracer, exporter_from_config, set_tracer
 
 DEFAULT_HTTP_PORT = 8000
 DEFAULT_METRICS_PORT = 2121
@@ -59,11 +66,6 @@ class App:
     def __init__(self, config_dir: str = "./configs", config=None) -> None:
         bootstrap_logger = Logger()
         self.config = config if config is not None else new_env_file(config_dir, bootstrap_logger)
-        if self.config.get_or_default("TRACE_EXPORTER", ""):
-            raise NotImplementedError(
-                "TRACE_EXPORTER is set, but the port's tracer has no exporters "
-                f"yet ({_OPS_PLANE}: tracing/exporter.py)"
-            )
         if self.config.get_or_default("TPU_ASYNC", "0").strip().lower() not in (
                 "", "0", "false", "no"):
             raise NotImplementedError(
@@ -76,7 +78,10 @@ class App:
             level_from_string(self.config.get("LOG_LEVEL"), self.logger.level)
         )
 
-        tracer = Tracer(service_name=self.container.app_name)
+        tracer = Tracer(
+            service_name=self.container.app_name,
+            exporter=exporter_from_config(self.config, self.logger),
+        )
         set_tracer(tracer)
         self._tracer = tracer
 
@@ -93,6 +98,7 @@ class App:
         self.metrics_port = int(
             self.config.get_or_default("METRICS_PORT", str(DEFAULT_METRICS_PORT))
         )
+        self._subscriptions = SubscriptionManager(self.container)
         self._http_server: Optional[HTTPServer] = None
         self._metrics_server: Optional[HTTPServer] = None
         self._stop_event: Optional[asyncio.Event] = None
@@ -132,6 +138,14 @@ class App:
         """Custom middleware (reference ``gofr.go:372``)."""
         self.router.use_middleware(*mws)
 
+    def use_mongo(self, client) -> None:
+        """Inject a Mongo driver (reference ``gofr.go:376-378``)."""
+        self.container.use_mongo(client)
+
+    def use_pubsub(self, client) -> None:
+        """Inject a pub/sub client for brokers without bundled drivers."""
+        self.container.use_pubsub(client)
+
     # -- auth enablers (reference gofr.go:310-344) -------------------------
 
     def enable_basic_auth(self, users: dict[str, str]) -> None:
@@ -152,6 +166,36 @@ class App:
         provider = JWKSProvider(jwks_url, refresh_interval_s, logger=self.logger)
         provider.start()
         self.router.use_middleware(oauth_middleware(jwks=provider))
+
+    # -- pubsub / migrations -------------------------------------------------
+
+    def subscribe(self, topic: str, handler: Optional[Callable] = None):
+        """Register a subscription handler (reference ``gofr.go:346-354``)."""
+        if handler is not None:
+            self._subscriptions.register(topic, handler)
+            return handler
+
+        def decorator(fn: Callable):
+            self._subscriptions.register(topic, fn)
+            return fn
+
+        return decorator
+
+    def migrate(self, migrations: dict) -> None:
+        """Run versioned migrations (reference ``gofr.go:243-248``)."""
+        from gofr_tpu_torch.migration import run as run_migrations
+
+        try:
+            run_migrations(migrations, self.container)
+        except Exception:
+            self.logger.errorf("migration panicked:\n%s", traceback.format_exc())
+
+    def add_rest_handlers(self, entity) -> None:
+        """Auto-register CRUD routes for a dataclass entity
+        (reference ``gofr.go:356-369``)."""
+        from gofr_tpu_torch.crud import register_crud_handlers
+
+        register_crud_handlers(self, entity)
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -180,7 +224,10 @@ class App:
             if engine is not None and hasattr(engine, "start"):
                 await engine.start()
 
+        self._subscriptions.start()
+
     async def stop(self) -> None:
+        await self._subscriptions.stop()
         # TPU_DRAIN_S > 0: graceful engine drain — in-flight generations
         # complete (up to the deadline) while new submissions get 503,
         # so a rolling restart doesn't fail live requests.
@@ -225,6 +272,29 @@ class App:
     def _metrics_handler(self):
         container = self.container
 
+        def json_response(status: int, body: Any) -> Response:
+            return Response(
+                status=status,
+                headers={"Content-Type": "application/json"},
+                body=json.dumps(body).encode(),
+            )
+
+        def engine_report(method: str) -> Response:
+            """One JSON ops read per engine (``tpu``, ``tpu_embed``) from an
+            engine-shaped ``method()`` report (reference ``app.py:365-390``)."""
+            reports: dict = {}
+            for name, eng in (("tpu", container.tpu), ("tpu_embed", container.tpu_embed)):
+                if eng is None:
+                    continue
+                fn = getattr(eng, method, None)
+                if not callable(fn):
+                    continue
+                try:
+                    reports[name] = fn()
+                except Exception as exc:  # noqa: BLE001 — debug surface
+                    reports[name] = {"error": str(exc)}
+            return json_response(200, reports)
+
         async def handler(raw) -> Response:
             path = raw.target.split("?")[0]
             if path == "/metrics":
@@ -241,6 +311,121 @@ class App:
                     headers={"Content-Type": "application/json"},
                     body=b'{"status":"UP"}',
                 )
+            # /debug/* — the ops surface on the metrics port (reference
+            # app.py:408-838).
+            if path == "/debug/threads":
+                names = {t.ident: t.name for t in threading.enumerate()}
+                lines = []
+                for ident, frame in sys._current_frames().items():
+                    lines.append(f"Thread {names.get(ident, '?')} (ident {ident}):")
+                    lines.extend(ln.rstrip() for ln in traceback.format_stack(frame))
+                    lines.append("")
+                return Response(
+                    status=200,
+                    headers={"Content-Type": "text/plain"},
+                    body="\n".join(lines).encode(),
+                )
+            if path == "/debug/engine":
+                return engine_report("health_check")
+            if path == "/debug/capacity":
+                return engine_report("capacity_report")
+            if path == "/debug/lockgraph":
+                return json_response(200, _lockgraph())
+            if path == "/debug/tpu-trace":
+                return await _tpu_trace(raw)
+            if path in _UNPORTED_ROUTES:
+                return json_response(501, {"error": (
+                    f"{path} is not ported yet (ROADMAP Queue 1 "
+                    f"{_UNPORTED_ROUTES[path]})")})
             return Response(status=404, headers={}, body=b"404 page not found")
 
         return handler
+
+
+# The reference's ops routes that read the operations plane's components,
+# each with the ROADMAP entry that ports them: 501 until then.
+_UNPORTED_ROUTES = {
+    "/debug/flight": "item 7.2: serving/observability.py",
+    "/debug/loop": "item 7.2: serving/loop_profiler.py",
+    "/debug/tenants": "item 7.3: serving/tenant_ledger.py",
+    "/debug/slo": "item 7.3: serving/slo.py",
+    "/debug/brownout": "item 7.3: serving/brownout.py",
+    "/debug/control": "item 7.3: serving/control_plane.py",
+    "/debug/async": "item 7.4: serving/async_serving.py",
+    "/ops/tier-import": "item 7.6: tier import",
+    "/ops/tier-export": "item 7.6: tier export",
+}
+
+
+def _lockgraph() -> dict:
+    """``/debug/lockgraph``: the runtime lock-order graph ``TPU_LOCKCHECK``
+    learned in this process beside the static model and their diff
+    (reference ``app.py:532-584``). The static half is empty, as the
+    reference's is when graftlint cannot run: the port has no graftlint,
+    so every runtime edge lands in ``runtime_only``."""
+    runtime = lockcheck.order_graph()
+    run_edges = {(a, b) for a, bs in runtime["edges"].items() for b in bs}
+    return {
+        "runtime": runtime,
+        "static": {"edges": [], "witnesses": {}},
+        "diff": {
+            "runtime_only": sorted(f"{a} -> {b}" for a, b in run_edges),
+            "static_only": [],
+        },
+        "violations": [
+            {"kind": v.kind, "thread": v.thread, "message": v.message}
+            for v in lockcheck.violations()
+        ],
+    }
+
+
+async def _tpu_trace(raw) -> Response:
+    """``/debug/tpu-trace?ms=N``: one bounded device trace from the
+    process-wide capture (reference ``app.py:779-838``): ``ms`` capped at
+    30,000, a 409 while a capture runs. The reference starts and stops
+    the profiler on executor threads; here the capture hands both to the
+    scheduler thread of the engine that drives the device, and runs on
+    its own thread only when no engine does (``ProfilerCapture.capture``:
+    a CUDA trace begun off that thread under graph replays sees no kernel
+    and can hang)."""
+    from gofr_tpu_torch.serving.profiler_capture import get_capture
+
+    q = urllib.parse.parse_qs(raw.target.partition("?")[2])
+    try:
+        ms = min(int(q.get("ms", ["1000"])[0]), 30_000)
+    except ValueError:
+        return Response(
+            status=400,
+            headers={"Content-Type": "application/json"},
+            body=b'{"error": "ms must be an integer"}',
+        )
+    cap = get_capture()
+    if not cap.try_acquire():
+        return Response(
+            status=409,
+            headers={"Content-Type": "application/json"},
+            body=b'{"error": "a trace capture is already running"}',
+        )
+    try:
+        try:
+            await asyncio.get_running_loop().run_in_executor(None, cap.capture, ms)
+            cap.note_manual_capture()
+            body: dict = {"trace_dir": cap.trace_dir, "captured_ms": ms}
+            status = 200
+        except Exception as exc:  # noqa: BLE001 — debug surface
+            body = {"error": str(exc)}
+            status = 500
+    finally:
+        cap.release()
+    return Response(
+        status=status,
+        headers={"Content-Type": "application/json"},
+        body=json.dumps(body).encode(),
+    )
+
+
+def new_cmd(config_dir: str = "./configs"):
+    """CLI app factory (reference ``gofr.go:99-111``)."""
+    from gofr_tpu_torch.cli import CMDApp
+
+    return CMDApp(config_dir=config_dir)

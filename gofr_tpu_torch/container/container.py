@@ -2,16 +2,17 @@
 
 Owns the logger, the metrics manager, and every configured datasource;
 creates each from config at boot like the reference's ``Create``
-(``container/container.go:56-131``), plus the TPU backend gated on
-``TPU_MODEL`` (the serving engine is a container member like
+(``container/container.go:56-131``): Redis, SQL and pub/sub gated on
+``REDIS_HOST``, ``DB_DIALECT`` and ``PUBSUB_BACKEND``, plus the TPU backend
+gated on ``TPU_MODEL`` (the serving engine is a container member like
 ``SQL``/``Redis``). Aggregate health mirrors ``container/health.go:8-28``.
 
-The port's copy of ``gofr_tpu/container/container.py``. The datasources
-(SQL, Redis, pub/sub) are not ported yet: their members stay ``None``, as
-in a reference container with none configured, and a config that asks
-for one raises ``NotImplementedError`` naming its ROADMAP item. The
-secondary encoder engine (``TPU_EMBED_MODEL``) is ``tpu_embed``. Instruments of unported layers are registered
-when those layers come.
+The port's copy of ``gofr_tpu/container/container.py``. A datasource that
+cannot connect is logged and left ``None``, as in the reference; an engine
+that cannot be built raises (the reference logs and serves without one).
+The secondary encoder engine (``TPU_EMBED_MODEL``) is ``tpu_embed``.
+Downstream service clients (``services``) wait for ROADMAP Queue 1 item
+2.5.
 """
 
 from __future__ import annotations
@@ -22,15 +23,6 @@ from typing import Any, Optional
 from gofr_tpu_torch.config.env import Config
 from gofr_tpu_torch.logging import Level, Logger, RemoteLevelLogger, level_from_string
 from gofr_tpu_torch.metrics import Manager, new_metrics_manager
-
-# Config keys of the datasources and engines the port does not have yet,
-# each with the ROADMAP item that ports it.
-_UNPORTED_DATASOURCES = (
-    ("DB_DIALECT", "ROADMAP Queue 1 item 2: datasource/sql"),
-    ("REDIS_HOST", "ROADMAP Queue 1 item 2: datasource/redis"),
-    ("PUBSUB_BACKEND", "ROADMAP Queue 1 item 2: pubsub/"),
-)
-
 
 class Container:
     def __init__(self, config: Config, logger: Optional[Logger] = None) -> None:
@@ -45,11 +37,11 @@ class Container:
         self.sql = None
         self.redis = None
         self.pubsub = None
-        self.mongo = None
+        self.mongo = None  # injected seam (reference datasource/mongo.go:8)
         self.tpu = None  # net-new: TPU inference backend (SURVEY §2.6)
         self.tpu_embed = None  # secondary encoder engine (TPU_EMBED_MODEL)
         # Downstream service clients (gofr_tpu/service/) are not ported yet
-        # (ROADMAP Queue 1 item 7): the registry stays empty.
+        # (ROADMAP Queue 1 item 2.5): the registry stays empty.
         self.services: dict[str, Any] = {}
 
         self._remote_logger: Optional[RemoteLevelLogger] = None
@@ -58,12 +50,6 @@ class Container:
 
     @classmethod
     def create(cls, config: Config, logger: Optional[Logger] = None) -> "Container":
-        for key, item in _UNPORTED_DATASOURCES:
-            if config.get_or_default(key, ""):
-                raise NotImplementedError(
-                    f"{key} is set, but the port has no such datasource yet "
-                    f"({item})"
-                )
         c = cls(config, logger=logger)
         c.logger.infof(
             "container created for app %s (version %s)", c.app_name, c.app_version
@@ -71,19 +57,28 @@ class Container:
 
         c.register_framework_metrics()
 
+        # Each datasource in its own module; one that cannot connect logs
+        # and stays None (the reference logs and continues).
+        from gofr_tpu_torch.datasource.pubsub import new_pubsub_from_config
+        from gofr_tpu_torch.datasource.redis import new_redis_from_config
+        from gofr_tpu_torch.datasource.sql import new_sql_from_config
+
+        c.redis = new_redis_from_config(config, c.logger, c.metrics)
+        c.sql = new_sql_from_config(config, c.logger, c.metrics)
+        c.pubsub = new_pubsub_from_config(config, c.logger, c.metrics)
+
         from gofr_tpu_torch.serving.backend import (
             new_tpu_embed_from_config,
             new_tpu_from_config,
         )
 
         # An engine that cannot be built raises here (the reference logs
-        # and serves with no engine), after closing the one built first.
-        c.tpu = new_tpu_from_config(config, c.logger, c.metrics)
+        # and serves with no engine), after closing what was built first.
         try:
+            c.tpu = new_tpu_from_config(config, c.logger, c.metrics)
             c.tpu_embed = new_tpu_embed_from_config(config, c.logger, c.metrics)
         except BaseException:
-            if c.tpu is not None:
-                c.tpu.close()
+            c._close_built()
             raise
 
         remote_url = config.get_or_default("REMOTE_LOG_URL", "")
@@ -103,6 +98,18 @@ class Container:
     def get_publisher(self):
         return self.pubsub
 
+    def get_subscriber(self):
+        return self.pubsub
+
+    def use_mongo(self, client) -> None:
+        """User-injected Mongo driver (reference ``gofr.go:376-378``)."""
+        self.mongo = client
+
+    def use_pubsub(self, client) -> None:
+        """User-injected pub/sub client (same seam as ``use_mongo`` — lets
+        apps wire a broker whose driver the framework doesn't bundle)."""
+        self.pubsub = client
+
     # -- framework metrics (reference container/container.go:143-172) -----
 
     def register_framework_metrics(self) -> None:
@@ -116,6 +123,22 @@ class Container:
         # HTTP server (buckets follow container.go:153-154).
         http_buckets = (0.001, 0.003, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 30)
         m.new_histogram("app_http_response", "HTTP server response time in s", http_buckets)
+        # Redis / SQL (container.go:158-163).
+        m.new_histogram(
+            "app_redis_stats", "redis command duration in ms",
+            (0.05, 0.075, 0.1, 0.125, 0.15, 0.2, 0.3, 0.5, 0.75, 1, 2, 3),
+        )
+        m.new_histogram(
+            "app_sql_stats", "sql query duration in ms",
+            (0.05, 0.075, 0.1, 0.125, 0.15, 0.2, 0.3, 0.5, 0.75, 1, 2, 3, 4, 5, 7.5, 10),
+        )
+        m.new_gauge("app_sql_open_connections", "open sql connections")
+        m.new_gauge("app_sql_inUse_connections", "in-use sql connections")
+        # PubSub.
+        m.new_counter("app_pubsub_publish_total_count", "messages published")
+        m.new_counter("app_pubsub_publish_success_count", "publish successes")
+        m.new_counter("app_pubsub_subscribe_total_count", "subscribe polls")
+        m.new_counter("app_pubsub_subscribe_success_count", "messages handled")
         # The serving engine's instruments (serving/engine.py records
         # them), with the reference's names, descriptions and buckets.
         m.new_gauge("app_tpu_queue_depth", "dynamic batcher queue depth")
@@ -256,6 +279,16 @@ class Container:
 
     def mark_started(self) -> None:
         self._started_at = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+    def _close_built(self) -> None:
+        """Close what ``create`` built before an engine failed to build."""
+        for name in ("tpu", "pubsub", "sql", "redis"):
+            ds = getattr(self, name)
+            if ds is not None and hasattr(ds, "close"):
+                try:
+                    ds.close()
+                except Exception:
+                    pass
 
     async def close(self) -> None:
         for name in ("sql", "redis", "pubsub", "tpu", "tpu_embed", "mongo"):

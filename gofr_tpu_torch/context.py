@@ -6,10 +6,9 @@ custom spans via ``ctx.trace(name)`` (reference ``context.go:45-51``), and
 the net-new ``ctx.infer(...)`` primitive that submits work to the dynamic
 batcher (SURVEY §2.6 maps it onto ``c.SQL.Select``-style convenience).
 
-The port's copy of ``gofr_tpu/context.py``. The datasources behind
-``ctx.sql``, ``ctx.redis``, ``ctx.pubsub``, ``ctx.mongo``,
-``http_service`` and ``publish`` are not ported yet: they read ``None``
-(``publish`` raises), as in a reference container with none configured.
+The port's copy of ``gofr_tpu/context.py``. ``http_service`` reads
+``None`` until the service clients come (ROADMAP Queue 1 item 2.5), as in
+a reference container with none registered.
 """
 
 from __future__ import annotations

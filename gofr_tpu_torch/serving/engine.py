@@ -1396,6 +1396,39 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
         and the build directory's provenance."""
         return dict(self._compiles.snapshot())
 
+    def capacity_report(self) -> dict:
+        """``/debug/capacity``'s per-engine record (reference
+        ``engine.py:3130-3180``): the HBM ledger, compile counts and
+        paged-pool pressure in one read. The reference's loop, tenant,
+        SLO, brownout and control blocks belong to components the port
+        has not got (ROADMAP Queue 1 item 7), and are absent as in a
+        reference engine without them."""
+        report: dict[str, Any] = {
+            "model": self.model_name,
+            "state": self._state,
+            "hbm": self.hbm_ledger(),
+            "compiles": self.compile_stats(),
+        }
+        if self.family == "llm" and self.kv_block:
+            total, used, cached = self.kv_pool_counts()
+            pool: dict[str, Any] = {
+                "block_tokens": self.kv_block,
+                "total_blocks": total,
+                "free_blocks": total - used,
+                "used_blocks": used,
+                "occupancy_ratio": round(used / max(1, total), 6),
+                "evict_watermark": self.effective_evict_watermark,
+                "evict_watermark_source": (
+                    "explicit" if self.prefix_evict_watermark > 0
+                    else ("hbm_frac" if self.effective_evict_watermark > 0 else "off")
+                ),
+            }
+            if self._radix is not None:
+                pool["cached_blocks"] = cached
+                pool["fragmentation_ratio"] = round(cached / used, 6) if used else 0.0
+            report["kv_pool"] = pool
+        return report
+
     # -- lifecycle (the reference's start/stop and drain semantics) --------
 
     async def start(self) -> None:

@@ -150,6 +150,21 @@ class ProfilerCapture:
             self.last_capture_at = self._clock()
             self.last_reason = "manual"
 
+    def capture(self, ms: int) -> None:
+        """One bounded capture of ``ms`` milliseconds, blocking; the caller
+        holds the slot. While an engine's scheduler runs, the profiler
+        starts and stops on that thread, between two passes; else on the
+        calling thread. The trace is written on the calling thread.
+        ``/debug/tpu-trace`` and :meth:`trigger` both capture here."""
+        owner = device_owner()
+        on_owner = (
+            (lambda fn: owner.run_between_passes(fn, timeout=HANDOFF_TIMEOUT_S))
+            if owner is not None else (lambda fn: fn())
+        )
+        on_owner(self.start_trace)
+        self._sleep(ms / 1e3)
+        self._export(on_owner(self._halt))
+
     # -- anomaly auto-trigger ------------------------------------------
 
     def trigger(self, ms: int, reason: str = "loop-stall") -> bool:
@@ -178,14 +193,7 @@ class ProfilerCapture:
 
         def run() -> None:
             try:
-                owner = device_owner()
-                on_owner = (
-                    (lambda fn: owner.run_between_passes(fn, timeout=HANDOFF_TIMEOUT_S))
-                    if owner is not None else (lambda fn: fn())
-                )
-                on_owner(self.start_trace)
-                self._sleep(ms / 1e3)
-                self._export(on_owner(self._halt))
+                self.capture(ms)
                 with self._state_lock:
                     self.last_error = ""
             except Exception as exc:  # noqa: BLE001 — a failed capture must never take the scheduler with it

@@ -1,12 +1,20 @@
 """Distributed tracing (reference: OTel wiring in ``gofr.go:250-300`` +
-``http/middleware/tracer.go``).
+``http/middleware/tracer.go`` + ``exporter.go``).
 
-A lightweight native tracer: W3C ``traceparent`` propagation and
-contextvar-scoped spans. The port's copy of ``gofr_tpu/tracing``'s
-tracer; the batch exporters (``gofr_tpu/tracing/exporter.py``) wait for
-the operations plane (ROADMAP Queue 1 item 7), so spans end in-process.
+A lightweight native tracer: W3C ``traceparent`` propagation,
+contextvar-scoped spans, and pluggable batch exporters (console,
+Zipkin-JSON and OTLP/HTTP-JSON over HTTP, ``TRACE_EXPORTER``). The port's
+copy of ``gofr_tpu/tracing``; ``inject_traceparent`` comes with the
+service clients (ROADMAP Queue 1 item 2.5).
 """
 
+from gofr_tpu_torch.tracing.exporter import (
+    ConsoleExporter,
+    NoopExporter,
+    OTLPExporter,
+    ZipkinExporter,
+    exporter_from_config,
+)
 from gofr_tpu_torch.tracing.tracer import (
     Span,
     Tracer,
@@ -25,4 +33,9 @@ __all__ = [
     "set_tracer",
     "extract_traceparent",
     "tracer_active",
+    "ConsoleExporter",
+    "NoopExporter",
+    "OTLPExporter",
+    "ZipkinExporter",
+    "exporter_from_config",
 ]

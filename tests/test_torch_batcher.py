@@ -110,7 +110,10 @@ def test_a_failing_flush_fails_every_future_of_it(pkg):
             raise RuntimeError("device on fire")
         return payloads
 
-    b = mod.DynamicBatcher(execute, max_batch=4, max_wait_s=0.01)
+    # A deadline no scheduling delay reaches: the first flush is by size on
+    # both packages (at 0.01 s the reference's worker, reaching the queue
+    # late on a loaded host, flushed [0] alone by its deadline).
+    b = mod.DynamicBatcher(execute, max_batch=4, max_wait_s=0.5)
     futures = [b.submit(i) for i in range(6)]  # [0..3] fails, [4, 5] does not
     b.start()
     gate.set()
