@@ -65,6 +65,19 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    replayed flash_decode launches); the same prompts over MQTT at QoS 1;
    a new_cmd child on llama-tiny against a parent engine; messages/s,
    latency p50/p99 and tok/s beside the batch-1 bound;
+4b''. gRPC and service to service, on the port's own HTTP/2, HPACK and
+   protobuf wire code: config 5, the App from config (the same seed-0
+   weights, GRPC_PORT=0) with the typed and the JSON inference services;
+   phase_serve's 10 prompts as concurrent GenerateStream RPCs over one
+   connection (greedy: 8 equal to phase_serve's streams, the repeated
+   prompt's two equal to each other), a unary Generate equal to its
+   stream, a JSON Generate, Health, a cancelled stream and a 0.05 s
+   deadline (each freeing its slot); tok/s, TTFT p50 and ITL p50 over
+   gRPC beside phase_serve's and phase_http's; a gateway App whose
+   add_http_service client forwards 3 prompts to /v1/completions, equal
+   to the direct answers under one zipkin trace id; config 3, BERT-base
+   behind the batcher, 64 concurrent Embed RPCs against the engine's own
+   vectors; flan-t5-small's GenerateStream against its one-shot ids;
 4c. the decode loop (every serve above already runs it: pipeline depth 2,
    each window a CUDA graph replay, launches counted through replays, no
    stream sync allowed in a serve): the captured window against the eager
@@ -1220,11 +1233,31 @@ def phase_f32_kernels(torch, dev) -> dict:
         fp, name, lambda: fp.flash_cache_attention(qc2, **args2),
         fp.flash_cache_attention_plain(qc2, **args2)))
     pairs2 = sum(s0 + t + 1 for _, s0, n in rows for t in range(n))
+    # The library call: SDPA in f32 over each row's slot cache (gathered
+    # beforehand), a boolean mask of the chunk's causal-at-offset rule
+    # (query t of a row sees keys 0..start+t; a padded query sees key 0).
+    c2, L2 = qc2.shape[1], args2["k_cache"].shape[2]
+    t_ = torch.arange(c2, device=dev)[:, None]
+    key = torch.arange(L2, device=dev)[None, :]
+    mask2 = torch.stack([torch.where(t_ < n, key <= s0 + t_, key == 0)
+                         for _, s0, n in rows])[:, None]
+    sl = slots.long()
+    kg, vg = args2["k_cache"][sl], args2["v_cache"][sl]
+    qt2 = qc2.transpose(1, 2)
     times["flash_cache_attention"]["hd256"] = timed(
         name, lambda: fp.flash_cache_attention(qc2, **args2),
         lambda: fp.flash_cache_attention_plain(qc2, **args2),
         2 * qc2.numel() * 4 + 4 * 2 * 2 * 256 * sum(s0 + n for _, s0, n in rows),
-        4 * pairs2 * 4 * 256)
+        4 * pairs2 * 4 * 256,
+        library=lambda: sdpa(qt2, kg, vg, attn_mask=mask2, enable_gqa=True))
+    lib2 = sdpa(qt2, kg, vg, attn_mask=mask2, enable_gqa=True).transpose(1, 2)
+    want2 = fp.flash_cache_attention_plain(qc2, **args2)
+    d_lib = max((float((lib2[r, :n] - want2[r, :n]).abs().max()) for r, (_, _, n) in
+                 enumerate(rows) if n), default=0.0)
+    log(f"{name}: the library call against the plain version on the chunk's rows: "
+        f"max|d| {d_lib:.3g}")
+    if d_lib > 1e-3:
+        fail(f"{name}: the library call does not compute the chunk's function ({d_lib:.3g})")
     qa2, ka2, va2 = rnd(b, s_, 4, 256), rnd(b, s_, 2, 256), rnd(b, s_, 2, 256)
     name = f"flash_attention f32 hd 256 (b={b}, s={s_}, H=4, KV=2, causal)"
     errs["flash_attention"] = max(errs["flash_attention"], once(
@@ -4147,6 +4180,418 @@ def phase_pubsub(torch, dev, base: list, base_stats: dict, *, model: str = "llam
         collector.close()
         mini.stop()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- gRPC (configs 5 and 3) and service to service -----------------------------
+
+# The phase ends the run after this long (a hang in the HTTP/2 code costs
+# this, not the run's limit). So the llama RPCs that must succeed carry no
+# gRPC deadline: a deadline reaches the engine's admission control, which
+# sheds a request whose projected queue wait (from the engine's first
+# throughput samples) passes it.
+GRPC_WATCHDOG_S = 240.0
+# A BERT-base vector over gRPC against the same engine's embed of the text
+# alone (a batch of one, so another padded shape and another GEMM): max
+# |d| on unit-norm bf16 vectors. Against the vector the engine computed
+# for the text in its own flush the check is exact.
+GRPC_EMBED_ALONE_TOL = 1e-2
+GRPC_GATEWAY_PROMPTS = 3
+SEQ2SEQ_GRPC_PROMPTS = ("translate English to German: the card answers over gRPC",
+                        "summarize: a stream of chunks", "q: why HTTP/2?")
+
+
+def _stream_rpc(stub, pb, prompt: list, max_new: int, out: dict, key: int) -> None:
+    """One typed GenerateStream: (arrival time, chunk) for every chunk, the
+    submit time and any error, under ``out[key]``."""
+    rec = out[key] = {"chunks": [], "error": None}
+    try:
+        rec["t_submit"] = time.perf_counter()
+        for chunk in stub.GenerateStream(pb.GenerateRequest(
+                prompt_ids=prompt, max_new_tokens=max_new, stop_on_eos=True)):
+            rec["chunks"].append((time.perf_counter(), chunk))
+    except Exception as exc:  # reported by the phase as a failed check
+        rec["error"] = exc
+
+
+def _slots_free(eng, label: str, what: str, timeout: float = 30.0) -> None:
+    deadline = time.time() + timeout
+    while any(s is not None for s in eng._slots) and time.time() < deadline:
+        time.sleep(0.02)
+    if any(s is not None for s in eng._slots):
+        fail(f"{label}: {what}: a slot is still held {timeout:.0f} s later")
+
+
+def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
+               model: str = "llama-3-8b", lengths: tuple = LLAMA_PROMPTS,
+               geometry: dict | None = None, bert: str = "bert-base",
+               t5: str = "flan-t5-small") -> dict:
+    """gRPC on the port's own wire code, at full width, and the service
+    client, under a GRPC_WATCHDOG_S watchdog. Config 5: the App from config
+    (TPU_MODEL and phase_serve's geometry: the same seed-0 weights;
+    GRPC_PORT=0; TRACE_EXPORTER=zipkin to a local collector) with the typed
+    and the JSON inference services registered as examples/grpc-server
+    does, add_openai_routes, and the IdTokenizer (every id a piece). Over
+    one connection of the port's channel, phase_serve's 10 prompts as
+    concurrent typed GenerateStream RPCs (greedy, 32 tokens: phase_serve's
+    8 greedy streams equal token for token, its repeated prompt's two
+    streams equal to each other), with no stream synchronization; a typed
+    Generate whose text equals the concatenated stream; a JSON Generate
+    through InferenceClient equal to it; Health; a stream cancelled after
+    its first chunk (its request cancelled, every slot free); a 0.05 s
+    deadline (DEADLINE_EXCEEDED, every slot free); flash_decode and
+    flash_cache_attention launched. A gateway App with add_http_service
+    ("llm", RetryConfig, CircuitBreakerConfig) forwards 3 prompts through
+    ctx.http_service("llm").post("/v1/completions"): each answer equal to
+    the direct one, service:llm UP in the gateway's health, and the
+    collector holding the gateway's, the client's and the upstream's
+    spans under one trace id each. Config 3: BERT-base from config behind
+    the batcher with the typed service, 64 concurrent Embed RPCs over one
+    connection, each vector equal to the one the engine computed for its
+    text in its flush and within GRPC_EMBED_ALONE_TOL of the engine's embed
+    of the text alone. Seq2seq: flan-t5-small from config with the typed
+    service, GenerateStream's ids (parsed from the IdTokenizer's pieces)
+    equal to the one-shot program's. Prints tok/s, TTFT p50 and ITL p50
+    over gRPC beside phase_serve's and phase_http's, and Embed req/s,
+    p50/p99 and flush sizes."""
+    import asyncio
+    import os
+
+    import numpy as np
+
+    from gofr_tpu_torch.grpc import (
+        InferenceClient,
+        TypedInferenceServicer,
+        add_inference_service,
+        add_typed_inference_service,
+        inference_pb2,
+        insecure_channel,
+    )
+    from gofr_tpu_torch.grpc.inference import InferenceServicer
+    from gofr_tpu_torch.grpc.inference_pb2_grpc import InferenceStub
+    from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.openai_compat import add_openai_routes
+    from gofr_tpu_torch.service import CircuitBreakerConfig, RetryConfig
+
+    label = f"grpc {model}"
+
+    def watchdog():
+        print(f"chip_smoke: FAIL: {label}: the phase did not end within "
+              f"{GRPC_WATCHDOG_S:.0f} s", file=sys.stderr, flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(GRPC_WATCHDOG_S, watchdog)
+    timer.daemon = True
+    timer.start()
+    t_phase = time.perf_counter()
+    pb = inference_pb2
+    geometry = geometry or {"TPU_KV_SLOTS": "8", "TPU_MAX_LEN": "2048",
+                            "TPU_DECODE_WINDOW": "8", "TPU_PREFILL_CHUNK": "256",
+                            "TPU_PREFILL_BATCH": "8"}
+    collector = _Collector()
+    collector.start()
+    stops = []
+    out: dict = {}
+    try:
+        # -- config 5 ------------------------------------------------------------
+        t0 = time.perf_counter()
+        app, loop, stop = _app_harness({
+            "APP_NAME": "chip-smoke-grpc", "TPU_MODEL": model, "TPU_DEVICE": str(dev),
+            **geometry, "GRPC_PORT": "0", "TRACE_EXPORTER": "zipkin",
+            "TRACER_URL": collector.url})
+        stops.append(stop)
+        eng = app.container.tpu
+        eng.tokenizer = IdTokenizer()
+        add_openai_routes(app)
+        app.register_service(add_typed_inference_service, TypedInferenceServicer(eng))
+        app.register_service(add_inference_service, InferenceServicer(eng))
+        asyncio.run_coroutine_threadsafe(app.start(), loop).result(timeout=120)
+        if eng.device.type != dev.type:
+            fail(f"{label}: the App's engine is on {eng.device}, not {dev}")
+        log(f"{label}: App built from config and started in {time.perf_counter() - t0:.1f} s; "
+            f"gRPC on :{app.grpc_port}, HTTP on :{app.http_port}")
+        addr = f"127.0.0.1:{app.grpc_port}"
+        channel = insecure_channel(addr)
+        stub = InferenceStub(channel)
+        stub.Generate(pb.GenerateRequest(prompt_ids=[1, 2, 3], max_new_tokens=2))  # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        prompts = serve_prompts(eng.cfg.vocab_size, lengths, sampled=True)
+        n = len(prompts)
+        submitted = []
+        submit = eng.submit_generate
+
+        def spy(*args, **kw):
+            req = submit(*args, **kw)
+            submitted.append(req)
+            return req
+
+        eng.submit_generate = spy
+        steps = watch_steps(eng)
+        reset_launch_counts()
+        count_syncs(torch, True)
+        recs: dict = {}
+        threads = [threading.Thread(target=_stream_rpc, args=(stub, pb, p, 32, recs, i),
+                                    daemon=True) for i, p in enumerate(prompts)]
+        t_run = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t_run
+        syncs = count_syncs(torch, False)
+        unwatch_steps(eng)
+        wave_counts = launch_counts()
+        if len(app._grpc_server._conns) != 1:
+            fail(f"{label}: the 10 streams came over {len(app._grpc_server._conns)} "
+                 "connections, not one")
+        streams, texts = [], []
+        for i in range(n):
+            rec = recs.get(i, {})
+            if rec.get("error") is not None or not rec.get("chunks"):
+                fail(f"{label}: stream {i}: {rec.get('error')!r}")
+            chunks = [c for _, c in rec["chunks"]]
+            if not chunks[-1].done or any(c.done for c in chunks[:-1]):
+                fail(f"{label}: stream {i} did not end with one done chunk")
+            streams.append([c.token for c in chunks[:-1]])
+            texts.append("".join(c.text for c in chunks[:-1]))
+            if chunks[-1].tokens != len(streams[-1]):
+                fail(f"{label}: stream {i}: the final chunk counts {chunks[-1].tokens} tokens, "
+                     f"{len(streams[-1])} came")
+        for i in range(n - 2):
+            if streams[i] != base[i]:
+                fail(f"{label}: greedy stream {i} over gRPC differs from phase_serve's: "
+                     f"{streams[i][:8]} vs {base[i][:8]}")
+        if streams[n - 2] != streams[n - 1]:
+            fail(f"{label}: the repeated prompt's two greedy streams differ")
+        if syncs:
+            fail(f"{label}: {syncs} stream synchronizations during the gRPC streams; the first "
+                 "at\n" + "\n".join(SYNCS["first"]))
+        arrivals = [[t for t, c in recs[i]["chunks"][:-1]] for i in range(n)]
+        ttfts = sorted(a[0] - recs[i]["t_submit"] for i, a in enumerate(arrivals))
+        itls = [(a[-1] - a[0]) / (len(a) - 1) for a in arrivals if len(a) > 1]
+        stats = {"tok_s": sum(len(s) for s in streams) / wall,
+                 "ttft_p50_ms": statistics.median(ttfts) * 1e3, "ttft_max_ms": ttfts[-1] * 1e3,
+                 "itl_p50_ms": statistics.median(itls) * 1e3,
+                 "engine_ttft_p50_ms": statistics.median(r.ttft_s for r in submitted) * 1e3,
+                 "syncs": syncs}
+        del eng.submit_generate
+        # Unary: the text of prompt 0's stream; JSON through InferenceClient.
+        unary = stub.Generate(pb.GenerateRequest(prompt_ids=prompts[0], max_new_tokens=32,
+                                                 stop_on_eos=True))
+        if unary.text != texts[0] or unary.tokens != len(streams[0]):
+            fail(f"{label}: unary Generate {unary.text[:60]!r} ({unary.tokens} tokens) differs "
+                 f"from the stream {texts[0][:60]!r} ({len(streams[0])})")
+        client = InferenceClient(addr)
+        try:
+            js = client.generate(prompts[0], max_new_tokens=32)
+        finally:
+            client.close()
+        if js["text"] != unary.text or js["tokens"] != unary.tokens:
+            fail(f"{label}: the JSON Generate differs from the typed one: {js}")
+        health = stub.Health(pb.HealthRequest(), timeout=60)
+        if health.status != "UP":
+            fail(f"{label}: Health {health.status}")
+        # A cancelled stream: its request cancelled, every slot free.
+        submitted.clear()
+        eng.submit_generate = spy
+        call = stub.GenerateStream(pb.GenerateRequest(prompt_ids=prompts[1], max_new_tokens=1500,
+                                                      stop_on_eos=False))
+        next(iter(call))
+        del eng.submit_generate
+        victim = submitted[0]
+        call.cancel()
+        deadline = time.time() + 30
+        while not victim.future.done() and time.time() < deadline:
+            time.sleep(0.02)
+        if not victim.future.cancelled() or len(victim.token_ids) >= 1500:
+            fail(f"{label}: the cancelled stream's request was not cancelled "
+                 f"({len(victim.token_ids)} tokens)")
+        _slots_free(eng, label, "after the cancel")
+        # A 0.05 s deadline: DEADLINE_EXCEEDED, every slot free.
+        try:
+            list(stub.GenerateStream(pb.GenerateRequest(
+                prompt_ids=prompts[6], max_new_tokens=500, stop_on_eos=False), timeout=0.05))
+            fail(f"{label}: a 0.05 s deadline did not end the stream")
+        except Exception as exc:  # noqa: BLE001 — the status is the check
+            code = getattr(exc, "code", lambda: None)()
+            if code is None or code.name != "DEADLINE_EXCEEDED":
+                raise
+        _slots_free(eng, label, "after the deadline")
+        counts = launch_counts()
+        for k in ("flash_decode", "flash_cache_attention"):
+            if wave_counts[k] <= 0:
+                fail(f"{label}: kernel {k} was not launched by the gRPC streams")
+        channel.close()
+        log(f"{label}: every check passed: {n - 2} greedy streams equal phase_serve's and the "
+            f"repeated prompt's two equal, over one connection, {syncs} stream syncs; unary "
+            f"text = the stream ({unary.tokens} tokens), JSON Generate = typed; Health "
+            f"{health.status}; cancel after the first chunk: request cancelled after "
+            f"{len(victim.token_ids)} tokens, slots free; 0.05 s deadline: DEADLINE_EXCEEDED, "
+            f"slots free")
+        log(f"{label}: launch counts over the 10 streams {wave_counts}, over the config-5 legs "
+            f"{counts}; {steps_line(steps)}")
+        log(f"{label}: {n} GenerateStream RPCs in {wall:.3f} s: {stats['tok_s']:.1f} generated "
+            f"tok/s, TTFT p50 {stats['ttft_p50_ms']:.1f} ms (max {stats['ttft_max_ms']:.1f}), "
+            f"ITL p50 {stats['itl_p50_ms']:.2f} ms (client clock; engine TTFT p50 "
+            f"{stats['engine_ttft_p50_ms']:.1f} ms); over HTTP (phase_http): "
+            f"{http_stats['tok_s']:.1f} tok/s, TTFT p50 {http_stats['ttft_p50_ms']:.1f} ms, "
+            f"ITL p50 {http_stats['itl_p50_ms']:.2f} ms; the direct engine (phase_serve): "
+            f"{base_stats['tok_s']:.1f} tok/s, TTFT p50 {base_stats['ttft_p50_ms']:.1f} ms, "
+            f"ITL p50 {base_stats['itl_p50_ms']:.2f} ms")
+        out.update(counts=counts, wave_counts=wave_counts, stats=stats)
+
+        # -- service to service: a gateway App in front of config 5's ----------
+        gw, gloop, gstop = _app_harness({
+            "APP_NAME": "chip-smoke-gateway", "TRACE_EXPORTER": "zipkin",
+            "TRACER_URL": collector.url})
+        stops.append(gstop)
+        gw.add_http_service("llm", f"http://127.0.0.1:{app.http_port}",
+                            RetryConfig(max_retries=2, backoff_s=0.05),
+                            CircuitBreakerConfig(threshold=5, interval_s=10))
+
+        @gw.post("/ask")
+        def ask(ctx):
+            body = ctx.request.json()
+            resp = ctx.http_service("llm").post("/v1/completions", json={
+                "prompt": body["prompt"], "max_tokens": 16, "temperature": 0})
+            return {"status": resp.status_code, "text": resp.json()["choices"][0]["text"]}
+
+        asyncio.run_coroutine_threadsafe(gw.start(), gloop).result(timeout=60)
+        answers = []
+        for p in prompts[:GRPC_GATEWAY_PROMPTS]:
+            status, raw = _http_json(gw.http_port, "POST", "/ask", {"prompt": p})
+            got = json.loads(raw)["data"] if status == 201 else {}
+            status_d, raw_d = _http_json(app.http_port, "POST", "/v1/completions", {
+                "prompt": p, "max_tokens": 16, "temperature": 0})
+            direct = json.loads(raw_d)["choices"][0]["text"] if status_d == 200 else None
+            if got.get("status") != 200 or got.get("text") != direct:
+                fail(f"{label}: gateway answer {status} {raw[:120]!r} differs from the direct "
+                     f"{status_d} {direct!r}")
+            answers.append(got["text"])
+        status, raw = _http_json(gw.http_port, "GET", "/.well-known/health")
+        svc_health = json.loads(raw)["data"]["details"].get("service:llm", {})
+        if svc_health.get("status") != "UP":
+            fail(f"{label}: the gateway's health shows service:llm {svc_health}")
+        deadline = time.time() + 20
+        traces = []
+        while time.time() < deadline:
+            spans = list(collector.spans)
+            gw_spans = [s for s in spans if s["name"].startswith("POST /ask")]
+            traces = []
+            for g in gw_spans:
+                same = [s for s in spans if s["traceId"] == g["traceId"]]
+                names = {s["localEndpoint"]["serviceName"]: s["name"] for s in same}
+                if any(s["name"].startswith("http-service POST") for s in same) and any(
+                        s["localEndpoint"]["serviceName"] == "chip-smoke-grpc"
+                        and s["name"].startswith("POST /v1/completions") for s in same):
+                    traces.append((g["traceId"], names))
+            if len(traces) >= GRPC_GATEWAY_PROMPTS:
+                break
+            time.sleep(0.2)
+        if len(traces) < GRPC_GATEWAY_PROMPTS:
+            fail(f"{label}: the collector holds {len(traces)} of {GRPC_GATEWAY_PROMPTS} traces "
+                 "with the gateway's, the client's and the upstream's spans under one id")
+        gstop()
+        stops.remove(gstop)
+        log(f"{label}: gateway: {GRPC_GATEWAY_PROMPTS} prompts through ctx.http_service('llm')"
+            f" equal to the direct answers; service:llm UP; one trace id each across "
+            f"{sorted(traces[0][1].items())}")
+        stop()
+        stops.remove(stop)
+        if any(s is not None for s in eng._slots) or eng.state != "DOWN":
+            fail(f"{label}: after App.stop a slot is still held or the engine is {eng.state}")
+        del eng, app, stop, submit
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- config 3: BERT-base embeddings over gRPC unary ----------------------
+        elabel = f"grpc {bert}"
+        t0 = time.perf_counter()
+        bapp, bloop, bstop = _app_harness({
+            "APP_NAME": "chip-smoke-grpc-embed", "TPU_MODEL": bert, "TPU_DEVICE": str(dev),
+            "TPU_MAX_BATCH": str(ENC_MAX_BATCH), "TPU_BATCH_WAIT_MS": str(ENC_WAIT_MS),
+            "GRPC_PORT": "0"})
+        stops.append(bstop)
+        emb = bapp.container.tpu
+        bapp.register_service(add_typed_inference_service, TypedInferenceServicer(emb))
+        asyncio.run_coroutine_threadsafe(bapp.start(), bloop).result(timeout=120)
+        log(f"{elabel}: App built from config and started in {time.perf_counter() - t0:.1f} s")
+        bchannel = insecure_channel(f"127.0.0.1:{bapp.grpc_port}")
+        bstub = InferenceStub(bchannel)
+        rng = np.random.default_rng(3)
+        words = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+        etexts = ["".join(rng.choice(words, m)) for m in rng.integers(8, 501, ENC_REQUESTS)]
+        bstub.Embed(pb.EmbedRequest(text=etexts[0]), timeout=120)  # warm
+        flushes = _record_flushes(emb)
+        res, lat, ewall = _fan_out(lambda t: np.asarray(
+            bstub.Embed(pb.EmbedRequest(text=t), timeout=120).embedding, np.float32), etexts)
+        flushes = list(flushes)  # the wave's, not the alone calls' below
+        if len(bapp._grpc_server._conns) != 1:
+            fail(f"{elabel}: the Embed RPCs came over {len(bapp._grpc_server._conns)} "
+                 "connections, not one")
+        own = {t: np.asarray(r, np.float32) for payloads, results in flushes
+               for t, r in zip(payloads, results)}
+        worst_alone = 0.0
+        for text, vec in zip(etexts, res):
+            if text not in own or not np.array_equal(vec, own[text]):
+                fail(f"{elabel}: an Embed reply differs from the engine's vector for its text")
+            alone = np.asarray(emb.embed_sync(text), np.float32)
+            worst_alone = max(worst_alone, float(np.abs(vec - alone).max()))
+        out["embed"] = _serve_line(
+            f"{elabel}, config 3, {ENC_REQUESTS} concurrent Embed RPCs over one connection "
+            "(client clock)", lat, ewall, flushes,
+            f"; each reply equal to its flush's vector bit for bit, max|d| {worst_alone:.3g} "
+            f"from the text embedded alone (limit {GRPC_EMBED_ALONE_TOL})")
+        if worst_alone > GRPC_EMBED_ALONE_TOL:
+            fail(f"{elabel}: an Embed reply is {worst_alone:.3g} from the text embedded alone")
+        if max(len(p) for p, _ in flushes) < 2:
+            fail(f"{elabel}: the batcher coalesced nothing")
+        bchannel.close()
+        bstop()
+        stops.remove(bstop)
+        del emb, bapp, bstop, flushes
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # -- seq2seq over gRPC: the first surface on stream_seq2seq --------------
+        slabel = f"grpc {t5}"
+        tapp, tloop, tstop = _app_harness({
+            "APP_NAME": "chip-smoke-grpc-t5", "TPU_MODEL": t5, "TPU_DEVICE": str(dev),
+            "GRPC_PORT": "0"})
+        stops.append(tstop)
+        teng = tapp.container.tpu
+        teng.tokenizer = IdTokenizer()
+        tapp.register_service(add_typed_inference_service, TypedInferenceServicer(teng))
+        asyncio.run_coroutine_threadsafe(tapp.start(), tloop).result(timeout=120)
+        tchannel = insecure_channel(f"127.0.0.1:{tapp.grpc_port}")
+        tstub = InferenceStub(tchannel)
+        n_chunks = []
+        for text in SEQ2SEQ_GRPC_PROMPTS:
+            ids = list(text.encode())
+            want = teng.seq2seq_sync(ids)
+            chunks = list(tstub.GenerateStream(pb.GenerateRequest(prompt_ids=ids), timeout=120))
+            got = [int(x) for x in re.findall(r"<(\d+)>", "".join(c.text for c in chunks[:-1]))]
+            if got != want or chunks[-1].tokens != len(want) or not chunks[-1].done:
+                fail(f"{slabel}: GenerateStream's ids {got[:8]} ({chunks[-1].tokens}) differ "
+                     f"from the one-shot program's {want[:8]} ({len(want)})")
+            n_chunks.append(len(chunks) - 1)
+        tchannel.close()
+        log(f"{slabel}: {len(SEQ2SEQ_GRPC_PROMPTS)} GenerateStream RPCs through "
+            f"stream_seq2seq, each one's ids equal to the one-shot program's "
+            f"({n_chunks} content chunks)")
+        tstop()
+        stops.remove(tstop)
+        del teng, tapp, tstop
+        gc.collect()
+        log(f"{label}: phase took {time.perf_counter() - t_phase:.1f} s")
+        return out
+    finally:
+        timer.cancel()
+        for s in reversed(stops):
+            s()
+        collector.close()
 
 
 def _busy_ms(events) -> tuple[float, int]:
@@ -7469,12 +7914,16 @@ def main() -> None:
                                                 **pool_kv)}
     # The App over HTTP, with its own seed-0 weights beside these; freed
     # (App.stop, then the engine dropped) before the profiles.
-    http_counts = phase_http(torch, dev, base, base_stats)["counts"]
+    http = phase_http(torch, dev, base, base_stats)
+    http_counts = http["counts"]
     stamp("phase_http")
     # Config 4, offline batch inference over pub/sub, with the data plane
     # (SQL, Redis, the trace exporter, /debug/*, new_cmd) on the same App.
     pubsub = phase_pubsub(torch, dev, base, base_stats)
     stamp("phase_pubsub")
+    # Configs 5 and 3 over gRPC, service to service, seq2seq over gRPC.
+    grpc_run = phase_grpc(torch, dev, base, base_stats, http["stats"])
+    stamp("phase_grpc")
     gc.collect()
     torch.cuda.empty_cache()
     bf16_tok, int8_tok = (cfg.n_layers * kv_bytes(1, cfg.n_kv_heads, cfg.head_dim, quant)
@@ -7700,6 +8149,8 @@ def main() -> None:
         entry["launches_http"] = http_counts[k]
         entry["launches_pubsub"] = {"INPROC wave": pubsub["counts"][k],
                                     "MQTT wave": pubsub["mqtt_counts"][k]}
+        entry["launches_grpc"] = {"10 GenerateStream RPCs": grpc_run["wave_counts"][k],
+                                  "config-5 legs": grpc_run["counts"][k]}
         entry["launches_decode_loop"] = {label: st["counts"][k] for label, st in
                                          decode_loop["settings"].items()}
         entry["launches_mistral_prefill_depth_4"] = mdeep_counts[k]

@@ -8,19 +8,19 @@ Owns config, container, router, middleware, and the servers. Lifecycle:
   ``gofr.go:62-96``);
 * route verbs ``get/post/put/patch/delete`` usable directly or as
   decorators (reference ``gofr.go:202-219``);
-* ``run()`` — start the metrics server (:2121), the HTTP server (:8000)
+* ``run()`` — start the metrics server (:2121), the HTTP server (:8000),
+  the gRPC server (:9000, ``GRPC_PORT``) when a service is registered,
   and the subscriber loops, then block until SIGINT/SIGTERM and shut down
   gracefully (``TPU_DRAIN_S`` > 0 drains the engine first).
 
 The port's copy of ``gofr_tpu/app.py::App``, with the auth enablers
 (reference ``gofr.go:310-344``), pub/sub (``use_pubsub``, ``subscribe``),
-``use_mongo``, ``migrate``, ``add_rest_handlers``, ``new_cmd`` and the
-metrics port's ``/debug/*`` routes whose sources the port has. Not ported
-yet, each with its ROADMAP Queue 1 item: ``add_http_service`` (item 2.5),
-gRPC (``register_service``, item 2.6), and the async serving plane
-(``TPU_ASYNC``, item 7), which raises ``NotImplementedError`` when a
-config asks for it. The ``/debug/*`` routes of item 7's components answer
-501 naming it.
+``use_mongo``, ``migrate``, ``add_rest_handlers``, ``add_http_service``,
+``register_service``, ``new_cmd`` and the metrics port's ``/debug/*``
+routes whose sources the port has. Not ported yet: the async serving
+plane (``TPU_ASYNC``, ROADMAP Queue 1 item 7), which raises
+``NotImplementedError`` when a config asks for it. The ``/debug/*`` routes
+of item 7's components answer 501 naming it.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ from gofr_tpu_torch.tracing import Tracer, exporter_from_config, set_tracer
 
 DEFAULT_HTTP_PORT = 8000
 DEFAULT_METRICS_PORT = 2121
+DEFAULT_GRPC_PORT = 9000
 
 _OPS_PLANE = "ROADMAP Queue 1 item 7: the operations plane"
 
@@ -98,7 +99,10 @@ class App:
         self.metrics_port = int(
             self.config.get_or_default("METRICS_PORT", str(DEFAULT_METRICS_PORT))
         )
+        self.grpc_port = int(self.config.get_or_default("GRPC_PORT", str(DEFAULT_GRPC_PORT)))
         self._subscriptions = SubscriptionManager(self.container)
+        self._grpc_services: list = []
+        self._grpc_server = None
         self._http_server: Optional[HTTPServer] = None
         self._metrics_server: Optional[HTTPServer] = None
         self._stop_event: Optional[asyncio.Event] = None
@@ -181,6 +185,19 @@ class App:
 
         return decorator
 
+    def add_http_service(self, name: str, address: str, *options) -> None:
+        """Register a downstream service client (reference ``gofr.go:189-199``)."""
+        from gofr_tpu_torch.service import new_http_service
+
+        if name in self.container.services:
+            self.logger.warnf("service %s already registered; overwriting", name)
+        self.container.services[name] = new_http_service(
+            address,
+            self.logger,
+            self.container.metrics,
+            *options,
+        )
+
     def migrate(self, migrations: dict) -> None:
         """Run versioned migrations (reference ``gofr.go:243-248``)."""
         from gofr_tpu_torch.migration import run as run_migrations
@@ -196,6 +213,12 @@ class App:
         from gofr_tpu_torch.crud import register_crud_handlers
 
         register_crud_handlers(self, entity)
+
+    def register_service(self, add_servicer_fn, servicer) -> None:
+        """Register a gRPC service (reference ``gofr.go:55-59``). The server
+        starts only if at least one service is registered
+        (``gofr.go:150-157``)."""
+        self._grpc_services.append((add_servicer_fn, servicer))
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -220,6 +243,17 @@ class App:
         await self._http_server.start()
         self.http_port = self._http_server.port
 
+        if self._grpc_services:
+            from gofr_tpu_torch.grpc.server import GRPCServer
+
+            self._grpc_server = GRPCServer(
+                self.grpc_port, self.logger, self.container
+            )
+            for add_fn, servicer in self._grpc_services:
+                self._grpc_server.register(add_fn, servicer)
+            await self._grpc_server.start()
+            self.grpc_port = self._grpc_server.port
+
         for engine in (self.container.tpu, self.container.tpu_embed):
             if engine is not None and hasattr(engine, "start"):
                 await engine.start()
@@ -241,6 +275,8 @@ class App:
                 await engine.stop(drain_s=drain_s)
             else:  # injected engines without the kwarg
                 await engine.stop()
+        if self._grpc_server is not None:
+            await self._grpc_server.stop()
         for server in (self._http_server, self._metrics_server):
             if server is not None:
                 await server.shutdown()

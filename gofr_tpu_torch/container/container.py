@@ -10,9 +10,9 @@ gated on ``TPU_MODEL`` (the serving engine is a container member like
 The port's copy of ``gofr_tpu/container/container.py``. A datasource that
 cannot connect is logged and left ``None``, as in the reference; an engine
 that cannot be built raises (the reference logs and serves without one).
-The secondary encoder engine (``TPU_EMBED_MODEL``) is ``tpu_embed``.
-Downstream service clients (``services``) wait for ROADMAP Queue 1 item
-2.5.
+The secondary encoder engine (``TPU_EMBED_MODEL``) is ``tpu_embed``;
+downstream service clients (``App.add_http_service``) are ``services``,
+each in the aggregate health as ``service:<name>``.
 """
 
 from __future__ import annotations
@@ -40,9 +40,7 @@ class Container:
         self.mongo = None  # injected seam (reference datasource/mongo.go:8)
         self.tpu = None  # net-new: TPU inference backend (SURVEY §2.6)
         self.tpu_embed = None  # secondary encoder engine (TPU_EMBED_MODEL)
-        # Downstream service clients (gofr_tpu/service/) are not ported yet
-        # (ROADMAP Queue 1 item 2.5): the registry stays empty.
-        self.services: dict[str, Any] = {}
+        self.services: dict[str, Any] = {}  # name → service.HTTP clients
 
         self._remote_logger: Optional[RemoteLevelLogger] = None
 
@@ -120,9 +118,12 @@ class Container:
         m.new_gauge("app_sys_total_alloc", "total allocated bytes")
         m.new_gauge("app_go_numGC", "gc collection count")
         m.new_gauge("app_go_sys", "runtime sys bytes")
-        # HTTP server (buckets follow container.go:153-154).
+        # HTTP server and client (buckets follow container.go:153-154).
         http_buckets = (0.001, 0.003, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 10, 30)
         m.new_histogram("app_http_response", "HTTP server response time in s", http_buckets)
+        m.new_histogram(
+            "app_http_service_response", "outbound HTTP client response time in s", http_buckets
+        )
         # Redis / SQL (container.go:158-163).
         m.new_histogram(
             "app_redis_stats", "redis command duration in ms",
@@ -196,6 +197,10 @@ class Container:
             "app_tpu_engine_state",
             "engine health state machine "
             "(0=SERVING 1=DEGRADED 2=RESTARTING 3=DOWN)",
+        )
+        m.new_gauge(
+            "app_http_service_circuit_open",
+            "circuit breaker state per downstream service (1 = open)",
         )
         m.new_gauge(
             "app_tpu_decode_step_seconds",
@@ -272,6 +277,14 @@ class Container:
             except Exception as exc:
                 check = {"status": "DOWN", "error": str(exc)}
             details[name] = check
+            if check.get("status") != "UP":
+                out["status"] = "DEGRADED"
+        for svc_name, svc in self.services.items():
+            try:
+                check = svc.health_check()
+            except Exception as exc:
+                check = {"status": "DOWN", "error": str(exc)}
+            details[f"service:{svc_name}"] = check
             if check.get("status") != "UP":
                 out["status"] = "DEGRADED"
         out["details"] = details

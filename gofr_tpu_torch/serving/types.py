@@ -41,6 +41,11 @@ class GenerationResult:
     # asked for top_logprobs (None otherwise).
     token_top_logprobs: Optional[list[Optional[list[tuple[int, float]]]]] = None
 
+    @property
+    def tokens_per_sec(self) -> float:
+        gen = max(len(self.token_ids), 1)
+        return gen / self.duration_s if self.duration_s > 0 else 0.0
+
 
 @dataclass
 class GenRequest:

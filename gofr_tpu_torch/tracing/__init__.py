@@ -4,8 +4,7 @@
 A lightweight native tracer: W3C ``traceparent`` propagation,
 contextvar-scoped spans, and pluggable batch exporters (console,
 Zipkin-JSON and OTLP/HTTP-JSON over HTTP, ``TRACE_EXPORTER``). The port's
-copy of ``gofr_tpu/tracing``; ``inject_traceparent`` comes with the
-service clients (ROADMAP Queue 1 item 2.5).
+copy of ``gofr_tpu/tracing``.
 """
 
 from gofr_tpu_torch.tracing.exporter import (
@@ -21,6 +20,7 @@ from gofr_tpu_torch.tracing.tracer import (
     current_span,
     extract_traceparent,
     get_tracer,
+    inject_traceparent,
     set_tracer,
     tracer_active,
 )
@@ -32,6 +32,7 @@ __all__ = [
     "get_tracer",
     "set_tracer",
     "extract_traceparent",
+    "inject_traceparent",
     "tracer_active",
     "ConsoleExporter",
     "NoopExporter",

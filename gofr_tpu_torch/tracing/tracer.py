@@ -196,3 +196,12 @@ def extract_traceparent(
     if len(parts) == 4 and len(parts[1]) == 32 and len(parts[2]) == 16:
         return parts[1], parts[2]
     return None, None
+
+
+def inject_traceparent(
+    headers: dict[str, str], span: Optional[Span] = None
+) -> dict[str, str]:
+    span = span or current_span()
+    if span is not None:
+        headers["traceparent"] = span.traceparent()
+    return headers

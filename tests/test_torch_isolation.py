@@ -3,7 +3,9 @@ chip_smoke's import surface pulls in neither JAX nor anything of gofr_tpu,
 nor the packages the card's machine lacks (transformers, tokenizers,
 regex, jinja2: the port's tokenizers use the standard library), nor a
 pub/sub, SQL or HTTP client driver (kafka, google, pymysql, psycopg2,
-httpx), even when the backend factories that would want one run.
+httpx, urllib3, requests, aiohttp), nor gRPC's (grpc, h2, hpack,
+hyperframe, google.protobuf: the port speaks gRPC on the standard
+library), even when the backend factories that would want one run.
 Checked in a subprocess (this test process has JAX loaded by conftest),
 with an import hook that refuses those packages outright. Also: without
 CUDA, chip_smoke.py exits non-zero and prints no result — in the repo and
@@ -28,7 +30,8 @@ def banned(name):
     root = name.split(".")[0]
     return name not in PRELOADED and root in (
         "jax", "jaxlib", "gofr_tpu", "transformers", "tokenizers", "regex", "jinja2",
-        "kafka", "google", "pymysql", "psycopg2", "httpx")
+        "kafka", "google", "pymysql", "psycopg2", "httpx", "grpc", "h2", "hpack",
+        "hyperframe", "aiohttp", "urllib3", "requests")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -54,7 +57,8 @@ for fn in (chip_smoke.phase_kernels, chip_smoke.phase_kernel_variants,
            chip_smoke.phase_http, chip_smoke.phase_pubsub, chip_smoke.phase_lora,
            chip_smoke.phase_lora_train,
            chip_smoke.phase_device_services, chip_smoke.phase_encoders,
-           chip_smoke.phase_family_train, chip_smoke.profiler_under_replays):
+           chip_smoke.phase_family_train, chip_smoke.profiler_under_replays,
+           chip_smoke.phase_grpc):
     assert callable(fn)
 for name in ("gofr_tpu_torch.serving.lora", "gofr_tpu_torch.serving.lora_runtime",
              "gofr_tpu_torch.serving.hf_tokenizer", "gofr_tpu_torch.serving.native_tokenizer",
@@ -71,7 +75,14 @@ for name in ("gofr_tpu_torch.serving.lora", "gofr_tpu_torch.serving.lora_runtime
              "gofr_tpu_torch.datasource.sql.db", "gofr_tpu_torch.datasource.sql.fakedb",
              "gofr_tpu_torch.datasource.sql.query_builder", "gofr_tpu_torch.migration.migration",
              "gofr_tpu_torch.tracing.exporter", "gofr_tpu_torch.cli.cmd",
-             "gofr_tpu_torch.testutil.mqtt_broker"):
+             "gofr_tpu_torch.testutil.mqtt_broker", "gofr_tpu_torch.grpc.protowire",
+             "gofr_tpu_torch.grpc.inference_pb2", "gofr_tpu_torch.grpc.hpack",
+             "gofr_tpu_torch.grpc.h2", "gofr_tpu_torch.grpc.server",
+             "gofr_tpu_torch.grpc.channel", "gofr_tpu_torch.grpc.inference_pb2_grpc",
+             "gofr_tpu_torch.grpc.inference", "gofr_tpu_torch.grpc.inference_typed",
+             "gofr_tpu_torch.faults.injector", "gofr_tpu_torch.service.wrapper",
+             "gofr_tpu_torch.service.client", "gofr_tpu_torch.service.options",
+             "gofr_tpu_torch.service.circuit_breaker"):
     assert name in names, name
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked
