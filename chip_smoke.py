@@ -71,13 +71,15 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    phase_serve's 10 prompts as concurrent GenerateStream RPCs over one
    connection (greedy: 8 equal to phase_serve's streams, the repeated
    prompt's two equal to each other), a unary Generate equal to its
-   stream, a JSON Generate, Health, a cancelled stream and a 0.05 s
-   deadline (each freeing its slot); tok/s, TTFT p50 and ITL p50 over
+   stream, a JSON Generate, Health, a cancelled stream and a 0.5 s
+   deadline that expires mid-decode (each freeing its slot); tok/s, TTFT
+   p50 and ITL p50 over
    gRPC beside phase_serve's and phase_http's; a gateway App whose
    add_http_service client forwards 3 prompts to /v1/completions, equal
    to the direct answers under one zipkin trace id; config 3, BERT-base
    behind the batcher, 64 concurrent Embed RPCs against the engine's own
-   vectors; flan-t5-small's GenerateStream against its one-shot ids;
+   vectors, beside two planted faults the limit must catch;
+   flan-t5-small's GenerateStream against its one-shot ids;
 4c. the decode loop (every serve above already runs it: pipeline depth 2,
    each window a CUDA graph replay, launches counted through replays, no
    stream sync allowed in a serve): the captured window against the eager
@@ -168,9 +170,10 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    [2, 8192] batch and transformer_forward on [1, 8192], the windowed
    flash_attention's two entry points; then profiles one decode window
    over 4 slots and one [4, 256] prefill chunk at 6,000 tokens of context;
-5b. serves Mixtral-8x7B (32 layers, 8 experts, top 2, after Mistral-7B
-   is freed) with int8 weights made on the card a layer at a time from a
-   seed (46.9 GB; peak memory over the init printed): phase_forward and
+5b. serves Mixtral-8x7B (8 experts, top 2, its depth cut to MOE_LAYERS
+   of 32, after Mistral-7B is freed) with int8 weights made on the card a
+   layer at a time from a seed (peak memory over the init printed):
+   phase_forward and
    the full-sequence entry points through the kernels against the plain
    path (where a router near-tie sends a token to other experts on the two
    sides, the plain side takes the kernel side's experts: RoutePin, which
@@ -212,8 +215,8 @@ toolkit (nvcc) and PyTorch built for CUDA. It
    its flush's padded batch, a stream against its one-shot ids, BERT-base's
    /v1/embeddings through the WordPiece TPU_EMBED_TOKENIZER; the f32 twin
    on the card against the host CPU (bucket ids, decoder logits); int8 and
-   int4 through TPU_QUANT; load_hf_t5 at flan-t5-large's widths in bf16
-   and int8 (load rate, peak memory, a [8, 128] generate);
+   int4 through TPU_QUANT; load_hf_t5 at flan-t5-large's widths
+   (T5_LARGE_LAYERS deep) in bf16 and int8 (load rate, peak memory, a [8, 128] generate);
 8. prints the card, the kernels line and, last, {"ok": true, ...}.
 
 Device times come from torch.profiler. On a machine where its trace holds
@@ -228,6 +231,7 @@ of JAX or of the gofr_tpu package is imported.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import http.client
 import json
@@ -4190,11 +4194,19 @@ def phase_pubsub(torch, dev, base: list, base_stats: dict, *, model: str = "llam
 # sheds a request whose projected queue wait (from the engine's first
 # throughput samples) passes it.
 GRPC_WATCHDOG_S = 240.0
+# The deadline leg: a budget of tokens that one stream takes seconds to make
+# on the card (~10 ms a token), under a deadline that passes mid-decode.
+GRPC_DEADLINE_S = 0.5
+GRPC_DEADLINE_BUDGET = 500
 # A BERT-base vector over gRPC against the same engine's embed of the text
 # alone (a batch of one, so another padded shape and another GEMM): max
-# |d| on unit-norm bf16 vectors. Against the vector the engine computed
-# for the text in its own flush the check is exact.
-GRPC_EMBED_ALONE_TOL = 1e-2
+# |d| on unit-norm bf16 vectors, whose elements are ~0.036 in size. The
+# sound reading was 0.000942 on an H100 80GB HBM3 at 700 W; the phase
+# prints two planted faults beside it (the pads of a flush unmasked,
+# another row's vector) and fails unless the limit tells both apart.
+# Against the vector the engine computed for the text in its own flush
+# the check is exact.
+GRPC_EMBED_ALONE_TOL = 3e-3
 GRPC_GATEWAY_PROMPTS = 3
 SEQ2SEQ_GRPC_PROMPTS = ("translate English to German: the card answers over gRPC",
                         "summarize: a stream of chunks", "q: why HTTP/2?")
@@ -4237,8 +4249,9 @@ def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
     streams equal to each other), with no stream synchronization; a typed
     Generate whose text equals the concatenated stream; a JSON Generate
     through InferenceClient equal to it; Health; a stream cancelled after
-    its first chunk (its request cancelled, every slot free); a 0.05 s
-    deadline (DEADLINE_EXCEEDED, every slot free); flash_decode and
+    its first chunk (its request cancelled, every slot free); a
+    GRPC_DEADLINE_S deadline that expires mid-decode (admitted, tokens
+    streamed, DEADLINE_EXCEEDED, every slot free); flash_decode and
     flash_cache_attention launched. A gateway App with add_http_service
     ("llm", RetryConfig, CircuitBreakerConfig) forwards 3 prompts through
     ctx.http_service("llm").post("/v1/completions"): each answer equal to
@@ -4258,6 +4271,7 @@ def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
 
     import numpy as np
 
+    from gofr_tpu_torch.errors import ErrorDeadlineExceeded
     from gofr_tpu_torch.grpc import (
         InferenceClient,
         TypedInferenceServicer,
@@ -4269,7 +4283,9 @@ def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
     from gofr_tpu_torch.grpc.inference import InferenceServicer
     from gofr_tpu_torch.grpc.inference_pb2_grpc import InferenceStub
     from gofr_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from gofr_tpu_torch.serving.batcher import pad_bucket
     from gofr_tpu_torch.serving.openai_compat import add_openai_routes
+    from gofr_tpu_torch.serving.types import _PREFILL_BUCKETS
     from gofr_tpu_torch.service import CircuitBreakerConfig, RetryConfig
 
     label = f"grpc {model}"
@@ -4407,15 +4423,44 @@ def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
             fail(f"{label}: the cancelled stream's request was not cancelled "
                  f"({len(victim.token_ids)} tokens)")
         _slots_free(eng, label, "after the cancel")
-        # A 0.05 s deadline: DEADLINE_EXCEEDED, every slot free.
+        # A deadline that expires mid-decode: the request admitted, a slot
+        # held and tokens streamed, then DEADLINE_EXCEEDED and every slot
+        # free. The engine's measured rate would project the whole budget
+        # past the deadline and shed the request at admission, so the leg
+        # sets an optimistic throughput prior (what TPU_EXPECTED_TPS sets).
+        submitted.clear()
+        eng.submit_generate = spy
+        prior, eng._expected_tps = eng._expected_tps, 1e5
+        dl_chunks = []
         try:
-            list(stub.GenerateStream(pb.GenerateRequest(
-                prompt_ids=prompts[6], max_new_tokens=500, stop_on_eos=False), timeout=0.05))
-            fail(f"{label}: a 0.05 s deadline did not end the stream")
+            for chunk in stub.GenerateStream(pb.GenerateRequest(
+                    prompt_ids=prompts[6], max_new_tokens=GRPC_DEADLINE_BUDGET,
+                    stop_on_eos=False), timeout=GRPC_DEADLINE_S):
+                dl_chunks.append(chunk)
+            fail(f"{label}: a {GRPC_DEADLINE_S} s deadline did not end the stream")
         except Exception as exc:  # noqa: BLE001 — the status is the check
             code = getattr(exc, "code", lambda: None)()
             if code is None or code.name != "DEADLINE_EXCEEDED":
                 raise
+        finally:
+            eng._expected_tps = prior
+            del eng.submit_generate
+        if len(submitted) != 1:
+            fail(f"{label}: the {GRPC_DEADLINE_S} s deadline's request was shed at admission")
+        dl_req = submitted[0]
+        deadline = time.time() + 30
+        while not dl_req.future.done() and time.time() < deadline:
+            time.sleep(0.02)
+        if not dl_chunks or not 1 <= len(dl_req.token_ids) < GRPC_DEADLINE_BUDGET:
+            fail(f"{label}: the {GRPC_DEADLINE_S} s deadline did not end the request mid-decode: "
+                 f"{len(dl_chunks)} chunks streamed, {len(dl_req.token_ids)} of "
+                 f"{GRPC_DEADLINE_BUDGET} tokens")
+        if dl_req.future.cancelled():
+            dl_end = "the handler cancelled it"
+        elif isinstance(dl_req.future.exception(), ErrorDeadlineExceeded):
+            dl_end = "the engine's deadline reaped it"
+        else:
+            fail(f"{label}: the deadline's request ended otherwise: {dl_req.future!r}")
         _slots_free(eng, label, "after the deadline")
         counts = launch_counts()
         for k in ("flash_decode", "flash_cache_attention"):
@@ -4426,8 +4471,9 @@ def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
             f"repeated prompt's two equal, over one connection, {syncs} stream syncs; unary "
             f"text = the stream ({unary.tokens} tokens), JSON Generate = typed; Health "
             f"{health.status}; cancel after the first chunk: request cancelled after "
-            f"{len(victim.token_ids)} tokens, slots free; 0.05 s deadline: DEADLINE_EXCEEDED, "
-            f"slots free")
+            f"{len(victim.token_ids)} tokens, slots free; {GRPC_DEADLINE_S} s deadline: "
+            f"admitted, {len(dl_chunks)} chunks streamed and {len(dl_req.token_ids)} of "
+            f"{GRPC_DEADLINE_BUDGET} tokens made, DEADLINE_EXCEEDED, {dl_end}, slots free")
         log(f"{label}: launch counts over the 10 streams {wave_counts}, over the config-5 legs "
             f"{counts}; {steps_line(steps)}")
         log(f"{label}: {n} GenerateStream RPCs in {wall:.3f} s: {stats['tok_s']:.1f} generated "
@@ -4538,13 +4584,37 @@ def phase_grpc(torch, dev, base: list, base_stats: dict, http_stats: dict, *,
                 fail(f"{elabel}: an Embed reply differs from the engine's vector for its text")
             alone = np.asarray(emb.embed_sync(text), np.float32)
             worst_alone = max(worst_alone, float(np.abs(vec - alone).max()))
+        # Planted faults the limit must catch: each of the 8 shortest texts
+        # padded to the wave's widest bucket with its pads unmasked, and
+        # each reply against the next text's vector (a wrong row of a flush).
+        width = min(pad_bucket(max(len(emb.tokenizer.encode(t)) for t in etexts),
+                               _PREFILL_BUCKETS), emb.max_len)
+        unmasked = float("inf")
+        for text in sorted(etexts, key=len)[:8]:
+            ids = emb.tokenizer.encode(text)[:width]
+            row = torch.zeros((1, width), dtype=torch.int64)
+            row[0, :len(ids)] = torch.tensor(ids)
+            with torch.inference_mode():
+                bad = emb._embed_step(emb.params, row.to(emb.device),
+                                      torch.ones_like(row).to(emb.device)).float().cpu().numpy()[0]
+            alone = np.asarray(emb.embed_sync(text), np.float32)
+            unmasked = min(unmasked, float(np.abs(bad - alone).max()))
+        wrong_row = min(float(np.abs(res[i] - res[(i + 1) % len(res)]).max())
+                        for i in range(len(res)))
         out["embed"] = _serve_line(
             f"{elabel}, config 3, {ENC_REQUESTS} concurrent Embed RPCs over one connection "
             "(client clock)", lat, ewall, flushes,
             f"; each reply equal to its flush's vector bit for bit, max|d| {worst_alone:.3g} "
-            f"from the text embedded alone (limit {GRPC_EMBED_ALONE_TOL})")
+            f"from the text embedded alone (limit {GRPC_EMBED_ALONE_TOL}); planted faults, the "
+            f"least max|d| of each: pads unmasked to {width} {unmasked:.3g}, another row's "
+            f"vector {wrong_row:.3g}")
+        out["embed"].update(alone_max_abs=worst_alone, fault_unmasked=unmasked,
+                            fault_wrong_row=wrong_row)
         if worst_alone > GRPC_EMBED_ALONE_TOL:
             fail(f"{elabel}: an Embed reply is {worst_alone:.3g} from the text embedded alone")
+        if min(unmasked, wrong_row) <= GRPC_EMBED_ALONE_TOL:
+            fail(f"{elabel}: the limit {GRPC_EMBED_ALONE_TOL} does not tell a planted fault "
+                 f"from a sound reply (unmasked pads {unmasked:.3g}, wrong row {wrong_row:.3g})")
         if max(len(p) for p, _ in flushes) < 2:
             fail(f"{elabel}: the batcher coalesced nothing")
         bchannel.close()
@@ -5777,9 +5847,17 @@ def phase_router(torch, dev, cfg, params) -> None:
             fail("router: the tied case made no tie at the k-th place")
 
 
+# phase_moe's depth: 8 of Mixtral-8x7B's 32 layers (the whole phase took
+# ~112 s at 32 on an H100 80GB HBM3 at 700 W; width, experts and routing
+# stay whole).
+MOE_LAYERS = 8
+
+
 def phase_moe(torch, dev) -> dict:
-    """Mixtral-8x7B at full width and depth (32 layers, 8 experts, top 2)
-    with int8 weights made on the card a layer at a time from seed 0:
+    """Mixtral-8x7B at full width (8 experts, top 2), its depth cut to
+    MOE_LAYERS of 32 for the script's time (registered as
+    ``mixtral-8x7b-<n>l``), with int8 weights made on the card a layer at
+    a time from seed 0:
     peak memory after init and the bytes stored; phase_forward (near-ties
     allowed), phase_full_sequence (transformer_prefill [3, 2048] kernels vs
     plain, transformer_forward against it), the router at full width
@@ -5787,11 +5865,14 @@ def phase_moe(torch, dev) -> dict:
     one prefill chunk; phase_serve's traffic on the bf16 slot cache and on
     an int8 pool of 161 x 32, whose free count returns to full. Frees the
     weights; returns the launch counts and stats."""
-    from gofr_tpu_torch.models.registry import get_model
+    from gofr_tpu_torch.models.registry import get_model, register_model
     from gofr_tpu_torch.models.transformer import init_params
     from gofr_tpu_torch.ops.quant import quantized_bytes
 
-    model = "mixtral-8x7b"
+    full = get_model("mixtral-8x7b")
+    model = f"mixtral-8x7b-{MOE_LAYERS}l"
+    register_model(dataclasses.replace(
+        full, name=model, config=dataclasses.replace(full.config, n_layers=MOE_LAYERS)))
     cfg = get_model(model).config
     gc.collect()
     torch.cuda.empty_cache()
@@ -5814,7 +5895,7 @@ def phase_moe(torch, dev) -> dict:
                                         near_ties=True),
                "full": phase_full_sequence(torch, dev, model, cfg, params)}
         phase_router(torch, dev, cfg, params)
-        phase_profile(torch, dev, cfg, params, model="mixtral-8x7b-int8", graph=True)
+        phase_profile(torch, dev, cfg, params, model=f"{model}-int8", graph=True)
     counts, _, stats = phase_serve(torch, dev, params, model=model, tag="int8 weights")
     out["serve"] = dict(stats, counts=counts)
     pool_kv = dict(kv_block=32, kv_quant="int8", kv_pool_blocks=161)
@@ -7170,6 +7251,9 @@ T5_LARGE_CONFIG = {
     "feed_forward_proj": "gated-gelu", "tie_word_embeddings": False,
     "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
     "layer_norm_epsilon": 1e-6}
+# load_hf_t5's leg writes and loads those widths at this depth (of 24 and
+# 24) for the script's time.
+T5_LARGE_LAYERS = 6
 TOKENIZER_RATE_BYTES = 1_000_000
 SEQ2SEQ_LEARN_CHARS = 300_000  # the Markdown the three vocabularies are learned from
 SP = "▁"  # SentencePiece's word boundary
@@ -7401,7 +7485,8 @@ def phase_seq2seq(torch, dev) -> dict:
        run of the same weights;
     4. TPU_QUANT=int8 and int4 at flan-t5-small: param_bytes, device ms a
        [8, bucket] generate, the share of ids equal to bf16's;
-    5. load_hf_t5 at flan-t5-large's published widths: random bf16
+    5. load_hf_t5 at flan-t5-large's published widths, T5_LARGE_LAYERS
+       deep: random bf16
        weights written with write_safetensors, loaded in bf16 and int8
        (load s, GB/s, peak memory, a leaf of each checked), device ms of
        a [8, 128] generate.
@@ -7733,11 +7818,13 @@ def phase_seq2seq(torch, dev) -> dict:
         torch.cuda.empty_cache()
 
         # -- 5. load_hf_t5 at flan-t5-large's widths -------------------------------
-        label = "seq2seq load_hf_t5 flan-t5-large widths"
+        label = (f"seq2seq load_hf_t5 flan-t5-large widths, {T5_LARGE_LAYERS}+"
+                 f"{T5_LARGE_LAYERS} layers")
         ckpt = os.path.join(tmp, "flan-t5-large")
         os.makedirs(ckpt)
         with open(os.path.join(ckpt, "config.json"), "w") as fp:
-            json.dump(T5_LARGE_CONFIG, fp)
+            json.dump(dict(T5_LARGE_CONFIG, num_layers=T5_LARGE_LAYERS,
+                           num_decoder_layers=T5_LARGE_LAYERS), fp)
         large = config_from_hf_t5(ckpt)
         n_params = t5_param_count(large)
         free = shutil.disk_usage(tmp).free

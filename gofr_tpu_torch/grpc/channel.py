@@ -13,7 +13,6 @@ again after the server goes away.
 
 from __future__ import annotations
 
-import gzip
 import queue
 import threading
 import time
@@ -26,8 +25,10 @@ from gofr_tpu_torch.grpc.server import (
     USER_AGENT,
     StatusCode,
     decode_grpc_message,
+    RpcStatus,
     format_timeout,
     frame_message,
+    gunzip,
     metadata_headers,
 )
 
@@ -107,7 +108,11 @@ class _Call:
                     if flag == 1:
                         if self._encoding != "gzip":
                             raise self._end(StatusCode.INTERNAL, "compressed reply without gzip")
-                        payload = gzip.decompress(payload)
+                        try:
+                            payload = gunzip(payload)
+                        except RpcStatus as status:
+                            self._stream.cancel()
+                            raise self._end(status.code, status.details) from None
                     return payload
             if self._status is not None:
                 raise self._status

@@ -41,6 +41,7 @@ HEADER_TABLE_SIZE, ENABLE_PUSH, INITIAL_WINDOW_SIZE, MAX_FRAME_SIZE = 0x1, 0x2, 
 
 NO_ERROR, PROTOCOL_ERROR, FLOW_CONTROL_ERROR = 0x0, 0x1, 0x3
 FRAME_SIZE_ERROR, REFUSED_STREAM, CANCEL, COMPRESSION_ERROR = 0x6, 0x7, 0x8, 0x9
+ENHANCE_YOUR_CALM = 0xB
 
 DEFAULT_WINDOW = 65_535
 DEFAULT_MAX_FRAME = 16_384
@@ -208,11 +209,15 @@ class H2Core:
                 if self._block is None or self._block[0] != sid:
                     raise H2Error(PROTOCOL_ERROR, "CONTINUATION without its HEADERS")
                 self._block[2].extend(payload)
+            if len(self._block[2]) > hpack.MAX_HEADER_LIST:
+                raise H2Error(ENHANCE_YOUR_CALM, f"header block past {hpack.MAX_HEADER_LIST} bytes")
             if flags & END_HEADERS:
                 bsid, end, block = self._block
                 self._block = None
                 try:
                     decoded = self.decoder.decode(bytes(block))
+                except hpack.HeaderListTooLarge as exc:
+                    raise H2Error(ENHANCE_YOUR_CALM, str(exc)) from exc
                 except hpack.HPACKError as exc:
                     raise H2Error(COMPRESSION_ERROR, str(exc)) from exc
                 events.append(("headers", bsid, decoded, end))
@@ -293,17 +298,24 @@ class ServerStream:
         self.id = stream_id
         self.headers = headers
         self.body = bytearray()
+        self.remote_ended = False  # the peer sent END_STREAM
+        self.dispatched = False  # handed to on_request
+        self.overflow = False  # the body passed max_body: it holds its first 5 bytes only
         self.closed = False  # reset, ended by this side, or connection gone
         self.on_reset: Optional[Callable[[int], None]] = None
 
 
 class ServerConnection:
     """The asyncio half: ``on_request(conn, stream)`` runs as a task once a
-    request's headers and body have ended."""
+    request's headers and body have ended, or as soon as its body passes
+    ``max_body`` bytes (``stream.overflow``; the rest of the body is
+    dropped, and the stream is reset with NO_ERROR once the reply ends)."""
 
     def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter,
-                 on_request: Callable[["ServerConnection", ServerStream], Awaitable[None]]) -> None:
+                 on_request: Callable[["ServerConnection", ServerStream], Awaitable[None]],
+                 max_body: int) -> None:
         self.reader, self.writer = reader, writer
+        self.max_body = max_body
         self.core = H2Core(client=False)
         self.on_request = on_request
         self.streams: dict[int, ServerStream] = {}
@@ -357,14 +369,22 @@ class ServerConnection:
                 self.core.open_stream(sid)
                 self.core.track(sid)
             if event[3]:
+                stream.remote_ended = True
                 self._dispatch(stream)
         elif kind == "data":
             stream = self.streams.get(sid)
             self.core.consumed(sid, len(event[2]))
             if stream is None:
                 return
+            stream.remote_ended = stream.remote_ended or event[3]
+            if stream.dispatched:
+                return
             stream.body += event[2]
-            if event[3]:
+            if len(stream.body) > self.max_body:
+                stream.overflow = True
+                del stream.body[5:]
+                self._dispatch(stream)
+            elif event[3]:
                 self._dispatch(stream)
         elif kind == "reset":
             stream = self.streams.pop(sid, None)
@@ -374,6 +394,9 @@ class ServerConnection:
             self._window.set()
 
     def _dispatch(self, stream: ServerStream) -> None:
+        if stream.dispatched:
+            return
+        stream.dispatched = True
         self.core.untrack(stream.id)  # the request has ended
         task = asyncio.get_running_loop().create_task(self.on_request(self, stream))
         self.tasks.add(task)
@@ -430,9 +453,13 @@ class ServerConnection:
     def reset(self, stream: ServerStream, code: int = CANCEL) -> None:
         if not stream.closed:
             self._write(frame(RST_STREAM, 0, stream.id, struct.pack(">I", code)))
-            self._end(stream)
+            self._end(stream, reset=True)
 
-    def _end(self, stream: ServerStream) -> None:
+    def _end(self, stream: ServerStream, reset: bool = False) -> None:
+        if not reset and not stream.remote_ended:
+            # The reply is whole and the rest of the request is not wanted
+            # (RFC 9113 §8.1).
+            self._write(frame(RST_STREAM, 0, stream.id, struct.pack(">I", NO_ERROR)))
         stream.closed = True
         self.streams.pop(stream.id, None)
         self.core.close_stream(stream.id)

@@ -24,6 +24,9 @@ from typing import Iterable
 
 DEFAULT_TABLE_SIZE = 4096
 ENTRY_OVERHEAD = 32  # RFC 7541 §4.1
+# The largest header list a peer may send, sized as RFC 7541 §4.1 sizes
+# an entry: four times grpc's hard metadata limit of 16 KiB.
+MAX_HEADER_LIST = 1 << 16
 
 STATIC_TABLE = (
     (":authority", ""), (":method", "GET"), (":method", "POST"), (":path", "/"),
@@ -229,9 +232,16 @@ class Encoder:
         return bytes(out)
 
 
+class HeaderListTooLarge(HPACKError):
+    """A header list past :data:`MAX_HEADER_LIST`: indexed fields can
+    expand a small block far past its own size."""
+
+
 class Decoder:
-    def __init__(self, max_table_size: int = DEFAULT_TABLE_SIZE) -> None:
+    def __init__(self, max_table_size: int = DEFAULT_TABLE_SIZE,
+                 max_list_size: int = MAX_HEADER_LIST) -> None:
         self.settings_max = max_table_size  # our SETTINGS_HEADER_TABLE_SIZE
+        self.max_list_size = max_list_size
         self.max_size = max_table_size  # the limit the peer's updates set
         self.table: deque = deque()  # newest first
         self.size = 0
@@ -259,7 +269,7 @@ class Decoder:
 
     def decode(self, block: bytes) -> list[tuple[str, str]]:
         headers: list[tuple[str, str]] = []
-        i = 0
+        i = total = 0
         while i < len(block):
             b = block[i]
             if b & 0x80:  # indexed field
@@ -284,5 +294,8 @@ class Decoder:
                 value, i = decode_str(block, i)
                 if incremental:
                     self._add(name, value)
+            total += len(name) + len(value) + ENTRY_OVERHEAD
+            if total > self.max_list_size:
+                raise HeaderListTooLarge(f"header list past {self.max_list_size} bytes")
             headers.append((_text(name), _text(value)))
         return headers

@@ -21,7 +21,10 @@ services need of it:
   trailers carrying ``grpc-status`` and a percent-encoded
   ``grpc-message``, and a trailers-only reply for an error before the
   first message. A client's ``RST_STREAM`` or a dropped connection
-  cancels the handler's task.
+  cancels the handler's task. As grpc does, a request may hold one
+  message of at most ``MAX_RECEIVE_MESSAGE`` bytes after decompression:
+  a body that passes it is answered ``RESOURCE_EXHAUSTED`` as soon as it
+  does (the rest is not held), and gzip inflates no further than it.
 
 ``GRPCServer`` binds ``[::]:{port}`` as the reference does, dual-stack; a
 host without IPv6 fails the bind with an error.
@@ -32,12 +35,12 @@ from __future__ import annotations
 import asyncio
 import base64
 import enum
-import gzip
 import inspect
 import socket
 import time
 import traceback
 import urllib.parse
+import zlib
 from typing import Callable, NamedTuple, Optional
 
 from gofr_tpu_torch.grpc import h2
@@ -116,6 +119,24 @@ def frame_message(payload: bytes) -> bytes:
     return b"\x00" + len(payload).to_bytes(4, "big") + payload
 
 
+def gunzip(payload: bytes, limit: int = MAX_RECEIVE_MESSAGE) -> bytes:
+    """A gzip-compressed message, decompressed no further than ``limit``
+    bytes: RESOURCE_EXHAUSTED past it, as grpc counts the limit after
+    decompression."""
+    inflater = zlib.decompressobj(16 + zlib.MAX_WBITS)
+    try:
+        out = inflater.decompress(payload, limit + 1)
+    except zlib.error as exc:
+        raise RpcStatus(StatusCode.INTERNAL, f"bad gzip message: {exc}") from exc
+    if len(out) > limit:
+        raise RpcStatus(StatusCode.RESOURCE_EXHAUSTED,
+                        f"Received message larger than max (more than {limit} bytes "
+                        f"decompressed vs. {limit})")
+    if not inflater.eof:
+        raise RpcStatus(StatusCode.INTERNAL, "truncated gzip message")
+    return out
+
+
 def split_messages(body: bytes, encoding: str, limit: int = MAX_RECEIVE_MESSAGE) -> list:
     """The length-prefixed messages of a body, decompressed. Raises
     :class:`RpcStatus` for a body that is not such messages."""
@@ -135,7 +156,7 @@ def split_messages(body: bytes, encoding: str, limit: int = MAX_RECEIVE_MESSAGE)
             if encoding != "gzip":
                 raise RpcStatus(StatusCode.INTERNAL,
                                 f"compressed message without a known grpc-encoding ({encoding!r})")
-            payload = gzip.decompress(payload)
+            payload = gunzip(payload, limit)
         elif flag != 0:
             raise RpcStatus(StatusCode.INTERNAL, f"message flag {flag}")
         out.append(payload)
@@ -518,7 +539,7 @@ class GRPCServer:
         sock = writer.get_extra_info("socket")
         if sock is not None:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-        conn = h2.ServerConnection(reader, writer, self._rpc)
+        conn = h2.ServerConnection(reader, writer, self._rpc, max_body=MAX_RECEIVE_MESSAGE + 5)
         self._conns.add(conn)
         task = asyncio.current_task()
         self._conn_tasks.add(task)
@@ -577,6 +598,13 @@ class GRPCServer:
             if encoding not in ("identity", "gzip"):
                 raise RpcStatus(StatusCode.UNIMPLEMENTED,
                                 f"grpc-encoding {encoding!r} is not supported")
+            if stream.overflow:
+                n = int.from_bytes(stream.body[1:5], "big") if len(stream.body) == 5 else 0
+                raise RpcStatus(StatusCode.RESOURCE_EXHAUSTED,
+                                f"Received message larger than max ({n} vs. {MAX_RECEIVE_MESSAGE})"
+                                if n > MAX_RECEIVE_MESSAGE else
+                                f"Received a body larger than one message of at most "
+                                f"{MAX_RECEIVE_MESSAGE} bytes")
             timeout = parse_timeout(hdr["grpc-timeout"]) if "grpc-timeout" in hdr else None
             deadline = None if timeout is None else time.monotonic() + timeout
             method = hdr.get(":path", "")

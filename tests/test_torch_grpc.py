@@ -45,7 +45,9 @@ from gofr_tpu.serving.engine import InferenceEngine as RefEngine
 from gofr_tpu.serving.tokenizer import ByteTokenizer as RefByteTokenizer
 from gofr_tpu_torch import App
 from gofr_tpu_torch.config import MockConfig
+from gofr_tpu_torch.errors import ErrorDeadlineExceeded
 from gofr_tpu_torch.grpc import InferenceClient, inference_pb2, inference_pb2_grpc
+from gofr_tpu_torch.grpc import h2
 from gofr_tpu_torch.grpc import server as port_server
 from gofr_tpu_torch.grpc.channel import RpcError, insecure_channel
 from gofr_tpu_torch.grpc.inference import InferenceServicer
@@ -68,6 +70,7 @@ from gofr_tpu_torch.weights import (
     resnet_params_to_reference,
     t5_params_from_jax,
 )
+from tests.test_torch_grpc_wire import _raw_request
 from tests.test_torch_model import _np_tree
 
 MODEL = "llama-tiny-f32"
@@ -315,22 +318,51 @@ def test_stream_cancel_frees_slot(llm, client):
         channel.close()
 
 
-def test_deadline_frees_slot(llm):
-    """A ``grpc-timeout`` that expires mid-generation: DEADLINE_EXCEEDED
-    for the client, the engine request retired, the slot free."""
+def test_deadline_frees_slot(llm, monkeypatch):
+    """A ``grpc-timeout`` of 0.3 s that expires mid-generation, from a client
+    that does not enforce it itself: the request is admitted and holds a
+    slot, the server ends the call with DEADLINE_EXCEEDED in its trailers,
+    the engine request ends before its budget, and the slot frees. Each
+    decode window is slowed by 20 ms so that 120 tokens outlast the
+    deadline, and an optimistic throughput prior lets admission control
+    admit it (with the measured rate it would shed the request at once,
+    which ``test_metadata_deadline_panic_abort`` does not rely on)."""
     eng = llm["engines"]["port"]
-    stub, pb, channel, _ = _stub("port", llm["servers"]["port"].port)
-    try:
-        with pytest.raises(RpcError) as err:
-            list(stub.GenerateStream(pb.GenerateRequest(prompt="slow", max_new_tokens=120,
-                                                        stop_on_eos=False), timeout=0.05))
-        assert err.value.code().name == "DEADLINE_EXCEEDED"
-        deadline = time.time() + 10
-        while any(s is not None for s in eng._slots) and time.time() < deadline:
-            time.sleep(0.05)
-        assert all(s is None for s in eng._slots)
-    finally:
-        channel.close()
+    submitted, submit, process = [], eng.submit_generate, eng._process_window
+
+    def spy(*args, **kw):
+        req = submit(*args, **kw)
+        submitted.append(req)
+        return req
+
+    def slow_window(win):
+        time.sleep(0.02)
+        return process(win)
+
+    monkeypatch.setattr(eng, "submit_generate", spy)
+    monkeypatch.setattr(eng, "_process_window", slow_window)
+    monkeypatch.setattr(eng, "_expected_tps", 1e5)
+    body = port_server.frame_message(inference_pb2.GenerateRequest(
+        prompt="slow", max_new_tokens=120, stop_on_eos=False).SerializeToString())
+    events = _raw_request(llm["servers"]["port"].port, "/gofr.tpu.v1.Inference/GenerateStream",
+                          lambda sid: [h2.frame(h2.DATA, h2.END_STREAM, sid, body)],
+                          headers=(("grpc-timeout", "300m"),))
+    trailers = [dict(e[2]) for e in events if e[0] == "headers" and e[3]]
+    expired = str(port_server.StatusCode.DEADLINE_EXCEEDED.value)
+    assert trailers and trailers[0]["grpc-status"] == expired, events
+    assert len(submitted) == 1, "the request was shed at admission"
+    req = submitted[0]
+    deadline = time.time() + 10
+    while not req.future.done() and time.time() < deadline:
+        time.sleep(0.02)
+    assert 1 <= len(req.token_ids) < 120, len(req.token_ids)
+    assert req.future.cancelled() or isinstance(req.future.exception(), ErrorDeadlineExceeded)
+    chunks = [e for e in events if e[0] == "data"]
+    assert chunks, "no token reached the client before the deadline"
+    deadline = time.time() + 10
+    while any(s is not None for s in eng._slots) and time.time() < deadline:
+        time.sleep(0.05)
+    assert all(s is None for s in eng._slots)
 
 
 @pytest.mark.parametrize("client", ["grpcio", "port"])

@@ -480,3 +480,157 @@ def test_unknown_method_and_encoding(servers):
         assert err.value.code() == StatusCode.UNIMPLEMENTED
     finally:
         channel.close()
+
+
+# -- limits: what a peer may make the other side hold -------------------------
+
+_ONE_MESSAGE_MAX = 4 * 1024 * 1024  # grpc's default receive limit, both packages
+
+
+def _raw_request(port: int, path: str, frames, headers: tuple = ()) -> list:
+    """Open a raw HTTP/2 connection, send a request's HEADERS (no
+    END_STREAM; ``headers`` added) and then ``frames(stream_id)``, and
+    return the events the server sends back on stream 1 until it ends or
+    resets. The client enforces no deadline of its own."""
+    core = h2.H2Core(client=True)
+    sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+    events: list = []
+    try:
+        sock.sendall(core.preamble() + core.headers(1, [
+            (":method", "POST"), (":scheme", "http"), (":path", path),
+            (":authority", f"127.0.0.1:{port}"), ("content-type", "application/grpc"),
+            ("te", "trailers"), *headers], end_stream=False))
+        for chunk in frames(1):
+            sock.sendall(chunk)
+        while not any(e[0] == "reset" or (e[0] == "headers" and e[3]) for e in events):
+            data = sock.recv(1 << 16)
+            if not data:
+                break
+            events += [e for e in core.feed(data) if e[1] == 1 and e[0] != "window"]
+            # A reset after the trailers comes in the same write or the next.
+            if any(e[0] == "headers" and e[3] for e in events):
+                sock.settimeout(1.0)
+                try:
+                    events += [e for e in core.feed(sock.recv(1 << 16))
+                               if e[1] == 1 and e[0] != "window"]
+                except socket.timeout:
+                    pass
+    finally:
+        sock.close()
+    return events
+
+
+def test_unending_body_is_cut_at_the_message_limit(servers):
+    """A request body that passes one message of 4 MB and never ends: the
+    port's server stops holding it, answers RESOURCE_EXHAUSTED at once
+    (trailers only) and resets the stream with NO_ERROR; the connection and
+    the server go on serving."""
+    chunk = b"\x00" * h2.DEFAULT_MAX_FRAME
+
+    def frames(sid):
+        yield h2.frame(h2.DATA, 0, sid, b"\x00" + (_ONE_MESSAGE_MAX + 1).to_bytes(4, "big"))
+        for _ in range(_ONE_MESSAGE_MAX // len(chunk) + 2):
+            yield h2.frame(h2.DATA, 0, sid, chunk)
+
+    events = _raw_request(servers["port"].port, "/t.Echo/echo", frames)
+    trailers = [dict(e[2]) for e in events if e[0] == "headers"]
+    assert len(trailers) == 1 and trailers[0]["grpc-status"] == str(
+        StatusCode.RESOURCE_EXHAUSTED.value), events
+    assert "4194305 vs. 4194304" in trailers[0]["grpc-message"]
+    assert ("reset", 1, h2.NO_ERROR) in events
+    channel = insecure_channel(f"127.0.0.1:{servers['port'].port}")
+    try:
+        echo, _ = _json_calls(channel)
+        assert echo({"blob": "after"}, timeout=30) == {"blob": "after"}
+    finally:
+        channel.close()
+
+
+@pytest.mark.parametrize("client,server", [("port", "port"), ("grpcio", "port"),
+                                           ("grpcio", "reference")])
+def test_message_past_the_limit(servers, client, server):
+    """One message of 4 MB + 1 byte: RESOURCE_EXHAUSTED from both servers."""
+    addr = f"127.0.0.1:{servers[server].port}"
+    channel = insecure_channel(addr) if client == "port" else grpc.insecure_channel(addr)
+    try:
+        echo = channel.unary_unary("/t.Echo/echo")
+        with pytest.raises((RpcError, grpc.RpcError)) as err:
+            echo(b" " * (_ONE_MESSAGE_MAX + 1), timeout=60)
+        assert err.value.code().name == "RESOURCE_EXHAUSTED"
+    finally:
+        channel.close()
+
+
+@pytest.mark.parametrize("server", ["port", "reference"])
+def test_gzip_bomb_request(servers, server):
+    """A gzip request of ~8 KB that inflates to 8 MB: RESOURCE_EXHAUSTED
+    from both servers, counted after decompression as grpc counts it (the
+    method answers nothing, so only the server's limit can refuse it)."""
+    channel = grpc.insecure_channel(f"127.0.0.1:{servers[server].port}")
+    try:
+        chunks = channel.unary_stream("/t.Echo/chunks")
+        with pytest.raises(grpc.RpcError) as err:
+            list(chunks(b"{\"n\": 0, \"size\": 0, \"pad\": \"" + b"a" * (8 << 20) + b"\"}",
+                        timeout=60, compression=grpc.Compression.Gzip))
+        assert err.value.code() == grpc.StatusCode.RESOURCE_EXHAUSTED
+    finally:
+        channel.close()
+
+
+def test_gzip_bomb_reply():
+    """The port's channel takes a gzip reply no further than the limit:
+    RESOURCE_EXHAUSTED, and the stream is cancelled."""
+    import gzip
+    import queue
+
+    from gofr_tpu_torch.grpc.channel import _Call
+
+    class _Stream:
+        def __init__(self) -> None:
+            self.events: queue.Queue = queue.Queue()
+            self.cancelled = False
+
+        def consumed(self, n: int) -> None:
+            pass
+
+        def cancel(self, code: int = h2.CANCEL) -> None:
+            self.cancelled = True
+
+    bomb = gzip.compress(b"\x00" * (_ONE_MESSAGE_MAX + (1 << 20)))
+    assert len(bomb) < 64 << 10
+    stream = _Stream()
+    for event in (("headers", [(":status", "200"), ("content-type", "application/grpc"),
+                               ("grpc-encoding", "gzip")]),
+                  ("data", b"\x01" + len(bomb).to_bytes(4, "big") + bomb),
+                  ("headers", [("grpc-status", "0")]), ("end",)):
+        stream.events.put(event)
+    with pytest.raises(RpcError) as err:
+        _Call(stream, None, None)._next_message()
+    assert err.value.code() == StatusCode.RESOURCE_EXHAUSTED
+    assert stream.cancelled
+
+
+def test_header_lists_past_the_limit():
+    """A header block past 64 KiB, or a small block whose indexed fields
+    expand past it: the connection ends with ENHANCE_YOUR_CALM before the
+    list is held."""
+    core = h2.H2Core(client=False)
+    core.feed(h2.PREFACE)
+    big = hpack.encode_int(0, 4) + hpack.encode_str(b"x-big") + hpack.encode_str(
+        b"v" * 2 * hpack.MAX_HEADER_LIST)  # Huffman codes 'v' in 7 bits
+    with pytest.raises(h2.H2Error) as err:
+        core.feed(h2.frame(h2.HEADERS, 0, 1, big[:h2.DEFAULT_MAX_FRAME]) + b"".join(
+            h2.frame(h2.CONTINUATION, 0, 1, big[i:i + h2.DEFAULT_MAX_FRAME])
+            for i in range(h2.DEFAULT_MAX_FRAME, len(big), h2.DEFAULT_MAX_FRAME)))
+    assert err.value.code == h2.ENHANCE_YOUR_CALM
+    # 3 KB into the dynamic table once, then 30 one-byte references to it.
+    entry = hpack.encode_int(0, 6, 0x40) + hpack.encode_str(b"x-e") + hpack.encode_str(
+        b"w" * 3000)
+    block = entry + bytes([0x80 | 62]) * 30
+    assert len(block) < 4096
+    core = h2.H2Core(client=False)
+    core.feed(h2.PREFACE)
+    with pytest.raises(h2.H2Error) as err:
+        core.feed(h2.frame(h2.HEADERS, h2.END_HEADERS | h2.END_STREAM, 1, block))
+    assert err.value.code == h2.ENHANCE_YOUR_CALM
+    assert len(hpack.Decoder().decode(entry + bytes([0x80 | 62]) * 5)) == 6  # within it
