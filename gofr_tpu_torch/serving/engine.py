@@ -845,6 +845,8 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
         self._idle_evt = threading.Event()
         self._state = "DOWN"
         self._thread: Optional[threading.Thread] = None
+        # Set by the scheduler once its graphs are captured (or it died).
+        self._ready = threading.Event()
         # The profiler's CUDA tracer attaches here, on the constructing
         # thread, before the scheduler captures its CUDA graphs.
         profiler_capture.warm_up(self.device)
@@ -1437,7 +1439,10 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
     def start_sync(self) -> None:
         """Start the scheduler thread (an encoder or vision engine: its
         batcher); a no-op while it runs (the constructor starts it), a
-        restart after a stop."""
+        restart after a stop. On the card it returns once the scheduler
+        has captured its decode programs: a device-wide synchronize on any
+        other thread during a capture (the caller's next line, say)
+        invalidates it."""
         if self.family != "llm":
             self._batch_start()
             return
@@ -1452,11 +1457,14 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
             self._idle_evt.clear()
         self._tput.reset()
         self._set_state("SERVING")
+        self._ready = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name=f"gofr-torch-engine-{self.model_name}",
             daemon=True,
         )
         self._thread.start()
+        if self.device.type == "cuda":
+            self._ready.wait()
 
     async def stop(self, drain_s: float = 0.0) -> None:
         if drain_s > 0:
@@ -1785,6 +1793,7 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
                     with self._device_lock:
                         self._load_kernels()
                         self._capture_graphs()
+                self._ready.set()
                 while self._running:
                     if self._device_waiters:
                         time.sleep(0.0005)  # a writer takes the lock first
@@ -1803,6 +1812,7 @@ class InferenceEngine(LoRARuntimeMixin, ModalityMixin):
             self._fail_all(exc)
             self._idle_evt.set()  # a drain waiting on this engine ends
         finally:
+            self._ready.set()  # a failed capture releases start_sync too
             # Calls handed over before _running fell are run, so no caller
             # waits out its timeout; later ones run on their own thread.
             with torch.inference_mode():

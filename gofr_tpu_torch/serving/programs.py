@@ -37,6 +37,7 @@ categorical sample. It does not reproduce JAX's threefry bits.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -625,32 +626,39 @@ def mega_window(
 VARIANTS = tuple((s, b) for s in (False, True) for b in (False, True))
 
 
+# One capture at a time in the process: each begins with a device-wide
+# synchronize, which invalidates a capture under way on another thread.
+_capture_lock = threading.Lock()
+
+
 class Captured:
     """One CUDA graph capture of ``fn`` on ``pool``, on the calling
     thread (``capture_error_mode="thread_local"``: the App's other threads
-    may keep using the card). ``fn`` runs once eagerly on a side stream
-    first (kernels' one-time set-up, cuBLAS handles, the decode kernel's
-    cluster-size query). ``out`` is what the capture returned (static:
+    may keep using the card, but none may synchronize the whole device
+    meanwhile; captures in the process take turns). ``fn`` runs once
+    eagerly on a side stream first (kernels' one-time set-up, cuBLAS
+    handles, the decode kernel's cluster-size query). ``out`` is what the capture returned (static:
     every replay rewrites it), ``launches`` the kernel launches one replay
     runs, by kernel name. With ``keep_graph`` the graph is kept
     uninstantiated for ``raw()``, to be built into another graph."""
 
     def __init__(self, fn: Callable[[], object], pool: object, *,
                  keep_graph: bool = False) -> None:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        lockcheck.note_device_sync("graph_capture_synchronize")
-        torch.cuda.synchronize()
-        self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-        t0 = time.perf_counter()
-        with _count.recording() as record, torch.cuda.graph(
-            self.graph, pool=pool, capture_error_mode="thread_local"
-        ):
-            self.out = fn()
-        self.capture_s = time.perf_counter() - t0
+        with _capture_lock:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            lockcheck.note_device_sync("graph_capture_synchronize")
+            torch.cuda.synchronize()
+            self.graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+            t0 = time.perf_counter()
+            with _count.recording() as record, torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"
+            ):
+                self.out = fn()
+            self.capture_s = time.perf_counter() - t0
         self.record = record
         self.launches = record_counts(record)
 

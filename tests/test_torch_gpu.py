@@ -1080,3 +1080,43 @@ def test_spec_engine_captures_nothing_after_start_on_gpu(cuda_device, monkeypatc
         finally:
             eng.close()
     assert out[2] == out[0]
+
+
+@pytest.mark.gpu
+def test_engines_return_captured_and_survive_device_syncs_on_gpu(cuda_device):
+    """The constructor returns once its scheduler has captured the decode
+    programs, so the caller's device-wide synchronize on the next line
+    cannot invalidate the capture; two engines built on two threads at
+    once take turns capturing. Each then serves the same greedy stream."""
+    import threading
+
+    from gofr_tpu_torch.serving.engine import InferenceEngine
+
+    def build():
+        return InferenceEngine("llama-tiny", n_slots=4, max_len=256, window_k=4,
+                               device=cuda_device)
+
+    eng = build()
+    try:
+        assert eng._graphs is not None
+        for _ in range(200):
+            torch.cuda.synchronize()
+        want = eng.generate_sync("abcdefgh", max_new_tokens=8, stop_on_eos=False).token_ids
+    finally:
+        eng.close()
+    built = [None, None]
+    threads = [threading.Thread(target=lambda i=i: built.__setitem__(i, build()))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    try:
+        for e in built:
+            assert e._graphs is not None
+            got = e.generate_sync("abcdefgh", max_new_tokens=8, stop_on_eos=False).token_ids
+            assert got == want
+    finally:
+        for e in built:
+            if e is not None:
+                e.close()
